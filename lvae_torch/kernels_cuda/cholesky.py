@@ -1,0 +1,86 @@
+"""Batched small-matrix Cholesky + inverse: CUDA kernel K2 and its plain version.
+
+The kernel (``lvae_torch/csrc/chol_inv.cu``) replaces the Pallas TPU kernel
+``lvae_tpu/kernels_pallas/cholesky.py:_chol_inv_pallas``: for an f32 SPD
+stack ``[..., n, n]`` with ``2 <= n <= 64`` it returns ``(L, A⁻¹)``, L lower
+triangular with exact zeros above the diagonal, A⁻¹ full and symmetric. A
+non-SPD block gives NaN. The source's head note gives its bound and design.
+
+:func:`cholesky_inverse` takes the plain version only for a tensor on the
+CPU; a CUDA tensor launches the kernel or raises. No gradient: the serving
+path needs none.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from lvae_torch.kernels_cuda import build
+from lvae_torch.ops import linalg as la
+
+SOURCE = "lvae_torch/csrc/chol_inv.cu"
+REPLACES = "lvae_tpu/kernels_pallas/cholesky.py:86"  # _chol_inv_pallas
+
+_fn = None
+
+
+def _kernel():
+    global _fn
+    if _fn is None:
+        fn = build.load("chol_inv").lvae_chol_inv_f32
+        fn.argtypes = [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p,
+        ]
+        fn.restype = ctypes.c_int
+        _fn = fn
+    return _fn
+
+
+def cholesky_inverse_reference(a: torch.Tensor):
+    """Plain PyTorch version: ``torch.linalg`` Cholesky, then two triangular
+    solves (mirrors ``_chol_inv_reference``)."""
+    l = la.cholesky(a)
+    return l, la.chol_inverse(l)
+
+
+def cholesky_inverse(a: torch.Tensor):
+    """(cholesky(a), a⁻¹) for ``a [..., n, n]``.
+
+    CPU tensor: the plain version. CUDA tensor: the kernel, which requires
+    f32, ``2 <= n <= 64`` and a contiguous layout; anything else raises.
+    """
+    if a.device.type == "cpu":
+        return cholesky_inverse_reference(a)
+    if not a.is_cuda:
+        raise ValueError(f"cholesky_inverse: unsupported device {a.device}")
+    if a.dtype != torch.float32:
+        raise ValueError(f"cholesky_inverse kernel takes float32, got {a.dtype}")
+    if a.ndim < 2 or a.shape[-1] != a.shape[-2]:
+        raise ValueError(f"cholesky_inverse needs [..., n, n], got {tuple(a.shape)}")
+    n = a.shape[-1]
+    if not la.KERNEL_MIN_N <= n <= la.KERNEL_MAX_N:
+        raise ValueError(
+            f"cholesky_inverse kernel takes {la.KERNEL_MIN_N} <= n <= "
+            f"{la.KERNEL_MAX_N}, got n={n}"
+        )
+    if not a.is_contiguous():
+        raise ValueError("cholesky_inverse kernel needs a contiguous tensor")
+    batch = a.numel() // (n * n)
+    l = torch.empty_like(a)
+    inv = torch.empty_like(a)
+    if batch == 0:
+        return l, inv
+    fn = _kernel()
+    with torch.cuda.device(a.device):
+        stream = torch.cuda.current_stream(a.device).cuda_stream
+        err = fn(a.data_ptr(), l.data_ptr(), inv.data_ptr(), batch, n, stream)
+    if err != 0:
+        raise RuntimeError(f"chol_inv kernel launch failed: cudaError {err}")
+    cholesky_inverse.launches += 1
+    return l, inv
+
+
+cholesky_inverse.launches = 0
