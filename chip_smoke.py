@@ -3,25 +3,35 @@
 
     python3 chip_smoke.py [--seed 0]
 
-Builds the port's CUDA kernels from ``lvae_torch/csrc``, holds each against
-its plain PyTorch version on the card, then serves a random-weight L-VAE at
-the full width of ``configs/healthmnist_lvae.txt`` (ConvVAE on 36×36 frames,
-L=32 latent GPs, M=60 inducing points, a basis cohort of P=100 subjects ×
-T=20 frames) through the user-facing entry points: ``LVAEPredictor``,
-``aot_compile``, ``impute``, ``predict_trajectories``, ``predict_trajectory``,
-``predict_latent_trajectory`` and ``refresh_basis``. The same calls are
-replayed with ``device="cpu"`` (the plain versions) and the card's answers
-are held against the CPU's.
+Builds the port's CUDA kernels from ``lvae_torch/csrc`` (K2 ``chol_inv`` and
+K1 ``b_chain``), holds each against its plain PyTorch version on the card,
+forward and gradient, then runs the two main paths at the full width of
+``configs/healthmnist_lvae.txt`` (ConvVAE on 36×36 frames, L=32 latent GPs,
+M=60 inducing points, P=100 subjects × T=20 frames, random frames and
+weights from ``--seed``):
+
+* serving, through ``LVAEPredictor``, ``aot_compile``, ``impute``,
+  ``predict_trajectories``, ``predict_trajectory``,
+  ``predict_latent_trajectory`` and ``refresh_basis``;
+* Hensman training with natural gradients, through ``HensmanTrainer``: two
+  epochs of 5 steps (20 subjects, 400 frames a step).
+
+Each path is replayed with ``device="cpu"`` (the plain versions) and the
+card's answers are held against the CPU's.
 
 Phases print one line each. Any failure raises and exits non-zero; without
 CUDA the script exits non-zero before printing a result. The last lines
 are a ``{"kernels": [...]}`` JSON object, the card's name and power limit,
 and ``{"ok": true, "device": {...}}``.
 
-Numbers: kernel times are CUDA-event averages over repeated launches on
-warm (L2-resident) inputs; request times are host-clock medians of calls
-that end in a host copy. ``bound_ms`` is the larger of bytes over 3.35 TB/s
-and f32 operations over 67 TFLOP/s (H100 SXM data sheet).
+Numbers: a kernel's ``ms`` (and ``plain_ms``, ``library_ms``) is the device
+time per call from a ``torch.profiler`` trace of 20 warm calls, summed over
+every kernel the call launches; ``*event_ms`` is the CUDA-event average over
+50 back-to-back calls, which includes the host's launch cost wherever that
+exceeds the device time. Inputs are warm (L2-resident). Request and step
+times are host-clock medians of calls that end in a synchronise.
+``bound_ms`` is the larger of bytes over 3.35 TB/s and f32 operations over
+67 TFLOP/s (H100 SXM data sheet).
 """
 
 from __future__ import annotations
@@ -43,12 +53,16 @@ sys.path.insert(0, ROOT)
 import torch  # noqa: E402
 
 from lvae_torch.config import load_flag_file  # noqa: E402
+from lvae_torch.data.blocks import build_subject_blocks  # noqa: E402
 from lvae_torch.evaluation.encode import encode_dataset  # noqa: E402
 from lvae_torch.inference import LVAEPredictor  # noqa: E402
+from lvae_torch.kernels_cuda import b_chain as k1  # noqa: E402
 from lvae_torch.kernels_cuda import build  # noqa: E402
 from lvae_torch.kernels_cuda import cholesky as k2  # noqa: E402
 from lvae_torch.models.vae import make_vae  # noqa: E402
 from lvae_torch.ops import kernels as kx  # noqa: E402
+from lvae_torch.ops import linalg as la  # noqa: E402
+from lvae_torch.train.hensman import HensmanConfig, HensmanTrainer  # noqa: E402
 from lvae_torch.train.state import init_gp_params, init_inducing_points  # noqa: E402
 
 CONFIG = os.path.join(ROOT, "configs", "healthmnist_lvae.txt")
@@ -63,6 +77,17 @@ REFRESH_SUBJECTS = 4
 
 LATENT_RTOL = 1e-3  # card vs CPU, max |Δ| over max |CPU|
 FRAME_ATOL = 1e-4  # card vs CPU, decoded frames in [0, 1]
+TRAIN_EPOCHS = 2  # Hensman epochs on the card and on the CPU (5 steps each)
+# card vs CPU, training losses, relative: the reconstruction terms at 1e-3;
+# the KL term (and so the net loss) at 1e-2, because it reads K0zz⁻¹, and
+# K0zz (60 inducing points over covariates with few distinct values, its
+# floor the f32 adaptive jitter) has a condition number near 1e5, which
+# magnifies f32 rounding: measured 3.6e-3 on the card
+LOSS_RTOL = 1e-3
+KL_RTOL = 1e-2
+VARIATIONAL_RTOL = 1e-2  # card vs CPU, final m_nat / H_nat, max |Δ| over max |CPU|
+H_SHIFT = 0.1  # the compared pair of training runs starts from H + H_SHIFT·I
+GRAD_RTOL = 1e-3  # kernel vs plain gradients, max |Δ| over max |plain| per array
 
 
 def say(phase: str, msg: str) -> None:
@@ -124,6 +149,10 @@ class World:
             if cfg.constrain_scales else kx.constrain(self.gp.raw_noise)
         )
         self.z = init_inducing_points(self.labels, cfg.M, seed=seed)
+        # training: the cohort above with a random observation mask
+        self.pixmask = (rng.uniform(size=(self.labels.shape[0], cfg.num_dim)) > 0.1).astype(
+            np.float32)
+        self.blocks = build_subject_blocks(self.labels, cfg.id_covariate)
 
     def model(self):
         """A fresh ConvVAE with the seed's random weights, on the CPU."""
@@ -133,6 +162,38 @@ class World:
             dropout=cfg.dropout, dropout_input=cfg.dropout_input,
             generator=torch.Generator().manual_seed(self.seed),
         )
+
+    def trainer(self, device: str) -> HensmanTrainer:
+        """A Hensman trainer at the config file's settings, on ``device``;
+        every trainer made here starts from the same state."""
+        cfg = self.cfg
+        hcfg = HensmanConfig(
+            spec0=self.spec0, spec1=self.spec1, latent_dim=cfg.latent_dim,
+            P_tot=self.blocks.num_subjects, N_tot=self.labels.shape[0], weight=cfg.weight,
+            loss_function=cfg.loss_function, natural_gradient=cfg.natural_gradient,
+            natural_gradient_lr=cfg.natural_gradient_lr,
+            constrain_scales=cfg.constrain_scales, eps=cfg.eps, dropout=cfg.dropout > 0,
+            vy_fixed=cfg.vy_fixed, learn_inducing=cfg.learn_inducing,
+        )
+
+        class Cohort:
+            data, labels, mask = self.frames, self.labels, self.pixmask
+
+        return HensmanTrainer(
+            self.model(), hcfg, Cohort, self.blocks, self.z,
+            subjects_per_batch=cfg.subjects_per_batch, learning_rate=cfg.learning_rate,
+            seed=self.seed, t_buckets=cfg.T_buckets, device=device,
+        )
+
+    def train_chain_inputs(self):
+        """The B-chain's inputs at the first training batch's shape
+        ``[L, S, T]``: constrained params from ``init_gp_params``, the first
+        ``subjects_per_batch`` subjects of the cohort."""
+        s_dim, t = self.cfg.subjects_per_batch, self.cfg.T
+        xb = torch.as_tensor(self.labels[: s_dim * t].reshape(s_dim, t, -1), device="cuda")
+        mask = torch.ones(s_dim, t, device="cuda")
+        return (self.spec0, self.spec1, *constrained(self.gp.kp0), *constrained(self.gp.kp1),
+                self.noise.cuda(), xb.contiguous(), mask)
 
     def fold_b(self, device) -> torch.Tensor:
         """The basis fold's ``B = K1 + σ²I`` stack ``[L, P, T, T]``, the
@@ -174,6 +235,19 @@ def cuda_ms(fn, arg, iters: int = 50, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def timing_row(shape, arg, kernel, plain, library, bound: dict) -> dict:
+    """Device and CUDA-event times per call of the kernel's wrapper, its
+    plain version and the library call (None: there is none)."""
+    row = {"shape": list(shape)}
+    for key, fn in (("", kernel), ("plain_", plain), ("library_", library)):
+        if fn is None:
+            row[f"{key}ms"] = None
+            continue
+        row[f"{key}ms"] = profile_window(lambda: fn(arg), 20)["device_ms"]
+        row[f"{key}event_ms"] = cuda_ms(fn, arg)
+    return {**row, **bound}
 
 
 def library_chol_inv(a: torch.Tensor):
@@ -234,13 +308,8 @@ def check_k2(world: World) -> dict:
     fold_b = cases[-1][1]
     per_shape = []
     for a in (fold_b, fold_b[:, :K_SUBJECTS].contiguous()):
-        row = {
-            "shape": list(a.shape),
-            "ms": cuda_ms(k2.cholesky_inverse, a),
-            "plain_ms": cuda_ms(k2.cholesky_inverse_reference, a),
-            "library_ms": cuda_ms(library_chol_inv, a),
-            **chol_inv_bound(a.shape),
-        }
+        row = timing_row(a.shape, a, k2.cholesky_inverse, k2.cholesky_inverse_reference,
+                         library_chol_inv, chol_inv_bound(a.shape))
         say("kernel", "K2 times " + json.dumps(row))
         per_shape.append(row)
 
@@ -257,7 +326,9 @@ def check_k2(world: World) -> dict:
         "max_abs_err": max_abs,
         "ms": fold["ms"],
         "kernel_ms": fold["ms"],
+        "event_ms": fold["event_ms"],
         "plain_ms": fold["plain_ms"],
+        "plain_event_ms": fold["plain_event_ms"],
         "bound_ms": fold["bound_ms"],
         "bound_by": fold["bound_by"],
         "library_ms": fold["library_ms"],
@@ -267,6 +338,236 @@ def check_k2(world: World) -> dict:
         "max_rel_err": max(rel_err(l, lr), rel_err(inv, ir)),
         "per_shape": per_shape,
     }
+
+
+def constrained(kp):
+    """(scale, 1/(2ℓ²)) on the card from raw kernel parameters."""
+    ls = kx.constrain(kp.raw_lengthscale.cuda())
+    return kx.constrain(kp.raw_scale.cuda()), 0.5 / (ls * ls)
+
+
+def grad_rel_err(fn_a, fn_b, leaves, rest, weights) -> float:
+    """Largest max |Δ| over max |b| among the gradients w.r.t. ``leaves`` of
+    the same weighted scalar through ``fn_a`` and ``fn_b``."""
+    def grads(fn):
+        xs = [x.detach().clone().requires_grad_(True) for x in leaves]
+        outs = fn(*xs, *rest)
+        sum(torch.sum(o * w) for o, w in zip(outs, weights)).backward()
+        return [x.grad for x in xs]
+
+    return max(float((a - b).abs().max() / b.abs().max())
+               for a, b in zip(grads(fn_a), grads(fn_b)))
+
+
+def check_k2_training(world: World) -> list:
+    """K2 at the training step's shapes: the stacked [K0zz; H] ([64,60,60])
+    and the natural-gradient inversion ([32,60,60]); its gradient
+    (ops/linalg.CholeskyInverse, kernel forward) against torch.autograd
+    through the plain version. Returns the per-shape rows."""
+    gen = torch.Generator(device="cuda").manual_seed(world.seed + 1)
+    m = world.cfg.M
+    rows = []
+    for batch in (2 * world.cfg.latent_dim, world.cfg.latent_dim):
+        a = spd_stack((batch,), m, gen)
+        w = [torch.randn(a.shape, generator=gen, device="cuda") for _ in range(2)]
+        err = grad_rel_err(
+            lambda x: la.cholesky_and_inverse(la.symmetrize(x)),
+            lambda x: k2.cholesky_inverse_reference(la.symmetrize(x)),
+            [a], [], w,
+        )
+        say("kernel", f"K2 gradient {list(a.shape)}: rel err {err:.3e} (tol {GRAD_RTOL:g})")
+        if not err <= GRAD_RTOL:
+            raise AssertionError(f"K2's gradient disagrees at {list(a.shape)}")
+        row = timing_row(a.shape, a, k2.cholesky_inverse, k2.cholesky_inverse_reference,
+                         library_chol_inv, chol_inv_bound(a.shape))
+        say("kernel", "K2 times " + json.dumps(row))
+        rows.append(row)
+    return rows
+
+
+def chain_inputs(gen, spec0, spec1, n_lat, n_subj, t):
+    """Synthetic B-chain inputs on the card in the HealthMNIST covariate
+    layout: subject 1 ragged (half its frames masked), the last a ghost."""
+    dev = "cuda"
+    xb = torch.zeros(n_subj, t, 6, device=dev)
+    xb[:, :, 0] = torch.arange(t, device=dev) + torch.rand(n_subj, 1, generator=gen, device=dev)
+    xb[:, :, 1] = torch.randn(n_subj, t, generator=gen, device=dev)
+    xb[:, :, 2] = torch.arange(n_subj, device=dev)[:, None].float()
+    xb[:, :, 3:] = torch.randint(0, 2, (n_subj, 1, 3), generator=gen, device=dev).float()
+    mask = torch.ones(n_subj, t, device=dev)
+    mask[1, t // 2:] = 0.0
+    mask[-1] = 0.0
+
+    def params(c):
+        ls = 1.5 + torch.rand(n_lat, c, generator=gen, device=dev)
+        return 0.5 + torch.rand(n_lat, c, generator=gen, device=dev), 0.5 / (ls * ls)
+
+    noise = 0.5 + torch.rand(n_lat, generator=gen, device=dev)
+    return (spec0, spec1, *params(len(spec0.components)), *params(len(spec1.components)),
+            noise, (xb * mask[..., None]).contiguous(), mask)
+
+
+def b_chain_bound(args) -> dict:
+    """Least time for the B-chain: read the params, σ², covariates and mask
+    and write B⁻¹ and the two per-block scalars once; about T³ flops per
+    block (factor, triangular inverse, product) plus 8 flops per component
+    and entry for K1 and K0, and 2 per entry for the trace."""
+    spec0, spec1, s0, _, s1, _, _, xb, _ = args
+    n_lat, (n_subj, t, q) = s0.shape[0], xb.shape
+    c0, c1 = s0.shape[1], s1.shape[1]
+    nbytes = 4 * (n_lat * n_subj * (t * t + 2) + n_subj * t * (q + 1) + n_lat * (2 * c0 + 2 * c1 + 1))
+    ops = n_lat * n_subj * (t ** 3 + (8 * (c0 + c1) + 2) * t * t)
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / F32_FLOPS_PER_S * 1e3
+    return {"bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+
+
+def check_k1(world: World) -> dict:
+    """K1 against its plain version on the card, forward and gradient;
+    returns the kernels-line entry (without the main path's launches)."""
+    gen = torch.Generator(device="cuda").manual_seed(world.seed + 2)
+    train = world.train_chain_inputs()
+    cases = [("training shape, smoke cohort", train)]
+    cases += [(f"ragged + ghost T={t}", chain_inputs(gen, world.spec0, world.spec1, 8, 6, t))
+              for t in (2, 20, 64, 65, 128)]
+    for name, args in cases:
+        ib, ld, tr = k1.b_chain(*args)
+        ibr, ldr, trr = k1.b_chain_reference(*args)
+        torch.cuda.synchronize()
+        t = args[7].shape[1]
+        tol = 1e-4 if t <= 20 else 1e-3
+        errs = (rel_err(ib, ibr), float(((ld - ldr).abs() / ldr.abs().clamp(min=1)).max()),
+                float(((tr - trr).abs() / trr.abs().clamp(min=1)).max()))
+        w = [torch.randn(ib.shape, generator=gen, device="cuda"),
+             torch.full(ld.shape, 0.7, device="cuda"), torch.full(tr.shape, 1.3, device="cuda")]
+        g_err = grad_rel_err(
+            lambda *x: k1.BChain.apply(args[0], args[1], *x),
+            lambda *x: k1.b_chain_reference(args[0], args[1], *x),
+            list(args[2:7]), list(args[7:]), w,
+        )
+        say("kernel", f"K1 {name} L,S,T={list(ib.shape[:3])}: rel err iB {errs[0]:.3e}, "
+            f"log|B| {errs[1]:.3e}, tr {errs[2]:.3e} (tol {tol:g}); gradient "
+            f"(s0,g0,s1,g1,sigma2) {g_err:.3e} (tol {GRAD_RTOL:g})")
+        if not (max(errs) <= tol and g_err <= GRAD_RTOL):
+            raise AssertionError(f"K1 disagrees with its plain version at {name}")
+        if not torch.equal(ib, ib.mT):
+            raise AssertionError(f"K1 B^-1 is not exactly symmetric at {name}")
+
+    bad = list(cases[2][1])
+    bad[6] = bad[6].clone()
+    bad[6][3] = -50.0  # sigma^2 of latent 3: its real blocks are indefinite
+    ib, ld, tr = k1.b_chain(*bad)
+    torch.cuda.synchronize()
+    keep = [i for i in range(ib.shape[0]) if i != 3]
+    if not (torch.isnan(ib[3, 0]).any() and torch.isnan(ld[3]) and torch.isnan(tr[3])):
+        raise AssertionError("K1 gave no NaN on a non-SPD block")
+    if not (torch.isfinite(ib[keep]).all() and torch.isfinite(ld[keep]).all()):
+        raise AssertionError("a non-SPD block spoiled other latents")
+    say("kernel", "K1 non-SPD latent: NaN in its blocks only")
+
+    ib, ld, tr = k1.b_chain(*train)
+    ibr, ldr, trr = k1.b_chain_reference(*train)
+    max_abs = max(float((a - b).abs().max()) for a, b in ((ib, ibr), (ld, ldr), (tr, trr)))
+    row = timing_row(ib.shape[:3], train, lambda a: k1.b_chain(*a),
+                     lambda a: k1.b_chain_reference(*a), None, b_chain_bound(train))
+    say("kernel", "K1 times " + json.dumps(row))
+    return {
+        "name": "b_chain",
+        "route": "cuda",
+        "source": k1.SOURCE,
+        "replaces": k1.REPLACES,
+        "launches": None,
+        "max_abs_err": max_abs,
+        "ms": row["ms"],
+        "event_ms": row["event_ms"],
+        "plain_ms": row["plain_ms"],
+        "plain_event_ms": row["plain_event_ms"],
+        "bound_ms": row["bound_ms"],
+        "bound_by": row["bound_by"],
+        "library_ms": None,
+        "library_call": "none: no single PyTorch call computes the chain",
+        "shape": row["shape"],
+        "max_rel_err": rel_err(ib, ibr),
+    }
+
+
+# ---------------------------------------------------------------- training
+def train(world: World, device: str, h_shift: float = 0.0) -> dict:
+    """TRAIN_EPOCHS Hensman epochs on ``device``, from the trainer's initial
+    state with ``h_shift``·I added to H; returns the per-epoch and per-step
+    metrics, the final (m_nat, H_nat), the kernels launched in each step,
+    whether each step's natural-gradient update was applied (the PSD-cone
+    guard keeps the old (m, H) otherwise) and the trainer."""
+    trainer = world.trainer(device)
+    if h_shift:
+        h = trainer.state.H_nat
+        trainer.state = trainer.state._replace(
+            H_nat=h + h_shift * torch.eye(h.shape[-1], dtype=h.dtype, device=h.device))
+    per_step, step_metrics, applied = [], [], []
+    real_step = trainer.train_step
+
+    def counted_step(table, rows, eps=None):
+        b1, b2 = k1.b_chain.launches, k2.cholesky_inverse.launches
+        m_before = trainer.state.m_nat
+        out = real_step(table, rows, eps)
+        per_step.append((k1.b_chain.launches - b1, k2.cholesky_inverse.launches - b2))
+        step_metrics.append(out)
+        applied.append(trainer.state.m_nat is not m_before and not torch.equal(
+            trainer.state.m_nat, m_before))
+        return out
+
+    trainer.train_step = counted_step
+    epochs = [trainer.run_epoch() for _ in range(TRAIN_EPOCHS)]
+    trainer.train_step = real_step
+    return {
+        "epochs": [m._asdict() for m in epochs],
+        "steps": [{k: float(v) for k, v in m._asdict().items()} for m in step_metrics],
+        "m_nat": trainer.state.m_nat.detach().cpu().double().numpy(),
+        "H_nat": trainer.state.H_nat.detach().cpu().double().numpy(),
+        "per_step": per_step,
+        "ng_applied": applied,
+        "trainer": trainer,
+    }
+
+
+def check_training(run: dict) -> None:
+    for m in run["epochs"]:
+        if not all(math.isfinite(v) for v in m.values()):
+            raise AssertionError(f"non-finite epoch metrics {m}")
+    lam = np.linalg.eigvalsh(run["H_nat"]).min()
+    if not lam > 0:
+        raise AssertionError(f"H left the PSD cone (smallest eigenvalue {lam:.3e})")
+
+
+def rel(a: float, b: float) -> float:
+    return abs(a - b) / abs(b)
+
+
+LOSS_TOLS = {"recon": LOSS_RTOL, "nll": LOSS_RTOL, "kld": KL_RTOL, "net": KL_RTOL}
+
+
+def compare_losses(card: list, cpu: list, keys=("net", "kld", "recon", "nll")) -> dict:
+    """Largest relative card-vs-CPU difference of each loss over the runs'
+    steps or epochs."""
+    return {key: max(rel(a[key], b[key]) for a, b in zip(card, cpu)) for key in keys}
+
+
+def compare_variational(card: dict, cpu: dict) -> dict:
+    return {key: float(np.abs(card[key] - cpu[key]).max() / np.abs(cpu[key]).max())
+            for key in ("m_nat", "H_nat")}
+
+
+def check_within(errs: dict) -> None:
+    """Raise on any card-vs-CPU difference above its tolerance."""
+    bad = []
+    for what, row in errs.items():
+        for key, err in row.items():
+            tol = LOSS_TOLS.get(key, VARIATIONAL_RTOL)
+            if not err <= tol:
+                bad.append(f"{what} {key}: {err:.3e} > {tol:g}")
+    if bad:
+        raise AssertionError("training card vs CPU: " + "; ".join(bad))
 
 
 # ----------------------------------------------------------------- serving
@@ -423,6 +724,8 @@ def main() -> int:
 
     # phase 3: each kernel against its plain version, and its times
     entry = check_k2(world)
+    entry["per_shape"] += check_k2_training(world)
+    k1_entry = check_k1(world)
 
     # phase 4: the main path on the card; counts from 0 just before it
     k2.cholesky_inverse.launches = 0
@@ -468,10 +771,80 @@ def main() -> int:
     for name, row in prof.items():
         say("profile", f"{name} {json.dumps(row)}")
 
-    # phase 5: the kernels line
-    entry["launches"] = main_launches
+    # phase 5: the training path on the card; counts from 0 just before it
+    k1.b_chain.launches = 0
+    k2.cholesky_inverse.launches = 0
+    t0 = time.perf_counter()
+    card_run = train(world, "cuda")
+    train_s = time.perf_counter() - t0
+    train_launches = {"b_chain": k1.b_chain.launches, "chol_inv": k2.cholesky_inverse.launches}
+    steps = len(card_run["per_step"])
+    say("training", f"{steps} steps in {train_s:.3f} s (first call included); launches "
+        f"{json.dumps(train_launches)}; per step (K1, K2) {card_run['per_step']}")
+    if any(n1 != 1 or n2 < 2 for n1, n2 in card_run["per_step"]):
+        raise AssertionError("a training step did not launch K1 once and K2 at least twice")
+    check_training(card_run)
+    for e, m in enumerate(card_run["epochs"]):
+        say("training", f"card epoch {e + 1}: {json.dumps(m)}")
+
+    # the same steps on the CPU, from the same state and randomness. At the
+    # reference's init H = h hᵀ (h a square 60×60 Gaussian) is nearly
+    # singular (smallest eigenvalue ~1e-8): in f32 its log-determinant and
+    # whether iH_new factors are decided by rounding, so the card and the
+    # CPU may differ in the KL term from the first step and take different
+    # branches of the PSD-cone guard from the first update on. This run is
+    # held to the card's first-step reconstruction losses, which do not read
+    # H; a second pair of runs from H + H_SHIFT·I is held over every step's
+    # losses and its end state.
+    cpu_run = train(world, "cpu")
+    check_training(cpu_run)
+    say("training", f"natural-gradient updates applied per step: card "
+        f"{card_run['ng_applied']}, CPU {cpu_run['ng_applied']}")
+    for e, m in enumerate(cpu_run["epochs"]):
+        say("training", f"CPU epoch {e + 1}: {json.dumps(m)}")
+    t_errs = {"first_step": compare_losses(card_run["steps"][:1], cpu_run["steps"][:1],
+                                           keys=("recon", "nll"))}
+    kl_first = rel(card_run["steps"][0]["kld"], cpu_run["steps"][0]["kld"])
+    card_c, cpu_c = train(world, "cuda", H_SHIFT), train(world, "cpu", H_SHIFT)
+    for run in (cpu_run, cpu_c):
+        if any(step != (0, 0) for step in run["per_step"]):
+            raise AssertionError("a CPU training run launched a CUDA kernel")
+    for run in (card_c, cpu_c):
+        check_training(run)
+    for e, (a, b) in enumerate(zip(card_c["epochs"], cpu_c["epochs"])):
+        say("training", f"H+{H_SHIFT}I epoch {e + 1}: card {json.dumps(a)} CPU {json.dumps(b)}")
+    t_errs["shifted_steps"] = compare_losses(card_c["steps"], cpu_c["steps"])
+    t_errs["shifted_epochs"] = compare_losses(card_c["epochs"], cpu_c["epochs"])
+    t_errs["shifted_end_state"] = compare_variational(card_c, cpu_c)
+    say("compare", f"training card vs CPU {json.dumps(t_errs)} (tolerances "
+        f"{json.dumps(LOSS_TOLS)}, m/H {VARIATIONAL_RTOL}); not held: first-step KL "
+        f"at the raw init {kl_first:.3e}")
+    check_within(t_errs)
+
+    # warm steps on the card: host clock per step, then a profiler window
+    trainer = card_run["trainer"]
+    table = trainer.tables[0]
+    rows = torch.arange(trainer.subjects_per_batch)
+    step_ms = []
+    for _ in range(6):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer.train_step(table, rows)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    say("training", f"step (host clock, warm) median {statistics.median(step_ms[1:]):.3f} ms "
+        f"over {len(step_ms) - 1}, first {step_ms[0]:.3f} ms (S={trainer.subjects_per_batch} "
+        f"T={world.cfg.T} L={world.cfg.latent_dim} M={world.cfg.M})")
+    say("profile", "train_step " + json.dumps(
+        profile_window(lambda: trainer.train_step(table, rows), 3)))
+
+    # phase 6: the kernels line
+    entry["launches"] = main_launches + train_launches["chol_inv"]
+    entry["launches_by_path"] = {"serving": main_launches, "training": train_launches["chol_inv"]}
     entry["launches_by_step"] = gpu["launches"]
-    print(json.dumps({"kernels": [entry]}), flush=True)
+    k1_entry["launches"] = train_launches["b_chain"]
+    k1_entry["launches_by_path"] = {"serving": 0, "training": train_launches["b_chain"]}
+    print(json.dumps({"kernels": [entry, k1_entry]}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

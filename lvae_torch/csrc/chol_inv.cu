@@ -19,7 +19,8 @@
 // = 33 KB at n = 64, 3.4 KB at n = 20, which lets many blocks share an SM).
 // Threads run over rows in the column Cholesky (one __syncthreads per
 // step), over columns of the identity in the forward substitution for
-// M = L^-1, and over output entries for A^-1 = M^T M. Left for later: at
+// M = L^-1, and over output entries for A^-1 = M^T M; those three steps are
+// chol_common.cuh, shared with the fused B-chain kernel. Left for later: at
 // n = 20 only 20 threads of a 32-thread block do work in the factor and
 // substitution loops, and there is one matrix per block, so a fold of 3200
 // matrices launches 3200 tiny blocks. Packing several matrices into one
@@ -30,6 +31,8 @@
 // kernel's rsqrt does, and callers rely on that to detect a failed update.
 
 #include <cuda_runtime.h>
+
+#include "chol_common.cuh"
 
 namespace {
 
@@ -54,41 +57,14 @@ __global__ void chol_inv_kernel(const float* __restrict__ a,
   }
   __syncthreads();
 
-  // Column (left-looking) Cholesky: thread i owns row i.
-  const int i = tid;
-  for (int j = 0; j < n; ++j) {
-    if (i >= j && i < n) {
-      float acc = s_l[i * ld + j];
-      for (int k = 0; k < j; ++k) acc -= s_l[i * ld + k] * s_l[j * ld + k];
-      s_l[i * ld + j] = acc;
-    }
-    __syncthreads();
-    const float inv_d = rsqrtf(s_l[j * ld + j]);
-    __syncthreads();
-    if (i >= j && i < n) s_l[i * ld + j] *= inv_d;
-    __syncthreads();
-  }
+  lvae::column_cholesky(s_l, n, ld);
+  lvae::lower_inverse(s_l, s_m, n, ld);
 
-  // M = L^-1 by forward substitution: thread c owns column c of the identity.
-  // Rows above c come out as exact zeros (0 - 0) / L_rr.
-  const int c = tid;
-  if (c < n) {
-    for (int r = 0; r < n; ++r) {
-      float s = (r == c) ? 1.0f : 0.0f;
-      for (int k = 0; k < r; ++k) s -= s_l[r * ld + k] * s_m[k * ld + c];
-      s_m[r * ld + c] = s / s_l[r * ld + r];
-    }
-  }
-  __syncthreads();
-
-  // A^-1 = M^T M; M is lower triangular, so the sum starts at max(r, c).
   for (int idx = tid; idx < nn; idx += blockDim.x) {
     const int r = idx / n;
-    const int cc = idx - r * n;
-    float acc = 0.0f;
-    for (int k = max(r, cc); k < n; ++k) acc += s_m[k * ld + r] * s_m[k * ld + cc];
-    inv_out[base + idx] = acc;
-    l_out[base + idx] = (cc <= r) ? s_l[r * ld + cc] : 0.0f;
+    const int c = idx - r * n;
+    inv_out[base + idx] = lvae::inverse_entry(s_m, n, ld, r, c);
+    l_out[base + idx] = (c <= r) ? s_l[r * ld + c] : 0.0f;
   }
 }
 

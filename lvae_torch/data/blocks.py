@@ -1,15 +1,17 @@
 """Subject blocking: static-shape batching over longitudinal subjects.
 
-A copy of the numpy-only part of ``lvae_tpu/data/blocks.py`` that serving
-needs: a padded per-subject index table ``[P, T_max]`` with a validity mask,
-and the scatter of per-block values back to flat rows.
+A copy of the numpy-only part of ``lvae_tpu/data/blocks.py``: a padded
+per-subject index table ``[P, T_max]`` with a validity mask, its partition
+into T-length buckets for ragged cohorts, and the scatter of per-block values
+back to flat rows.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import List, NamedTuple, Optional, Sequence
 
 import numpy as np
+
 
 class SubjectBlocks(NamedTuple):
     """Padded per-subject sample-index table for one dataset.
@@ -63,6 +65,70 @@ def build_subject_blocks(
         mask[r, : len(m)] = 1.0
     subject_ids = np.asarray([float(ids[m[0]]) for m in members])
     return SubjectBlocks(index=index, mask=mask, subject_ids=subject_ids, t_lens=t_lens)
+
+
+def bucket_boundaries(t_lens: np.ndarray, max_buckets: int) -> List[int]:
+    """Choose at most ``max_buckets`` T-length caps for a ragged cohort.
+
+    Starting from the distinct subject lengths, repeatedly merge the adjacent
+    pair of caps whose merge adds the least padded-Cholesky work
+    (Σ over the lower cap's subjects of T_upper³ − T_s³) until at most
+    ``max_buckets`` caps remain. Returns sorted inclusive caps; the last is
+    ``max(t_lens)``.
+    """
+    t_lens = np.asarray(t_lens, dtype=np.int64)
+    caps = sorted(set(int(t) for t in t_lens))
+    if max_buckets < 1:
+        raise ValueError(f"max_buckets must be >= 1, got {max_buckets}")
+    counts = {c: int(np.sum(t_lens == c)) for c in caps}
+    # members[i]: the (length, count) pairs assigned to caps[i]
+    members = [[(c, counts[c])] for c in caps]
+    while len(caps) > max_buckets:
+        best_i, best_cost = 0, None
+        for i in range(len(caps) - 1):
+            upper = caps[i + 1]
+            cost = sum(n * (upper**3 - t**3) for t, n in members[i])
+            if best_cost is None or cost < best_cost:
+                best_i, best_cost = i, cost
+        members[best_i + 1] = members[best_i] + members[best_i + 1]
+        del caps[best_i], members[best_i]
+    return caps
+
+
+def bucket_subject_blocks(
+    blocks: SubjectBlocks,
+    max_buckets: int,
+    caps: Optional[Sequence[int]] = None,
+) -> List[SubjectBlocks]:
+    """Partition a ragged cohort into T-length buckets: each returned table
+    holds the subjects whose length falls in its cap's band, padded only to
+    that cap. Buckets are ordered by ascending cap and non-empty. The masked
+    padding keeps every bound exact whatever the cap, so bucketing changes
+    the cost, never the values."""
+    if caps is None:
+        caps = bucket_boundaries(blocks.t_lens, max_buckets)
+    caps = sorted(int(c) for c in caps)
+    if caps[-1] < int(blocks.t_lens.max()):
+        raise ValueError(
+            f"largest cap {caps[-1]} < longest subject ({blocks.t_lens.max()})"
+        )
+    out: List[SubjectBlocks] = []
+    assigned = np.zeros(blocks.num_subjects, dtype=bool)
+    for cap in caps:
+        sel = (~assigned) & (blocks.t_lens <= cap)
+        assigned |= sel
+        rows = np.flatnonzero(sel)
+        if rows.size == 0:
+            continue
+        out.append(
+            SubjectBlocks(
+                index=blocks.index[rows, :cap].copy(),
+                mask=blocks.mask[rows, :cap].copy(),
+                subject_ids=blocks.subject_ids[rows].copy(),
+                t_lens=blocks.t_lens[rows].copy(),
+            )
+        )
+    return out
 
 
 def scatter_to_flat(

@@ -2,7 +2,8 @@
 
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into
 ``build/lvae_torch/<name>-<hash>.so`` under the repository root, where
-``<hash>`` is taken over the source and the compiler flags, and loaded with
+``<hash>`` is taken over the source, the shared headers ``csrc/*.cuh`` and
+the compiler flags (an edited header rebuilds every source), and loaded with
 ``ctypes``. Nothing is built when a module is imported: the CPU tests import
 every module on a host without ``nvcc``. :func:`build_all` starts one
 ``nvcc`` per source, all at once, and waits for them.
@@ -20,7 +21,7 @@ from typing import Dict, Iterable, List, NamedTuple, Optional
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "lvae_torch"
-SOURCES = ("chol_inv",)
+SOURCES = ("chol_inv", "b_chain")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -44,8 +45,11 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    digest = h.hexdigest()[:16]
     return BUILD_DIR / f"{name}-{digest}.so"
 
 

@@ -7,8 +7,10 @@ triangular with exact zeros above the diagonal, A⁻¹ full and symmetric. A
 non-SPD block gives NaN. The source's head note gives its bound and design.
 
 :func:`cholesky_inverse` takes the plain version only for a tensor on the
-CPU; a CUDA tensor launches the kernel or raises. No gradient: the serving
-path needs none.
+CPU; a CUDA tensor launches the kernel or raises. The gradient is
+``ops/linalg.CholeskyInverse``, the ``autograd.Function`` that
+``cholesky_and_inverse`` applies around this wrapper (the TPU kernel's VJP is
+plain tensor algebra too, so there is no backward kernel).
 """
 
 from __future__ import annotations

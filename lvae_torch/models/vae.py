@@ -13,6 +13,7 @@ the JAX package's layout; inside, the convolutions run NCHW. The flattened
 feature map after the conv stack is in C-H-W order (the PyTorch reference
 models' order); ``utils/convert.py`` permutes the JAX weights to it.
 Channel-wise spatial dropout is ``Dropout2d``, off in ``eval()``.
+:func:`vae_loss` is the masked reconstruction loss of training.
 """
 
 from __future__ import annotations
@@ -155,6 +156,36 @@ def sample_latent(
     must live on ``mu``'s device."""
     eps = torch.randn(mu.shape, generator=generator, dtype=mu.dtype, device=mu.device)
     return mu + eps * torch.exp(0.5 * log_var)
+
+
+def vae_loss(
+    raw_log_vy: torch.Tensor,
+    recon_x: torch.Tensor,
+    x: torch.Tensor,
+    mask: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Masked reconstruction losses per sample: (mse ``[N]``, nll ``[N]``).
+
+    Two quirks of the reference are kept: the MSE is normalised by the
+    number of *observed* pixels (clamped to at least 1), and the NLL adds the
+    Gaussian constant ``½(log 2π + raw_log_vy)`` for every pixel, masked or
+    not, with the *unfloored* raw log-variance."""
+    n = recon_x.shape[0]
+    num_dim = raw_log_vy.shape[0]
+    tx = x.reshape(n, num_dim)
+    rx = recon_x.reshape(n, num_dim).to(tx.dtype)
+    mk = mask.reshape(n, num_dim).to(tx.dtype)
+    se = (rx - tx) ** 2 * mk
+    mask_sum = torch.clamp(torch.sum(mk, dim=1), min=1.0)
+    mse = torch.sum(se, dim=1) / mask_sum
+    raw = raw_log_vy.to(tx.dtype)
+    nll = se / (2.0 * torch.exp(raw)) + 0.5 * (math.log(2.0 * math.pi) + raw)
+    return mse, torch.sum(nll, dim=1)
+
+
+def vy_from_params(model: nn.Module) -> torch.Tensor:
+    """Observation variance ``vy = exp(floored_log_vy(raw_log_vy))``."""
+    return torch.exp(floored_log_vy(model.raw_log_vy))
 
 
 def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:

@@ -1,0 +1,252 @@
+"""Sparse-GP KL bound of Hensman training and its natural gradients (port of
+the main-path half of lvae_tpu.ops.elbo).
+
+Functions operate on padded subject blocks: covariates ``xb [P, T, Q]``,
+latents ``[P, T, L]`` and a validity mask ``[P, T]`` (1 = real sample). The
+mask folds the padding out of every term exactly:
+
+* block kernels are multiplied by ``mask ⊗ mask``, so padded rows and
+  columns are 0;
+* ``B = K1 + diag(mask·σ² + (1 − mask))``: padded pivots are 1 and add
+  ``log 1 = 0`` to every log-determinant;
+* ``K0xz`` and the variational moments are masked to 0 on padded rows.
+
+Every function runs its GP algebra at full f32 precision (TF32 off). Not
+ported yet: ``kl_closed``, ``gp_elbo`` and ``dubo``.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional, Tuple
+
+import torch
+
+from lvae_torch.kernels_cuda import b_chain as bc
+from lvae_torch.ops import kernels as kx
+from lvae_torch.ops import linalg as la
+from lvae_torch.ops.linalg import _full_precision
+
+
+class GPBlockOperators(NamedTuple):
+    """Shared intermediates of the sparse-GP bound for one batch of subjects
+    (L latent dims, P subjects, T block length, M inducing points)."""
+
+    K0xz: torch.Tensor  # [L, P, T, M]  masked cross-covariance
+    K0zz: torch.Tensor  # [L, M, M]     jittered inducing covariance
+    LK0zz: torch.Tensor  # [L, M, M]
+    iK0zz: torch.Tensor  # [L, M, M]
+    K0_st: Optional[torch.Tensor]  # [L, P, T, T] masked block K0 (None on K1)
+    B: Optional[torch.Tensor]  # [L, P, T, T] K1 + noise (None on K1)
+    LB: Optional[torch.Tensor]  # [L, P, T, T] (None on K1)
+    iB: torch.Tensor  # [L, P, T, T]
+    iB_K0xz: torch.Tensor  # [L, P, T, M]
+    K0zx_iB_K0xz: torch.Tensor  # [L, M, M]
+    logdet_B: torch.Tensor  # [L]
+    logdet_K0zz: torch.Tensor  # [L]
+    mask: torch.Tensor  # [P, T]
+    # tr(B⁻¹ K0_blockdiag) per latent dim, set where kernel K1 ran
+    tr_iB_K0: Optional[torch.Tensor] = None
+    # (chol, inverse) of the caller's ``extra_spd`` stack, factored in the
+    # same call as K0zz
+    extra_chol: Optional[torch.Tensor] = None  # [L, M, M]
+    extra_inv: Optional[torch.Tensor] = None  # [L, M, M]
+
+
+@_full_precision
+def gp_block_operators(
+    spec0: kx.KernelSpec,
+    spec1: kx.KernelSpec,
+    kp0: kx.KernelParams,
+    kp1: kx.KernelParams,
+    noise: torch.Tensor,
+    xb: torch.Tensor,
+    z: torch.Tensor,
+    mask: Optional[torch.Tensor] = None,
+    eps: float = 1e-6,
+    extra_spd: Optional[torch.Tensor] = None,
+) -> GPBlockOperators:
+    """The kernel operators shared by the bounds: kernel evaluations, the
+    per-subject ``T×T`` chain of ``B = K1 + σ²I`` and the inducing ``M×M``
+    factorisation.
+
+    ``noise`` is the constrained per-latent noise ``[L]``, ``z [M, Q]`` the
+    inducing points. ``extra_spd`` (``[L, M, M]`` SPD, the Hensman step's
+    variational H) is factored in one call with K0zz, stacked ``[K0zz; H]``,
+    and returned as ``extra_chol``/``extra_inv``.
+
+    The per-subject chain runs kernel K1 (``kernels_cuda/b_chain.py``) for
+    a CUDA tensor inside ``b_chain.usable``'s shapes; otherwise the plain
+    chain: block kernels → B → ``cholesky_and_inverse`` → log|B|.
+    """
+    p, t, q = xb.shape
+    m_ind = z.shape[0]
+    dtype = xb.dtype
+    if mask is None:
+        mask = torch.ones((p, t), dtype=dtype, device=xb.device)
+    mask = mask.to(dtype)
+
+    k0xz_flat = kx.kernel_matrix(spec0, kp0, xb.reshape(p * t, q), z,
+                                 mask1=mask.reshape(p * t))
+    l_lat = k0xz_flat.shape[0]
+    k0xz = k0xz_flat.reshape(l_lat, p, t, m_ind)
+
+    k0zz = kx.add_adaptive_jitter(kx.kernel_matrix(spec0, kp0, z, z), eps)
+    extra_chol = extra_inv = None
+    if extra_spd is not None:
+        stacked = torch.cat([k0zz, extra_spd.to(k0zz.dtype)], dim=0)
+        l_all, i_all = la.cholesky_and_inverse(stacked)
+        lk0zz, ik0zz = l_all[:l_lat], i_all[:l_lat]
+        extra_chol, extra_inv = l_all[l_lat:], i_all[l_lat:]
+    else:
+        lk0zz, ik0zz = la.cholesky_and_inverse(k0zz)
+
+    if xb.is_cuda and bc.usable(spec0, spec1, kp0, xb):
+        ib, logdet_b, tr_ib_k0 = bc.b_chain_operators(spec0, spec1, kp0, kp1, noise, xb, mask)
+        k0_st = b = lb = None
+    else:
+        k0_st = kx.block_kernel_matrix(spec0, kp0, xb, mask)
+        k1_st = kx.block_kernel_matrix(spec1, kp1, xb, mask)
+        b = kx.block_b_operator(spec1, kp1, xb, mask, noise, k1_st=k1_st)
+        lb, ib = la.cholesky_and_inverse(b)
+        logdet_b = la.logdet_from_chol(lb, batch_dims=1)
+        tr_ib_k0 = None
+
+    ib_k0xz = ib @ k0xz
+    return GPBlockOperators(
+        K0xz=k0xz,
+        K0zz=k0zz,
+        LK0zz=lk0zz,
+        iK0zz=ik0zz,
+        K0_st=k0_st,
+        B=b,
+        LB=lb,
+        iB=ib,
+        iB_K0xz=ib_k0xz,
+        K0zx_iB_K0xz=torch.einsum("lptm,lptn->lmn", k0xz, ib_k0xz),
+        logdet_B=logdet_b,
+        logdet_K0zz=la.logdet_from_chol(lk0zz, batch_dims=1),
+        mask=mask,
+        tr_iB_K0=tr_ib_k0,
+        extra_chol=extra_chol,
+        extra_inv=extra_inv,
+    )
+
+
+class NaturalGradients(NamedTuple):
+    grad_m: torch.Tensor  # [L, M, 1]
+    grad_H: torch.Tensor  # [L, M, M]
+    iH: Optional[torch.Tensor] = None  # [L, M, M] H⁻¹, reused by the update
+
+
+def _scalar(x, dtype, device) -> torch.Tensor:
+    return torch.as_tensor(x, dtype=dtype, device=device)
+
+
+@_full_precision
+def minibatch_kld(
+    ops: GPBlockOperators,
+    m: torch.Tensor,
+    H: torch.Tensor,
+    mu_b: torch.Tensor,
+    log_var_b: torch.Tensor,
+    P_tot,
+    P_batch,
+    N_tot,
+    natural_gradient: bool = False,
+    H_factor: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+) -> Tuple[torch.Tensor, Optional[NaturalGradients]]:
+    """Unbiased SVI estimate of the KL upper bound (Hensman training).
+
+    ``m [L, M, 1]`` and ``H [L, M, M]`` (PSD) are the variational parameters
+    of the inducing values; ``mu_b``/``log_var_b [P, T, L]`` the encoder's
+    moments. Returns the scalar bound and, with ``natural_gradient``, the
+    closed-form gradients w.r.t. m and H without the ``P_tot/P_batch``
+    rescaling, computed outside autograd. ``H_factor`` is a precomputed
+    ``(chol(H), H⁻¹)``, as ``gp_block_operators`` returns it for
+    ``extra_spd=H``.
+    """
+    mask = ops.mask
+    latent_dim = ops.K0xz.shape[0]
+    m_ind = ops.K0zz.shape[-1]
+    dtype, dev = mu_b.dtype, mu_b.device
+
+    mu = (mu_b * mask[..., None]).permute(2, 0, 1)  # [L, P, T]
+    v = (torch.exp(log_var_b) * mask[..., None]).permute(2, 0, 1)
+    log_v_masked = (log_var_b * mask[..., None]).permute(2, 0, 1)
+
+    if H_factor is not None:
+        lh, ih = H_factor
+    else:
+        lh, ih = la.cholesky_and_inverse(H)
+
+    ik0zz_m = ops.iK0zz @ m  # [L, M, 1]
+    r = torch.einsum("lptm,lm->lpt", ops.K0xz, ik0zz_m[..., 0]) - mu
+    r = r * mask[None]
+
+    a_term = torch.einsum("lpt,lptu,lpu->", r, ops.iB, r)
+    eye_t = torch.eye(ops.iB.shape[-1], dtype=v.dtype, device=dev)
+    b_term = torch.sum(ops.iB * (eye_t * v[..., :, None]))
+    c_term = torch.sum(ops.logdet_B)
+    if ops.tr_iB_K0 is not None:
+        tr_ib_k0 = torch.sum(ops.tr_iB_K0)
+    else:
+        tr_ib_k0 = torch.einsum("lptu,lptu->", ops.iB, ops.K0_st)
+    d_term = tr_ib_k0 - torch.einsum("lmn,lmn->", ops.K0zx_iB_K0xz, ops.iK0zz)
+    e_mid = ops.iK0zz @ H @ ops.iK0zz
+    e_term = torch.einsum("lnm,lmn->", e_mid, ops.K0zx_iB_K0xz)
+    f_term = torch.sum(log_v_masked)
+
+    # KL(q(u) ‖ p(u))
+    tr1 = torch.einsum("lmn,lnm->", ops.iK0zz, H)
+    qf1 = torch.einsum("lmo,lmo->", m, ops.iK0zz @ m)
+    logdet_k = torch.sum(ops.logdet_K0zz)
+    logdet_h = torch.sum(la.logdet_from_chol(lh, batch_dims=1))
+    kld_qu_pu = 0.5 * (tr1 + qf1 - latent_dim * m_ind + logdet_k - logdet_h)
+
+    scale = _scalar(P_tot, dtype, dev) / _scalar(P_batch, dtype, dev)
+    kld_total = (
+        scale * 0.5 * (a_term + b_term + c_term + d_term + e_term - f_term)
+        + kld_qu_pu
+        - latent_dim * _scalar(N_tot, dtype, dev) / 2.0
+    )
+
+    ng = None
+    if natural_gradient:
+        with torch.no_grad():
+            ik0zz = ops.iK0zz.detach()
+            k0zx_ib_mu = torch.einsum(
+                "lptm,lptu,lpu->lm", ops.K0xz.detach(), ops.iB.detach(), mu.detach()
+            )
+            ng_a = ik0zz @ k0zx_ib_mu[..., None]  # [L, M, 1]
+            ng_b = ik0zz @ ops.K0zx_iB_K0xz.detach() @ ik0zz + ik0zz
+            grad_m = -ng_a + ng_b @ m.detach()
+            grad_h = 0.5 * (-ih.detach() + ng_b)
+        ng = NaturalGradients(grad_m=grad_m, grad_H=grad_h, iH=ih.detach())
+
+    return kld_total, ng
+
+
+@_full_precision
+@torch.no_grad()
+def natural_gradient_update(
+    m: torch.Tensor,
+    H: torch.Tensor,
+    ng: NaturalGradients,
+    lr: float,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Natural-gradient step on (m, H) in inverse space:
+    ``iH_new = iH + lr (grad_H + grad_Hᵀ)``, ``H ← iH_new⁻¹``,
+    ``m ← H (iH m − lr (grad_m − 2 grad_H m))``. Outside autograd.
+
+    If the step leaves the PSD cone (the factor of ``iH_new`` is NaN), the
+    previous (m, H) are kept; the choice is made on the device, with no
+    host synchronisation."""
+    if ng.iH is not None:
+        ih = ng.iH
+    else:
+        _, ih = la.cholesky_and_inverse(H)
+    ih_new = ih + lr * (ng.grad_H + ng.grad_H.mT)
+    _, h_new = la.cholesky_and_inverse(ih_new)
+    m_new = h_new @ (ih @ m - lr * (ng.grad_m - 2.0 * (ng.grad_H @ m)))
+    ok = torch.isfinite(m_new).all() & torch.isfinite(h_new).all()
+    return torch.where(ok, m_new, m), torch.where(ok, h_new, H)

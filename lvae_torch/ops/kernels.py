@@ -132,7 +132,10 @@ def _component_base(
     if comp.cat_mod[0] >= 0:
         col, num = comp.cat_mod
         eq = x1[..., :, col, None] == x2[..., None, :, col]
-        d = torch.where(eq, 1.0, -1.0 / (num - 1)).to(dtype)
+        # both branches in ``dtype``: Python-float branches of torch.where
+        # would be rounded to float32 first
+        other = torch.tensor(-1.0 / (num - 1), dtype=dtype, device=x1.device)
+        d = torch.where(eq, torch.ones_like(other), other)
         disc = d if disc is None else disc * d
     sqdist = None
     if comp.rbf_col >= 0:

@@ -10,7 +10,9 @@ see the failure in the numbers.
 kernel (``lvae_torch/kernels_cuda/cholesky.py``, CUDA): a CUDA f32 stack with
 ``2 <= n <= 64`` launches it, every other dtype or size takes the plain
 ``torch.linalg`` path, as the JAX package sends those to XLA, and a CPU
-tensor takes the plain path.
+tensor takes the plain path. On every device it is differentiable through
+one ``autograd.Function`` whose backward is the JAX package's
+``kernels_pallas/cholesky.py:_chol_inv_bwd`` (plain tensor algebra in both).
 """
 
 from __future__ import annotations
@@ -108,13 +110,53 @@ def uses_kernel(a: torch.Tensor) -> bool:
     )
 
 
+def _phi(x: torch.Tensor) -> torch.Tensor:
+    """tril with halved diagonal (the Cholesky pullback projector)."""
+    return torch.tril(x) - 0.5 * torch.tril(torch.triu(x))
+
+
+class CholeskyInverse(torch.autograd.Function):
+    """(cholesky(A), A⁻¹) with the JAX package's custom VJP.
+
+    Forward: the CUDA kernel where :func:`uses_kernel` says so, else the plain
+    ``torch.linalg`` path. Backward (``_chol_inv_bwd``): with L⁻¹ = LᵀA⁻¹,
+    Ā = ½ L⁻ᵀ (Φ(LᵀL̄) + Φ(LᵀL̄)ᵀ) L⁻¹ (Murray 2016) − A⁻¹ Īnv A⁻¹.
+    """
+
+    @staticmethod
+    def forward(ctx, a):
+        if uses_kernel(a):
+            from lvae_torch.kernels_cuda.cholesky import cholesky_inverse
+
+            l, inv = cholesky_inverse(a.contiguous())
+        else:
+            l = cholesky(a)
+            inv = chol_inverse(l)
+        ctx.save_for_backward(l, inv)
+        ctx.set_materialize_grads(False)
+        return l, inv
+
+    @staticmethod
+    def backward(ctx, dl, dinv):
+        # autograd runs this after the forward's full_precision() block has
+        # exited, so the backward enters it again itself
+        with full_precision():
+            l, inv = ctx.saved_tensors
+            da = torch.zeros_like(l)
+            if dinv is not None:
+                da = da - inv @ dinv @ inv
+            if dl is not None:
+                lt = l.mT
+                l_inv = lt @ inv  # L⁻¹ = Lᵀ A⁻¹ (A symmetric)
+                m = _phi(lt @ dl)
+                da = da + 0.5 * (l_inv.mT @ (m + m.mT) @ l_inv)
+            return da
+
+
 def cholesky_and_inverse(a: torch.Tensor, jitter: float = 0.0):
-    """(cholesky(A), A⁻¹) in one shot — the pair every GP bound consumes."""
+    """(cholesky(A), A⁻¹) in one shot — the pair every GP bound consumes.
+
+    Differentiable on every device (:class:`CholeskyInverse`)."""
     if jitter:
         a = a + jitter * _eye_like(a)
-    if uses_kernel(a):
-        from lvae_torch.kernels_cuda.cholesky import cholesky_inverse
-
-        return cholesky_inverse(a.contiguous())
-    l = cholesky(a)
-    return l, chol_inverse(l)
+    return CholeskyInverse.apply(a)

@@ -1,17 +1,23 @@
-"""GP parameter state (port of the serving part of lvae_tpu.train.state).
+"""Training state and optimizer assembly (port of lvae_tpu.train.state).
 
-Only what serving reads is here: :class:`GPParams`, :func:`init_gp_params`
-and :func:`init_inducing_points`. The optimizer state comes with training.
+All state of a Hensman run is one explicit :class:`HensmanState`: the
+trainables (the VAE module, the GP hyperparameters, and (m, H's factor) or
+learnable inducing points where the regime trains them), the natural-gradient
+variational parameters, the Adam optimizer, the CPU random generator and the
+step count. The optimizer is Adam over exactly the trainables the regime
+allows.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import Iterator, List, NamedTuple, Optional
 
 import numpy as np
 import torch
+from torch import nn
 
 from lvae_torch.ops import kernels as kx
+from lvae_torch.ops.linalg import full_precision
 
 
 class GPParams(NamedTuple):
@@ -27,6 +33,9 @@ class GPParams(NamedTuple):
             kp1=self.kp1.to(*args, **kwargs),
             raw_noise=self.raw_noise.to(*args, **kwargs),
         )
+
+    def tensors(self) -> List[torch.Tensor]:
+        return [*self.kp0, *self.kp1, self.raw_noise]
 
 
 def init_gp_params(
@@ -59,3 +68,87 @@ def init_inducing_points(
     n = labels.shape[0]
     idx = rng.choice(n, size=min(m_inducing, n), replace=False)
     return np.asarray(labels[idx], dtype=dtype)
+
+
+class Trainables(NamedTuple):
+    """Everything the Adam optimizer sees; every tensor is a leaf that
+    requires grad."""
+
+    vae: nn.Module
+    gp: GPParams
+    m: Optional[torch.Tensor]  # [L, M, 1], only without natural gradients
+    h_factor: Optional[torch.Tensor]  # [L, M, M] free factor (H = h hᵀ)
+    z: Optional[torch.Tensor] = None  # [M, Q] learnable inducing points
+
+    def parameters(self) -> Iterator[torch.Tensor]:
+        """The optimizer's parameters in a fixed order: the VAE's, then kp0,
+        kp1 and raw_noise, then m, h_factor and z where present."""
+        yield from self.vae.parameters()
+        yield from self.gp.tensors()
+        for t in (self.m, self.h_factor, self.z):
+            if t is not None:
+                yield t
+
+
+class TrainData(NamedTuple):
+    """The dataset and inducing points of a run, on the run's device."""
+
+    data: torch.Tensor  # [N, ...] frames
+    labels: torch.Tensor  # [N, Q]
+    pixmask: torch.Tensor  # [N, D]
+    z: torch.Tensor  # [M, Q] inducing points
+
+
+class HensmanState(NamedTuple):
+    trainables: Trainables
+    m_nat: Optional[torch.Tensor]  # [L, M, 1] with natural gradients
+    H_nat: Optional[torch.Tensor]  # [L, M, M] PSD with natural gradients
+    opt_state: torch.optim.Optimizer
+    rng: torch.Generator  # on the CPU: the card and the CPU draw alike
+    step: int
+
+
+def init_variational(
+    latent_dim: int, m_inducing: int, natural_gradient: bool, seed: int = 0,
+    dtype=torch.float32, device=None,
+):
+    """(m, H) init: m ~ N(0,1), H ~ N(0,1)/10, made PSD (H Hᵀ) with natural
+    gradients; the same numpy draws as the JAX package."""
+    rng = np.random.default_rng(seed)
+    m = rng.normal(size=(latent_dim, m_inducing, 1))
+    h = rng.normal(size=(latent_dim, m_inducing, m_inducing)) / 10.0
+    if natural_gradient:
+        h = h @ np.swapaxes(h, -1, -2)
+    return (torch.tensor(m, dtype=dtype, device=device),
+            torch.tensor(h, dtype=dtype, device=device))
+
+
+def psd_from_factor(h_factor: torch.Tensor) -> torch.Tensor:
+    """``H = h hᵀ`` at full f32 precision (TF32 could round the product off
+    the PSD cone before the Cholesky that consumes it)."""
+    with full_precision():
+        return h_factor @ h_factor.mT
+
+
+def make_optimizer(params, learning_rate: float = 1e-3,
+                   kind: str = "adam") -> torch.optim.Optimizer:
+    """Adam over ``params``: ``torch.optim.Adam`` with optax.adam's defaults
+    (β = (0.9, 0.999), eps 1e-8 outside the square root, bias correction),
+    the same update. ``kind="fused"`` stands for the one-pass fused Adam
+    kernel, which is not ported yet."""
+    if kind == "fused":
+        raise NotImplementedError(
+            "the fused Adam kernel is not ported to lvae_torch yet; use kind='adam'"
+        )
+    if kind != "adam":
+        raise ValueError(f"unknown optimizer kind {kind!r}")
+    return torch.optim.Adam(list(params), lr=learning_rate, betas=(0.9, 0.999), eps=1e-8)
+
+
+def tree_finite(tensors) -> torch.Tensor:
+    """A device boolean: every tensor in ``tensors`` (an iterable, or
+    :class:`Trainables`) is finite. No host synchronisation."""
+    if isinstance(tensors, Trainables):
+        tensors = tensors.parameters()
+    flags = [torch.isfinite(t).all() for t in tensors]
+    return torch.stack(flags).all()

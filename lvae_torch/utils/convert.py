@@ -13,27 +13,33 @@ The ConvVAE's ``fc1`` consumes, and ``fc4`` produces, the flattened feature
 map, whose order is H-W-C in flax (NHWC) and C-H-W in PyTorch (NCHW): their
 input and output axes are permuted accordingly. Nothing here imports JAX:
 the caller passes the flax params tree with numpy-convertible leaves.
+
+:func:`hensman_state_from_jax` carries a whole Hensman training state over,
+optax's Adam moments included, so that both packages can start from one
+state.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
 
 from lvae_torch.ops.kernels import KernelParams
+from lvae_torch.train import state as st
 from lvae_torch.train.state import GPParams
 
 _LINEARS = ("fc1", "fc21", "fc211", "fc221", "fc3", "fc31", "fc4")
 
 
-def _np(arr) -> np.ndarray:
-    return np.asarray(arr, dtype=np.float32)
+def vae_state_dict_from_jax(params, dtype=np.float32) -> Dict[str, torch.Tensor]:
+    """flax ConvVAE/SimpleVAE params tree → the port's ``state_dict``, in
+    ``dtype`` (float32 unless a float64 test asks for more)."""
 
+    def _np(arr) -> np.ndarray:
+        return np.asarray(arr, dtype=dtype)
 
-def vae_state_dict_from_jax(params) -> Dict[str, torch.Tensor]:
-    """flax ConvVAE/SimpleVAE params tree → the port's ``state_dict``."""
     p = params["params"]
     sd: Dict[str, np.ndarray] = {}
     for name in _LINEARS:
@@ -69,3 +75,86 @@ def gp_params_from_jax(gp, dtype=torch.float32) -> GPParams:
         return KernelParams(raw_scale=t(k.raw_scale), raw_lengthscale=t(k.raw_lengthscale))
 
     return GPParams(kp0=kp(gp.kp0), kp1=kp(gp.kp1), raw_noise=t(gp.raw_noise))
+
+
+def _adam_state(opt_state):
+    """optax's ``ScaleByAdamState`` (``count``, ``mu``, ``nu``) inside an
+    optax state tuple, or None."""
+    if all(hasattr(opt_state, k) for k in ("count", "mu", "nu")):
+        return opt_state
+    if isinstance(opt_state, (tuple, list)):
+        for sub in opt_state:
+            found = _adam_state(sub)
+            if found is not None:
+                return found
+    return None
+
+
+def _optional_tensor(x, dtype, device) -> Optional[torch.Tensor]:
+    return None if x is None else torch.tensor(np.asarray(x), dtype=dtype, device=device)
+
+
+def _trainables_from_jax(tr, model, dtype, device) -> st.Trainables:
+    """JAX ``Trainables`` (or a tree of the same layout, such as Adam's
+    moments) → the port's tensors; the VAE leaves go into ``model`` when
+    it is a module, else they are returned as a ``state_dict``."""
+
+    def t(x) -> Optional[torch.Tensor]:
+        return _optional_tensor(x, dtype, device)
+
+    gp = GPParams(
+        kp0=KernelParams(t(tr.gp.kp0.raw_scale), t(tr.gp.kp0.raw_lengthscale)),
+        kp1=KernelParams(t(tr.gp.kp1.raw_scale), t(tr.gp.kp1.raw_lengthscale)),
+        raw_noise=t(tr.gp.raw_noise),
+    )
+    np_dtype = torch.empty((), dtype=dtype).numpy().dtype
+    sd = {k: v.to(device) for k, v in vae_state_dict_from_jax(tr.vae, np_dtype).items()}
+    if model is not None:
+        model.load_state_dict(sd)
+        vae = model
+    else:
+        vae = sd
+    return st.Trainables(vae=vae, gp=gp, m=t(tr.m), h_factor=t(tr.h_factor),
+                         z=t(getattr(tr, "z", None)))
+
+
+def hensman_state_from_jax(state, model, learning_rate: float = 1e-3,
+                           seed: int = 0, dtype=torch.float32,
+                           device="cpu") -> st.HensmanState:
+    """A JAX ``HensmanState`` (numpy-convertible leaves) → the port's.
+
+    The VAE weights are loaded into ``model`` (moved to ``device``/``dtype``);
+    the GP parameters, m/h_factor, inducing points, ``m_nat``, ``H_nat`` and
+    ``step`` are carried over, and where the optax state holds Adam's
+    ``mu``/``nu``/``count`` they become ``torch.optim.Adam``'s ``exp_avg``/
+    ``exp_avg_sq``/``step``. JAX's random key has no counterpart: the new
+    state's CPU generator is seeded from ``seed``."""
+    model.to(device=device, dtype=dtype)
+    tr = _trainables_from_jax(state.trainables, model, dtype, device)
+    params = list(tr.parameters())
+    for p in params:
+        p.requires_grad_(True)
+    opt = st.make_optimizer(params, learning_rate)
+    adam = _adam_state(state.opt_state)
+    if adam is not None:
+        names = [n for n, _ in model.named_parameters()]
+        moments = []
+        for tree in (adam.mu, adam.nu):
+            mt = _trainables_from_jax(tree, None, dtype, device)
+            moments.append([mt.vae[n] for n in names] + [
+                x for x in (*mt.gp.tensors(), mt.m, mt.h_factor, mt.z) if x is not None
+            ])
+        count = float(np.asarray(adam.count))
+        sd = opt.state_dict()
+        sd["state"] = {
+            i: {"step": torch.tensor(count, dtype=torch.float32),
+                "exp_avg": mu, "exp_avg_sq": nu}
+            for i, (mu, nu) in enumerate(zip(*moments))
+        }
+        opt.load_state_dict(sd)
+
+    return st.HensmanState(
+        trainables=tr, m_nat=_optional_tensor(state.m_nat, dtype, device),
+        H_nat=_optional_tensor(state.H_nat, dtype, device), opt_state=opt,
+        rng=torch.Generator().manual_seed(seed), step=int(np.asarray(state.step)),
+    )

@@ -1,4 +1,4 @@
-"""The port's CUDA kernel K2 on the card (marked ``cuda``).
+"""The port's CUDA kernels K1 and K2 on the card (marked ``cuda``).
 
 These tests need an NVIDIA GPU and ``nvcc``; without a card they skip. On a
 machine with a card, where JAX may be absent, run them without the suite's
@@ -8,7 +8,12 @@ JAX conftest:
 
 Tolerances: max |Δ| over max |reference| per matrix, 1e-4 at n <= 20 and
 1e-3 at n = 64, on SPD stacks with condition number 1e2 (f32 rounding grows
-with n and the condition number; the two versions sum in other orders).
+with n and the condition number; the two versions sum in other orders). The
+B-chain (K1) is held the same way per (latent, subject) block, its log|B|
+and trace per latent at 1e-4 (2e-4 from T = 64), and every gradient at
+max |Δ| over max |reference| ≤ 1e-3 per array: the backward is plain torch
+on both sides, fed B⁻¹ from the kernel on one side and from
+``torch.linalg`` on the other.
 """
 
 import math
@@ -16,7 +21,10 @@ import math
 import pytest
 import torch
 
+from lvae_torch.kernels_cuda import b_chain as k1
 from lvae_torch.kernels_cuda import cholesky as k2
+from lvae_torch.ops import elbo as eb
+from lvae_torch.ops import kernels as kx
 from lvae_torch.ops import linalg as la
 
 pytestmark = pytest.mark.cuda
@@ -84,3 +92,142 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(gen):
         k2.cholesky_inverse(a.mT)
     with pytest.raises(ValueError):
         k2.cholesky_inverse(spd_stack((2,), 65, gen))
+
+
+# ------------------------------------------------------------ K2 gradient
+@pytest.mark.parametrize("shape,n", [((64,), 60), ((32,), 60), ((5, 3), 2), ((32, 20), 20), ((7,), 64)])
+def test_cholesky_inverse_gradient_on_the_card(gen, shape, n):
+    """CholeskyInverse's backward (kernel forward) against torch.autograd
+    through the plain torch.linalg version."""
+    a = spd_stack(shape, n, gen)
+    wl = torch.randn(a.shape, generator=gen, device="cuda")
+    wi = torch.randn(a.shape, generator=gen, device="cuda")
+    x = a.clone().requires_grad_(True)
+    before = k2.cholesky_inverse.launches
+    l, inv = la.cholesky_and_inverse(x)
+    ((l * wl).sum() + (inv * wi).sum()).backward()
+    assert k2.cholesky_inverse.launches == before + 1
+    y = a.clone().requires_grad_(True)
+    lr, ir = k2.cholesky_inverse_reference(y)
+    ((lr * wl).sum() + (ir * wi).sum()).backward()
+    sym = 0.5 * (y.grad + y.grad.mT)  # autograd's gradient need not be symmetric
+    got = 0.5 * (x.grad + x.grad.mT)
+    assert rel_err(got, sym) <= 1e-3
+
+
+# -------------------------------------------------------------------- K1
+SPEC_ARGS = dict(
+    cat_kernel=[2], sqexp_kernel=[0],
+    cat_int_kernel=[{"cont_covariate": 0, "cat_covariate": 2},
+                    {"cont_covariate": 0, "cat_covariate": 3},
+                    {"cont_covariate": 1, "cat_covariate": 4}],
+    id_covariate=2,
+)
+
+
+def chain_inputs(gen, n_subj, t, n_lat=4):
+    """Constrained params and a ragged HealthMNIST-layout batch on the card:
+    subject 1 short, the last subject a ghost."""
+    spec0, spec1 = kx.split_kernel_spec(**SPEC_ARGS)
+    dev = "cuda"
+    xb = torch.zeros(n_subj, t, 6, device=dev)
+    xb[:, :, 0] = torch.arange(t, device=dev) + torch.rand(n_subj, 1, generator=gen, device=dev)
+    xb[:, :, 1] = torch.randn(n_subj, t, generator=gen, device=dev)
+    xb[:, :, 2] = torch.arange(n_subj, device=dev)[:, None].float()
+    xb[:, :, 3:] = torch.randint(0, 2, (n_subj, 1, 3), generator=gen, device=dev).float()
+    mask = torch.ones(n_subj, t, device=dev)
+    mask[1, t // 2:] = 0.0
+    mask[-1] = 0.0
+    xb = (xb * mask[..., None]).contiguous()
+
+    def params(c):
+        scale = 0.5 + torch.rand(n_lat, c, generator=gen, device=dev)
+        ls = 1.5 + torch.rand(n_lat, c, generator=gen, device=dev)
+        return scale, 0.5 / (ls * ls)
+
+    s0, g0 = params(len(spec0.components))
+    s1, g1 = params(len(spec1.components))
+    noise = 0.5 + torch.rand(n_lat, generator=gen, device=dev)
+    return spec0, spec1, s0, g0, s1, g1, noise, xb, mask
+
+
+@pytest.mark.parametrize("t", [2, 20, 64, 65, 128])
+def test_b_chain_kernel_matches_plain_version(gen, t):
+    args = chain_inputs(gen, 5, t)
+    before = k1.b_chain.launches
+    ib, ld, tr = k1.b_chain(*args)
+    torch.cuda.synchronize()
+    assert k1.b_chain.launches == before + 1
+    ibr, ldr, trr = k1.b_chain_reference(*args)
+    tol = 1e-4 if t <= 20 else 1e-3
+    assert rel_err(ib, ibr) <= tol
+    tol_s = 1e-4 if t < 64 else 2e-4
+    assert float(((ld - ldr).abs() / ldr.abs().clamp(min=1.0)).max()) <= tol_s
+    assert float(((tr - trr).abs() / trr.abs().clamp(min=1.0)).max()) <= tol_s
+    assert torch.equal(ib, ib.mT)
+    # ghost rows factor as the identity
+    torch.testing.assert_close(ib[:, -1], torch.eye(t, device="cuda").expand_as(ib[:, -1]),
+                               rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("t", [2, 20, 64, 65, 128])
+def test_b_chain_gradient_matches_autograd_of_plain_version(gen, t):
+    spec0, spec1, *leaves, xb, mask = chain_inputs(gen, 5, t)
+    w = torch.randn(leaves[0].shape[0], 5, t, t, generator=gen, device="cuda")
+
+    def grads(fn):
+        xs = [x.clone().requires_grad_(True) for x in leaves]
+        ib, ld, tr = fn(spec0, spec1, *xs, xb, mask)
+        ((ib * w).sum() + 0.7 * ld.sum() + 1.3 * tr.sum()).backward()
+        return [x.grad for x in xs]
+
+    got = grads(k1.BChain.apply)
+    want = grads(k1.b_chain_reference)
+    for g, r in zip(got, want):
+        assert float((g - r).abs().max() / r.abs().max()) <= 1e-3
+
+
+def test_b_chain_non_spd_latent_gives_nan_there_only(gen):
+    args = list(chain_inputs(gen, 5, 20))
+    args[6] = args[6].clone()
+    args[6][2] = -50.0  # sigma^2 of latent 2: every real block of it is indefinite
+    ib, ld, tr = k1.b_chain(*args)
+    torch.cuda.synchronize()
+    assert torch.isnan(ib[2, 0]).any() and torch.isnan(ld[2]) and torch.isnan(tr[2])
+    keep = [0, 1, 3]
+    assert torch.isfinite(ib[keep]).all() and torch.isfinite(ld[keep]).all()
+    assert torch.isfinite(tr[keep]).all()
+
+
+def test_gp_block_operators_routes_to_the_kernels(gen):
+    """A CUDA f32 batch inside usable()'s shapes runs K1 once and K2 once
+    (the stacked [K0zz; H]); T = 129 takes the plain chain."""
+    spec0, spec1, *_ = chain_inputs(gen, 3, 4)
+    n_lat, m_ind = 4, 8
+    kp0 = kx.init_kernel_params(spec0, n_lat, device="cuda")
+    kp1 = kx.init_kernel_params(spec1, n_lat, device="cuda")
+    noise = torch.ones(n_lat, device="cuda")
+    for t, k1_runs in ((20, 1), (129, 0)):
+        *_, xb, mask = chain_inputs(gen, 3, t, n_lat)
+        z = xb[0, :m_ind].clone()
+        z[:, 0] = torch.linspace(0, t, m_ind, device="cuda")
+        h = spd_stack((n_lat,), m_ind, gen)
+        b1, b2 = k1.b_chain.launches, k2.cholesky_inverse.launches
+        ops = eb.gp_block_operators(spec0, spec1, kp0, kp1, noise, xb, z, mask=mask,
+                                    eps=1e-4, extra_spd=h)
+        torch.cuda.synchronize()
+        assert k1.b_chain.launches - b1 == k1_runs
+        assert k2.cholesky_inverse.launches - b2 == 1
+        assert (ops.tr_iB_K0 is not None) == bool(k1_runs)
+        assert torch.isfinite(ops.iB).all()
+
+
+def test_b_chain_wrapper_rejects_what_the_kernel_does_not_take(gen):
+    args = list(chain_inputs(gen, 3, 20))
+    with pytest.raises(ValueError):
+        k1.b_chain(*args[:7], args[7].double(), args[8])
+    with pytest.raises(ValueError):
+        k1.b_chain(*args[:7], args[7].transpose(0, 1).contiguous().transpose(0, 1), args[8])
+    big = chain_inputs(gen, 2, 129)
+    with pytest.raises(ValueError):
+        k1.b_chain(*big)
