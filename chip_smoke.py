@@ -3,21 +3,29 @@
 
     python3 chip_smoke.py [--seed 0]
 
-Builds the port's CUDA kernels from ``lvae_torch/csrc`` (K2 ``chol_inv`` and
-K1 ``b_chain``), holds each against its plain PyTorch version on the card,
-forward and gradient, then runs the two main paths at the full width of
-``configs/healthmnist_lvae.txt`` (ConvVAE on 36×36 frames, L=32 latent GPs,
-M=60 inducing points, P=100 subjects × T=20 frames, random frames and
-weights from ``--seed``):
+Builds the port's CUDA kernels from ``lvae_torch/csrc`` (K2 ``chol_inv``,
+K1 ``b_chain``, K3 ``kernel_matrix`` and K5 ``adam``, one ``nvcc`` each, all
+started together), holds each against its plain PyTorch version on the
+card, forward and gradient, then runs the three main paths at the full
+width of ``configs/healthmnist_lvae.txt`` (ConvVAE on 36×36 frames, L=32
+latent GPs, M=60 inducing points, P=100 subjects × T=20 frames, random
+frames and weights from ``--seed``):
 
 * serving, through ``LVAEPredictor``, ``aot_compile``, ``impute``,
   ``predict_trajectories``, ``predict_trajectory``,
   ``predict_latent_trajectory`` and ``refresh_basis``;
 * Hensman training with natural gradients, through ``HensmanTrainer``: two
-  epochs of 5 steps (20 subjects, 400 frames a step).
+  epochs of 5 steps (20 subjects, 400 frames a step);
+* standard full-batch training, through ``StandardTrainer`` with
+  ``hensman=False``: 5 epochs of ``type_KL=closed`` (one step each over all
+  N = 2000 frames, K3 building the ``[32, 2000, 2000]`` prior once a step),
+  2 each of ``GPapprox_closed``, ``GPapprox`` and the five-phase GPPVAE
+  regime, and 2 closed epochs with the fused optimizer (K5 once a step).
 
 Each path is replayed with ``device="cpu"`` (the plain versions) and the
-card's answers are held against the CPU's.
+card's answers are held against the CPU's; the standard regime at P=26
+subjects (N = 520, still at K3's gate), since an N = 2000 replay is about a
+TFLOP of f32 Cholesky work a step on the CPU.
 
 Phases print one line each. Any failure raises and exits non-zero; without
 CUDA the script exits non-zero before printing a result. The last lines
@@ -37,6 +45,7 @@ times are host-clock medians of calls that end in a synchronise.
 from __future__ import annotations
 
 import argparse
+import itertools
 import json
 import math
 import os
@@ -56,14 +65,19 @@ from lvae_torch.config import load_flag_file  # noqa: E402
 from lvae_torch.data.blocks import build_subject_blocks  # noqa: E402
 from lvae_torch.evaluation.encode import encode_dataset  # noqa: E402
 from lvae_torch.inference import LVAEPredictor  # noqa: E402
+from lvae_torch.kernels_cuda import adam as k5  # noqa: E402
 from lvae_torch.kernels_cuda import b_chain as k1  # noqa: E402
 from lvae_torch.kernels_cuda import build  # noqa: E402
 from lvae_torch.kernels_cuda import cholesky as k2  # noqa: E402
+from lvae_torch.kernels_cuda import kernel_matrix as k3  # noqa: E402
 from lvae_torch.models.vae import make_vae  # noqa: E402
 from lvae_torch.ops import kernels as kx  # noqa: E402
 from lvae_torch.ops import linalg as la  # noqa: E402
 from lvae_torch.train.hensman import HensmanConfig, HensmanTrainer  # noqa: E402
-from lvae_torch.train.state import init_gp_params, init_inducing_points  # noqa: E402
+from lvae_torch.train.standard import StandardConfig, StandardTrainer  # noqa: E402
+from lvae_torch.train.state import (  # noqa: E402
+    init_gp_params, init_inducing_points, make_optimizer,
+)
 
 CONFIG = os.path.join(ROOT, "configs", "healthmnist_lvae.txt")
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, HBM3
@@ -88,6 +102,18 @@ KL_RTOL = 1e-2
 VARIATIONAL_RTOL = 1e-2  # card vs CPU, final m_nat / H_nat, max |Δ| over max |CPU|
 H_SHIFT = 0.1  # the compared pair of training runs starts from H + H_SHIFT·I
 GRAD_RTOL = 1e-3  # kernel vs plain gradients, max |Δ| over max |plain| per array
+# K3 vs its plain version, max |Δ| over max |plain|: one expf and a few
+# products per term, summed in the same order; its gradient (plain torch on
+# both sides, fed the kernel's or the plain forward) at 1e-4
+K3_RTOL, K3_GRAD_RTOL = 1e-5, 1e-4
+# K5 vs its plain version per step, max |Δ| over max |plain| of m', v' and
+# Δ (a fused multiply-add may round once less); against torch.optim.Adam,
+# whose bias correction is written √v/√bc2, relative to the largest update
+K5_RTOL, K5_TORCH_RTOL = 1e-6, 1e-5
+STD_CLOSED_EPOCHS = 5  # closed-KL epochs on the card (one step each)
+STD_EPOCHS = 2  # epochs of each other standard mode, and of the fused optimizer
+STD_COMPARE_P = 26  # subjects of the card-vs-CPU standard replay: N = 520 >= 512
+STD_COMPARE_CLOSED_EPOCHS = 3
 
 
 def say(phase: str, msg: str) -> None:
@@ -185,6 +211,35 @@ class World:
             seed=self.seed, t_buckets=cfg.T_buckets, device=device,
         )
 
+    def standard_trainer(self, device: str, type_kl: str = "closed",
+                         pseudo_minibatch: bool = False, optimizer: str = "adam",
+                         subjects=None) -> StandardTrainer:
+        """A full-batch trainer (``hensman=False``) at the config file's
+        settings on the first ``subjects`` subjects (all by default), on
+        ``device``; every trainer made here starts from the same state."""
+        cfg = self.cfg
+        p = subjects or cfg.P
+        n = p * cfg.T
+        scfg = StandardConfig(
+            spec0=self.spec0, spec1=self.spec1, latent_dim=cfg.latent_dim, P_tot=p, T=cfg.T,
+            weight=cfg.weight, loss_function=cfg.loss_function, type_KL=type_kl,
+            num_samples=cfg.num_samples, constrain_scales=cfg.constrain_scales, eps=cfg.eps,
+            dropout=cfg.dropout > 0, vy_fixed=cfg.vy_fixed,
+        )
+
+        class Cohort:
+            data, labels, mask = self.frames[:n], self.labels[:n], self.pixmask[:n]
+
+        trainer = StandardTrainer(
+            self.model(), scfg, Cohort, build_subject_blocks(Cohort.labels, cfg.id_covariate),
+            self.z, learning_rate=cfg.learning_rate, seed=self.seed,
+            pseudo_minibatch=pseudo_minibatch, device=device,
+        )
+        # the optimizer named here, whatever $LVAE_OPT says
+        trainer.state = trainer.state._replace(opt_state=make_optimizer(
+            trainer.state.trainables.parameters(), cfg.learning_rate, optimizer))
+        return trainer
+
     def train_chain_inputs(self):
         """The B-chain's inputs at the first training batch's shape
         ``[L, S, T]``: constrained params from ``init_gp_params``, the first
@@ -245,9 +300,22 @@ def timing_row(shape, arg, kernel, plain, library, bound: dict) -> dict:
         if fn is None:
             row[f"{key}ms"] = None
             continue
-        row[f"{key}ms"] = profile_window(lambda: fn(arg), 20)["device_ms"]
+        prof = profile_window(lambda: fn(arg), 20)
+        if prof["device_ms"] == 0.0:  # a trace that recorded no device work
+            say("kernel", f"empty device trace for the {key or 'kernel_'}call at {list(shape)}: "
+                f"{json.dumps(prof)}; tracing again")
+            prof = profile_window(lambda: fn(arg), 20)
+        row[f"{key}ms"] = prof["device_ms"] or None  # None: not measured
         row[f"{key}event_ms"] = cuda_ms(fn, arg)
     return {**row, **bound}
+
+
+def rotating(fn, items):
+    """``fn`` over ``items`` in turn, one a call: with the items' bytes past
+    the 50 MB L2 cache, each call finds its inputs in device memory, as a
+    training step's optimizer does."""
+    it = itertools.cycle(items)
+    return lambda _: fn(next(it))
 
 
 def library_chol_inv(a: torch.Tensor):
@@ -492,6 +560,258 @@ def check_k1(world: World) -> dict:
     }
 
 
+def kernel_matrix_bound(spec, shape, q: int) -> dict:
+    """Least time for ``K [L, N1, N2]``: read the covariates and parameters
+    and write K once; per entry and latent one exp and four flops for each
+    RBF component and two for each other one."""
+    n_lat, n1, n2 = shape
+    c = len(spec.components)
+    n_rbf = sum(comp.rbf_col >= 0 for comp in spec.components)
+    nbytes = 4 * (n_lat * n1 * n2 + (n1 + n2) * q + 2 * n_lat * c)
+    ops = n_lat * n1 * n2 * (5 * n_rbf + 2 * (c - n_rbf))
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / F32_FLOPS_PER_S * 1e3
+    return {"bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+
+
+def k3_inputs(spec, kp, x1, x2, dev):
+    """(spec, constrained scale, g, x1, x2) on ``dev``."""
+    scale = kx.constrain(kp.raw_scale.to(dev))
+    ls = kx.constrain(kp.raw_lengthscale.to(dev))
+    return (spec, scale.contiguous(), (0.5 / (ls * ls)).contiguous(),
+            torch.as_tensor(x1, device=dev).contiguous(),
+            torch.as_tensor(x2, device=dev).contiguous())
+
+
+def random_kp(gen, spec, n_lat, dev):
+    c = len(spec.components)
+    return kx.KernelParams(
+        0.3 * torch.randn(n_lat, c, generator=gen, device=dev),
+        0.3 * torch.randn(n_lat, c, generator=gen, device=dev) + 1.0)
+
+
+def max_rel(got, want) -> float:
+    """max |Δ| over max |reference|."""
+    return float((got - want).abs().max() / want.abs().max())
+
+
+def k3_grad_err(spec, kp, x1, x2, cot, mask1=None, mask2=None) -> float:
+    """Gradient w.r.t. the raw parameters of ``Σ cot ⊙ K`` through
+    ``kernel_matrix_kernel`` (K3 forward, FusedKernelMatrix backward)
+    against autograd through the plain version."""
+    def plain(spec, params, x1, x2, mask1, mask2):
+        scale = kx.constrain(params.raw_scale)
+        ls = kx.constrain(params.raw_lengthscale)
+        out = k3.kernel_matrix_reference(spec, scale, 0.5 / (ls * ls), x1, x2)
+        if mask1 is not None:
+            out = out * mask1[:, None] * mask2[None, :]
+        return out
+
+    def grads(fn):
+        leaves = [t.detach().clone().requires_grad_(True) for t in kp]
+        torch.sum(fn(spec, kx.KernelParams(*leaves), x1, x2, mask1, mask2) * cot).backward()
+        return [t.grad for t in leaves]
+
+    return max(max_rel(a, b) for a, b in zip(grads(k3.kernel_matrix_kernel), grads(plain)))
+
+
+def check_k3(world: World, dev: str = "cuda") -> dict:
+    """K3 against its plain version on the card, forward and gradient;
+    returns the kernels-line entry (without the main path's launches)."""
+    gen = torch.Generator(device=dev).manual_seed(world.seed + 3)
+    # the closed-KL prior's joined spec at the trainer's initial parameters
+    spec, kp = kx.join_specs(world.spec0, world.spec1, world.gp.kp0, world.gp.kp1)
+    labels = world.labels
+    n, q = labels.shape
+    n_lat = world.cfg.latent_dim
+    main = k3_inputs(spec, kp, labels, labels, dev)
+    small = world.labels[:STD_COMPARE_P * world.cfg.T]
+    cases = [
+        ("standard closed-KL prior", main),
+        ("card-vs-CPU replay shape", k3_inputs(spec, random_kp(gen, spec, 32, dev), small,
+                                                small, dev)),
+        ("not tile multiples", k3_inputs(spec, random_kp(gen, spec, 3, dev), labels[:517],
+                                         labels[:1030], dev)),
+        ("below the gate, called directly", k3_inputs(spec, random_kp(gen, spec, 2, dev),
+                                                      labels[:70], labels[:37], dev)),
+    ]
+    for name, args in cases:
+        got = k3.kernel_matrix_fused(*args)
+        want = k3.kernel_matrix_reference(*args)
+        torch.cuda.synchronize()
+        err = max_rel(got, want)
+        say("kernel", f"K3 {name} {list(got.shape)}: rel err {err:.3e} (tol {K3_RTOL:g})")
+        if not (err <= K3_RTOL and got.shape == want.shape):
+            raise AssertionError(f"K3 disagrees with its plain version at {name}")
+
+    # every factor kind (centred categorical, both-one) with row and column masks
+    comp = kx.KernelComponent
+    cat_spec = kx.KernelSpec(components=(
+        comp(kind="cat_mod", rbf_col=-1, eq_cols=(), and_cols=(), cat_mod=(3, 2)),
+        comp(kind="cat_mod_rbf", rbf_col=0, eq_cols=(2,), and_cols=(4,), cat_mod=(5, 2)),
+        *world.spec1.components,
+    ))
+    cat_kp = random_kp(gen, cat_spec, 4, dev)
+    x1 = torch.as_tensor(labels[:600], device=dev)
+    x2 = torch.as_tensor(labels[700:1230], device=dev)
+    m1 = (torch.rand(600, generator=gen, device=dev) > 0.2).float()
+    m2 = (torch.rand(530, generator=gen, device=dev) > 0.2).float()
+    got = k3.kernel_matrix_kernel(cat_spec, cat_kp, x1, x2, m1, m2)
+    want = k3.kernel_matrix_reference(*k3_inputs(cat_spec, cat_kp, x1, x2, dev))
+    want = want * m1[:, None] * m2[None, :]
+    torch.cuda.synchronize()
+    err = max_rel(got, want)
+    say("kernel", f"K3 cat_mod + both-one spec, row/column masks {list(got.shape)}: rel err "
+        f"{err:.3e} (tol {K3_RTOL:g})")
+    if not err <= K3_RTOL:
+        raise AssertionError("K3 disagrees with its plain version on the cat_mod spec")
+
+    g_errs = {
+        "masked cat_mod [4,600,530]": k3_grad_err(
+            cat_spec, cat_kp, x1, x2, torch.randn(4, 600, 530, generator=gen, device=dev),
+            m1, m2),
+        f"standard prior [{n_lat},{n},{n}]": k3_grad_err(
+            spec, kx.KernelParams(kp.raw_scale.to(dev), kp.raw_lengthscale.to(dev)),
+            main[3], main[4], torch.randn(n_lat, n, n, generator=gen, device=dev)),
+    }
+    say("kernel", f"K3 gradient (raw scale, lengthscale) rel err {json.dumps(g_errs)} "
+        f"(tol {K3_GRAD_RTOL:g})")
+    if not max(g_errs.values()) <= K3_GRAD_RTOL:
+        raise AssertionError("K3's gradient disagrees with autograd of the plain version")
+
+    got = k3.kernel_matrix_fused(*main)
+    want = k3.kernel_matrix_reference(*main)
+    max_abs = float((got - want).abs().max())
+    rel = max_rel(got, want)
+    del got, want
+    rows = []
+    for args in (main, cases[1][1]):
+        shape = (args[1].shape[0], args[3].shape[0], args[4].shape[0])
+        row = timing_row(shape, args, lambda a: k3.kernel_matrix_fused(*a),
+                         lambda a: k3.kernel_matrix_reference(*a), None,
+                         kernel_matrix_bound(spec, shape, q))
+        say("kernel", "K3 times " + json.dumps(row))
+        rows.append(row)
+    row = rows[0]
+    return {
+        "name": "kernel_matrix",
+        "route": "cuda",
+        "source": k3.SOURCE,
+        "replaces": k3.REPLACES,
+        "launches": None,
+        "max_abs_err": max_abs,
+        "ms": row["ms"],
+        "event_ms": row["event_ms"],
+        "plain_ms": row["plain_ms"],
+        "plain_event_ms": row["plain_event_ms"],
+        "bound_ms": row["bound_ms"],
+        "bound_by": row["bound_by"],
+        "library_ms": None,
+        "library_call": "none: no single PyTorch call computes the additive kernel stack",
+        "shape": row["shape"],
+        "max_rel_err": rel,
+        "per_shape": rows,
+    }
+
+
+def adam_bound(n: int) -> dict:
+    """Least time for one flat Adam step: read m, v, g and write m', v', Δ
+    once (24 bytes an element); a dozen flops an element."""
+    bytes_ms = 24 * n / HBM_BYTES_PER_S * 1e3
+    ops_ms = 12 * n / F32_FLOPS_PER_S * 1e3
+    return {"bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+
+
+def check_k5(world: World, dev: str = "cuda") -> dict:
+    """K5 against its plain version for 3 steps at the standard trainer's
+    parameter count (the ConvVAE's and the GP's), and FusedAdam against
+    torch.optim.Adam on tensors of those shapes; returns the kernels-line
+    entry (without the main path's launches)."""
+    gen = torch.Generator(device=dev).manual_seed(world.seed + 5)
+    shapes = [p.shape for p in world.model().parameters()] + [
+        t.shape for t in world.gp.tensors()]
+    n = sum(math.prod(s) for s in shapes)
+    m = torch.zeros(n, device=dev)
+    v = torch.zeros(n, device=dev)
+    mr, vr = m.clone(), v.clone()
+    errs = []
+    max_abs = 0.0
+    for step in range(1, 4):
+        g = 1e-2 * torch.randn(n, generator=gen, device=dev)
+        c1, c2 = k5.bias_corrections(step, 0.9, 0.999)
+        kw = dict(b1=0.9, b2=0.999, lr=world.cfg.learning_rate, eps=1e-8, c1=c1, c2=c2)
+        d = k5.fused_adam_update(m, v, g, **kw)
+        mr, vr, dr = k5.adam_reference(mr, vr, g, **kw)
+        torch.cuda.synchronize()
+        errs.append(max(max_rel(a, b) for a, b in ((m, mr), (v, vr), (d, dr))))
+        max_abs = max([max_abs] + [float((a - b).abs().max()) for a, b in
+                                   ((m, mr), (v, vr), (d, dr))])
+    say("kernel", f"K5 n={n} 3 steps: rel err (m', v', delta) per step "
+        f"{[f'{e:.3e}' for e in errs]} (tol {K5_RTOL:g})")
+    if not max(errs) <= K5_RTOL:
+        raise AssertionError("K5 disagrees with its plain version")
+
+    # from zero, so that the parameters' own rounding (an ulp of a unit-size
+    # weight is 1e-4 of a 1e-3 update) does not hide the updates' agreement
+    init = [torch.zeros(s, device=dev) for s in shapes]
+    grads = [[1e-2 * torch.randn(s, generator=gen, device=dev) for s in shapes]
+             for _ in range(3)]
+
+    def run(make):
+        ps = [p.clone().requires_grad_(True) for p in init]
+        opt = make(ps)
+        for gs in grads:
+            for p, gr in zip(ps, gs):
+                p.grad = gr
+            opt.step()
+        return ps, opt
+
+    lr = world.cfg.learning_rate
+    ours, _ = run(lambda ps: k5.FusedAdam(ps, lr=lr))
+    theirs, _ = run(lambda ps: torch.optim.Adam(ps, lr=lr, fused=True))
+    torch_err = max(max_rel(a.detach(), b.detach()) for a, b in zip(ours, theirs))
+    say("kernel", f"K5 FusedAdam vs torch.optim.Adam(fused=True), 3 steps: max |delta| over "
+        f"the largest update {torch_err:.3e} (tol {K5_TORCH_RTOL:g})")
+    if not torch_err <= K5_TORCH_RTOL:
+        raise AssertionError("FusedAdam disagrees with torch.optim.Adam")
+
+    # times with the inputs out of L2: four sets of everything in turn
+    c1, c2 = k5.bias_corrections(4, 0.9, 0.999)
+    kw = dict(b1=0.9, b2=0.999, lr=lr, eps=1e-8, c1=c1, c2=c2)
+    sets = [(torch.zeros(n, device=dev), torch.zeros(n, device=dev),
+             1e-2 * torch.randn(n, generator=gen, device=dev)) for _ in range(4)]
+    lib_opts = [run(lambda ps: torch.optim.Adam(ps, lr=lr, fused=True))[1] for _ in range(4)]
+    fused_opts = [run(lambda ps: k5.FusedAdam(ps, lr=lr))[1] for _ in range(4)]
+    row = timing_row((n,), None, rotating(lambda a: k5.fused_adam_update(*a, **kw), sets),
+                     rotating(lambda a: k5.adam_reference(*a, **kw), sets),
+                     rotating(lambda o: o.step(), lib_opts), adam_bound(n))
+    step_fused = rotating(lambda o: o.step(), fused_opts)
+    row["fused_adam_step_ms"] = profile_window(lambda: step_fused(None), 20)["device_ms"]
+    say("kernel", "K5 times " + json.dumps(row))
+    return {
+        "name": "adam",
+        "route": "cuda",
+        "source": k5.SOURCE,
+        "replaces": k5.REPLACES,
+        "launches": None,
+        "max_abs_err": max_abs,
+        "ms": row["ms"],
+        "event_ms": row["event_ms"],
+        "plain_ms": row["plain_ms"],
+        "plain_event_ms": row["plain_event_ms"],
+        "bound_ms": row["bound_ms"],
+        "bound_by": row["bound_by"],
+        "library_ms": row["library_ms"],
+        "library_event_ms": row["library_event_ms"],
+        "library_call": "torch.optim.Adam(fused=True).step over the same tensors",
+        "fused_adam_step_ms": row["fused_adam_step_ms"],
+        "shape": row["shape"],
+        "max_rel_err": max(errs),
+    }
+
+
 # ---------------------------------------------------------------- training
 def train(world: World, device: str, h_shift: float = 0.0) -> dict:
     """TRAIN_EPOCHS Hensman epochs on ``device``, from the trainer's initial
@@ -544,7 +864,8 @@ def rel(a: float, b: float) -> float:
     return abs(a - b) / abs(b)
 
 
-LOSS_TOLS = {"recon": LOSS_RTOL, "nll": LOSS_RTOL, "kld": KL_RTOL, "net": KL_RTOL}
+LOSS_TOLS = {"recon": LOSS_RTOL, "nll": LOSS_RTOL, "kld": KL_RTOL, "gp": KL_RTOL,
+             "net": KL_RTOL}
 
 
 def compare_losses(card: list, cpu: list, keys=("net", "kld", "recon", "nll")) -> dict:
@@ -568,6 +889,105 @@ def check_within(errs: dict) -> None:
                 bad.append(f"{what} {key}: {err:.3e} > {tol:g}")
     if bad:
         raise AssertionError("training card vs CPU: " + "; ".join(bad))
+
+
+# -------------------------------------------------------- standard training
+def launch_counts() -> dict:
+    return {"b_chain": k1.b_chain.launches, "chol_inv": k2.cholesky_inverse.launches,
+            "kernel_matrix": k3.kernel_matrix_fused.launches,
+            "adam": k5.fused_adam_update.launches}
+
+
+def reset_launch_counts() -> None:
+    k1.b_chain.launches = 0
+    k2.cholesky_inverse.launches = 0
+    k3.kernel_matrix_fused.launches = 0
+    k5.fused_adam_update.launches = 0
+
+
+def train_standard(world: World, device: str, type_kl: str, epochs: int,
+                   pseudo_minibatch: bool = False, optimizer: str = "adam",
+                   subjects=None) -> dict:
+    """``epochs`` full-batch epochs (one step each) on ``device``; returns
+    the per-epoch metrics, the kernels each step launched, the host-clock
+    seconds and the trainer."""
+    trainer = world.standard_trainer(device, type_kl, pseudo_minibatch, optimizer, subjects)
+    metrics, per_step = [], []
+    t0 = time.perf_counter()
+    for _ in range(epochs):
+        before = launch_counts()
+        metrics.append(trainer.run_epoch()._asdict())
+        per_step.append({k: v - before[k] for k, v in launch_counts().items()})
+    return {"epochs": metrics, "per_step": per_step, "seconds": time.perf_counter() - t0,
+            "trainer": trainer}
+
+
+def check_standard(run: dict, name: str, want: dict) -> None:
+    """Finite losses, and per step exactly the launches ``want`` names
+    (a count, or None for at least one)."""
+    for m in run["epochs"]:
+        if not all(math.isfinite(v) for v in m.values()):
+            raise AssertionError(f"standard {name}: non-finite epoch metrics {m}")
+    for step in run["per_step"]:
+        for kernel, n in want.items():
+            if (step[kernel] < 1) if n is None else (step[kernel] != n):
+                raise AssertionError(f"standard {name}: a step launched {kernel} "
+                                     f"{step[kernel]} times, expected {n or 'at least 1'}")
+
+
+# name: (type_KL, pseudo_minibatch, optimizer, epochs, launches a step on the card)
+STANDARD_RUNS = {
+    "closed": ("closed", False, "adam", STD_CLOSED_EPOCHS,
+               {"kernel_matrix": 1, "adam": 0, "b_chain": 0, "chol_inv": 0}),
+    "GPapprox_closed": ("GPapprox_closed", False, "adam", STD_EPOCHS,
+                        {"kernel_matrix": 0, "b_chain": 1, "chol_inv": None}),
+    "GPapprox": ("GPapprox", False, "adam", STD_EPOCHS,
+                 {"kernel_matrix": 0, "b_chain": 1, "chol_inv": None}),
+    "GPPVAE GPapprox_closed": ("GPapprox_closed", True, "adam", STD_EPOCHS,
+                               {"kernel_matrix": 0, "b_chain": 1, "chol_inv": None}),
+    "closed, fused Adam": ("closed", False, "fused", STD_EPOCHS,
+                           {"kernel_matrix": 1, "adam": 1}),
+}
+
+
+def standard_path(world: World) -> dict:
+    """Every standard run of STANDARD_RUNS at full width on the card."""
+    runs = {}
+    for name, (type_kl, pseudo, opt, epochs, want) in STANDARD_RUNS.items():
+        run = train_standard(world, "cuda", type_kl, epochs, pseudo, opt)
+        check_standard(run, name, want)
+        say("standard", f"{name}: {epochs} epochs in {run['seconds']:.3f} s (first call "
+            f"included); launches per step {json.dumps(run['per_step'][0])}; last epoch "
+            f"{json.dumps(run['epochs'][-1])}")
+        runs[name] = run
+    nets = [m["net"] for m in runs["closed"]["epochs"]]
+    say("standard", f"closed net loss by epoch {nets}")
+    if not nets[-1] < nets[0]:
+        raise AssertionError("the closed-KL net loss did not fall over its epochs")
+    return runs
+
+
+STD_LOSS_KEYS = ("net", "gp", "recon", "nll")
+
+
+def compare_standard(world: World) -> dict:
+    """Card against CPU from one state at P=STD_COMPARE_P subjects: per-epoch
+    losses of 3 closed epochs (K3 still runs on the card: N = 520) and 2 of
+    each other mode."""
+    errs = {}
+    for name, (type_kl, pseudo, _, epochs, want) in STANDARD_RUNS.items():
+        if name.endswith("fused Adam"):
+            continue
+        if type_kl == "closed":
+            epochs = STD_COMPARE_CLOSED_EPOCHS
+        card = train_standard(world, "cuda", type_kl, epochs, pseudo, subjects=STD_COMPARE_P)
+        cpu = train_standard(world, "cpu", type_kl, epochs, pseudo, subjects=STD_COMPARE_P)
+        check_standard(card, name, want)
+        check_standard(cpu, name, {k: 0 for k in want})
+        errs[name] = compare_losses(card["epochs"], cpu["epochs"], keys=STD_LOSS_KEYS)
+        say("standard", f"P={STD_COMPARE_P} {name}: card {json.dumps(card['epochs'][-1])} "
+            f"CPU {json.dumps(cpu['epochs'][-1])} ({cpu['seconds']:.1f} s on the CPU)")
+    return errs
 
 
 # ----------------------------------------------------------------- serving
@@ -726,11 +1146,13 @@ def main() -> int:
     entry = check_k2(world)
     entry["per_shape"] += check_k2_training(world)
     k1_entry = check_k1(world)
+    k3_entry = check_k3(world)
+    k5_entry = check_k5(world)
 
-    # phase 4: the main path on the card; counts from 0 just before it
-    k2.cholesky_inverse.launches = 0
+    # phase 4: the serving path on the card; counts from 0 just before it
+    reset_launch_counts()
     gpu = serve(world, "cuda")
-    main_launches = k2.cholesky_inverse.launches
+    serve_counts = launch_counts()
     say("serving", f"K2 launches by call {json.dumps(gpu['launches'])}")
     for name, counts in gpu["launches"].items():
         if name != "impute" and min(counts) < 1:
@@ -771,13 +1193,12 @@ def main() -> int:
     for name, row in prof.items():
         say("profile", f"{name} {json.dumps(row)}")
 
-    # phase 5: the training path on the card; counts from 0 just before it
-    k1.b_chain.launches = 0
-    k2.cholesky_inverse.launches = 0
+    # phase 5: the Hensman training path on the card; counts from 0 just before it
+    reset_launch_counts()
     t0 = time.perf_counter()
     card_run = train(world, "cuda")
     train_s = time.perf_counter() - t0
-    train_launches = {"b_chain": k1.b_chain.launches, "chol_inv": k2.cholesky_inverse.launches}
+    train_launches = launch_counts()
     steps = len(card_run["per_step"])
     say("training", f"{steps} steps in {train_s:.3f} s (first call included); launches "
         f"{json.dumps(train_launches)}; per step (K1, K2) {card_run['per_step']}")
@@ -838,13 +1259,44 @@ def main() -> int:
     say("profile", "train_step " + json.dumps(
         profile_window(lambda: trainer.train_step(table, rows), 3)))
 
-    # phase 6: the kernels line
-    entry["launches"] = main_launches + train_launches["chol_inv"]
-    entry["launches_by_path"] = {"serving": main_launches, "training": train_launches["chol_inv"]}
+    # phase 6: the standard training path on the card; counts from 0 just before it
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    std_runs = standard_path(world)
+    std_counts = launch_counts()
+    say("standard", f"{sum(len(r['epochs']) for r in std_runs.values())} steps in "
+        f"{time.perf_counter() - t0:.3f} s; launches {json.dumps(std_counts)}")
+    for kernel, n in std_counts.items():
+        if n < 1:
+            raise AssertionError(f"{kernel} was not launched on the standard path")
+
+    s_errs = compare_standard(world)
+    say("compare", f"standard card vs CPU {json.dumps(s_errs)} (tolerances "
+        f"{json.dumps({k: LOSS_TOLS[k] for k in STD_LOSS_KEYS})})")
+    check_within(s_errs)
+
+    # warm closed-KL steps on the card: host clock per step, then a profiler window
+    trainer = std_runs["closed"]["trainer"]
+    step_ms = []
+    for _ in range(4):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer.run_epoch()
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    say("standard", f"closed step (host clock, warm) median {statistics.median(step_ms):.3f} "
+        f"ms over {len(step_ms)} (N={world.labels.shape[0]} L={world.cfg.latent_dim}), "
+        f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    say("profile", "standard_step " + json.dumps(profile_window(trainer.run_epoch, 3)))
+
+    # phase 7: the kernels line
+    paths = {"serving": serve_counts, "training": train_launches, "standard": std_counts}
+    for e, key in ((entry, "chol_inv"), (k1_entry, "b_chain"), (k3_entry, "kernel_matrix"),
+                   (k5_entry, "adam")):
+        e["launches_by_path"] = {path: counts[key] for path, counts in paths.items()}
+        e["launches"] = sum(e["launches_by_path"].values())
     entry["launches_by_step"] = gpu["launches"]
-    k1_entry["launches"] = train_launches["b_chain"]
-    k1_entry["launches_by_path"] = {"serving": 0, "training": train_launches["b_chain"]}
-    print(json.dumps({"kernels": [entry, k1_entry]}), flush=True)
+    print(json.dumps({"kernels": [entry, k1_entry, k3_entry, k5_entry]}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

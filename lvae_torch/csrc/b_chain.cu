@@ -18,11 +18,9 @@
 // order in which blocks finish (no atomics).
 //
 // The kernel spec is static in the JAX package; here it arrives as a small
-// int table passed by value (SpecTable, a __grid_constant__ kernel argument):
-// per component the RBF column, up to kMaxEq equality columns, up to kMaxAnd
-// both-one columns and an optional centred categorical (column, classes).
-// component_term() is the one device function that evaluates a component,
-// the counterpart of kernels_pallas/kernel_matrix.py:component_term.
+// int table read into SpecTable, a __grid_constant__ kernel argument (the
+// layout and the component math are component.cuh, shared with
+// kernel_matrix.cu).
 //
 // Bound on an H100: memory. The function reads the covariates, mask and
 // parameters (a few KB) and writes iB once, L*S*T^2*4 bytes: 1.02 MB at the
@@ -51,59 +49,17 @@
 #include <cuda_runtime.h>
 
 #include "chol_common.cuh"
+#include "component.cuh"
 
 namespace {
 
 constexpr int kMaxT = 128;
-constexpr int kMaxComponents = 16;  // per spec
-constexpr int kMaxEq = 4;
-constexpr int kMaxAnd = 4;
-// ints per component in the host table:
-// rbf_col, n_eq, eq[kMaxEq], n_and, and[kMaxAnd], cat_col, cat_num
-constexpr int kRow = 1 + 1 + kMaxEq + 1 + kMaxAnd + 2;
-
-struct Component {
-  int rbf_col;
-  int n_eq;
-  int eq[kMaxEq];
-  int n_and;
-  int and_cols[kMaxAnd];
-  int cat_col;
-  int cat_num;
-};
 
 struct SpecTable {
   int c0;  // spec0 components: comp[0, c0)
   int c1;  // spec1 components: comp[c0, c0 + c1)
-  Component comp[2 * kMaxComponents];
+  lvae::Component comp[2 * lvae::kMaxComponents];
 };
-
-// One additive component at covariate rows x1, x2 (float == semantics, as
-// kernels_pallas/kernel_matrix.py:component_term): mm is the mask product,
-// sc the scale, g = 1 / (2 lengthscale^2).
-__device__ __forceinline__ float component_term(const Component& comp,
-                                                const float* x1, const float* x2,
-                                                float mm, float sc, float g) {
-  float d = mm;
-  for (int e = 0; e < comp.n_eq; ++e) {
-    const int col = comp.eq[e];
-    d *= (x1[col] == x2[col]) ? 1.0f : 0.0f;
-  }
-  for (int e = 0; e < comp.n_and; ++e) {
-    const int col = comp.and_cols[e];
-    d *= ((x1[col] + x2[col]) == 2.0f) ? 1.0f : 0.0f;
-  }
-  if (comp.cat_col >= 0) {
-    const int col = comp.cat_col;
-    d *= (x1[col] == x2[col]) ? 1.0f
-                              : -1.0f / static_cast<float>(comp.cat_num - 1);
-  }
-  if (comp.rbf_col >= 0) {
-    const float diff = x1[comp.rbf_col] - x2[comp.rbf_col];
-    return sc * expf(-(diff * diff) * g) * d;
-  }
-  return sc * d;
-}
 
 __global__ void b_chain_kernel(const float* __restrict__ s0,
                                const float* __restrict__ g0,
@@ -150,8 +106,8 @@ __global__ void b_chain_kernel(const float* __restrict__ s0,
     const float mm = mr * s_mask[c];
     float acc = (r == c) ? (mr * sig2 + (1.0f - mr)) : 0.0f;
     for (int k = 0; k < spec.c1; ++k) {
-      acc += component_term(spec.comp[spec.c0 + k], s_x + r * q, s_x + c * q, mm,
-                            s1_l[k], g1_l[k]);
+      acc += lvae::component_term(spec.comp[spec.c0 + k], s_x + r * q, 1, s_x + c * q,
+                                  1, mm, s1_l[k], g1_l[k]);
     }
     s_l[r * ld + c] = acc;
   }
@@ -173,8 +129,8 @@ __global__ void b_chain_kernel(const float* __restrict__ s0,
     const float mm = s_mask[r] * s_mask[c];
     float k0 = 0.0f;
     for (int k = 0; k < spec.c0; ++k) {
-      k0 += component_term(spec.comp[k], s_x + r * q, s_x + c * q, mm, s0_l[k],
-                           g0_l[k]);
+      k0 += lvae::component_term(spec.comp[k], s_x + r * q, 1, s_x + c * q, 1, mm,
+                                 s0_l[k], g0_l[k]);
     }
     tr += v * k0;
   }
@@ -193,7 +149,7 @@ __global__ void b_chain_kernel(const float* __restrict__ s0,
 
 // Launches on `stream` and returns cudaGetLastError() (0 on success), or
 // cudaErrorInvalidValue for arguments the kernel does not take. `table` is a
-// host array of (c0 + c1) rows of kRow ints, spec0's components first.
+// host array of (c0 + c1) rows of lvae::kRow ints, spec0's components first.
 extern "C" int lvae_b_chain_f32(const void* s0, const void* g0, const void* s1,
                                 const void* g1, const void* sigma2,
                                 const void* xb, const void* mask, void* ib,
@@ -201,7 +157,7 @@ extern "C" int lvae_b_chain_f32(const void* s0, const void* g0, const void* s1,
                                 int t, int q, const int* table, int c0, int c1,
                                 void* stream) {
   if (t < 2 || t > kMaxT || n_lat < 0 || n_subj < 0 || q < 1 || c0 < 1 ||
-      c1 < 1 || c0 > kMaxComponents || c1 > kMaxComponents) {
+      c1 < 1 || c0 > lvae::kMaxComponents || c1 > lvae::kMaxComponents) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const long long blocks = static_cast<long long>(n_lat) * n_subj;
@@ -212,27 +168,8 @@ extern "C" int lvae_b_chain_f32(const void* s0, const void* g0, const void* s1,
   spec.c0 = c0;
   spec.c1 = c1;
   for (int k = 0; k < c0 + c1; ++k) {
-    const int* row = table + k * kRow;
-    Component& comp = spec.comp[k];
-    comp.rbf_col = row[0];
-    comp.n_eq = row[1];
-    for (int e = 0; e < kMaxEq; ++e) comp.eq[e] = row[2 + e];
-    comp.n_and = row[2 + kMaxEq];
-    for (int e = 0; e < kMaxAnd; ++e) comp.and_cols[e] = row[3 + kMaxEq + e];
-    comp.cat_col = row[3 + kMaxEq + kMaxAnd];
-    comp.cat_num = row[4 + kMaxEq + kMaxAnd];
-    if (comp.rbf_col >= q || comp.n_eq < 0 || comp.n_eq > kMaxEq ||
-        comp.n_and < 0 || comp.n_and > kMaxAnd || comp.cat_col >= q ||
-        (comp.cat_col >= 0 && comp.cat_num < 2)) {
+    if (!lvae::read_component(table + k * lvae::kRow, q, &spec.comp[k])) {
       return static_cast<int>(cudaErrorInvalidValue);
-    }
-    for (int e = 0; e < comp.n_eq; ++e) {
-      if (comp.eq[e] < 0 || comp.eq[e] >= q) return static_cast<int>(cudaErrorInvalidValue);
-    }
-    for (int e = 0; e < comp.n_and; ++e) {
-      if (comp.and_cols[e] < 0 || comp.and_cols[e] >= q) {
-        return static_cast<int>(cudaErrorInvalidValue);
-      }
     }
   }
 

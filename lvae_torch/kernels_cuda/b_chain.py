@@ -22,12 +22,13 @@ source's head note gives its bound and design.
 from __future__ import annotations
 
 import ctypes
-from typing import List
 
 import torch
 
 from lvae_torch.kernels_cuda import build
-from lvae_torch.kernels_cuda.kernel_matrix import block_param_grads, masked_block_stack
+from lvae_torch.kernels_cuda.kernel_matrix import (  # noqa: F401  (table limits re-exported)
+    MAX_AND, MAX_COMPONENTS, MAX_EQ, block_param_grads, fits, masked_block_stack, spec_table,
+)
 from lvae_torch.ops import kernels as kx
 from lvae_torch.ops import linalg as la
 
@@ -35,8 +36,6 @@ SOURCE = "lvae_torch/csrc/b_chain.cu"
 REPLACES = "lvae_tpu/kernels_pallas/b_chain.py:227"  # _b_chain_pallas
 
 MIN_T, MAX_T = 2, 128
-# the component table of b_chain.cu (kMaxComponents, kMaxEq, kMaxAnd)
-MAX_COMPONENTS, MAX_EQ, MAX_AND = 16, 4, 4
 
 _fn = None
 
@@ -53,30 +52,6 @@ def _kernel():
     return _fn
 
 
-def _fits(spec: kx.KernelSpec) -> bool:
-    return 0 < len(spec.components) <= MAX_COMPONENTS and all(
-        len(c.eq_cols) <= MAX_EQ and len(c.and_cols) <= MAX_AND for c in spec.components
-    )
-
-
-def spec_table(spec0: kx.KernelSpec, spec1: kx.KernelSpec) -> List[int]:
-    """The kernel's component table: one row of ints per component, spec0's
-    first (``rbf_col, n_eq, eq…, n_and, and…, cat_col, cat_num``, unused
-    slots 0). Raises ``ValueError`` on a spec the table cannot hold."""
-    if not (_fits(spec0) and _fits(spec1)):
-        raise ValueError(
-            f"b_chain kernel takes 1..{MAX_COMPONENTS} components per spec with at "
-            f"most {MAX_EQ} equality and {MAX_AND} both-one columns each"
-        )
-    rows: List[int] = []
-    for comp in spec0.components + spec1.components:
-        eq = list(comp.eq_cols) + [0] * (MAX_EQ - len(comp.eq_cols))
-        both = list(comp.and_cols) + [0] * (MAX_AND - len(comp.and_cols))
-        rows += [comp.rbf_col, len(comp.eq_cols), *eq, len(comp.and_cols), *both,
-                 comp.cat_mod[0], comp.cat_mod[1]]
-    return rows
-
-
 def usable(spec0: kx.KernelSpec, spec1: kx.KernelSpec, kp0: kx.KernelParams,
            xb: torch.Tensor) -> bool:
     """Shape and dtype gate of the kernel (``b_chain.py:usable``): f32,
@@ -85,8 +60,8 @@ def usable(spec0: kx.KernelSpec, spec1: kx.KernelSpec, kp0: kx.KernelParams,
     return (
         xb.dtype == torch.float32
         and kp0.raw_scale.ndim == 2
-        and _fits(spec0)
-        and _fits(spec1)
+        and fits(spec0)
+        and fits(spec1)
         and MIN_T <= xb.shape[1] <= MAX_T
     )
 

@@ -21,7 +21,7 @@ from typing import Dict, Iterable, List, NamedTuple, Optional
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "lvae_torch"
-SOURCES = ("chol_inv", "b_chain")
+SOURCES = ("chol_inv", "b_chain", "kernel_matrix", "adam")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

@@ -1,5 +1,5 @@
-"""Sparse-GP KL bound of Hensman training and its natural gradients (port of
-the main-path half of lvae_tpu.ops.elbo).
+"""GP KL bounds of the longitudinal VAE and the natural gradients (port of
+lvae_tpu.ops.elbo).
 
 Functions operate on padded subject blocks: covariates ``xb [P, T, Q]``,
 latents ``[P, T, L]`` and a validity mask ``[P, T]`` (1 = real sample). The
@@ -11,12 +11,16 @@ mask folds the padding out of every term exactly:
   ``log 1 = 0`` to every log-determinant;
 * ``K0xz`` and the variational moments are masked to 0 on padded rows.
 
-Every function runs its GP algebra at full f32 precision (TF32 off). Not
-ported yet: ``kl_closed``, ``gp_elbo`` and ``dubo``.
+The bounds: :func:`kl_closed`, the exact N×N KL of the standard regime's
+``closed`` mode; :func:`gp_elbo`, the sample-based inducing-point bound
+(``GPapprox``); :func:`dubo`, the deviance upper bound (``GPapprox_closed``);
+:func:`minibatch_kld`, the Hensman SVI bound. Every function runs its GP
+algebra at full f32 precision (TF32 off).
 """
 
 from __future__ import annotations
 
+import math
 from typing import NamedTuple, Optional, Tuple
 
 import torch
@@ -130,6 +134,104 @@ def gp_block_operators(
         extra_chol=extra_chol,
         extra_inv=extra_inv,
     )
+
+
+@_full_precision
+def kl_closed(K: torch.Tensor, mu: torch.Tensor, log_var: torch.Tensor) -> torch.Tensor:
+    """Exact N×N KL(q‖p) per leading batch entry (the JAX package vmaps it
+    over latents): ``K [..., N, N]`` is the dense prior covariance with the
+    observation noise, ``mu``/``log_var [..., N]`` the diagonal variational
+    moments. The N×N Cholesky and solves are ``torch.linalg``'s."""
+    n = K.shape[-1]
+    lk = la.cholesky(K)
+    ik = la.chol_inverse(lk)
+    v = torch.exp(log_var)
+    # eye-masked tr(K⁻¹ diag(v)), as the JAX package takes it
+    eye_n = torch.eye(n, dtype=v.dtype, device=v.device)
+    tr = torch.sum(ik * eye_n * v[..., None, :], dim=(-2, -1))
+    qf = torch.sum(mu * (ik @ mu[..., None])[..., 0], dim=-1)
+    logdet_k = la.logdet_from_chol(lk, batch_dims=lk.ndim - 2)
+    return 0.5 * (tr + qf - n + logdet_k - torch.sum(log_var, dim=-1))
+
+
+def _w_cholesky(ops: GPBlockOperators):
+    """Cholesky of ``W = K0zz + K0zx B⁻¹ K0xz`` (with the f32 relative
+    jitter) and ``log|Σ| = log|W| + log|B| − log|K0zz|``: shared by
+    :func:`gp_elbo` and :func:`dubo`."""
+    w = kx.add_rel_jitter(la.symmetrize(ops.K0zz + ops.K0zx_iB_K0xz))
+    lw = la.cholesky(w)
+    logdet_sigma = -ops.logdet_K0zz + ops.logdet_B + la.logdet_from_chol(lw, batch_dims=1)
+    return lw, logdet_sigma
+
+
+def _sigma_quadform(ops: GPBlockOperators, lw: torch.Tensor, y: torch.Tensor):
+    """``yᵀ Σ⁻¹ y`` per latent dim via Woodbury: ``yᵀB⁻¹y − ‖Lw⁻¹ K0zx B⁻¹ y‖²``."""
+    ib_y = torch.einsum("lptu,lpu->lpt", ops.iB, y)
+    qf1 = torch.einsum("lpt,lpt->l", y, ib_y)
+    pvec = torch.einsum("lptm,lpt->lm", ops.K0xz, ib_y)
+    half = la.solve_triangular(lw, pvec[..., None])
+    return qf1 - torch.sum(half[..., 0] ** 2, dim=-1)
+
+
+def _nystrom_trace(ops: GPBlockOperators):
+    """``tr(B⁻¹(K0_blockdiag − Q0))``, the inducing-point slack term; the
+    first trace comes from kernel K1 where it ran."""
+    if ops.tr_iB_K0 is not None:
+        t1 = ops.tr_iB_K0
+    else:
+        t1 = torch.einsum("lptu,lptu->l", ops.iB, ops.K0_st)
+    return t1 - torch.einsum("lmn,lmn->l", ops.K0zx_iB_K0xz, ops.iK0zz)
+
+
+@_full_precision
+def gp_elbo(ops: GPBlockOperators, yb: torch.Tensor) -> torch.Tensor:
+    """Sample-based inducing-point marginal-likelihood bound per latent dim,
+    ``[L]``, for a latent sample ``yb [P, T, L]``: with
+    ``Σ = B + K0xz K0zz⁻¹ K0zx``,
+    ``−½(N log 2π + log|Σ| + yᵀΣ⁻¹y) − ½ tr(B⁻¹(K0_blockdiag − Q0))``."""
+    mask = ops.mask
+    y = (yb * mask[..., None]).permute(2, 0, 1)  # [L, P, T]
+    lw, logdet = _w_cholesky(ops)
+    qf = _sigma_quadform(ops, lw, y)
+    tr = _nystrom_trace(ops)
+    n_real = torch.sum(mask)
+    const = -0.5 * n_real * math.log(2.0 * math.pi)
+    return const - 0.5 * (logdet + qf) - 0.5 * tr
+
+
+@_full_precision
+def dubo(ops: GPBlockOperators, mu_b: torch.Tensor, log_var_b: torch.Tensor) -> torch.Tensor:
+    """Deviance upper bound on the KL per latent dim, ``[L]``: the sparse
+    bound on the variational mean and variance ``[P, T, L]`` instead of a
+    latent sample."""
+    mask = ops.mask
+    dtype = mu_b.dtype
+    m = (mu_b * mask[..., None]).permute(2, 0, 1)  # [L, P, T]
+    v = (torch.exp(log_var_b) * mask[..., None]).permute(2, 0, 1)
+    log_v_masked = (log_var_b * mask[..., None]).permute(2, 0, 1)
+
+    lw, logdet_sigma = _w_cholesky(ops)
+    qf = _sigma_quadform(ops, lw, m)
+    tr = _nystrom_trace(ops)
+
+    logdet_d = torch.sum(log_v_masked, dim=(1, 2))
+    eye_t = torch.eye(ops.iB.shape[-1], dtype=v.dtype, device=v.device)
+    tr_ib_d = torch.sum(ops.iB * (eye_t * v[..., :, None]), dim=(1, 2, 3))
+
+    # sqrt has an infinite derivative at the padded slots' v == 0: the
+    # double where keeps the value (sqrt(1)·0 == sqrt(0)) and zeroes the
+    # cotangent there, so d/d log_var stays finite at padded slots
+    real = mask[None, :, :] > 0
+    v_safe = torch.where(real, v, torch.ones_like(v))
+    sqrt_v = torch.sqrt(v_safe) * mask[None, :, :]
+    d05_ib_k0xz = ops.iB_K0xz * sqrt_v[..., None]  # [L, P, T, M]
+    g = torch.einsum("lptm,lptn->lmn", d05_ib_k0xz, d05_ib_k0xz)
+    eye_m = torch.eye(g.shape[-1], dtype=g.dtype, device=g.device)
+    tr_iw_g = torch.sum(la.cho_solve(lw, g) * eye_m, dim=(-2, -1))
+    tr_isigma_d = tr_ib_d - tr_iw_g
+
+    n_real = torch.sum(mask).to(dtype)
+    return 0.5 * (tr_isigma_d + qf - n_real + logdet_sigma - logdet_d + tr)
 
 
 class NaturalGradients(NamedTuple):

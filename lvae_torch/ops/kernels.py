@@ -144,6 +144,36 @@ def _component_base(
     return disc, sqdist
 
 
+def additive_stack(
+    spec: KernelSpec,
+    scale: torch.Tensor,
+    inv2l2: torch.Tensor,
+    x1: torch.Tensor,
+    x2: torch.Tensor,
+) -> torch.Tensor:
+    """The plain evaluation from CONSTRAINED ``scale`` and ``1/(2ℓ²)``
+    ``[*P, C]``: ``K[*P, *X, N1, N2]``, summing each component's
+    ``scale · exp(−sqdist/(2ℓ²)) · discrete factors`` in component order."""
+    batch_shape = scale.shape[:-1]
+    x_batch = x1.shape[:-2]
+    n1, n2 = x1.shape[-2], x2.shape[-2]
+    dtype = x1.dtype
+    out = torch.zeros(batch_shape + x_batch + (n1, n2), dtype=dtype, device=x1.device)
+    expand = (Ellipsis,) + (None,) * (len(x_batch) + 2)
+    for c, comp in enumerate(spec.components):
+        disc, sqdist = _component_base(comp, x1, x2)
+        term = scale[..., c][expand]
+        if sqdist is not None:
+            term = term * torch.exp(-sqdist * inv2l2[..., c][expand])
+        if disc is not None:
+            term = term * disc
+        elif sqdist is None:
+            # a component with no factors is the constant 1
+            term = term * torch.ones(x_batch + (n1, n2), dtype=dtype, device=x1.device)
+        out = out + term
+    return out
+
+
 def kernel_matrix(
     spec: KernelSpec,
     params: KernelParams,
@@ -160,29 +190,20 @@ def kernel_matrix(
     ``vmap``. ``mask1 [*X, N1]``/``mask2 [*X, N2]`` are optional 0/1
     validity vectors: rows/columns of padded points are zeroed.
 
-    An empty spec evaluates to zeros.
+    An empty spec evaluates to zeros. A large square evaluation on the card
+    (f32, ``[L]`` parameters, no x batch dims, N1 and N2 at least 512: the
+    JAX package's gate) runs kernel K3 (``kernels_cuda/kernel_matrix.py``);
+    every other call takes the plain evaluation.
     """
-    batch_shape = params.raw_scale.shape[:-1]
-    x_batch = x1.shape[:-2]
-    n1, n2 = x1.shape[-2], x2.shape[-2]
+    if spec.num_components > 0 and x1.is_cuda:
+        from lvae_torch.kernels_cuda import kernel_matrix as kmk
+
+        if kmk.usable(spec, params, x1, x2):
+            return kmk.kernel_matrix_kernel(spec, params, x1, x2, mask1, mask2)
     dtype = x1.dtype
     scale = constrain(params.raw_scale.to(dtype))  # [*P, C]
     ls = constrain(params.raw_lengthscale.to(dtype))  # [*P, C]
-    inv2l2 = 0.5 / (ls * ls)
-
-    out = torch.zeros(batch_shape + x_batch + (n1, n2), dtype=dtype, device=x1.device)
-    expand = (Ellipsis,) + (None,) * (len(x_batch) + 2)
-    for c, comp in enumerate(spec.components):
-        disc, sqdist = _component_base(comp, x1, x2)
-        term = scale[..., c][expand]
-        if sqdist is not None:
-            term = term * torch.exp(-sqdist * inv2l2[..., c][expand])
-        if disc is not None:
-            term = term * disc
-        elif sqdist is None:
-            # a component with no factors is the constant 1
-            term = term * torch.ones(x_batch + (n1, n2), dtype=dtype, device=x1.device)
-        out = out + term
+    out = additive_stack(spec, scale, 0.5 / (ls * ls), x1, x2)
     if mask1 is not None:
         out = out * mask1.to(dtype)[..., :, None]
     if mask2 is not None:

@@ -1,0 +1,402 @@
+"""Standard (full-batch) training and the GPPVAE pseudo-minibatch regime
+(port of lvae_tpu.train.standard).
+
+One step is one epoch over the whole cohort: the VAE and its masked
+reconstruction loss, one of three KL computations per latent dim, and one
+optimizer step.
+
+* ``closed`` — the exact N×N KL against the full additive prior
+  (:func:`~lvae_torch.ops.elbo.kl_closed`); the split kernels are joined and
+  ``K [L, N, N]`` is built by ``ops/kernels.kernel_matrix``, which is kernel
+  K3 on the card for N ≥ 512.
+* ``GPapprox`` — the inducing-point bound on latent samples (``gp_elbo``).
+* ``GPapprox_closed`` — the deviance upper bound on the moments (``dubo``).
+
+With ``pseudo_minibatch`` an epoch is instead the five-phase GPPVAE
+gradient (:func:`gppvae_grads`): a no-grad encode of the cohort, the GP loss
+on the cached encodings, its gradients w.r.t. them and the kernel
+parameters, a per-subject encoder replay that splices those cotangents in,
+and the optimizer step. With a deterministic encoder it equals the
+full-batch gradient.
+
+The reparameterisation noise and the GP bound's latent samples are drawn
+from a CPU ``torch.Generator`` seeded from ``seed`` and moved to the device,
+so a run on the card and one on the CPU consume the same numbers; both
+loss functions also take them as tensors.
+"""
+
+from __future__ import annotations
+
+from typing import List, NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from lvae_torch.models import vae as mv
+from lvae_torch.ops import elbo as eb
+from lvae_torch.ops import kernels as kx
+from lvae_torch.train import state as st
+from lvae_torch.utils.device import resolve_device
+
+SPARSE_KL = ("GPapprox", "GPapprox_closed")
+
+
+class StandardConfig(NamedTuple):
+    spec0: kx.KernelSpec
+    spec1: Optional[kx.KernelSpec]
+    latent_dim: int
+    P_tot: int
+    T: int
+    weight: float
+    loss_function: str  # 'mse' | 'nll'
+    type_KL: str  # 'closed' | 'GPapprox' | 'GPapprox_closed'
+    num_samples: int
+    constrain_scales: bool
+    eps: float
+    dropout: bool
+    vy_fixed: bool = False
+
+
+class StandardState(NamedTuple):
+    trainables: st.Trainables  # m and h_factor unused (None)
+    opt_state: torch.optim.Optimizer
+    rng: torch.Generator  # on the CPU: the card and the CPU draw alike
+    step: int
+
+
+class StandardMetrics(NamedTuple):
+    net: torch.Tensor
+    recon: torch.Tensor
+    nll: torch.Tensor
+    gp: torch.Tensor
+
+
+def _draw(shape, generator: Optional[torch.Generator], like: torch.Tensor) -> torch.Tensor:
+    if generator is None:
+        raise ValueError("the noise must be given or drawn from a generator")
+    return torch.randn(shape, generator=generator, dtype=like.dtype).to(like.device)
+
+
+def _noises(cfg: StandardConfig, block_mask: torch.Tensor, like: torch.Tensor, eps,
+            gp_eps, generator):
+    """(encoder noise ``[P·T, L]``, GP samples ``[num_samples, P, T, L]`` or
+    None): the given tensors, else drawn in that order."""
+    p, t = block_mask.shape
+    if eps is None:
+        eps = _draw((p * t, cfg.latent_dim), generator, like)
+    if cfg.type_KL == "GPapprox" and gp_eps is None:
+        gp_eps = _draw((cfg.num_samples, p, t, cfg.latent_dim), generator, like)
+    return eps.to(like.device, like.dtype), gp_eps
+
+
+def _sparse_gp_loss(cfg: StandardConfig, gp: st.GPParams, noise: torch.Tensor,
+                    tdata: st.TrainData, block_mask: torch.Tensor, mu: torch.Tensor,
+                    log_var: torch.Tensor, gp_eps: Optional[torch.Tensor]) -> torch.Tensor:
+    """The GPapprox (mean over samples of −Σ gp_elbo) or GPapprox_closed
+    (Σ dubo) loss of the cohort's moments ``[N, L]``."""
+    p, t = block_mask.shape
+    latent = cfg.latent_dim
+    xb = tdata.labels.reshape(p, t, -1)
+    mu_b = mu.reshape(p, t, latent)
+    lv_b = log_var.reshape(p, t, latent)
+    ops = eb.gp_block_operators(cfg.spec0, cfg.spec1, gp.kp0, gp.kp1, noise, xb, tdata.z,
+                                mask=block_mask, eps=cfg.eps)
+    if cfg.type_KL == "GPapprox_closed":
+        return torch.sum(eb.dubo(ops, mu_b, lv_b))
+    std = torch.exp(0.5 * lv_b)
+    samples = [-torch.sum(eb.gp_elbo(ops, mu_b + e * std))
+               for e in gp_eps.to(mu.device, mu.dtype)]
+    return torch.stack(samples).mean()
+
+
+def _recon_losses(model, cfg: StandardConfig, x, pixmask, mu, log_var, eps):
+    """Per-frame (mse, nll) of the reconstruction of a sample ``mu + eps·σ``."""
+    recon = model.decode(mu + eps * torch.exp(0.5 * log_var))
+    raw_log_vy = model.raw_log_vy.detach() if cfg.vy_fixed else model.raw_log_vy
+    return mv.vae_loss(raw_log_vy, recon, x, pixmask)
+
+
+def _report(cfg: StandardConfig, recon, nll, gp_loss):
+    """(net, reported GP term): MSE weighs the GP loss per latent dim."""
+    if cfg.loss_function == "mse":
+        gp_rep = gp_loss / cfg.latent_dim
+        return recon + cfg.weight * gp_rep, gp_rep
+    return nll + gp_loss, gp_loss
+
+
+def full_batch_loss(
+    model,
+    cfg: StandardConfig,
+    trainables: st.Trainables,
+    tdata: st.TrainData,
+    block_mask: torch.Tensor,  # [P, T]
+    eps: Optional[torch.Tensor] = None,
+    gp_eps: Optional[torch.Tensor] = None,
+    generator: Optional[torch.Generator] = None,
+):
+    """One full-batch loss, differentiable in the trainables; returns
+    ``(net, StandardMetrics)``. ``eps [N, L]`` is the encoder's
+    reparameterisation noise and ``gp_eps [num_samples, P, T, L]`` the
+    GPapprox samples' noise; each is drawn from ``generator`` (a CPU
+    generator) when not given."""
+    model.train(cfg.dropout)
+    mu, log_var = model.encode(tdata.data)
+    eps, gp_eps = _noises(cfg, block_mask, mu, eps, gp_eps, generator)
+    mse_i, nll_i = _recon_losses(model, cfg, tdata.data, tdata.pixmask, mu, log_var, eps)
+    # row validity keeps alignment padding out of the sums: the NLL adds its
+    # Gaussian constant for every pixel whatever the pixel mask
+    row_valid = block_mask.reshape(-1).to(mse_i.dtype)
+    recon_loss = torch.sum(mse_i * row_valid)
+    nll_loss = torch.sum(nll_i * row_valid)
+
+    gp = trainables.gp
+    noise = torch.ones_like(gp.raw_noise) if cfg.constrain_scales else kx.constrain(gp.raw_noise)
+    if cfg.type_KL == "closed":
+        # the full additive prior, joined from the split kernels; ghost rows
+        # (block_mask 0) get an identity row and column and zero moments, so
+        # each adds exactly 0 to the KL
+        spec_full, kp_full = kx.join_specs(cfg.spec0, cfg.spec1, gp.kp0, gp.kp1)
+        valid = block_mask.reshape(-1).to(mu.dtype)
+        k_full = kx.kernel_matrix(spec_full, kp_full, tdata.labels, tdata.labels)
+        k_full = k_full * (valid[:, None] * valid[None, :])
+        diag_add = valid * noise[:, None] + (1.0 - valid)  # [L, N]
+        k_prior = k_full + torch.diag_embed(diag_add)
+        gp_loss = torch.sum(eb.kl_closed(k_prior, mu.t() * valid, log_var.t() * valid))
+    elif cfg.type_KL in SPARSE_KL:
+        gp_loss = _sparse_gp_loss(cfg, gp, noise, tdata, block_mask, mu, log_var, gp_eps)
+    else:
+        raise ValueError(f"Unsupported type_KL {cfg.type_KL!r}")
+
+    net, gp_rep = _report(cfg, recon_loss, nll_loss, gp_loss)
+    return net, StandardMetrics(net=net.detach(), recon=recon_loss.detach(),
+                                nll=nll_loss.detach(), gp=gp_rep.detach())
+
+
+def gppvae_grads(
+    model,
+    cfg: StandardConfig,
+    trainables: st.Trainables,
+    tdata: st.TrainData,
+    block_mask: torch.Tensor,
+    eps: Optional[torch.Tensor] = None,
+    gp_eps: Optional[torch.Tensor] = None,
+    generator: Optional[torch.Generator] = None,
+) -> StandardMetrics:
+    """The five-phase GPPVAE pseudo-minibatch gradient, added into the
+    trainables' ``.grad`` as ``backward`` would; returns the metrics.
+
+    1. encode the cohort without gradients;
+    2. the GP loss on detached ``full_mu``/``full_lv`` leaves (the likelihood
+       noise detached: it gets no gradient in this regime);
+    3. its gradients w.r.t. those leaves and the kernel parameters;
+    4. per subject (a batch of T frames), replay the encoder and take
+       ``backward([primal, mu, log_var], [1, mu_ct, lv_ct])``, which adds the
+       reconstruction gradient and the spliced GP cotangents;
+    5. the optimizer step, which is the caller's.
+
+    ``eps [N, L]`` (the replay's reparameterisation noise) and ``gp_eps``
+    are drawn from ``generator`` when not given, in that order."""
+    if cfg.type_KL not in SPARSE_KL:
+        raise ValueError(f"mini_batch supports GPapprox(_closed), got {cfg.type_KL!r}")
+    p, t = block_mask.shape
+    latent = cfg.latent_dim
+    model.train(cfg.dropout)
+
+    # phase 1
+    with torch.no_grad():
+        full_mu, full_lv = model.encode(tdata.data)
+    eps, gp_eps = _noises(cfg, block_mask, full_mu, eps, gp_eps, generator)
+
+    # phases 2 and 3
+    gp = trainables.gp
+    noise = (torch.ones_like(gp.raw_noise) if cfg.constrain_scales
+             else kx.constrain(gp.raw_noise.detach()))
+    mu_leaf = full_mu.detach().requires_grad_(True)
+    lv_leaf = full_lv.detach().requires_grad_(True)
+    gp_raw = _sparse_gp_loss(cfg, gp, noise, tdata, block_mask, mu_leaf, lv_leaf, gp_eps)
+    # MSE weighs the loss before differentiation, so the cotangents carry
+    # weight / latent_dim
+    scaled = cfg.weight * gp_raw / latent if cfg.loss_function == "mse" else gp_raw
+    kp_leaves = [*gp.kp0, *gp.kp1]
+    mu_ct, lv_ct, *kp_grads = torch.autograd.grad(
+        scaled, [mu_leaf, lv_leaf, *kp_leaves], allow_unused=True)
+    for leaf, grad in zip(kp_leaves, kp_grads):
+        if grad is not None:
+            leaf.grad = grad if leaf.grad is None else leaf.grad + grad
+
+    # phase 4
+    shape = (p, t)
+    data_b = tdata.data.reshape(shape + tdata.data.shape[1:])
+    pix_b = tdata.pixmask.reshape(shape + tdata.pixmask.shape[1:])
+    eps_b = eps.reshape(p, t, latent)
+    mu_ct_b = mu_ct.reshape(p, t, latent)
+    lv_ct_b = lv_ct.reshape(p, t, latent)
+    recon_sum = torch.zeros((), dtype=full_mu.dtype, device=full_mu.device)
+    nll_sum = torch.zeros_like(recon_sum)
+    for i in range(p):
+        mu_i, lv_i = model.encode(data_b[i])
+        mse_i, nll_i = _recon_losses(model, cfg, data_b[i], pix_b[i], mu_i, lv_i, eps_b[i])
+        recon_l, nll_l = torch.sum(mse_i), torch.sum(nll_i)
+        primal = recon_l if cfg.loss_function == "mse" else nll_l
+        torch.autograd.backward([primal, mu_i, lv_i],
+                                [torch.ones_like(primal), mu_ct_b[i], lv_ct_b[i]])
+        recon_sum = recon_sum + recon_l.detach()
+        nll_sum = nll_sum + nll_l.detach()
+
+    net, gp_rep = _report(cfg, recon_sum, nll_sum, gp_raw.detach())
+    return StandardMetrics(net=net, recon=recon_sum, nll=nll_sum, gp=gp_rep)
+
+
+def _zero_missing_grads(trainables: st.Trainables) -> None:
+    # a trainable the loss does not reach (raw_noise under constrain_scales
+    # or in the GPPVAE regime) gets a zero gradient, as in optax: its Adam
+    # moments and step count advance with the others
+    for p in trainables.parameters():
+        if p.grad is None:
+            p.grad = torch.zeros_like(p)
+
+
+def make_standard_step(model, cfg: StandardConfig):
+    """One full-batch epoch: ``step_fn(state, tdata, block_mask, eps=None,
+    gp_eps=None) -> (state, metrics)``. Under ``constrain_scales`` the
+    likelihood noise is pinned back to 1 after the optimizer step."""
+
+    def step_fn(state: StandardState, tdata, block_mask, eps=None, gp_eps=None):
+        opt = state.opt_state
+        opt.zero_grad(set_to_none=True)
+        net, metrics = full_batch_loss(model, cfg, state.trainables, tdata, block_mask,
+                                       eps=eps, gp_eps=gp_eps, generator=state.rng)
+        net.backward()
+        _zero_missing_grads(state.trainables)
+        opt.step()
+        if cfg.constrain_scales:
+            with torch.no_grad():
+                state.trainables.gp.raw_noise.fill_(float(kx.unconstrain(1.0)))
+        return state._replace(step=state.step + 1), metrics
+
+    return step_fn
+
+
+def make_gppvae_step(model, cfg: StandardConfig):
+    """One pseudo-minibatch epoch: the five phases and one optimizer step.
+    The likelihood noise gets no gradient and is not re-pinned, so it stays
+    at its initial value."""
+
+    def step_fn(state: StandardState, tdata, block_mask, eps=None, gp_eps=None):
+        opt = state.opt_state
+        opt.zero_grad(set_to_none=True)
+        metrics = gppvae_grads(model, cfg, state.trainables, tdata, block_mask,
+                               eps=eps, gp_eps=gp_eps, generator=state.rng)
+        _zero_missing_grads(state.trainables)
+        opt.step()
+        return state._replace(step=state.step + 1), metrics
+
+    return step_fn
+
+
+class StandardTrainer:
+    """Epochs of full-batch (or, with ``pseudo_minibatch``, five-phase
+    GPPVAE) training on one device.
+
+    ``model`` is a port VAE carrying its initial weights; ``dataset`` any
+    object with numpy ``data [N, ...]``, ``labels [N, Q]`` and
+    ``mask [N, D]``; ``blocks`` its ``data/blocks.SubjectBlocks``, which must
+    be fixed-T; ``z [M, Q]`` the inducing points (unused by ``closed``). The
+    GP hyperparameters are initialised as the JAX package does and the
+    generator seeded from ``seed``; the optimizer is ``make_optimizer``'s
+    default (``$LVAE_OPT``, else Adam). ``device`` is ``"cuda"`` unless the
+    caller asks for the CPU.
+    """
+
+    def __init__(
+        self,
+        model,
+        cfg: StandardConfig,
+        dataset,
+        blocks,
+        z: Optional[np.ndarray],
+        learning_rate: float = 1e-3,
+        seed: int = 0,
+        dtype=torch.float32,
+        pseudo_minibatch: bool = False,
+        device="cuda",
+    ):
+        self.device = resolve_device(device)
+        if cfg.spec1 is None:
+            cfg = cfg._replace(spec1=kx.KernelSpec(components=()))
+        if pseudo_minibatch and cfg.type_KL not in SPARSE_KL:
+            raise ValueError(f"mini_batch supports GPapprox(_closed), got {cfg.type_KL!r}")
+        if not blocks.mask.all():
+            raise ValueError("standard regimes require fixed-T cohorts (varying_T needs "
+                             "hensman)")
+        self.cfg = cfg
+        self.pseudo_minibatch = pseudo_minibatch
+        self.model = model.to(device=self.device, dtype=dtype)
+        self.dtype = dtype
+        self.order = blocks.index.reshape(-1)  # subject-major
+
+        def dev(a):
+            return torch.as_tensor(np.asarray(a), dtype=dtype, device=self.device)
+
+        self.block_mask = dev(blocks.mask)
+        labels = np.asarray(dataset.labels)
+        self.tdata = st.TrainData(
+            data=dev(np.asarray(dataset.data)[self.order]),
+            labels=dev(labels[self.order]),
+            pixmask=dev(np.asarray(dataset.mask)[self.order]),
+            z=dev(z if z is not None else np.zeros((1, labels.shape[1]))),
+        )
+        gp = st.init_gp_params(cfg.spec0, cfg.spec1, cfg.latent_dim,
+                               constrain_scales=cfg.constrain_scales, dtype=dtype,
+                               device=self.device)
+        trainables = st.Trainables(vae=self.model, gp=gp, m=None, h_factor=None)
+        for p in trainables.parameters():
+            p.requires_grad_(True)
+        self.state = StandardState(
+            trainables=trainables,
+            opt_state=st.make_optimizer(trainables.parameters(), learning_rate),
+            rng=torch.Generator().manual_seed(seed),
+            step=0,
+        )
+        make = make_gppvae_step if pseudo_minibatch else make_standard_step
+        self.step_fn = make(self.model, cfg)
+        self.history: list = []
+
+    def run_epoch(self, eps: Optional[torch.Tensor] = None,
+                  gp_eps: Optional[torch.Tensor] = None) -> StandardMetrics:
+        """One epoch (one step); returns its metrics as host floats. ``eps``
+        and ``gp_eps`` replace the drawn noise."""
+        self.state, metrics = self.step_fn(self.state, self.tdata, self.block_mask,
+                                           eps=eps, gp_eps=gp_eps)
+        m = StandardMetrics(*torch.stack(list(metrics)).tolist())
+        self.history.append(m)
+        return m
+
+    def run_epochs(self, n: int) -> List[StandardMetrics]:
+        return [self.run_epoch() for _ in range(n)]
+
+    def _log_chunk(self, ms, done: int, epochs: int, log_every: int):
+        for i, m in enumerate(ms):
+            epoch = done + i + 1
+            if log_every and epoch % log_every == 0:
+                print(
+                    "Iter %d/%d - Loss: %.3f  - GP loss: %.3f  - NLL Loss: %.3f"
+                    "  - Recon Loss: %.3f"
+                    % (epoch, epochs, m.net, m.gp, m.nll, m.recon),
+                    flush=True,
+                )
+
+    def fit(self, epochs: int, log_every: int = 1, callback=None, chunk: int = 25):
+        """Train ``epochs`` epochs, calling ``callback(trainer, done, last
+        metrics)`` after every ``chunk`` epochs. A callback that returns
+        ``"rollback"`` has restored an earlier state: the chunk's epochs are
+        then run again, so the run trains as many epochs as it reports."""
+        done = 0
+        while done < epochs:
+            n = min(max(chunk, 1), epochs - done)
+            ms = self.run_epochs(n)
+            self._log_chunk(ms, done, epochs, log_every)
+            done += n
+            if callback is not None and callback(self, done, ms[-1]) == "rollback":
+                done -= n
+        return self.history

@@ -4,18 +4,20 @@ All state of a Hensman run is one explicit :class:`HensmanState`: the
 trainables (the VAE module, the GP hyperparameters, and (m, H's factor) or
 learnable inducing points where the regime trains them), the natural-gradient
 variational parameters, the Adam optimizer, the CPU random generator and the
-step count. The optimizer is Adam over exactly the trainables the regime
-allows.
+step count (the standard regime's state is ``train/standard.StandardState``).
+The optimizer is Adam over exactly the trainables the regime allows.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Iterator, List, NamedTuple, Optional
 
 import numpy as np
 import torch
 from torch import nn
 
+from lvae_torch.kernels_cuda.adam import FusedAdam
 from lvae_torch.ops import kernels as kx
 from lvae_torch.ops.linalg import full_precision
 
@@ -131,18 +133,21 @@ def psd_from_factor(h_factor: torch.Tensor) -> torch.Tensor:
 
 
 def make_optimizer(params, learning_rate: float = 1e-3,
-                   kind: str = "adam") -> torch.optim.Optimizer:
-    """Adam over ``params``: ``torch.optim.Adam`` with optax.adam's defaults
-    (β = (0.9, 0.999), eps 1e-8 outside the square root, bias correction),
-    the same update. ``kind="fused"`` stands for the one-pass fused Adam
-    kernel, which is not ported yet."""
+                   kind: Optional[str] = None) -> torch.optim.Optimizer:
+    """Adam over ``params`` (in the order given). ``kind`` selects the
+    implementation, by default ``$LVAE_OPT`` or ``"adam"``, as in the JAX
+    package: ``"adam"`` is ``torch.optim.Adam`` with optax.adam's defaults
+    (β = (0.9, 0.999), eps 1e-8 outside the square root, bias correction);
+    ``"flatten"`` is the same Adam, since flattening only changed the TPU's
+    layout; ``"fused"`` is :class:`~lvae_torch.kernels_cuda.adam.FusedAdam`,
+    one launch of kernel K5 a step on the card."""
+    kind = kind or os.environ.get("LVAE_OPT", "adam")
+    params = list(params)
+    if kind in ("adam", "flatten"):
+        return torch.optim.Adam(params, lr=learning_rate, betas=(0.9, 0.999), eps=1e-8)
     if kind == "fused":
-        raise NotImplementedError(
-            "the fused Adam kernel is not ported to lvae_torch yet; use kind='adam'"
-        )
-    if kind != "adam":
-        raise ValueError(f"unknown optimizer kind {kind!r}")
-    return torch.optim.Adam(list(params), lr=learning_rate, betas=(0.9, 0.999), eps=1e-8)
+        return FusedAdam(params, lr=learning_rate)
+    raise ValueError(f"unknown optimizer kind {kind!r}")
 
 
 def tree_finite(tensors) -> torch.Tensor:

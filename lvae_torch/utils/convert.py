@@ -14,20 +14,22 @@ map, whose order is H-W-C in flax (NHWC) and C-H-W in PyTorch (NCHW): their
 input and output axes are permuted accordingly. Nothing here imports JAX:
 the caller passes the flax params tree with numpy-convertible leaves.
 
-:func:`hensman_state_from_jax` carries a whole Hensman training state over,
-optax's Adam moments included, so that both packages can start from one
-state.
+:func:`hensman_state_from_jax` and :func:`standard_state_from_jax` carry a
+whole training state over, the optimizer's moments included (optax's Adam
+or the fused flat Adam), so that both packages can start from one state.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from collections.abc import Mapping
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
 
 from lvae_torch.ops.kernels import KernelParams
 from lvae_torch.train import state as st
+from lvae_torch.train.standard import StandardState
 from lvae_torch.train.state import GPParams
 
 _LINEARS = ("fc1", "fc21", "fc211", "fc221", "fc3", "fc31", "fc4")
@@ -78,8 +80,9 @@ def gp_params_from_jax(gp, dtype=torch.float32) -> GPParams:
 
 
 def _adam_state(opt_state):
-    """optax's ``ScaleByAdamState`` (``count``, ``mu``, ``nu``) inside an
-    optax state tuple, or None."""
+    """optax's ``ScaleByAdamState`` or the JAX package's ``FusedAdamState``
+    (each has ``count``, ``mu``, ``nu``) inside an optax state tuple, or
+    None."""
     if all(hasattr(opt_state, k) for k in ("count", "mu", "nu")):
         return opt_state
     if isinstance(opt_state, (tuple, list)):
@@ -118,6 +121,82 @@ def _trainables_from_jax(tr, model, dtype, device) -> st.Trainables:
                          z=t(getattr(tr, "z", None)))
 
 
+def _in_port_order(tree, model, dtype, device) -> List[torch.Tensor]:
+    """The tensors of a Trainables-shaped JAX tree in the order of
+    ``Trainables.parameters()``."""
+    mt = _trainables_from_jax(tree, None, dtype, device)
+    return [mt.vae[n] for n, _ in model.named_parameters()] + [
+        x for x in (*mt.gp.tensors(), mt.m, mt.h_factor, mt.z) if x is not None
+    ]
+
+
+def _unravel_like(flat: np.ndarray, tree):
+    """A tree shaped like ``tree`` whose leaves are consecutive slices of
+    ``flat``, in the order ``jax.flatten_util.ravel_pytree`` lays them out:
+    mapping keys sorted, tuple fields in order, ``None`` empty."""
+    pos = 0
+
+    def rebuild(node):
+        nonlocal pos
+        if node is None:
+            return None
+        if isinstance(node, Mapping):
+            return {k: rebuild(node[k]) for k in sorted(node)}
+        if isinstance(node, tuple) and hasattr(node, "_fields"):
+            return type(node)(*(rebuild(x) for x in node))
+        if isinstance(node, (tuple, list)):
+            return type(node)(rebuild(x) for x in node)
+        shape = np.shape(node)
+        size = int(np.prod(shape))
+        leaf = flat[pos:pos + size].reshape(shape)
+        pos += size
+        return leaf
+
+    return rebuild(tree)
+
+
+def _optimizer_from_jax(opt_state, jax_trainables, model, params, learning_rate,
+                        dtype, device) -> torch.optim.Optimizer:
+    """The port's optimizer over ``params`` carrying the JAX optimizer's
+    state: a ``FusedAdamState`` (flat moments, padded on a TPU) becomes
+    :class:`FusedAdam`'s ``mu``/``nu``/``count``; optax's Adam moments become
+    ``torch.optim.Adam``'s ``exp_avg``/``exp_avg_sq``/``step``."""
+    adam = _adam_state(opt_state)
+    fused = adam is not None and hasattr(adam.mu, "shape")  # one flat array
+    opt = st.make_optimizer(params, learning_rate, kind="fused" if fused else "adam")
+    if adam is None:
+        return opt
+    count = int(np.asarray(adam.count))
+    if fused:
+        n = opt.mu.numel()
+        for buf, flat in ((opt.mu, adam.mu), (opt.nu, adam.nu)):
+            tree = _unravel_like(np.asarray(flat)[:n], jax_trainables)
+            buf.copy_(torch.cat([x.reshape(-1) for x in
+                                 _in_port_order(tree, model, dtype, device)]))
+        opt.count = count
+        return opt
+    moments = [_in_port_order(tree, model, dtype, device) for tree in (adam.mu, adam.nu)]
+    sd = opt.state_dict()
+    sd["state"] = {
+        i: {"step": torch.tensor(float(count), dtype=torch.float32),
+            "exp_avg": mu, "exp_avg_sq": nu}
+        for i, (mu, nu) in enumerate(zip(*moments))
+    }
+    opt.load_state_dict(sd)
+    return opt
+
+
+def _trainables_and_optimizer(state, model, learning_rate, dtype, device):
+    model.to(device=device, dtype=dtype)
+    tr = _trainables_from_jax(state.trainables, model, dtype, device)
+    params = list(tr.parameters())
+    for p in params:
+        p.requires_grad_(True)
+    opt = _optimizer_from_jax(state.opt_state, state.trainables, model, params,
+                              learning_rate, dtype, device)
+    return tr, opt
+
+
 def hensman_state_from_jax(state, model, learning_rate: float = 1e-3,
                            seed: int = 0, dtype=torch.float32,
                            device="cpu") -> st.HensmanState:
@@ -125,36 +204,30 @@ def hensman_state_from_jax(state, model, learning_rate: float = 1e-3,
 
     The VAE weights are loaded into ``model`` (moved to ``device``/``dtype``);
     the GP parameters, m/h_factor, inducing points, ``m_nat``, ``H_nat`` and
-    ``step`` are carried over, and where the optax state holds Adam's
-    ``mu``/``nu``/``count`` they become ``torch.optim.Adam``'s ``exp_avg``/
-    ``exp_avg_sq``/``step``. JAX's random key has no counterpart: the new
-    state's CPU generator is seeded from ``seed``."""
-    model.to(device=device, dtype=dtype)
-    tr = _trainables_from_jax(state.trainables, model, dtype, device)
-    params = list(tr.parameters())
-    for p in params:
-        p.requires_grad_(True)
-    opt = st.make_optimizer(params, learning_rate)
-    adam = _adam_state(state.opt_state)
-    if adam is not None:
-        names = [n for n, _ in model.named_parameters()]
-        moments = []
-        for tree in (adam.mu, adam.nu):
-            mt = _trainables_from_jax(tree, None, dtype, device)
-            moments.append([mt.vae[n] for n in names] + [
-                x for x in (*mt.gp.tensors(), mt.m, mt.h_factor, mt.z) if x is not None
-            ])
-        count = float(np.asarray(adam.count))
-        sd = opt.state_dict()
-        sd["state"] = {
-            i: {"step": torch.tensor(count, dtype=torch.float32),
-                "exp_avg": mu, "exp_avg_sq": nu}
-            for i, (mu, nu) in enumerate(zip(*moments))
-        }
-        opt.load_state_dict(sd)
-
+    ``step`` are carried over, and the optimizer with its moments (see
+    :func:`standard_state_from_jax`). JAX's random key has no counterpart:
+    the new state's CPU generator is seeded from ``seed``."""
+    tr, opt = _trainables_and_optimizer(state, model, learning_rate, dtype, device)
     return st.HensmanState(
         trainables=tr, m_nat=_optional_tensor(state.m_nat, dtype, device),
         H_nat=_optional_tensor(state.H_nat, dtype, device), opt_state=opt,
         rng=torch.Generator().manual_seed(seed), step=int(np.asarray(state.step)),
     )
+
+
+def standard_state_from_jax(state, model, learning_rate: float = 1e-3,
+                            seed: int = 0, dtype=torch.float32,
+                            device="cpu") -> StandardState:
+    """A JAX ``StandardState`` (numpy-convertible leaves) → the port's.
+
+    The VAE weights are loaded into ``model`` and the GP parameters and
+    ``step`` carried over. The optimizer follows the JAX one: a
+    ``FusedAdamState`` (flat moments in ``ravel_pytree`` order, padded on a
+    TPU) becomes :class:`~lvae_torch.kernels_cuda.adam.FusedAdam` with its
+    moments laid out in ``Trainables.parameters()`` order; optax's Adam
+    becomes ``torch.optim.Adam`` with ``exp_avg``/``exp_avg_sq``/``step``.
+    The new state's CPU generator is seeded from ``seed``."""
+    tr, opt = _trainables_and_optimizer(state, model, learning_rate, dtype, device)
+    return StandardState(trainables=tr, opt_state=opt,
+                         rng=torch.Generator().manual_seed(seed),
+                         step=int(np.asarray(state.step)))

@@ -1,4 +1,4 @@
-"""The port's CUDA kernels K1 and K2 on the card (marked ``cuda``).
+"""The port's CUDA kernels K1, K2, K3 and K5 on the card (marked ``cuda``).
 
 These tests need an NVIDIA GPU and ``nvcc``; without a card they skip. On a
 machine with a card, where JAX may be absent, run them without the suite's
@@ -13,7 +13,12 @@ B-chain (K1) is held the same way per (latent, subject) block, its log|B|
 and trace per latent at 1e-4 (2e-4 from T = 64), and every gradient at
 max |Δ| over max |reference| ≤ 1e-3 per array: the backward is plain torch
 on both sides, fed B⁻¹ from the kernel on one side and from
-``torch.linalg`` on the other.
+``torch.linalg`` on the other. The kernel matrix (K3) is held at max |Δ|
+over max |reference| ≤ 1e-5 (one expf and a few products per term, summed in
+the same order as the plain version) and its gradient at 1e-4; the fused
+Adam (K5) at 1e-6 relative per step against its plain version (a fused
+multiply-add may round once less) and at 1e-5 relative to the update
+against ``torch.optim.Adam``, whose bias correction is written differently.
 """
 
 import math
@@ -21,8 +26,10 @@ import math
 import pytest
 import torch
 
+from lvae_torch.kernels_cuda import adam as k5
 from lvae_torch.kernels_cuda import b_chain as k1
 from lvae_torch.kernels_cuda import cholesky as k2
+from lvae_torch.kernels_cuda import kernel_matrix as k3
 from lvae_torch.ops import elbo as eb
 from lvae_torch.ops import kernels as kx
 from lvae_torch.ops import linalg as la
@@ -231,3 +238,150 @@ def test_b_chain_wrapper_rejects_what_the_kernel_does_not_take(gen):
     big = chain_inputs(gen, 2, 129)
     with pytest.raises(ValueError):
         k1.b_chain(*big)
+
+
+# -------------------------------------------------------------------- K3
+def covariates(gen, n):
+    """HealthMNIST-layout covariates [n, 6] on the card: few distinct
+    discrete values, so every equality factor is both 0 and 1."""
+    x = torch.zeros(n, 6, device="cuda")
+    x[:, 0] = torch.randint(0, 20, (n,), generator=gen, device="cuda").float()
+    x[:, 1] = torch.randn(n, generator=gen, device="cuda")
+    x[:, 2] = torch.randint(0, 30, (n,), generator=gen, device="cuda").float()
+    x[:, 3:] = torch.randint(0, 2, (n, 3), generator=gen, device="cuda").float()
+    return x
+
+
+def k3_spec(name):
+    spec0, spec1 = kx.split_kernel_spec(**SPEC_ARGS)
+    if name == "healthmnist":
+        return kx.KernelSpec(components=spec0.components + spec1.components)
+    comp = kx.KernelComponent
+    return kx.KernelSpec(components=(
+        comp(kind="cat_mod", rbf_col=-1, eq_cols=(), and_cols=(), cat_mod=(3, 2)),
+        comp(kind="cat_mod_rbf", rbf_col=0, eq_cols=(2,), and_cols=(4,), cat_mod=(5, 2)),
+        *spec1.components,
+    ))
+
+
+def k3_params(gen, spec, n_lat):
+    c = len(spec.components)
+    return kx.KernelParams(0.3 * torch.randn(n_lat, c, generator=gen, device="cuda"),
+                           0.3 * torch.randn(n_lat, c, generator=gen, device="cuda") + 1.0)
+
+
+@pytest.mark.parametrize("name", ["healthmnist", "cat_mod"])
+@pytest.mark.parametrize("shape", [(3, 517, 1030), (2, 70, 37), (32, 520, 520)])
+def test_kernel_matrix_kernel_matches_plain_version(gen, name, shape):
+    n_lat, n1, n2 = shape
+    spec = k3_spec(name)
+    kp = k3_params(gen, spec, n_lat)
+    x1, x2 = covariates(gen, n1), covariates(gen, n2)
+    scale = kx.constrain(kp.raw_scale)
+    g = 0.5 / kx.constrain(kp.raw_lengthscale) ** 2
+    before = k3.kernel_matrix_fused.launches
+    got = k3.kernel_matrix_fused(spec, scale, g, x1, x2)
+    torch.cuda.synchronize()
+    assert k3.kernel_matrix_fused.launches == before + 1
+    want = k3.kernel_matrix_reference(spec, scale, g, x1, x2)
+    assert got.shape == want.shape == shape
+    assert float((got - want).abs().max() / want.abs().max()) <= 1e-5
+
+
+def test_kernel_matrix_gradient_and_masks_on_the_card(gen):
+    spec = k3_spec("cat_mod")
+    kp = k3_params(gen, spec, 4)
+    x1, x2 = covariates(gen, 600), covariates(gen, 530)
+    m1 = (torch.rand(600, generator=gen, device="cuda") > 0.2).float()
+    m2 = (torch.rand(530, generator=gen, device="cuda") > 0.2).float()
+    cot = torch.randn(4, 600, 530, generator=gen, device="cuda")
+
+    def run(fn):
+        leaves = [t.clone().requires_grad_(True) for t in kp]
+        out = fn(spec, kx.KernelParams(*leaves), x1, x2, m1, m2)
+        (out * cot).sum().backward()
+        return out.detach(), [t.grad for t in leaves]
+
+    before = k3.kernel_matrix_fused.launches
+    got, got_g = run(kx.kernel_matrix)  # the gate routes this shape to K3
+    assert k3.kernel_matrix_fused.launches == before + 1
+
+    def plain(spec, params, x1, x2, m1, m2):
+        scale = kx.constrain(params.raw_scale)
+        g = 0.5 / kx.constrain(params.raw_lengthscale) ** 2
+        out = k3.kernel_matrix_reference(spec, scale, g, x1, x2)
+        return out * m1[:, None] * m2[None, :]
+
+    want, want_g = run(plain)
+    assert float((got - want).abs().max() / want.abs().max()) <= 1e-5
+    assert bool((got[:, m1 == 0] == 0).all()) and bool((got[:, :, m2 == 0] == 0).all())
+    for a, b in zip(got_g, want_g):
+        assert float((a - b).abs().max() / b.abs().max()) <= 1e-4
+
+
+def test_kernel_matrix_gate_on_the_card(gen):
+    spec = k3_spec("healthmnist")
+    kp = k3_params(gen, spec, 2)
+    before = k3.kernel_matrix_fused.launches
+    kx.kernel_matrix(spec, kp, covariates(gen, 511), covariates(gen, 600))
+    kx.kernel_matrix(spec, kp.to(torch.float64), covariates(gen, 600).double(),
+                     covariates(gen, 600).double())
+    kx.kernel_matrix(spec, kp, covariates(gen, 600), covariates(gen, 60))
+    assert k3.kernel_matrix_fused.launches == before
+    kx.kernel_matrix(spec, kp, covariates(gen, 512), covariates(gen, 512))
+    assert k3.kernel_matrix_fused.launches == before + 1
+
+
+def test_kernel_matrix_wrapper_rejects_what_the_kernel_does_not_take(gen):
+    spec = k3_spec("healthmnist")
+    kp = k3_params(gen, spec, 2)
+    scale, g = kx.constrain(kp.raw_scale), kx.constrain(kp.raw_lengthscale)
+    x = covariates(gen, 40)
+    with pytest.raises(ValueError):
+        k3.kernel_matrix_fused(spec, scale.double(), g.double(), x.double(), x.double())
+    with pytest.raises(ValueError):
+        k3.kernel_matrix_fused(spec, scale, g, x.t().contiguous().t(), x)
+    with pytest.raises(ValueError):
+        k3.kernel_matrix_fused(spec, scale[:, :2].contiguous(), g[:, :2].contiguous(), x, x)
+
+
+# -------------------------------------------------------------------- K5
+def test_adam_kernel_matches_plain_version(gen):
+    n = 1_000_003
+    m = torch.zeros(n, device="cuda")
+    v = torch.zeros(n, device="cuda")
+    mr, vr = m.clone(), v.clone()
+    for step in range(1, 4):
+        g = torch.randn(n, generator=gen, device="cuda")
+        c1, c2 = k5.bias_corrections(step, 0.9, 0.999)
+        kw = dict(b1=0.9, b2=0.999, lr=1e-3, eps=1e-8, c1=c1, c2=c2)
+        before = k5.fused_adam_update.launches
+        d = k5.fused_adam_update(m, v, g, **kw)
+        torch.cuda.synchronize()
+        assert k5.fused_adam_update.launches == before + 1
+        mr, vr, dr = k5.adam_reference(mr, vr, g, **kw)
+        for got, want in ((m, mr), (v, vr), (d, dr)):
+            assert float((got - want).abs().max() / want.abs().max()) <= 1e-6
+
+
+def test_fused_adam_on_the_card_matches_torch_adam(gen):
+    shapes = [(300, 2592), (30,), (1296,), (16, 1, 3, 3)]
+    # from zero: an ulp of a unit-size weight is 1e-4 of a 1e-3 update
+    init = [torch.zeros(s, device="cuda") for s in shapes]
+    grads = [[torch.randn(s, generator=gen, device="cuda") for s in shapes] for _ in range(3)]
+
+    def run(cls, **kw):
+        ps = [p.clone().requires_grad_(True) for p in init]
+        opt = cls(ps, lr=1e-3, **kw)
+        for gs in grads:
+            for p, gr in zip(ps, gs):
+                p.grad = gr
+            opt.step()
+        return ps
+
+    before = k5.fused_adam_update.launches
+    ours = run(k5.FusedAdam)
+    assert k5.fused_adam_update.launches == before + 3
+    theirs = run(torch.optim.Adam, betas=(0.9, 0.999), eps=1e-8)
+    for a, b in zip(ours, theirs):
+        assert float((a - b).abs().max() / b.abs().max()) <= 1e-5

@@ -341,7 +341,7 @@ def test_state_helpers():
     with torch.no_grad():
         params[1][0, 1] = float("nan")
     assert not bool(tst.tree_finite(params))
-    with pytest.raises(NotImplementedError):
-        tst.make_optimizer(params, kind="fused")
-    opt = tst.make_optimizer(params, 1e-3)
+    fused = tst.make_optimizer(params, kind="fused")
+    assert type(fused).__name__ == "FusedAdam" and fused.mu.numel() == 7
+    opt = tst.make_optimizer(params, 1e-3, kind="adam")
     assert opt.defaults["betas"] == (0.9, 0.999) and opt.defaults["eps"] == 1e-8

@@ -197,6 +197,8 @@ def test_package_imports_no_jax():
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax', 'lvae_tpu', 'tests'))\n"
         "assert len(names) >= 15, names\n"
+        "for name in ('train.standard', 'kernels_cuda.adam', 'kernels_cuda.kernel_matrix'):\n"
+        "    assert 'lvae_torch.' + name in names, name\n"
         "assert not bad, bad\n"
         "print(len(names))\n"
     )
