@@ -4,12 +4,12 @@
     python3 chip_smoke.py [--seed 0]
 
 Builds the port's CUDA kernels from ``lvae_torch/csrc`` (K2 ``chol_inv``,
-K1 ``b_chain``, K3 ``kernel_matrix`` and K5 ``adam``, one ``nvcc`` each, all
-started together), holds each against its plain PyTorch version on the
-card, forward and gradient, then runs the three main paths at the full
-width of ``configs/healthmnist_lvae.txt`` (ConvVAE on 36×36 frames, L=32
-latent GPs, M=60 inducing points, P=100 subjects × T=20 frames, random
-frames and weights from ``--seed``):
+K1 ``b_chain``, K3 ``kernel_matrix``, K4 ``block_pair`` and K5 ``adam``,
+one ``nvcc`` each, all started together), holds each against its plain
+PyTorch version on the card, forward and gradient, then runs the main paths
+at the full width of ``configs/healthmnist_lvae.txt`` (ConvVAE on 36×36
+frames, L=32 latent GPs, M=60 inducing points, P=100 subjects × T=20
+frames, random frames and weights from ``--seed``):
 
 * serving, through ``LVAEPredictor``, ``aot_compile``, ``impute``,
   ``predict_trajectories``, ``predict_trajectory``,
@@ -20,12 +20,20 @@ frames and weights from ``--seed``):
   ``hensman=False``: 5 epochs of ``type_KL=closed`` (one step each over all
   N = 2000 frames, K3 building the ``[32, 2000, 2000]`` prior once a step),
   2 each of ``GPapprox_closed``, ``GPapprox`` and the five-phase GPPVAE
-  regime, and 2 closed epochs with the fused optimizer (K5 once a step).
+  regime, and 2 closed epochs with the fused optimizer (K5 once a step);
+* the reference-format CLI, through ``lvae_torch.cli.main`` on data from
+  the port's generator: 2 pre-training epochs, 4 epochs with validation,
+  tests, generation and checkpoints, a resumed run, and 2 epochs on the K4
+  route (K1 off, the block-pair switch on), with the kernels each step and
+  each validation launched checked on both routes.
 
 Each path is replayed with ``device="cpu"`` (the plain versions) and the
 card's answers are held against the CPU's; the standard regime at P=26
 subjects (N = 520, still at K3's gate), since an N = 2000 replay is about a
-TFLOP of f32 Cholesky work a step on the CPU.
+TFLOP of f32 Cholesky work a step on the CPU; the CLI run's final
+checkpoint through ``validate`` and ``mse_test_gp_approx``. One
+``batch_loss`` from that checkpoint is held on the K4 route against the K1
+route.
 
 Phases print one line each. Any failure raises and exits non-zero; without
 CUDA the script exits non-zero before printing a result. The last lines
@@ -49,6 +57,8 @@ import itertools
 import json
 import math
 import os
+import pickle
+import shutil
 import statistics
 import subprocess
 import sys
@@ -61,12 +71,17 @@ sys.path.insert(0, ROOT)
 
 import torch  # noqa: E402
 
-from lvae_torch.config import load_flag_file  # noqa: E402
+from lvae_torch import cli  # noqa: E402
+from lvae_torch import pipeline as pipeline_mod  # noqa: E402
+from lvae_torch.config import load_flag_file, parse_flag_lines  # noqa: E402
 from lvae_torch.data.blocks import build_subject_blocks  # noqa: E402
+from lvae_torch.data.healthmnist import generate_healthmnist  # noqa: E402
 from lvae_torch.evaluation.encode import encode_dataset  # noqa: E402
+from lvae_torch.evaluation.testing import mse_test_gp_approx  # noqa: E402
 from lvae_torch.inference import LVAEPredictor  # noqa: E402
 from lvae_torch.kernels_cuda import adam as k5  # noqa: E402
 from lvae_torch.kernels_cuda import b_chain as k1  # noqa: E402
+from lvae_torch.kernels_cuda import block_pair as k4  # noqa: E402
 from lvae_torch.kernels_cuda import build  # noqa: E402
 from lvae_torch.kernels_cuda import cholesky as k2  # noqa: E402
 from lvae_torch.kernels_cuda import kernel_matrix as k3  # noqa: E402
@@ -74,10 +89,12 @@ from lvae_torch.models.vae import make_vae  # noqa: E402
 from lvae_torch.ops import kernels as kx  # noqa: E402
 from lvae_torch.ops import linalg as la  # noqa: E402
 from lvae_torch.train.hensman import HensmanConfig, HensmanTrainer  # noqa: E402
+from lvae_torch.train.hensman import batch_loss as hensman_batch_loss  # noqa: E402
 from lvae_torch.train.standard import StandardConfig, StandardTrainer  # noqa: E402
 from lvae_torch.train.state import (  # noqa: E402
     init_gp_params, init_inducing_points, make_optimizer,
 )
+from lvae_torch.utils.checkpoint import read_checkpoint  # noqa: E402
 
 CONFIG = os.path.join(ROOT, "configs", "healthmnist_lvae.txt")
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, HBM3
@@ -114,6 +131,11 @@ STD_CLOSED_EPOCHS = 5  # closed-KL epochs on the card (one step each)
 STD_EPOCHS = 2  # epochs of each other standard mode, and of the fused optimizer
 STD_COMPARE_P = 26  # subjects of the card-vs-CPU standard replay: N = 520 >= 512
 STD_COMPARE_CLOSED_EPOCHS = 3
+# K4 vs its plain version, max |Δ| over max |plain|: the same expf and
+# products per term (multiplied in another order), summed in component
+# order; its gradient (plain torch on both sides) at 1e-4
+K4_RTOL, K4_GRAD_RTOL = 1e-6, 1e-4
+VAL_SUBJECTS = 20  # subjects of the pipeline's validation split
 
 
 def say(phase: str, msg: str) -> None:
@@ -715,6 +737,101 @@ def check_k3(world: World, dev: str = "cuda") -> dict:
     }
 
 
+def block_pair_bound(args) -> dict:
+    """Least time for K4: read the covariates, mask and both specs'
+    parameters and write both stacks once; per entry, latent and spec one
+    exp and four flops for each RBF component and two for each other one."""
+    spec0, spec1, s0, _, _, _, xb, _ = args
+    n_lat, (n_subj, t, q) = s0.shape[0], xb.shape
+    pairs = n_lat * n_subj * t * t
+    c = len(spec0.components) + len(spec1.components)
+    n_rbf = sum(comp.rbf_col >= 0 for comp in spec0.components + spec1.components)
+    nbytes = 4 * (2 * pairs + n_subj * t * (q + 1) + 2 * n_lat * c)
+    ops = pairs * (5 * n_rbf + 2 * (c - n_rbf))
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / F32_FLOPS_PER_S * 1e3
+    return {"bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+
+
+def k4_args(chain_args):
+    """B-chain inputs without σ²: the block pair's (spec0, spec1, s0, g0,
+    s1, g1, xb, mask)."""
+    return tuple(chain_args[:6]) + tuple(chain_args[7:])
+
+
+def check_k4(world: World) -> dict:
+    """K4 against its plain version on the card, forward and gradient
+    (through BlockPair against autograd of the plain version); returns the
+    kernels-line entry (without the main path's launches)."""
+    gen = torch.Generator(device="cuda").manual_seed(world.seed + 4)
+    train = k4_args(world.train_chain_inputs())
+    n_lat = world.cfg.latent_dim
+    val = k4_args(chain_inputs(gen, world.spec0, world.spec1, n_lat, VAL_SUBJECTS,
+                               world.cfg.T))
+    cases = [("Hensman batch, smoke cohort", train), ("validation cohort, ragged + ghost", val)]
+    cases += [(f"ragged + ghost T={t}", k4_args(chain_inputs(
+        gen, world.spec0, world.spec1, 8, 6, t))) for t in (2, 64, 128, 150)]
+    comp = kx.KernelComponent
+    cat_spec0 = kx.KernelSpec(components=(
+        comp(kind="cat_mod", rbf_col=-1, eq_cols=(), and_cols=(), cat_mod=(3, 2)),
+        comp(kind="cat_mod_rbf", rbf_col=0, eq_cols=(), and_cols=(4,), cat_mod=(5, 3)),
+        *world.spec0.components,
+    ))
+    cases.append(("cat_mod + both-one spec0, ragged + ghost",
+                  k4_args(chain_inputs(gen, cat_spec0, world.spec1, 5, 7, 20))))
+    for name, args in cases:
+        k0, k1 = k4.block_pair(*args)
+        r0, r1 = k4.block_pair_reference(*args)
+        torch.cuda.synchronize()
+        err = max(max_rel(k0, r0), max_rel(k1, r1))
+        w = [torch.randn(k0.shape, generator=gen, device="cuda") for _ in range(2)]
+        g_err = grad_rel_err(
+            lambda *x: k4.BlockPair.apply(args[0], args[1], *x),
+            lambda *x: k4.block_pair_reference(args[0], args[1], *x),
+            list(args[2:6]), list(args[6:]), w,
+        )
+        say("kernel", f"K4 {name} L,S,T={list(k0.shape[:3])}: rel err K0/K1 {err:.3e} "
+            f"(tol {K4_RTOL:g}); gradient (s0,g0,s1,g1) {g_err:.3e} (tol {K4_GRAD_RTOL:g})")
+        if not (err <= K4_RTOL and g_err <= K4_GRAD_RTOL):
+            raise AssertionError(f"K4 disagrees with its plain version at {name}")
+        if bool((args[7][-1] == 0).all()) and not (
+                bool((k0[:, -1] == 0).all()) and bool((k1[:, -1] == 0).all())):
+            raise AssertionError(f"K4 wrote nonzeros into a ghost subject at {name}")
+
+    k0, k1 = k4.block_pair(*train)
+    r0, r1 = k4.block_pair_reference(*train)
+    max_abs = max(float((k0 - r0).abs().max()), float((k1 - r1).abs().max()))
+    rel = max(max_rel(k0, r0), max_rel(k1, r1))
+    rows = []
+    for args in (train, val):
+        row = timing_row(args[6].shape, args, lambda a: k4.block_pair(*a),
+                         lambda a: k4.block_pair_reference(*a), None, block_pair_bound(args))
+        row["shape"] = [args[2].shape[0], *args[6].shape[:2]]
+        say("kernel", "K4 times " + json.dumps(row))
+        rows.append(row)
+    row = rows[0]
+    return {
+        "name": "block_pair",
+        "route": "cuda",
+        "source": k4.SOURCE,
+        "replaces": k4.REPLACES,
+        "launches": None,
+        "max_abs_err": max_abs,
+        "ms": row["ms"],
+        "event_ms": row["event_ms"],
+        "plain_ms": row["plain_ms"],
+        "plain_event_ms": row["plain_event_ms"],
+        "bound_ms": row["bound_ms"],
+        "bound_by": row["bound_by"],
+        "library_ms": None,
+        "library_call": "none: no single PyTorch call computes the two block stacks",
+        "shape": row["shape"],
+        "max_rel_err": rel,
+        "per_shape": rows,
+    }
+
+
 def adam_bound(n: int) -> dict:
     """Least time for one flat Adam step: read m, v, g and write m', v', Δ
     once (24 bytes an element); a dozen flops an element."""
@@ -895,7 +1012,7 @@ def check_within(errs: dict) -> None:
 def launch_counts() -> dict:
     return {"b_chain": k1.b_chain.launches, "chol_inv": k2.cholesky_inverse.launches,
             "kernel_matrix": k3.kernel_matrix_fused.launches,
-            "adam": k5.fused_adam_update.launches}
+            "adam": k5.fused_adam_update.launches, "block_pair": k4.block_pair.launches}
 
 
 def reset_launch_counts() -> None:
@@ -903,6 +1020,7 @@ def reset_launch_counts() -> None:
     k2.cholesky_inverse.launches = 0
     k3.kernel_matrix_fused.launches = 0
     k5.fused_adam_update.launches = 0
+    k4.block_pair.launches = 0
 
 
 def train_standard(world: World, device: str, type_kl: str, epochs: int,
@@ -987,6 +1105,308 @@ def compare_standard(world: World) -> dict:
         errs[name] = compare_losses(card["epochs"], cpu["epochs"], keys=STD_LOSS_KEYS)
         say("standard", f"P={STD_COMPARE_P} {name}: card {json.dumps(card['epochs'][-1])} "
             f"CPU {json.dumps(cpu['epochs'][-1])} ({cpu['seconds']:.1f} s on the CPU)")
+    return errs
+
+
+# ---------------------------------------------------------------- pipeline
+PIPE_DIR = os.path.join(ROOT, "build", "chip_smoke_pipeline")  # git-ignored
+PIPE_PER_DIGIT = 50  # training cohort: 50 + 50 subjects, the config file's P = 100
+PIPE_EVAL_PER_DIGIT = 10  # validation and test cohorts: 10 + 10 subjects each
+PRETRAIN_EPOCHS = 2
+PIPE_EPOCHS, PIPE_TEST_FREQ = 4, 2  # main run: validation and checkpoint every 2 epochs
+RESUME_EPOCHS = 2
+K4_EPOCHS = 2  # the K4 route's run, validation every epoch
+# kernel launches of one training step and one validation on each route
+# (K2: the stacked [K0zz; H], the natural-gradient inversion and the new H's
+# factor a step, K0zz a validation, and on the K4 route the B stack in each)
+ROUTE_LAUNCHES = {
+    "k1": {"step": {"b_chain": 1, "block_pair": 0, "chol_inv": 3},
+           "validation": {"b_chain": 1, "block_pair": 0, "chol_inv": 1}},
+    "k4": {"step": {"b_chain": 0, "block_pair": 1, "chol_inv": 4},
+           "validation": {"b_chain": 0, "block_pair": 1, "chol_inv": 2}},
+}
+PIPE_ARTEFACTS = ("model_params_vae.ckpt", "model_best.ckpt", "model_final.ckpt",
+                  "model_last.ckpt", "result_error.csv", "result_error_best.csv",
+                  "recon_complete.npz", "recon_complete_best.npz", "plot_values.pkl",
+                  "diagnostics.pkl", "metrics.jsonl")
+
+
+def write_flags(path: str, lines) -> str:
+    with open(path, "w") as f:
+        f.write("\n".join(lines) + "\n")
+    return path
+
+
+def make_pipeline_data(root: str, seed: int) -> str:
+    """Train, validation and test splits from the port's generator; the
+    test split is also the prediction and generation cohort."""
+    data = os.path.join(root, "data")
+    for suffix, n, s in (("", PIPE_PER_DIGIT, seed), ("_validation", PIPE_EVAL_PER_DIGIT, seed + 1),
+                         ("_test", PIPE_EVAL_PER_DIGIT, seed + 2)):
+        generate_healthmnist(
+            n, n, seed=s, destination=data, data_file_name=f"health_MNIST_data{suffix}.csv",
+            data_masked_file_name=f"health_MNIST_data_masked{suffix}.csv",
+            labels_file_name=f"health_MNIST_label{suffix}.csv", mask_file_name=f"mask{suffix}.csv")
+    return data
+
+
+def pipeline_flags(data: str, results: str, *extra) -> list:
+    """The config file with the run's paths and ``extra`` over it."""
+    lines = [f"--f={CONFIG}", f"--data_source_path={data}", f"--save_path={results}",
+             f"--results_path={results}"]
+    for split, suffix in (("test", "_test"), ("prediction", "_test"), ("generation", "_test"),
+                          ("validation", "_validation")):
+        lines += [f"--csv_file_{split}_data=health_MNIST_data_masked{suffix}.csv",
+                  f"--csv_file_{split}_label=health_MNIST_label{suffix}.csv",
+                  f"--{split}_mask_file=mask{suffix}.csv"]
+    return lines + list(extra)
+
+
+class PathCounter:
+    """While active: the kernel launches of every Hensman ``train_step`` and
+    every pipeline ``validate`` call, and the pipeline ``cli.main`` ran."""
+
+    def __enter__(self):
+        self.steps, self.validations, self.pipeline = [], [], None
+        self._saved = (HensmanTrainer.train_step, pipeline_mod.validate,
+                       pipeline_mod.LVAEPipeline.run)
+        step, validate, run = self._saved
+        counter = self
+
+        def counted(fn, into):
+            def wrapped(*args, **kwargs):
+                before = launch_counts()
+                out = fn(*args, **kwargs)
+                into.append({k: v - before[k] for k, v in launch_counts().items()})
+                return out
+            return wrapped
+
+        def keep_run(pipe):
+            counter.pipeline = pipe
+            return run(pipe)
+
+        HensmanTrainer.train_step = counted(step, self.steps)
+        pipeline_mod.validate = counted(validate, self.validations)
+        pipeline_mod.LVAEPipeline.run = keep_run
+        return self
+
+    def __exit__(self, *exc):
+        (HensmanTrainer.train_step, pipeline_mod.validate,
+         pipeline_mod.LVAEPipeline.run) = self._saved
+        return False
+
+    def check(self, route: str, n_steps: int, n_validations: int, where: str) -> None:
+        """Exactly ``n_steps`` steps and ``n_validations`` validations, each
+        with the route's launches."""
+        if len(self.steps) != n_steps or len(self.validations) != n_validations:
+            raise AssertionError(f"{where}: {len(self.steps)} steps and {len(self.validations)} "
+                                 f"validations, expected {n_steps} and {n_validations}")
+        for kind, calls in (("step", self.steps), ("validation", self.validations)):
+            want = ROUTE_LAUNCHES[route][kind]
+            for got in calls:
+                if any(got[k] != n for k, n in want.items()):
+                    raise AssertionError(f"{where}: a {kind} launched {json.dumps(got)}, "
+                                         f"expected {json.dumps(want)}")
+
+
+def cli_run(args, device: str) -> float:
+    """``lvae_torch.cli.main(args)`` on ``device``; returns its seconds."""
+    t0 = time.perf_counter()
+    rc = cli.main(list(args) + ([f"--device={device}"] if device != "cuda" else []))
+    if rc != 0:
+        raise AssertionError(f"cli.main({args}) returned {rc}")
+    if device == "cuda":
+        torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def check_pipeline_run(results: str, epochs: int, hw: int) -> dict:
+    """Every artefact present; losses, test MSEs and grids finite."""
+    missing = [a for a in PIPE_ARTEFACTS if not os.path.exists(os.path.join(results, a))]
+    if missing:
+        raise AssertionError(f"pipeline artefacts missing: {missing}")
+    with open(os.path.join(results, "diagnostics.pkl"), "rb") as f:
+        hist = pickle.load(f)
+    if len(hist) != epochs or not all(math.isfinite(v) for m in hist for v in m.values()):
+        raise AssertionError(f"pipeline losses: {hist}")
+    errs = {name: np.loadtxt(os.path.join(results, name)).tolist()
+            for name in ("result_error.csv", "result_error_best.csv")}
+    if not all(np.isfinite(v).all() and len(v) == 2 for v in errs.values()):
+        raise AssertionError(f"test MSEs: {errs}")
+    grid = np.load(os.path.join(results, "recon_complete.npz"))
+    if grid["grid"].shape[1:] != (20, hw, hw) or not np.isfinite(grid["grid"]).all() \
+            or not grid["filled"].any():
+        raise AssertionError(f"generation grid {grid['grid'].shape}")
+    return {"losses": hist[-1], "test_mse": errs}
+
+
+def run_pipeline(world: World, root: str, device: str = "cuda") -> dict:
+    """The CLI workflow at the config file's width: generate, pre-train, the
+    main run (validation, best model, tests, generation, checkpoints) and a
+    resumed run. Returns stage seconds, launches and the main results."""
+    cfg, hw = world.cfg, world.hw
+    times = {}
+    t0 = time.perf_counter()
+    data = make_pipeline_data(root, world.seed)
+    times["generate"] = time.perf_counter() - t0
+    results = os.path.join(root, "results")
+    vae_cfg = write_flags(os.path.join(root, "vae.txt"), [
+        f"--data_source_path={data}", f"--save_path={results}", "--dataset_type=HealthMNIST",
+        "--csv_file_data=health_MNIST_data_masked.csv", "--csv_file_label=health_MNIST_label.csv",
+        "--mask_file=mask.csv", f"--type_nnet={cfg.type_nnet}", f"--latent_dim={cfg.latent_dim}",
+        f"--num_dim={cfg.num_dim}", f"--epochs={PRETRAIN_EPOCHS}", "--loss_function=nll",
+        f"--dropout={cfg.dropout}", f"--seed={world.seed}"])
+    times["pretrain"] = cli_run(["pretrain", f"--f={vae_cfg}"], device)
+
+    main_cfg = write_flags(os.path.join(root, "main.txt"), pipeline_flags(
+        data, results, f"--epochs={PIPE_EPOCHS}", f"--test_freq={PIPE_TEST_FREQ}",
+        f"--checkpoint_every={PIPE_TEST_FREQ}", "--run_tests=True", "--run_validation=True",
+        "--generate_images=True", f"--model_params={results}/model_params_vae.ckpt",
+        "--gp_model_folder=", f"--seed={world.seed}"))
+    reset_launch_counts()
+    with PathCounter() as main_run:
+        times["train"] = cli_run([f"--f={main_cfg}"], device)
+    counts = launch_counts()
+    steps_per_epoch = main_run.pipeline.trainer.tables[0].index.shape[0] // cfg.subjects_per_batch
+    out = check_pipeline_run(results, PIPE_EPOCHS, hw)
+    final = read_checkpoint(os.path.join(results, "model_final.ckpt"))
+
+    resumed = os.path.join(root, "resumed")
+    resume_cfg = write_flags(os.path.join(root, "resume.txt"), pipeline_flags(
+        data, resumed, f"--epochs={RESUME_EPOCHS}", f"--test_freq={RESUME_EPOCHS}",
+        f"--checkpoint_every={RESUME_EPOCHS}", "--run_validation=True",
+        f"--gp_model_folder={results}", f"--seed={world.seed}"))
+    times["resume"] = cli_run([f"--f={resume_cfg}"], device)
+    step = read_checkpoint(os.path.join(resumed, "model_final.ckpt"))["step"]
+    if step != final["step"] + RESUME_EPOCHS * steps_per_epoch:
+        raise AssertionError(f"the resumed run ended at step {step}, not at "
+                             f"{final['step']} + {RESUME_EPOCHS * steps_per_epoch}")
+    return {"times": times, "counts": counts, "counter": main_run, "data": data,
+            "results": results, "steps_per_epoch": steps_per_epoch, "final_step": final["step"],
+            "resumed_step": step, **out}
+
+
+def use_route(route: str) -> None:
+    """K1 (the default, None: on for CUDA tensors) or K4 (K1 off, the
+    block-pair switch on)."""
+    kx.use_b_chain_kernel = None if route == "k1" else False
+    kx.use_block_pair_kernel = route == "k4"
+
+
+def run_pipeline_k4(world: World, root: str, run: dict, device: str = "cuda") -> dict:
+    """K4_EPOCHS epochs with validation every epoch on the K4 route, resumed
+    from the main run's ``model_final.ckpt``."""
+    results = os.path.join(root, "k4")
+    k4_cfg = write_flags(os.path.join(root, "k4.txt"), pipeline_flags(
+        run["data"], results, f"--epochs={K4_EPOCHS}", "--test_freq=1", "--checkpoint_every=1",
+        "--run_validation=True", f"--gp_model_folder={run['results']}", f"--seed={world.seed}"))
+    use_route("k4")
+    try:
+        reset_launch_counts()
+        with PathCounter() as k4_run:
+            seconds = cli_run([f"--f={k4_cfg}"], device)
+        counts = launch_counts()
+    finally:
+        use_route("k1")
+    with open(os.path.join(results, "diagnostics.pkl"), "rb") as f:
+        hist = pickle.load(f)
+    if not all(math.isfinite(v) for m in hist for v in m.values()):
+        raise AssertionError(f"K4 route losses: {hist}")
+    return {"seconds": seconds, "counts": counts, "counter": k4_run, "losses": hist[-1]}
+
+
+def resumed_pipeline(root: str, run: dict, device: str):
+    """A pipeline on ``device`` whose trainer holds the main run's final
+    state (resumed from its folder), with the validation and test cohorts."""
+    cfg, _ = parse_flag_lines(pipeline_flags(
+        run["data"], os.path.join(root, f"replay_{device}"), "--run_tests=True",
+        "--run_validation=True", f"--gp_model_folder={run['results']}"))
+    pipe = pipeline_mod.LVAEPipeline(cfg, device=device)
+    pipe.build_trainer()
+    return pipe
+
+
+def compare_routes(pipe) -> dict:
+    """One full-width ``batch_loss`` and its gradients from one state on the
+    K1 and the K4 route; returns the relative differences."""
+    trainer = pipe.trainer
+    state = trainer.state
+    table = trainer.tables[0]
+    rows = torch.arange(trainer.subjects_per_batch, device=trainer.device)
+    idx, bmask = table.index[rows], table.mask[rows]
+    p_batch = torch.sum(rows < table.num_real).to(bmask.dtype)
+    eps = torch.randn((idx.numel(), trainer.cfg.latent_dim),
+                      generator=torch.Generator().manual_seed(7))
+    params = list(state.trainables.parameters())
+    out = {}
+    for route in ("k1", "k4"):
+        use_route(route)
+        for p in params:
+            p.grad = None
+        before = launch_counts()
+        net, (metrics, _) = hensman_batch_loss(trainer.model, trainer.cfg, state.trainables,
+                                               state.m_nat, state.H_nat, trainer.tdata, idx,
+                                               bmask, p_batch, eps=eps)
+        net.backward()
+        launched = {k: v - before[k] for k, v in launch_counts().items()}
+        out[route] = ({k: float(v) for k, v in metrics._asdict().items()},
+                      [None if p.grad is None else p.grad.clone() for p in params], launched)
+    use_route("k1")
+    (m1, g1, l1), (m4, g4, l4) = out["k1"], out["k4"]
+    if l1["b_chain"] != 1 or l1["block_pair"] or l4["block_pair"] != 1 or l4["b_chain"]:
+        raise AssertionError(f"route launches: K1 route {l1}, K4 route {l4}")
+    errs = {key: rel(m4[key], m1[key]) for key in ("net", "kld", "recon", "nll")}
+    grad_errs = []
+    for a, b in zip(g4, g1):
+        if a is None or b is None:
+            if (a is None) != (b is None):
+                raise AssertionError("one route left a trainable without a gradient")
+            continue
+        scale = float(b.abs().max())
+        grad_errs.append(float((a - b).abs().max()) / scale if scale else float((a - b).abs().max()))
+    errs["gradients"] = max(grad_errs)
+    return errs
+
+
+def check_route_errs(errs: dict) -> None:
+    tols = {"net": KL_RTOL, "kld": KL_RTOL, "recon": LOSS_RTOL, "nll": LOSS_RTOL,
+            "gradients": KL_RTOL}
+    bad = [f"{k} {v:.3e} > {tols[k]:g}" for k, v in errs.items() if not v <= tols[k]]
+    if bad:
+        raise AssertionError("K4 route vs K1 route: " + "; ".join(bad))
+
+
+def pipe_validate(pipe):
+    """The pipeline's ``validate`` of its current state, quietly."""
+    cfg = pipe.cfg
+    model, gp, noise = pipe.current_params()
+    return pipeline_mod.validate(
+        model, gp, noise, pipe.spec0, pipe.spec1, pipe.validation_dataset, pipe.trainer.tdata.z,
+        cfg.id_covariate, cfg.weight, cfg.loss_function, cfg.latent_dim, cfg.eps,
+        type_kl=cfg.type_KL, verbose=False, device=pipe.device)
+
+
+def evaluate_pipeline(pipe) -> dict:
+    """``validate`` and ``mse_test_gp_approx`` of the pipeline's state on
+    its own device (the sampled reconstructions draw from a generator
+    seeded 0 on both devices)."""
+    cfg = pipe.cfg
+    model, gp, noise = pipe.current_params()
+    val = pipe_validate(pipe)
+    px, pmu = pipe.encode_prediction_cohort()
+    test = mse_test_gp_approx(model, gp, noise, pipe.spec0, pipe.spec1, pipe.test_dataset, px,
+                              pmu, pipe.trainer.tdata.z, cfg.id_covariate, cfg.eps,
+                              verbose=False, device=pipe.device)
+    return {**val._asdict(), **test._asdict()}
+
+
+def compare_pipeline(card: dict, cpu: dict) -> dict:
+    errs = {key: rel(card[key], cpu[key]) for key in card}
+    tols = {"net": KL_RTOL, "gp": KL_RTOL, "nll": LOSS_RTOL, "recon": LOSS_RTOL,
+            "vae_mse": LOSS_RTOL, "gp_mse": LOSS_RTOL}
+    bad = [f"{k} {v:.3e} > {tols[k]:g}" for k, v in errs.items() if not v <= tols[k]]
+    if bad:
+        raise AssertionError("pipeline card vs CPU: " + "; ".join(bad))
     return errs
 
 
@@ -1147,6 +1567,7 @@ def main() -> int:
     entry["per_shape"] += check_k2_training(world)
     k1_entry = check_k1(world)
     k3_entry = check_k3(world)
+    k4_entry = check_k4(world)
     k5_entry = check_k5(world)
 
     # phase 4: the serving path on the card; counts from 0 just before it
@@ -1266,8 +1687,8 @@ def main() -> int:
     std_counts = launch_counts()
     say("standard", f"{sum(len(r['epochs']) for r in std_runs.values())} steps in "
         f"{time.perf_counter() - t0:.3f} s; launches {json.dumps(std_counts)}")
-    for kernel, n in std_counts.items():
-        if n < 1:
+    for kernel in ("b_chain", "chol_inv", "kernel_matrix", "adam"):
+        if std_counts[kernel] < 1:
             raise AssertionError(f"{kernel} was not launched on the standard path")
 
     s_errs = compare_standard(world)
@@ -1289,14 +1710,62 @@ def main() -> int:
         f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     say("profile", "standard_step " + json.dumps(profile_window(trainer.run_epoch, 3)))
 
-    # phase 7: the kernels line
-    paths = {"serving": serve_counts, "training": train_launches, "standard": std_counts}
+    # phase 7: the reference-format CLI pipeline at full width through
+    # lvae_torch.cli.main; counts from 0 just before the main run
+    shutil.rmtree(PIPE_DIR, ignore_errors=True)
+    os.makedirs(PIPE_DIR)
+    try:
+        pipe_run = run_pipeline(world, PIPE_DIR)
+        per_epoch = pipe_run["steps_per_epoch"]
+        main_run = pipe_run["counter"]
+        main_run.check("k1", PIPE_EPOCHS * per_epoch, PIPE_EPOCHS // PIPE_TEST_FREQ + 1,
+                       "pipeline")
+        say("pipeline", f"stage seconds {json.dumps(pipe_run['times'])}")
+        say("pipeline", f"main run ({PIPE_EPOCHS} epochs of {per_epoch} steps, validation every "
+            f"{PIPE_TEST_FREQ}): launches {json.dumps(pipe_run['counts'])}; a step "
+            f"{json.dumps(main_run.steps[0])}, a validation {json.dumps(main_run.validations[0])}")
+        say("pipeline", f"last epoch {json.dumps(pipe_run['losses'])}; test MSEs (VAE, GP) "
+            f"{json.dumps(pipe_run['test_mse'])}; resumed from step {pipe_run['final_step']} "
+            f"to {pipe_run['resumed_step']}")
+
+        # the K4 route: K1 off, the block-pair switch on; counts from 0 just before it
+        k4_run = run_pipeline_k4(world, PIPE_DIR, pipe_run)
+        k4_run["counter"].check("k4", K4_EPOCHS * per_epoch, K4_EPOCHS + 1, "pipeline K4 route")
+        say("pipeline", f"K4 route: {K4_EPOCHS} epochs in {k4_run['seconds']:.3f} s, launches "
+            f"{json.dumps(k4_run['counts'])}; a step {json.dumps(k4_run['counter'].steps[0])}, "
+            f"a validation {json.dumps(k4_run['counter'].validations[0])}; last epoch "
+            f"{json.dumps(k4_run['losses'])}")
+
+        card_pipe = resumed_pipeline(PIPE_DIR, pipe_run, "cuda")
+        route_errs = compare_routes(card_pipe)
+        say("compare", f"pipeline batch_loss K4 route vs K1 route {json.dumps(route_errs)} "
+            f"(KL, net and gradients <= {KL_RTOL}, recon and nll <= {LOSS_RTOL})")
+        check_route_errs(route_errs)
+
+        t0 = time.perf_counter()
+        card_eval = evaluate_pipeline(card_pipe)
+        cpu_eval = evaluate_pipeline(resumed_pipeline(PIPE_DIR, pipe_run, "cpu"))
+        p_errs = compare_pipeline(card_eval, cpu_eval)
+        say("compare", f"pipeline card vs CPU from model_final.ckpt: card {json.dumps(card_eval)} "
+            f"CPU {json.dumps(cpu_eval)} rel {json.dumps(p_errs)} (GP term and net <= "
+            f"{KL_RTOL}, recon, nll and test MSEs <= {LOSS_RTOL}; "
+            f"{time.perf_counter() - t0:.1f} s)")
+
+        say("profile", "pipeline_epoch " + json.dumps(profile_window(card_pipe.trainer.run_epoch, 1)))
+        say("profile", "pipeline_validation " + json.dumps(
+            profile_window(lambda: pipe_validate(card_pipe), 2)))
+    finally:
+        shutil.rmtree(PIPE_DIR, ignore_errors=True)
+
+    # phase 8: the kernels line
+    paths = {"serving": serve_counts, "training": train_launches, "standard": std_counts,
+             "pipeline": pipe_run["counts"], "pipeline_k4": k4_run["counts"]}
     for e, key in ((entry, "chol_inv"), (k1_entry, "b_chain"), (k3_entry, "kernel_matrix"),
-                   (k5_entry, "adam")):
+                   (k4_entry, "block_pair"), (k5_entry, "adam")):
         e["launches_by_path"] = {path: counts[key] for path, counts in paths.items()}
         e["launches"] = sum(e["launches_by_path"].values())
     entry["launches_by_step"] = gpu["launches"]
-    print(json.dumps({"kernels": [entry, k1_entry, k3_entry, k5_entry]}), flush=True)
+    print(json.dumps({"kernels": [entry, k1_entry, k3_entry, k4_entry, k5_entry]}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -1,11 +1,13 @@
 """lvae_torch — the PyTorch/CUDA port of lvae_tpu for NVIDIA Hopper.
 
-Serves a trained longitudinal VAE: ConvVAE/SimpleVAE encoding and decoding,
-the sparse additive-GP posterior over latent trajectories with a folded
-cohort basis and a low-rank per-request extension, and a fixed-shape
-serving bundle. Every CUDA kernel sits beside a plain PyTorch version that
-runs when the tensors lie on the CPU. The package imports no JAX and nothing
-of ``lvae_tpu``.
+Trains and serves a longitudinal VAE: ConvVAE/SimpleVAE encoding and
+decoding, the additive-GP prior with Hensman SVI and the standard
+full-batch regimes, validation, test-set prediction and generation, and the
+reference-format CLI (``python -m lvae_torch.cli``); the sparse GP posterior
+over latent trajectories with a folded cohort basis, a low-rank per-request
+extension and a fixed-shape serving bundle. Every CUDA kernel sits beside a
+plain PyTorch version that runs when the tensors lie on the CPU. The package
+imports no JAX and nothing of ``lvae_tpu``.
 """
 
 __version__ = "0.1.0"

@@ -2,12 +2,13 @@
 
 A dataset is cut into fixed-size chunks of row indices, the tail padded with
 row 0 (the JAX package's pad rule), and each chunk goes through the model in
-``eval()`` mode without autograd. Results come back to the host as numpy.
+``eval()`` mode without autograd, in the model's dtype. Results come back
+to the host as numpy; :func:`vae_forward` keeps its tensors on the device.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -30,6 +31,18 @@ def _on(model: nn.Module, device) -> Tuple[nn.Module, torch.device]:
 
 
 @torch.inference_mode()
+def vae_forward(model: nn.Module, x: torch.Tensor, eps: Optional[torch.Tensor] = None):
+    """The full VAE forward in ``eval()`` mode without autograd:
+    ``(reconstruction, mu, log_var)`` of the tensor ``x`` on the model's
+    device. ``z = mu`` when ``eps`` is None, else the reparameterised
+    sample ``mu + eps·exp(½ log_var)`` with the given noise ``[N, L]``."""
+    model.eval()
+    mu, log_var = model.encode(x)
+    z = mu if eps is None else mu + eps.to(mu.device, mu.dtype) * torch.exp(0.5 * log_var)
+    return model.decode(z), mu, log_var
+
+
+@torch.inference_mode()
 def encode_dataset(
     model: nn.Module, data, batch_size: int = 1000, device="cuda"
 ) -> Tuple[np.ndarray, np.ndarray]:
@@ -37,20 +50,21 @@ def encode_dataset(
 
     The model is moved to ``device`` (in place, as ``nn.Module.to`` does)."""
     model, dev = _on(model, device)
-    data = np.asarray(data, np.float32)
+    dtype = model.raw_log_vy.dtype
+    data = np.asarray(data)
     n = data.shape[0]
     if n == 0:
         empty = np.zeros((0, model.latent_dim), np.float32)
         return empty, empty.copy()
     idx = _chunk_indices(n, batch_size)
-    x = torch.from_numpy(data).to(dev)
+    x = torch.as_tensor(data, dtype=dtype, device=dev)
     mus, lvs = [], []
     for chunk in torch.from_numpy(idx).to(dev):
         mu, lv = model.encode(x[chunk])
         mus.append(mu)
         lvs.append(lv)
-    mu = torch.cat(mus)[:n].float().cpu().numpy()
-    lv = torch.cat(lvs)[:n].float().cpu().numpy()
+    mu = torch.cat(mus)[:n].cpu().numpy()
+    lv = torch.cat(lvs)[:n].cpu().numpy()
     return mu, lv
 
 
@@ -58,12 +72,13 @@ def encode_dataset(
 def decode_latents(model: nn.Module, z, batch_size: int = 1000, device="cuda") -> np.ndarray:
     """Decode latents ``[N, L]`` to data space in fixed-size chunks."""
     model, dev = _on(model, device)
-    z = np.asarray(z, np.float32)
+    dtype = model.raw_log_vy.dtype
+    z = np.asarray(z)
     n = z.shape[0]
     if n == 0:  # one zero row through the decoder fixes the output shape
-        out = model.decode(torch.zeros((1, z.shape[1]), dtype=torch.float32, device=dev))
+        out = model.decode(torch.zeros((1, z.shape[1]), dtype=dtype, device=dev))
         return out.cpu().numpy()[:0]
     idx = _chunk_indices(n, batch_size)  # the same pad/chunk rule as encode
-    zt = torch.from_numpy(z).to(dev)
+    zt = torch.as_tensor(z, dtype=dtype, device=dev)
     outs = [model.decode(zt[chunk]) for chunk in torch.from_numpy(idx).to(dev)]
     return torch.cat(outs)[:n].cpu().numpy()

@@ -69,6 +69,44 @@ class LVAEPredictor:
     eps: float = 1e-6
     device: object = "cuda"
 
+    # ------------------------------------------------------------- factories
+    @classmethod
+    def from_pipeline(cls, pipeline) -> "LVAEPredictor":
+        """Package a trained :class:`~lvae_torch.pipeline.LVAEPipeline`: a
+        copy of its VAE and GP parameters (later training does not change
+        the predictor), the inducing points, and the training cohort
+        encoded as the regression basis, on the pipeline's device."""
+        model, gp_params, noise = pipeline.current_params()
+        model = copy.deepcopy(model)
+        mu, _ = encode_dataset(model, pipeline.dataset.data, device=pipeline.device)
+        with torch.no_grad():
+            gp = gp_params.to(copy=True)
+        return cls(
+            model=model, gp_params=gp, noise=noise.clone(), spec0=pipeline.spec0,
+            spec1=pipeline.spec1, z=pipeline.trainer.tdata.z.detach().clone(),
+            id_covariate=pipeline.cfg.id_covariate,
+            basis_labels=np.asarray(pipeline.dataset.labels), basis_mu=mu,
+            eps=pipeline.cfg.eps, device=pipeline.device,
+        )
+
+    @classmethod
+    def from_checkpoint(cls, path: str, pipeline_cfg, dataset=None,
+                        device="cuda") -> "LVAEPredictor":
+        """Rebuild from a pipeline checkpoint (``model_final.ckpt``,
+        ``model_best.ckpt``, ...) with its config and, optionally, the
+        training cohort (else the config's files are read)."""
+        from lvae_torch.pipeline import LVAEPipeline
+        from lvae_torch.utils.checkpoint import try_load_checkpoint
+
+        pipeline = LVAEPipeline(pipeline_cfg, {"train": dataset} if dataset is not None else None,
+                                device=device)
+        trainer = pipeline.build_trainer()
+        state = try_load_checkpoint(path, like=trainer.state)
+        if state is None:
+            raise FileNotFoundError(f"could not load checkpoint {path!r} (see log above)")
+        trainer.state = state
+        return cls.from_pipeline(pipeline)
+
     def __post_init__(self):
         self.device = resolve_device(self.device)
         self.model = self.model.to(self.device).eval()

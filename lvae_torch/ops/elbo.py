@@ -26,6 +26,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from lvae_torch.kernels_cuda import b_chain as bc
+from lvae_torch.kernels_cuda import block_pair as bp
 from lvae_torch.ops import kernels as kx
 from lvae_torch.ops import linalg as la
 from lvae_torch.ops.linalg import _full_precision
@@ -76,11 +77,21 @@ def gp_block_operators(
     ``noise`` is the constrained per-latent noise ``[L]``, ``z [M, Q]`` the
     inducing points. ``extra_spd`` (``[L, M, M]`` SPD, the Hensman step's
     variational H) is factored in one call with K0zz, stacked ``[K0zz; H]``,
-    and returned as ``extra_chol``/``extra_inv``.
+    and returned as ``extra_chol``/``extra_inv``; an ``extra_spd`` of
+    another shape is factored in a call of its own.
 
-    The per-subject chain runs kernel K1 (``kernels_cuda/b_chain.py``) for
-    a CUDA tensor inside ``b_chain.usable``'s shapes; otherwise the plain
-    chain: block kernels → B → ``cholesky_and_inverse`` → log|B|.
+    The per-subject chain takes one of three routes, as in the JAX package:
+
+    * K1 (``kernels_cuda/b_chain.py``) where ``ops/kernels.use_b_chain_kernel``
+      allows it (None: for CUDA tensors) and ``b_chain.usable`` holds;
+    * else K4 (``kernels_cuda/block_pair.py``) builds both block stacks in
+      one pass where ``ops/kernels.use_block_pair_kernel`` is on and
+      ``block_pair.usable`` holds (f32, ``[L, C]`` parameters);
+    * else the plain block kernels, also for a batch outside
+      ``block_pair.usable`` with the K4 switch on, on every device.
+
+    K4 and the plain route go on through B → ``cholesky_and_inverse`` →
+    log|B|.
     """
     p, t, q = xb.shape
     m_ind = z.shape[0]
@@ -96,20 +107,28 @@ def gp_block_operators(
 
     k0zz = kx.add_adaptive_jitter(kx.kernel_matrix(spec0, kp0, z, z), eps)
     extra_chol = extra_inv = None
-    if extra_spd is not None:
+    if extra_spd is not None and extra_spd.shape == k0zz.shape:
         stacked = torch.cat([k0zz, extra_spd.to(k0zz.dtype)], dim=0)
         l_all, i_all = la.cholesky_and_inverse(stacked)
         lk0zz, ik0zz = l_all[:l_lat], i_all[:l_lat]
         extra_chol, extra_inv = l_all[l_lat:], i_all[l_lat:]
     else:
         lk0zz, ik0zz = la.cholesky_and_inverse(k0zz)
+        if extra_spd is not None:  # another shape: factored on its own
+            extra_chol, extra_inv = la.cholesky_and_inverse(extra_spd)
 
-    if xb.is_cuda and bc.usable(spec0, spec1, kp0, xb):
+    want_b_chain = kx.use_b_chain_kernel
+    if want_b_chain is None:
+        want_b_chain = xb.is_cuda
+    if want_b_chain and bc.usable(spec0, spec1, kp0, xb):
         ib, logdet_b, tr_ib_k0 = bc.b_chain_operators(spec0, spec1, kp0, kp1, noise, xb, mask)
         k0_st = b = lb = None
     else:
-        k0_st = kx.block_kernel_matrix(spec0, kp0, xb, mask)
-        k1_st = kx.block_kernel_matrix(spec1, kp1, xb, mask)
+        if kx.use_block_pair_kernel and bp.usable(spec0, spec1, kp0, xb):
+            k0_st, k1_st = bp.block_kernel_pair(spec0, spec1, kp0, kp1, xb, mask)
+        else:
+            k0_st = kx.block_kernel_matrix(spec0, kp0, xb, mask)
+            k1_st = kx.block_kernel_matrix(spec1, kp1, xb, mask)
         b = kx.block_b_operator(spec1, kp1, xb, mask, noise, k1_st=k1_st)
         lb, ib = la.cholesky_and_inverse(b)
         logdet_b = la.logdet_from_chol(lb, batch_dims=1)
@@ -340,9 +359,13 @@ def natural_gradient_update(
     ``iH_new = iH + lr (grad_H + grad_Hᵀ)``, ``H ← iH_new⁻¹``,
     ``m ← H (iH m − lr (grad_m − 2 grad_H m))``. Outside autograd.
 
-    If the step leaves the PSD cone (the factor of ``iH_new`` is NaN), the
-    previous (m, H) are kept; the choice is made on the device, with no
-    host synchronisation."""
+    If the step leaves the PSD cone (the factor of ``iH_new`` is NaN), or
+    the new H does not factor in the working precision, the previous (m, H)
+    are kept; the choice is made on the device, with no host
+    synchronisation. The second test is the port's own: the JAX package
+    keeps such a step, and every later bound then reads a NaN factor of H
+    and every later step is refused (seen in f32 on the card, from the
+    reference's nearly singular initial H; ROADMAP queue 3)."""
     if ng.iH is not None:
         ih = ng.iH
     else:
@@ -350,5 +373,7 @@ def natural_gradient_update(
     ih_new = ih + lr * (ng.grad_H + ng.grad_H.mT)
     _, h_new = la.cholesky_and_inverse(ih_new)
     m_new = h_new @ (ih @ m - lr * (ng.grad_m - 2.0 * (ng.grad_H @ m)))
-    ok = torch.isfinite(m_new).all() & torch.isfinite(h_new).all()
+    l_h_new, _ = la.cholesky_and_inverse(h_new)
+    ok = (torch.isfinite(m_new).all() & torch.isfinite(h_new).all()
+          & torch.isfinite(l_h_new).all())
     return torch.where(ok, m_new, m), torch.where(ok, h_new, H)

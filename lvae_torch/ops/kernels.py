@@ -20,6 +20,7 @@ with ``min_log = -16``.
 from __future__ import annotations
 
 import math
+import os
 from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
@@ -28,6 +29,33 @@ MIN_LOG = -16.0
 DEFAULT_SCALE = math.log(2.0)  # softplus(0), the GPyTorch ScaleKernel default
 DEFAULT_LENGTHSCALE = 2.5
 DEFAULT_NOISE = math.log(2.0)  # softplus(0), GPyTorch GaussianLikelihood default
+
+
+def b_chain_from_env(value: str) -> Optional[bool]:
+    """``$LVAE_BCHAIN`` → the K1 switch: ``1/true/on/yes`` True,
+    ``0/false/off/no`` False, empty or ``auto`` None; anything else raises."""
+    v = value.strip().lower()
+    if v in ("1", "true", "on", "yes"):
+        return True
+    if v in ("0", "false", "off", "no"):
+        return False
+    if v in ("", "auto"):
+        return None
+    raise ValueError(f"LVAE_BCHAIN={value!r}: expected 1/0/true/false/on/off/yes/no/auto")
+
+
+# Route switches of ops/elbo.gp_block_operators, the counterparts of the JAX
+# package's ops.kernels.use_pallas_b_chain and use_pallas_block_pair.
+# K1, the fused B-chain (kernels_cuda/b_chain.py): None (auto) runs it for
+# CUDA tensors; True forces the route on every device (the CPU takes its
+# plain version through BChain); False turns it off. $LVAE_BCHAIN sets it.
+use_b_chain_kernel: Optional[bool] = b_chain_from_env(os.environ.get("LVAE_BCHAIN", ""))
+# K4, the block-pair kernel (kernels_cuda/block_pair.py), where K1 does not
+# run: off by default, as in the JAX package. As there, a batch outside
+# block_pair.usable (f64, [C] parameters, a spec beyond the component table,
+# a subject's covariates beyond a block's shared memory) takes the plain
+# block kernels on every device, with the switch on.
+use_block_pair_kernel: bool = False
 
 
 class KernelComponent(NamedTuple):

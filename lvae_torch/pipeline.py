@@ -1,0 +1,428 @@
+"""End-to-end L-VAE pipeline (port of lvae_tpu.pipeline).
+
+Wires config → data → model → GP prior → training regime → artefacts →
+validation → test MSE → image generation, the programmatic equivalent of
+the reference's ``LVAE.py``, on one device (``cuda`` unless the caller asks
+for the CPU).
+
+Regimes ported: Hensman SVI and the standard full-batch ones (closed,
+GPapprox, GPapprox_closed, GPPVAE with ``mini_batch``). Each of these
+raises ``NotImplementedError`` naming its ROADMAP item: the VI regime
+(item 7), the RNN encoder (item 8), a device mesh (item 9), bfloat16 and
+the orbax checkpoint backends (item 10).
+"""
+
+from __future__ import annotations
+
+import math
+import os
+import pickle
+import time
+from typing import Optional
+
+import numpy as np
+import torch
+
+from lvae_torch.config import LVAEConfig
+from lvae_torch.data.blocks import build_subject_blocks
+from lvae_torch.data.datasets import load_dataset
+from lvae_torch.evaluation.encode import encode_dataset
+from lvae_torch.evaluation.generation import recon_complete_gen
+from lvae_torch.evaluation.testing import mse_test_exact, mse_test_gp_approx
+from lvae_torch.evaluation.validate import validate
+from lvae_torch.models.vae import make_vae
+from lvae_torch.ops import kernels as kx
+from lvae_torch.train import state as st
+from lvae_torch.train.hensman import HensmanConfig, HensmanTrainer
+from lvae_torch.train.standard import StandardConfig, StandardTrainer
+from lvae_torch.utils.checkpoint import (
+    read_checkpoint, save_checkpoint, try_load_checkpoint, vae_state_dict,
+)
+from lvae_torch.utils.device import resolve_device
+from lvae_torch.utils.metrics import MetricsLogger, device_memory_stats
+
+DTYPES = {"float32": torch.float32, "float64": torch.float64}
+
+
+def check_ported(cfg) -> None:
+    """Raise ``NotImplementedError`` for a configuration the port does not
+    run yet, naming the ROADMAP item that brings it."""
+    waiting = []
+    if getattr(cfg, "type_nnet", "") == "rnn":
+        waiting.append("type_nnet=rnn (the RNN encoder, ROADMAP queue 1 item 8)")
+    if getattr(cfg, "data_mesh", 1) * getattr(cfg, "latent_mesh", 1) > 1:
+        waiting.append("data_mesh/latent_mesh > 1 (parallelism, ROADMAP queue 1 item 9)")
+    if "bfloat16" in (getattr(cfg, "dtype", ""), getattr(cfg, "model_dtype", "")):
+        waiting.append("bfloat16 compute (ROADMAP queue 1 item 10)")
+    if getattr(cfg, "checkpoint_backend", "pickle").startswith("orbax"):
+        waiting.append("checkpoint_backend=orbax* (a JAX storage layer, ROADMAP queue 1 "
+                       "item 10); lvae_torch writes its own torch.save checkpoints")
+    if waiting:
+        raise NotImplementedError("not ported to lvae_torch yet: " + "; ".join(waiting))
+
+
+def reference_vae_state_dict(sd: dict) -> dict:
+    """The reference's torch VAE ``state_dict`` (``.pth``) as the port's:
+    the layer names match, the observation noise ``_log_vy`` becomes
+    ``raw_log_vy``."""
+    return {("raw_log_vy" if k == "_log_vy" else k): v for k, v in sd.items()}
+
+
+class LVAEPipeline:
+    """Build-and-run harness for one L-VAE experiment on ``device``."""
+
+    def __init__(self, cfg: LVAEConfig, datasets: Optional[dict] = None, device="cuda"):
+        cfg.validate()
+        check_ported(cfg)
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.dtype = DTYPES[cfg.dtype]
+        ds = datasets or {}
+
+        def given_or(name, loader):
+            # None-check, not truthiness: a dataset passed in is never
+            # swapped for the configured files
+            got = ds.get(name)
+            return got if got is not None else loader()
+
+        self.dataset = given_or("train", lambda: load_dataset(cfg, "train"))
+        if self.dataset is None:
+            raise ValueError("No training dataset configured")
+        want_pred = cfg.run_tests or cfg.generate_images or cfg.variational_inference_training
+        self.prediction_dataset = given_or(
+            "prediction", lambda: load_dataset(cfg, "prediction") if want_pred else None)
+        self.generation_dataset = given_or(
+            "generation", lambda: load_dataset(cfg, "generation") if cfg.generate_images else None)
+        self.validation_dataset = given_or(
+            "validation", lambda: load_dataset(cfg, "validation") if cfg.run_validation else None)
+        self.test_dataset = given_or(
+            "test", lambda: load_dataset(cfg, "test") if cfg.run_tests else None)
+        will_test = cfg.run_tests and self.test_dataset is not None
+        will_gen = cfg.generate_images and self.generation_dataset is not None
+        if (will_test or will_gen) and self.prediction_dataset is None \
+                and not cfg.variational_inference_training:
+            # tests and generation regress on the prediction cohort: fail
+            # here, not in the best-model callback mid-training
+            raise ValueError(
+                "run_tests/generate_images need a prediction cohort: pass "
+                "datasets['prediction'] or set csv_file_prediction_data/"
+                "prediction_mask_file"
+            )
+        print(f"Length of dataset:  {len(self.dataset)}")
+        if not len(self.dataset):
+            raise ValueError("Dataset is empty")
+
+        self.num_dim = cfg.num_dim or self.dataset.num_dim
+        self.q = self.dataset.num_covariates
+        # '' = the GP dtype (the JAX package's bf16 auto-switch is a TPU layout)
+        model_dtype = DTYPES[cfg.model_dtype] if cfg.model_dtype else self.dtype
+        self.model = make_vae(
+            cfg.type_nnet, cfg.latent_dim, self.num_dim, vy_init=cfg.vy_init,
+            dropout=cfg.dropout, dropout_input=cfg.dropout_input,
+            generator=torch.Generator().manual_seed(cfg.seed), dtype=model_dtype,
+        )
+        self.spec0, self.spec1 = kx.split_kernel_spec(
+            id_covariate=cfg.id_covariate, **cfg.kernel_spec_kwargs()
+        )
+        self.blocks = build_subject_blocks(self.dataset.labels, cfg.id_covariate)
+        self.metrics = MetricsLogger(cfg.results_path or cfg.save_path)
+        self.trainer = None
+        self.best = {"val": np.inf, "epoch": 0}
+
+    @property
+    def out_dir(self) -> str:
+        return self.cfg.results_path or self.cfg.save_path
+
+    # ---------------------------------------------------------------- setup
+    def _load_pretrained_vae(self, trainer) -> None:
+        """Seed the VAE from ``cfg.model_params``: a port checkpoint
+        (``.ckpt``) or the reference's torch ``state_dict`` (``.pth``)."""
+        sd = self._pretrained_vae_state_dict()
+        if sd is None:
+            print("Did not load pre-trained values.")
+            return
+        try:
+            trainer.state.trainables.vae.load_state_dict(sd)
+            print("Loaded pre-trained values.")
+        except Exception as e:  # noqa: BLE001
+            print(f"Did not load pre-trained values: {e}")
+
+    def _pretrained_vae_state_dict(self) -> Optional[dict]:
+        path = self.cfg.model_params
+        if not (path and os.path.exists(path)):
+            return None
+        try:
+            if path.endswith(".pth"):
+                sd = torch.load(path, map_location="cpu", weights_only=True)
+                return reference_vae_state_dict(sd)
+            return vae_state_dict(read_checkpoint(path))
+        except Exception as e:  # noqa: BLE001 — unreadable → train from scratch
+            print(f"pre-trained VAE {path} not readable: {e}")
+            return None
+
+    def build_trainer(self):
+        cfg = self.cfg
+        z = st.init_inducing_points(self.dataset.labels, cfg.M, seed=cfg.seed, dtype=np.float32)
+        if cfg.hensman:
+            hcfg = HensmanConfig(
+                spec0=self.spec0, spec1=self.spec1, latent_dim=cfg.latent_dim,
+                P_tot=self.blocks.num_subjects, N_tot=len(self.dataset),
+                weight=cfg.weight, loss_function=cfg.loss_function,
+                natural_gradient=cfg.natural_gradient,
+                natural_gradient_lr=cfg.natural_gradient_lr,
+                constrain_scales=cfg.constrain_scales, eps=cfg.eps,
+                dropout=cfg.dropout > 0, vy_fixed=cfg.vy_fixed,
+                learn_inducing=cfg.learn_inducing,
+            )
+            self.trainer = HensmanTrainer(
+                self.model, hcfg, self.dataset, self.blocks, z,
+                subjects_per_batch=cfg.subjects_per_batch,
+                learning_rate=cfg.learning_rate, seed=cfg.seed, dtype=self.dtype,
+                t_buckets=cfg.T_buckets, device=self.device,
+            )
+        elif cfg.variational_inference_training:
+            self.run_vi()
+        else:
+            scfg = StandardConfig(
+                spec0=self.spec0, spec1=self.spec1, latent_dim=cfg.latent_dim,
+                P_tot=self.blocks.num_subjects, T=self.blocks.t_max,
+                weight=cfg.weight, loss_function=cfg.loss_function,
+                type_KL=cfg.type_KL, num_samples=cfg.num_samples,
+                constrain_scales=cfg.constrain_scales, eps=cfg.eps,
+                dropout=cfg.dropout > 0, vy_fixed=cfg.vy_fixed,
+            )
+            self.trainer = StandardTrainer(
+                self.model, scfg, self.dataset, self.blocks, z,
+                learning_rate=cfg.learning_rate, seed=cfg.seed, dtype=self.dtype,
+                pseudo_minibatch=cfg.mini_batch, device=self.device,
+            )
+        self._load_pretrained_vae(self.trainer)
+        self._try_resume(self.trainer)
+        return self.trainer
+
+    def _try_resume(self, trainer) -> None:
+        """Resume the whole training state from ``cfg.gp_model_folder``
+        (``model_final.ckpt``, else ``model_best.ckpt``) when it holds one."""
+        folder = self.cfg.gp_model_folder
+        if not folder:
+            return
+        for name in ("model_final.ckpt", "model_best.ckpt"):
+            path = os.path.join(folder, name)
+            state = try_load_checkpoint(path, like=trainer.state)
+            if state is not None:
+                trainer.state = state
+                print(f"Loaded GP models (resumed from {path})")
+                return
+        print("GP model loading failed!")
+
+    # -------------------------------------------------------------- training
+    def _epoch_callback(self, trainer, epoch, metrics):
+        """Per-chunk housekeeping: one metrics record per epoch, the
+        non-finite guard and rollback, the ``checkpoint_every`` snapshot,
+        ``debug_nans``, and every ``test_freq`` epochs validation with
+        best-model checkpoint, tests and generation."""
+        cfg = self.cfg
+        hist = getattr(trainer, "history", None) or []
+        start = getattr(self, "_metrics_logged", 0)
+        fresh = hist[start:]
+        last = os.path.join(self.out_dir, "model_last.ckpt")
+        if cfg.auto_recover and not bool(st.tree_finite(trainer.state.trainables)):
+            # recover before logging: the chunk is replayed, so its epochs
+            # must not enter metrics.jsonl or diagnostics.pkl
+            self._recover(trainer, epoch, last)
+            if fresh:
+                del trainer.history[start:]
+            return "rollback"
+        if fresh:
+            base = epoch - len(fresh)
+            for i, m in enumerate(fresh):
+                self.metrics.log(base + i + 1, m._asdict())
+            self._metrics_logged = len(hist)
+        else:
+            self.metrics.log(epoch, metrics._asdict())
+        if cfg.auto_recover or (cfg.checkpoint_every > 0 and epoch % cfg.checkpoint_every == 0):
+            # the rolling known-good snapshot (auto_recover: every chunk,
+            # finiteness checked above), else the flag's cadence
+            save_checkpoint(last, trainer.state, metadata={"epoch": epoch})
+        if cfg.debug_nans:
+            from lvae_torch.utils.debug import assert_state_finite
+
+            assert_state_finite(trainer.state.trainables, where=f"epoch {epoch}")
+        if self.validation_dataset is None:
+            return None
+        if cfg.test_freq <= 0 or epoch % cfg.test_freq != 0:
+            return None
+        model, gp_params, noise = self.current_params()
+        res = validate(
+            model, gp_params, noise, self.spec0, self.spec1, self.validation_dataset,
+            trainer.tdata.z, cfg.id_covariate, cfg.weight, cfg.loss_function,
+            cfg.latent_dim, cfg.eps, type_kl=cfg.type_KL, num_samples=cfg.num_samples,
+            device=self.device,
+        )
+        if res.net < self.best["val"]:
+            self.best = {"val": res.net, "epoch": epoch}
+            print("Saving better model")
+            save_checkpoint(os.path.join(self.out_dir, "model_best.ckpt"), trainer.state,
+                            metadata={"epoch": epoch, "val": res.net})
+            run_tests = cfg.run_tests and self.test_dataset is not None
+            gen = cfg.generate_images and self.generation_dataset is not None
+            pred = self.encode_prediction_cohort() if (run_tests or gen) else None
+            if run_tests:
+                self._run_tests(save_file="result_error_best.csv", pred=pred)
+            if gen:
+                self._generate(pred, epoch)
+        return None
+
+    def _recover(self, trainer, epoch, last_path: str) -> None:
+        """Non-finite training state → reload the rolling known-good
+        snapshot and reseed the generator, so that the replayed stretch
+        takes another sample path. Gives up after 3 attempts."""
+        self.recoveries = getattr(self, "recoveries", 0) + 1
+        if self.recoveries > 3:
+            raise FloatingPointError(
+                f"state non-finite at epoch {epoch}; giving up after "
+                f"{self.recoveries - 1} recoveries"
+            )
+        state = try_load_checkpoint(last_path, like=trainer.state)
+        if state is None:
+            raise FloatingPointError(
+                f"state non-finite at epoch {epoch} and no recovery checkpoint at {last_path}"
+            )
+        seed = int(torch.randint(0, 2**62, (1,), generator=state.rng))
+        state.rng.manual_seed(seed + self.recoveries)
+        trainer.state = state
+        print(
+            f"Recovered from non-finite state at epoch {epoch} "
+            f"(attempt {self.recoveries}; resumed from {last_path})",
+            flush=True,
+        )
+
+    def train(self):
+        """Fit ``cfg.epochs`` epochs in chunks of gcd(checkpoint_every,
+        test_freq) epochs, so that the callback sees every checkpoint and
+        validation epoch; with ``cfg.profile`` under ``torch.profiler``,
+        writing a Chrome trace to ``<results>/profile/trace.json``."""
+        if self.trainer is None:
+            self.build_trainer()
+        cfg = self.cfg
+        start = time.perf_counter()
+        chunk = max(1, int(cfg.checkpoint_every or 0))
+        if cfg.test_freq and cfg.test_freq > 0:
+            chunk = math.gcd(chunk, int(cfg.test_freq))
+        fit_kwargs = dict(log_every=1, callback=self._epoch_callback, chunk=chunk)
+        if cfg.profile:
+            from torch.profiler import ProfilerActivity, profile
+
+            acts = [ProfilerActivity.CPU]
+            if self.device.type == "cuda":
+                acts.append(ProfilerActivity.CUDA)
+            with profile(activities=acts) as prof:
+                self.trainer.fit(cfg.epochs, **fit_kwargs)
+            trace = os.path.join(self.out_dir, "profile", "trace.json")
+            os.makedirs(os.path.dirname(trace), exist_ok=True)
+            prof.export_chrome_trace(trace)
+            print(f"Profile written to {trace}")
+        else:
+            self.trainer.fit(cfg.epochs, **fit_kwargs)
+        print(f"Duration of training: {time.perf_counter() - start:.2f} seconds")
+        if cfg.memory_dbg:
+            print(f"Device memory: {device_memory_stats()}")
+        return self.trainer.history
+
+    # --------------------------------------------------------------- params
+    def current_params(self):
+        """(the VAE module, the GP hyperparameters, the constrained noise
+        ``[L]``), the noise pinned to 1 under ``constrain_scales``."""
+        tr = self.trainer.state.trainables
+        raw = tr.gp.raw_noise.detach()
+        noise = torch.ones_like(raw) if self.cfg.constrain_scales else kx.constrain(raw)
+        return tr.vae, tr.gp, noise
+
+    def encode_prediction_cohort(self):
+        ds = self.prediction_dataset
+        mu, _ = encode_dataset(self.model, ds.data, device=self.device)
+        return ds.labels, mu
+
+    # ------------------------------------------------------------ evaluation
+    def _run_tests(self, save_file: str = "result_error.csv", pred=None):
+        cfg = self.cfg
+        model, gp_params, noise = self.current_params()
+        prediction_x, prediction_mu = pred or self.encode_prediction_cohort()
+        if cfg.type_KL in ("GPapprox", "GPapprox_closed"):
+            return mse_test_gp_approx(
+                model, gp_params, noise, self.spec0, self.spec1, self.test_dataset,
+                prediction_x, prediction_mu, self.trainer.tdata.z, cfg.id_covariate, cfg.eps,
+                results_path=self.out_dir, save_file=save_file, device=self.device,
+            )
+        spec_full, kp_full = kx.join_specs(self.spec0, self.spec1, gp_params.kp0, gp_params.kp1)
+        return mse_test_exact(
+            model, kp_full, spec_full, noise, self.test_dataset, prediction_x, prediction_mu,
+            cfg.eps, results_path=self.out_dir, save_file=save_file, device=self.device,
+        )
+
+    def _generate(self, pred, epoch: int) -> str:
+        model, gp_params, noise = self.current_params()
+        prediction_x, prediction_mu = pred
+        return recon_complete_gen(
+            self.generation_dataset, model, gp_params, noise, self.spec0, self.spec1,
+            prediction_x, prediction_mu, self.trainer.tdata.z, self.cfg.id_covariate,
+            self.out_dir, epoch=epoch, eps=self.cfg.eps, device=self.device,
+        )
+
+    def save_artifacts(self):
+        """Final artefacts in ``cfg.save_path``: ``diagnostics.pkl`` (the
+        per-epoch metrics as a list of dicts), ``plot_values.pkl``
+        (``[labels, mu, log_var, z sample, row index]`` of the final model
+        on the training cohort) and ``model_final.ckpt``."""
+        cfg = self.cfg
+        out = cfg.save_path
+        os.makedirs(out, exist_ok=True)
+        if self.best["epoch"]:
+            print("Best results in epoch: " + str(self.best["epoch"]))
+        with open(os.path.join(out, "diagnostics.pkl"), "wb") as f:
+            pickle.dump([m._asdict() for m in self.trainer.history], f)
+        mu, log_var = encode_dataset(self.model, self.dataset.data, device=self.device)
+        noise = torch.randn(mu.shape, generator=torch.Generator().manual_seed(cfg.seed),
+                            dtype=torch.from_numpy(mu[:0]).dtype).numpy()
+        z_sample = mu + noise * np.exp(0.5 * log_var)
+        with open(os.path.join(out, "plot_values.pkl"), "wb") as f:
+            pickle.dump([np.asarray(self.dataset.labels), mu, log_var, z_sample,
+                         np.arange(len(self.dataset))], f)
+        save_checkpoint(os.path.join(out, "model_final.ckpt"), self.trainer.state)
+        if cfg.hensman:
+            print("reference GP-state export (gp_model.pth, zt_list.pth, m.pth, H.pth) is "
+                  "not ported to lvae_torch yet (ROADMAP queue 1 item 11)")
+        self.metrics.flush()
+
+    def run_vi(self, pred_epochs: int = 1000):
+        """The VI regime waits for ``train/vi.py``."""
+        raise NotImplementedError(
+            "variational_inference_training is not ported to lvae_torch yet "
+            "(train/vi.py, ROADMAP queue 1 item 7)"
+        )
+
+    def run(self):
+        """Full experiment: train → save → validate → test → generate."""
+        cfg = self.cfg
+        if cfg.variational_inference_training:
+            return self.run_vi()
+        self.build_trainer()
+        self.train()
+        self.save_artifacts()
+        if cfg.run_validation and self.validation_dataset is not None:
+            model, gp_params, noise = self.current_params()
+            validate(
+                model, gp_params, noise, self.spec0, self.spec1, self.validation_dataset,
+                self.trainer.tdata.z, cfg.id_covariate, cfg.weight, cfg.loss_function,
+                cfg.latent_dim, cfg.eps, type_kl=cfg.type_KL, num_samples=cfg.num_samples,
+                device=self.device,
+            )
+        result = None
+        run_tests = cfg.run_tests and self.test_dataset is not None
+        gen = cfg.generate_images and self.generation_dataset is not None
+        pred = self.encode_prediction_cohort() if (run_tests or gen) else None
+        if run_tests:
+            result = self._run_tests(pred=pred)
+        if gen:
+            self._generate(pred, epoch=-1)
+        return result

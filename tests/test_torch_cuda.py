@@ -1,4 +1,4 @@
-"""The port's CUDA kernels K1, K2, K3 and K5 on the card (marked ``cuda``).
+"""The port's CUDA kernels K1 to K5 on the card (marked ``cuda``).
 
 These tests need an NVIDIA GPU and ``nvcc``; without a card they skip. On a
 machine with a card, where JAX may be absent, run them without the suite's
@@ -19,6 +19,9 @@ the same order as the plain version) and its gradient at 1e-4; the fused
 Adam (K5) at 1e-6 relative per step against its plain version (a fused
 multiply-add may round once less) and at 1e-5 relative to the update
 against ``torch.optim.Adam``, whose bias correction is written differently.
+The block pair (K4) is held at max |Δ| over max |reference| ≤ 1e-6 (the
+same expf and products per term as the plain version) and its gradient at
+1e-4.
 """
 
 import math
@@ -28,6 +31,7 @@ import torch
 
 from lvae_torch.kernels_cuda import adam as k5
 from lvae_torch.kernels_cuda import b_chain as k1
+from lvae_torch.kernels_cuda import block_pair as k4
 from lvae_torch.kernels_cuda import cholesky as k2
 from lvae_torch.kernels_cuda import kernel_matrix as k3
 from lvae_torch.ops import elbo as eb
@@ -385,3 +389,73 @@ def test_fused_adam_on_the_card_matches_torch_adam(gen):
     theirs = run(torch.optim.Adam, betas=(0.9, 0.999), eps=1e-8)
     for a, b in zip(ours, theirs):
         assert float((a - b).abs().max() / b.abs().max()) <= 1e-5
+
+
+# -------------------------------------------------------------------- K4
+def pair_args(gen, n_subj, t, n_lat=4):
+    """The block pair's (spec0, spec1, s0, g0, s1, g1, xb, mask)."""
+    spec0, spec1, s0, g0, s1, g1, _, xb, mask = chain_inputs(gen, n_subj, t, n_lat)
+    return spec0, spec1, s0, g0, s1, g1, xb, mask
+
+
+@pytest.mark.parametrize("shape", [(32, 20, 20), (4, 5, 2), (4, 3, 128), (3, 2, 150)])
+def test_block_pair_kernel_matches_plain_version(gen, shape):
+    n_lat, n_subj, t = shape
+    args = pair_args(gen, n_subj, t, n_lat)
+    before = k4.block_pair.launches
+    k0, k1_ = k4.block_pair(*args)
+    torch.cuda.synchronize()
+    assert k4.block_pair.launches == before + 1
+    r0, r1 = k4.block_pair_reference(*args)
+    for got, want in ((k0, r0), (k1_, r1)):
+        assert tuple(got.shape) == (n_lat, n_subj, t, t)
+        assert float((got - want).abs().max() / want.abs().max()) <= 1e-6
+    assert not k0[:, -1].any() and not k1_[:, -1].any()  # the ghost subject
+
+
+@pytest.mark.parametrize("t", [20, 150])
+def test_block_pair_gradient_matches_autograd_of_plain_version(gen, t):
+    spec0, spec1, *leaves, xb, mask = pair_args(gen, 5, t)
+    w = [torch.randn(leaves[0].shape[0], 5, t, t, generator=gen, device="cuda") for _ in range(2)]
+
+    def grads(fn):
+        xs = [x.clone().requires_grad_(True) for x in leaves]
+        k0, k1_ = fn(spec0, spec1, *xs, xb, mask)
+        ((k0 * w[0]).sum() + (k1_ * w[1]).sum()).backward()
+        return [x.grad for x in xs]
+
+    for g, r in zip(grads(k4.BlockPair.apply), grads(k4.block_pair_reference)):
+        assert float((g - r).abs().max() / r.abs().max()) <= 1e-4
+
+
+def test_gp_block_operators_k4_route_on_the_card(gen, monkeypatch):
+    """With K1 off and the block-pair switch on, a CUDA f32 batch launches
+    K4 once and K1 never, also past K1's T limit."""
+    monkeypatch.setattr(kx, "use_b_chain_kernel", False)
+    monkeypatch.setattr(kx, "use_block_pair_kernel", True)
+    spec0, spec1, *_ = chain_inputs(gen, 3, 4)
+    n_lat, m_ind = 4, 8
+    kp0 = kx.init_kernel_params(spec0, n_lat, device="cuda")
+    kp1 = kx.init_kernel_params(spec1, n_lat, device="cuda")
+    noise = torch.ones(n_lat, device="cuda")
+    for t in (20, 150):
+        *_, xb, mask = chain_inputs(gen, 3, t, n_lat)
+        z = xb[0, :m_ind].clone()
+        z[:, 0] = torch.linspace(0, t, m_ind, device="cuda")
+        b1, b4 = k1.b_chain.launches, k4.block_pair.launches
+        ops = eb.gp_block_operators(spec0, spec1, kp0, kp1, noise, xb, z, mask=mask, eps=1e-4)
+        torch.cuda.synchronize()
+        assert k1.b_chain.launches == b1 and k4.block_pair.launches == b4 + 1
+        plain0 = kx.block_kernel_matrix(spec0, kp0, xb, mask)
+        assert float((ops.K0_st - plain0).abs().max() / plain0.abs().max()) <= 1e-6
+        assert torch.isfinite(ops.iB).all()
+
+
+def test_block_pair_wrapper_rejects_what_the_kernel_does_not_take(gen):
+    args = list(pair_args(gen, 3, 20))
+    with pytest.raises(ValueError):
+        k4.block_pair(*args[:6], args[6].double(), args[7])
+    with pytest.raises(ValueError):
+        k4.block_pair(*args[:2], args[2][:, :1].contiguous(), *args[3:])
+    with pytest.raises(ValueError):
+        k4.block_pair(*args[:6], args[6].transpose(0, 1).contiguous().transpose(0, 1), args[7])

@@ -292,6 +292,38 @@ def test_natural_gradient_update_matches_jax_and_keeps_psd_cone():
     torch.testing.assert_close(tH2, t(H), rtol=0, atol=0)
 
 
+@pytest.mark.parametrize("factors", [True, False])
+def test_natural_gradient_update_refuses_a_new_h_that_does_not_factor(monkeypatch, factors):
+    """The port's own test: a step whose inverse-space update factors but
+    whose new H does not (in f32, from a nearly singular H) keeps the
+    previous (m, H); a new H that factors is taken, as in JAX."""
+    a = tiny_inputs(seed=2)
+    (_, jng, _), (_, tng, _) = both_kld(a, 3.0, True)
+    m, H = a["m"], a["H"]
+    jm, jH = jeb.natural_gradient_update(jnp.asarray(m), jnp.asarray(H), jng, 0.01)
+    real = teb.la.cholesky_and_inverse
+    calls = []
+
+    def chol_inv(x):
+        calls.append(x)
+        l_fac, inv = real(x)
+        if len(calls) == 2 and not factors:  # the factor of the new H
+            l_fac = l_fac.clone()
+            l_fac[0, -1, -1] = float("nan")
+        return l_fac, inv
+
+    monkeypatch.setattr(teb.la, "cholesky_and_inverse", chol_inv)
+    tm, tH = teb.natural_gradient_update(t(m), t(H), tng, 0.01)
+    assert len(calls) == 2  # iH_new's factor and inverse, then the new H's factor
+    np.testing.assert_allclose(calls[1].numpy(), np.asarray(jH), rtol=1e-8, atol=1e-12)
+    if factors:
+        np.testing.assert_allclose(tH.numpy(), np.asarray(jH), rtol=1e-8, atol=1e-12)
+        np.testing.assert_allclose(tm.numpy(), np.asarray(jm), rtol=1e-8, atol=1e-12)
+    else:
+        torch.testing.assert_close(tm, t(m), rtol=0, atol=0)
+        torch.testing.assert_close(tH, t(H), rtol=0, atol=0)
+
+
 def test_f32_factorisation_of_the_initial_h_inverse_matches_jax():
     """At the reference's initial H (h hᵀ of a square Gaussian h/10, the
     HealthMNIST L=32, M=60, seed 0) H is nearly singular. In f32 on the CPU
