@@ -6,7 +6,9 @@
 Builds the port's CUDA kernels from ``lvae_torch/csrc`` (K2 ``chol_inv``,
 K1 ``b_chain``, K3 ``kernel_matrix``, K4 ``block_pair`` and K5 ``adam``,
 one ``nvcc`` each, all started together), holds each against its plain
-PyTorch version on the card, forward and gradient, then runs the main paths
+PyTorch version on the card, forward and gradient (K2 at every n from 2 to
+64, K2 and K1 at batches that leave a block partly filled), then runs the
+main paths
 at the full width of ``configs/healthmnist_lvae.txt`` (ConvVAE on 36×36
 frames, L=32 latent GPs, M=60 inducing points, P=100 subjects × T=20
 frames, random frames and weights from ``--seed``):
@@ -83,6 +85,7 @@ from lvae_torch.kernels_cuda import adam as k5  # noqa: E402
 from lvae_torch.kernels_cuda import b_chain as k1  # noqa: E402
 from lvae_torch.kernels_cuda import block_pair as k4  # noqa: E402
 from lvae_torch.kernels_cuda import build  # noqa: E402
+from lvae_torch.kernels_cuda import chol_plan as cp  # noqa: E402
 from lvae_torch.kernels_cuda import cholesky as k2  # noqa: E402
 from lvae_torch.kernels_cuda import kernel_matrix as k3  # noqa: E402
 from lvae_torch.models.vae import make_vae  # noqa: E402
@@ -291,6 +294,11 @@ def rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
     return float((num / den).max())
 
 
+def rel_err_scalar(got: torch.Tensor, want: torch.Tensor) -> float:
+    """Largest |Δ| over max(|want|, 1) of per-latent scalars (log|B|, tr)."""
+    return float(((got - want).abs() / want.abs().clamp(min=1)).max())
+
+
 def spd_stack(shape, n: int, gen: torch.Generator, cond: float = 1e2) -> torch.Tensor:
     """Random SPD stack on the card with eigenvalues log-spaced in [1, cond]."""
     x = torch.randn(*shape, n, n, generator=gen, dtype=torch.float64, device="cuda")
@@ -393,6 +401,7 @@ def check_k2(world: World) -> dict:
     if not (torch.isfinite(l[good]).all() and torch.isfinite(inv[good]).all()):
         raise AssertionError("a non-SPD block spoiled its neighbours")
     say("kernel", "K2 non-SPD block: NaN in that block only")
+    check_k2_every_n(gen)
 
     # times, at the shapes the main path gives the kernel
     fold_b = cases[-1][1]
@@ -428,6 +437,70 @@ def check_k2(world: World) -> dict:
         "max_rel_err": max(rel_err(l, lr), rel_err(inv, ir)),
         "per_shape": per_shape,
     }
+
+
+def card_sms() -> int:
+    return cp.num_sms(torch.device("cuda", torch.cuda.current_device()))
+
+
+def k2_batches(n: int) -> list:
+    """The batches K2 is held at for size ``n``: 1, 7, an odd multiple (265
+    on 132 SMs) of the teams a block of a batch large enough for packed warp
+    teams (n <= 32), and, where a block holds several teams, one matrix
+    more, which leaves the last block one team."""
+    sms = card_sms()
+    odd = (cp.WARP_TEAMS_AN_SM * sms // cp.MAX_WARP_TEAMS) | 1
+    teams = cp.chol_inv_plan(n, odd * cp.MAX_WARP_TEAMS, sms).teams
+    return [1, 7, odd * teams] + ([odd * teams + 1] if teams > 1 else [])
+
+
+def check_k2_matrices(name: str, a: torch.Tensor, tol: float) -> float:
+    """K2 against its plain version on ``a``, with its contracts: exact zeros
+    above L's diagonal and a bitwise-symmetric A⁻¹. Returns the error."""
+    l, inv = k2.cholesky_inverse(a)
+    lr, ir = k2.cholesky_inverse_reference(a)
+    torch.cuda.synchronize()
+    err = max(rel_err(l, lr), rel_err(inv, ir))
+    if not err <= tol:
+        raise AssertionError(f"K2 disagrees with its plain version at {name}: {err:.3e} > {tol:g}")
+    if not bool((torch.triu(l, 1) == 0).all()):
+        raise AssertionError(f"K2 L has nonzeros above the diagonal at {name}")
+    if not torch.equal(inv, inv.mT):
+        raise AssertionError(f"K2 A^-1 is not exactly symmetric at {name}")
+    return err
+
+
+def check_k2_every_n(gen: torch.Generator) -> None:
+    """K2 at every n from 2 to 64, each at the batches of :func:`k2_batches`
+    (tolerance 1e-4 at n <= 20, 1e-3 above, as the main-path cases), and
+    non-SPD matrices among several teams of a block, 5 and the last (alone
+    in the last block for a warp team, n = 20; a block team, n = 60)."""
+    worst = {"warp": 0.0, "block": 0.0}
+    for n in range(la.KERNEL_MIN_N, la.KERNEL_MAX_N + 1):
+        for batch in k2_batches(n):
+            err = check_k2_matrices(f"n={n} batch={batch}", spd_stack((batch,), n, gen),
+                                    1e-4 if n <= 20 else 1e-3)
+            kind = "warp" if n <= 32 else "block"
+            worst[kind] = max(worst[kind], err)
+    say("kernel", f"K2 at every n in {la.KERNEL_MIN_N}..{la.KERNEL_MAX_N}, batches "
+        f"{k2_batches(20)} (n <= 32), {k2_batches(60)} (n > 32): worst rel err, warp teams "
+        f"{worst['warp']:.3e}, block teams {worst['block']:.3e}; zeros above L's diagonal, "
+        "A^-1 bitwise symmetric")
+    for n in (20, 60):
+        batch = k2_batches(n)[-1]
+        a = spd_stack((batch,), n, gen)
+        bad = [5, batch - 1]
+        a[bad] = -a[bad]
+        l, inv = k2.cholesky_inverse(a)
+        torch.cuda.synchronize()
+        good = torch.ones(batch, dtype=torch.bool, device="cuda")
+        good[bad] = False
+        if not all(torch.isnan(l[i]).any() and torch.isnan(inv[i]).any() for i in bad):
+            raise AssertionError(f"K2 gave no NaN on a non-SPD block at n={n}")
+        if not (torch.isfinite(l[good]).all() and torch.isfinite(inv[good]).all()):
+            raise AssertionError(f"a non-SPD block spoiled its neighbours at n={n}")
+    say("kernel", f"K2 non-SPD blocks 5 and last of {k2_batches(20)[-1]} (n=20) and of "
+        f"{k2_batches(60)[-1]} (n=60): NaN in those blocks only")
 
 
 def constrained(kp):
@@ -513,6 +586,35 @@ def b_chain_bound(args) -> dict:
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
 
 
+def check_k1_partial_block(world: World, gen: torch.Generator) -> None:
+    """K1 at L·S = 11 × 97 = 1,067 blocks: packed warp teams with the last
+    thread block partly filled (its last team the ghost subject), against
+    the plain version; then latent 10's σ² negative: NaN in its real blocks,
+    the ghost beside them in the last thread block still the identity."""
+    args = list(chain_inputs(gen, world.spec0, world.spec1, 11, 97, 20))
+    p = cp.b_chain_plan(20, 11 * 97, args[7].shape[2], card_sms())
+    if not (p.team == cp.WARP and p.blocks * p.teams > 11 * 97):
+        raise AssertionError(f"K1's plan {p} leaves no partly filled last block")
+    ib, ld, tr = k1.b_chain(*args)
+    ibr, ldr, trr = k1.b_chain_reference(*args)
+    errs = (rel_err(ib, ibr), rel_err_scalar(ld, ldr), rel_err_scalar(tr, trr))
+    if not max(errs) <= 1e-4:
+        raise AssertionError(f"K1 disagrees with its plain version at 11 x 97 blocks: {errs}")
+    args[6] = args[6].clone()
+    args[6][-1] = -50.0
+    ib, ld, tr = k1.b_chain(*args)
+    torch.cuda.synchronize()
+    if not (torch.isnan(ib[-1, -2]).any() and torch.isnan(ld[-1]) and torch.isnan(tr[-1])):
+        raise AssertionError("K1 gave no NaN on a non-SPD block in the last thread block")
+    if not (torch.equal(ib[-1, -1], torch.eye(20, device="cuda"))
+            and torch.isfinite(ib[:-1]).all() and torch.isfinite(ld[:-1]).all()):
+        raise AssertionError("a non-SPD block spoiled its neighbours in the last thread block")
+    say("kernel", f"K1 L,S,T=[11, 97, 20] ({p.blocks} blocks of {p.teams} warp teams, the last "
+        f"{11 * 97 - (p.blocks - 1) * p.teams}): rel err iB {errs[0]:.3e}, log|B| {errs[1]:.3e}, "
+        f"tr {errs[2]:.3e} (tol 1e-4); a non-SPD latent: NaN in its blocks only, the ghost "
+        "beside them the identity")
+
+
 def check_k1(world: World) -> dict:
     """K1 against its plain version on the card, forward and gradient;
     returns the kernels-line entry (without the main path's launches)."""
@@ -520,15 +622,14 @@ def check_k1(world: World) -> dict:
     train = world.train_chain_inputs()
     cases = [("training shape, smoke cohort", train)]
     cases += [(f"ragged + ghost T={t}", chain_inputs(gen, world.spec0, world.spec1, 8, 6, t))
-              for t in (2, 20, 64, 65, 128)]
+              for t in (2, 20, 31, 32, 33, 64, 65, 128)]
     for name, args in cases:
         ib, ld, tr = k1.b_chain(*args)
         ibr, ldr, trr = k1.b_chain_reference(*args)
         torch.cuda.synchronize()
         t = args[7].shape[1]
         tol = 1e-4 if t <= 20 else 1e-3
-        errs = (rel_err(ib, ibr), float(((ld - ldr).abs() / ldr.abs().clamp(min=1)).max()),
-                float(((tr - trr).abs() / trr.abs().clamp(min=1)).max()))
+        errs = (rel_err(ib, ibr), rel_err_scalar(ld, ldr), rel_err_scalar(tr, trr))
         w = [torch.randn(ib.shape, generator=gen, device="cuda"),
              torch.full(ld.shape, 0.7, device="cuda"), torch.full(tr.shape, 1.3, device="cuda")]
         g_err = grad_rel_err(
@@ -555,6 +656,7 @@ def check_k1(world: World) -> dict:
     if not (torch.isfinite(ib[keep]).all() and torch.isfinite(ld[keep]).all()):
         raise AssertionError("a non-SPD block spoiled other latents")
     say("kernel", "K1 non-SPD latent: NaN in its blocks only")
+    check_k1_partial_block(world, gen)
 
     ib, ld, tr = k1.b_chain(*train)
     ibr, ldr, trr = k1.b_chain_reference(*train)
@@ -1535,6 +1637,23 @@ def profile_window(fn, reps: int) -> dict:
     }
 
 
+def hensman_step_times(trainer: HensmanTrainer) -> dict:
+    """Warm Hensman steps on the card: the host clock of 6 steps ending in a
+    synchronise (median of the last 5, and the first), then a profiler
+    window of 3."""
+    table = trainer.tables[0]
+    rows = torch.arange(trainer.subjects_per_batch)
+    step_ms = []
+    for _ in range(6):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer.train_step(table, rows)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    return {"host_ms": statistics.median(step_ms[1:]), "first_ms": step_ms[0],
+            "profile": profile_window(lambda: trainer.train_step(table, rows), 3)}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1628,6 +1747,8 @@ def main() -> int:
     check_training(card_run)
     for e, m in enumerate(card_run["epochs"]):
         say("training", f"card epoch {e + 1}: {json.dumps(m)}")
+    if not all(card_run["ng_applied"]):
+        raise AssertionError(f"the card refused a natural-gradient step: {card_run['ng_applied']}")
 
     # the same steps on the CPU, from the same state and randomness. At the
     # reference's init H = h hᵀ (h a square 60×60 Gaussian) is nearly
@@ -1665,20 +1786,11 @@ def main() -> int:
 
     # warm steps on the card: host clock per step, then a profiler window
     trainer = card_run["trainer"]
-    table = trainer.tables[0]
-    rows = torch.arange(trainer.subjects_per_batch)
-    step_ms = []
-    for _ in range(6):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        trainer.train_step(table, rows)
-        torch.cuda.synchronize()
-        step_ms.append((time.perf_counter() - t0) * 1e3)
-    say("training", f"step (host clock, warm) median {statistics.median(step_ms[1:]):.3f} ms "
-        f"over {len(step_ms) - 1}, first {step_ms[0]:.3f} ms (S={trainer.subjects_per_batch} "
-        f"T={world.cfg.T} L={world.cfg.latent_dim} M={world.cfg.M})")
-    say("profile", "train_step " + json.dumps(
-        profile_window(lambda: trainer.train_step(table, rows), 3)))
+    warm = hensman_step_times(trainer)
+    say("training", f"step (host clock, warm) median {warm['host_ms']:.3f} ms over 5, first "
+        f"{warm['first_ms']:.3f} ms (S={trainer.subjects_per_batch} T={world.cfg.T} "
+        f"L={world.cfg.latent_dim} M={world.cfg.M})")
+    say("profile", "train_step " + json.dumps(warm["profile"]))
 
     # phase 6: the standard training path on the card; counts from 0 just before it
     reset_launch_counts()

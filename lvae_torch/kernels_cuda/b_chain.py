@@ -22,10 +22,12 @@ source's head note gives its bound and design.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 from lvae_torch.kernels_cuda import build
+from lvae_torch.kernels_cuda import chol_plan as plan
 from lvae_torch.kernels_cuda.kernel_matrix import (  # noqa: F401  (table limits re-exported)
     MAX_AND, MAX_COMPONENTS, MAX_EQ, block_param_grads, fits, masked_block_stack, spec_table,
 )
@@ -35,7 +37,7 @@ from lvae_torch.ops import linalg as la
 SOURCE = "lvae_torch/csrc/b_chain.cu"
 REPLACES = "lvae_tpu/kernels_pallas/b_chain.py:227"  # _b_chain_pallas
 
-MIN_T, MAX_T = 2, 128
+MIN_T, MAX_T = plan.K1_MIN_T, plan.K1_MAX_T
 
 _fn = None
 
@@ -45,7 +47,7 @@ def _kernel():
     if _fn is None:
         fn = build.load("b_chain").lvae_b_chain_f32
         fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 4 + [
-            ctypes.POINTER(ctypes.c_int), ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+            ctypes.POINTER(ctypes.c_int), *[ctypes.c_int] * 7, ctypes.c_void_p,
         ]
         fn.restype = ctypes.c_int
         _fn = fn
@@ -80,6 +82,14 @@ def b_chain_reference(spec0, spec1, s0, g0, s1, g1, noise, xb, mask):
     return ib, logdet, tr
 
 
+@functools.lru_cache(maxsize=64)
+def _table(spec0: kx.KernelSpec, spec1: kx.KernelSpec):
+    """The specs' component table as the ctypes array the entry point
+    reads, built once per pair of specs."""
+    table = spec_table(spec0, spec1)
+    return (ctypes.c_int * len(table))(*table)
+
+
 def _check(name: str, t: torch.Tensor, shape, device) -> None:
     if t.device != device or t.dtype != torch.float32:
         raise ValueError(f"b_chain kernel: {name} must be float32 on {device}, got "
@@ -96,7 +106,8 @@ def b_chain(spec0, spec1, s0, g0, s1, g1, noise, xb, mask):
 
     CPU tensors: the plain version. CUDA tensors: the kernel, which takes
     f32 contiguous inputs with ``2 <= T <= 128`` and specs that fit its
-    component table; anything else raises."""
+    component table; anything else raises. Its launch geometry is
+    ``chol_plan.b_chain_plan`` for the card's SM count."""
     if xb.device.type == "cpu":
         return b_chain_reference(spec0, spec1, s0, g0, s1, g1, noise, xb, mask)
     if not xb.is_cuda:
@@ -106,7 +117,6 @@ def b_chain(spec0, spec1, s0, g0, s1, g1, noise, xb, mask):
     n_subj, t, q = xb.shape
     if not MIN_T <= t <= MAX_T:
         raise ValueError(f"b_chain kernel takes {MIN_T} <= T <= {MAX_T}, got T={t}")
-    table = spec_table(spec0, spec1)
     c0, c1 = len(spec0.components), len(spec1.components)
     n_lat = s0.shape[0]
     dev = xb.device
@@ -116,22 +126,30 @@ def b_chain(spec0, spec1, s0, g0, s1, g1, noise, xb, mask):
         ("mask", mask, (n_subj, t)),
     ):
         _check(name, arr, shape, dev)
+    p = plan.b_chain_plan(t, n_lat * n_subj, q, plan.num_sms(dev))
+    return _launch(spec0, spec1, s0, g0, s1, g1, noise, xb, mask, p)
+
+
+def _launch(spec0, spec1, s0, g0, s1, g1, noise, xb, mask, p: plan.Plan):
+    """The kernel on checked inputs with the launch plan ``p``;
+    :func:`b_chain` passes its own plan, the card tests others."""
+    table = _table(spec0, spec1)  # raises on a spec the table cannot hold
+    n_lat, (n_subj, t, q), dev = s0.shape[0], xb.shape, xb.device
     ib = torch.empty((n_lat, n_subj, t, t), dtype=torch.float32, device=dev)
     logdet = torch.empty((n_lat, n_subj), dtype=torch.float32, device=dev)
     tr = torch.empty((n_lat, n_subj), dtype=torch.float32, device=dev)
     if n_lat * n_subj == 0:
         return ib, logdet.sum(1), tr.sum(1)
     fn = _kernel()
-    table_c = (ctypes.c_int * len(table))(*table)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(
             s0.data_ptr(), g0.data_ptr(), s1.data_ptr(), g1.data_ptr(), noise.data_ptr(),
             xb.data_ptr(), mask.data_ptr(), ib.data_ptr(), logdet.data_ptr(), tr.data_ptr(),
-            n_lat, n_subj, t, q, table_c, c0, c1, stream,
+            n_lat, n_subj, t, q, table, len(spec0.components), len(spec1.components), *p, stream,
         )
     if err != 0:
-        raise RuntimeError(f"b_chain kernel launch failed: cudaError {err}")
+        raise RuntimeError(f"b_chain kernel launch failed: cudaError {err} (plan {p})")
     b_chain.launches += 1
     return ib, logdet.sum(1), tr.sum(1)
 

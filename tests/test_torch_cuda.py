@@ -19,7 +19,10 @@ the same order as the plain version) and its gradient at 1e-4; the fused
 Adam (K5) at 1e-6 relative per step against its plain version (a fused
 multiply-add may round once less) and at 1e-5 relative to the update
 against ``torch.optim.Adam``, whose bias correction is written differently.
-The block pair (K4) is held at max |Δ| over max |reference| ≤ 1e-6 (the
+K2 is held at every n from 2 to 64 and at batches that leave the last
+block partly filled, K1 at such a batch too, and another packing of warp
+teams must give bit-equal results (every entry is computed in the same
+order whatever thread does it). The block pair (K4) is held at max |Δ| over max |reference| ≤ 1e-6 (the
 same expf and products per term as the plain version) and its gradient at
 1e-4.
 """
@@ -32,6 +35,7 @@ import torch
 from lvae_torch.kernels_cuda import adam as k5
 from lvae_torch.kernels_cuda import b_chain as k1
 from lvae_torch.kernels_cuda import block_pair as k4
+from lvae_torch.kernels_cuda import chol_plan as cp
 from lvae_torch.kernels_cuda import cholesky as k2
 from lvae_torch.kernels_cuda import kernel_matrix as k3
 from lvae_torch.ops import elbo as eb
@@ -72,6 +76,67 @@ def test_kernel_matches_plain_version(gen, shape, n, tol):
     assert rel_err(l, lr) <= tol and rel_err(inv, ir) <= tol
     assert bool((torch.triu(l, 1) == 0).all())
     assert torch.equal(inv, inv.mT)
+
+
+def card_sms():
+    return cp.num_sms(torch.device("cuda", torch.cuda.current_device()))
+
+
+def k2_batches(n):
+    """1, 7, an odd multiple (265 on 132 SMs) of the teams a block of a batch
+    large enough for packed warp teams, and, where a block holds several
+    teams, one matrix more, which leaves the last block one team."""
+    sms = card_sms()
+    odd = (cp.WARP_TEAMS_AN_SM * sms // cp.MAX_WARP_TEAMS) | 1
+    teams = cp.chol_inv_plan(n, odd * cp.MAX_WARP_TEAMS, sms).teams
+    return [1, 7, odd * teams] + ([odd * teams + 1] if teams > 1 else [])
+
+
+@pytest.mark.parametrize("n", range(2, 65))
+def test_kernel_matches_plain_version_at_every_n(gen, n):
+    """Every n in 2..64 (warp teams up to 32, block teams above), at batches
+    that leave the last block partly filled."""
+    tol = 1e-4 if n <= 20 else 1e-3
+    for batch in k2_batches(n):
+        a = spd_stack((batch,), n, gen)
+        l, inv = k2.cholesky_inverse(a)
+        torch.cuda.synchronize()
+        lr, ir = k2.cholesky_inverse_reference(a)
+        assert rel_err(l, lr) <= tol and rel_err(inv, ir) <= tol
+        assert bool((torch.triu(l, 1) == 0).all())
+        assert torch.equal(inv, inv.mT)
+
+
+@pytest.mark.parametrize("n", [20, 60])
+def test_non_spd_block_among_teams_gives_nan_there_only(gen, n):
+    """Non-SPD matrices 5 and the last (alone in the last block for n = 20)."""
+    batch = k2_batches(n)[-1]
+    a = spd_stack((batch,), n, gen)
+    bad = [5, batch - 1]
+    a[bad] = -a[bad]
+    l, inv = k2.cholesky_inverse(a)
+    torch.cuda.synchronize()
+    good = torch.ones(batch, dtype=torch.bool, device="cuda")
+    good[bad] = False
+    for i in bad:
+        assert torch.isnan(l[i]).any() and torch.isnan(inv[i]).any()
+    assert torch.isfinite(l[good]).all() and torch.isfinite(inv[good]).all()
+
+
+@pytest.mark.parametrize("n,batch", [(20, 3200), (20, 3201), (32, 700), (32, 701), (60, 32),
+                                     (64, 7)])
+def test_team_shape_does_not_change_the_result(gen, n, batch):
+    """Every entry is computed in the same order whatever thread computes it,
+    so another packing of warp teams (a last block full or not), or another
+    count of threads a row, gives bit-equal L and A⁻¹."""
+    a = spd_stack((batch,), n, gen)
+    want = k2.cholesky_inverse(a)
+    floats, sms = cp.chol_team_floats(n), card_sms()
+    for v in (1, 2, 8):
+        p = (cp.make_plan(n, batch, floats, sms, max_warp_teams=v, lanes=1)
+             if n <= 32 else cp.make_plan(n, batch, floats, sms, lanes=v))
+        got = k2._launch(a, p)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
 def test_non_spd_block_gives_nan_in_that_block_only(gen):
@@ -162,7 +227,7 @@ def chain_inputs(gen, n_subj, t, n_lat=4):
     return spec0, spec1, s0, g0, s1, g1, noise, xb, mask
 
 
-@pytest.mark.parametrize("t", [2, 20, 64, 65, 128])
+@pytest.mark.parametrize("t", [2, 20, 31, 32, 33, 64, 65, 128])
 def test_b_chain_kernel_matches_plain_version(gen, t):
     args = chain_inputs(gen, 5, t)
     before = k1.b_chain.launches
@@ -181,7 +246,7 @@ def test_b_chain_kernel_matches_plain_version(gen, t):
                                rtol=0, atol=0)
 
 
-@pytest.mark.parametrize("t", [2, 20, 64, 65, 128])
+@pytest.mark.parametrize("t", [2, 20, 31, 32, 33, 64, 65, 128])
 def test_b_chain_gradient_matches_autograd_of_plain_version(gen, t):
     spec0, spec1, *leaves, xb, mask = chain_inputs(gen, 5, t)
     w = torch.randn(leaves[0].shape[0], 5, t, t, generator=gen, device="cuda")
@@ -198,6 +263,25 @@ def test_b_chain_gradient_matches_autograd_of_plain_version(gen, t):
         assert float((g - r).abs().max() / r.abs().max()) <= 1e-3
 
 
+@pytest.mark.parametrize("t", [20, 64, 128])
+def test_b_chain_team_shape_changes_only_the_trace_rounding(gen, t):
+    """The trace's partial sums follow the threads, so only tr(B⁻¹K0) may
+    round differently under another team shape (packed warp teams for
+    T <= 32, or another count of threads a row)."""
+    args = chain_inputs(gen, 20, t, n_lat=32)
+    q = args[7].shape[2]
+    want = k1.b_chain(*args)
+    floats, sms = cp.b_chain_team_floats(t, q), card_sms()
+    plans = [cp.make_plan(t, 640, floats, sms, lanes=v) for v in (2, 8) if t > 32 or v > 1]
+    if t <= 32:
+        plans += [cp.make_plan(t, 640, floats, sms, max_warp_teams=v, lanes=1)
+                  for v in (1, 2, 8)]
+    for p in plans:
+        ib, ld, tr = k1._launch(*args, p)
+        assert torch.equal(ib, want[0]) and torch.equal(ld, want[1])
+        assert float(((tr - want[2]).abs() / want[2].abs().clamp(min=1.0)).max()) <= 1e-5
+
+
 def test_b_chain_non_spd_latent_gives_nan_there_only(gen):
     args = list(chain_inputs(gen, 5, 20))
     args[6] = args[6].clone()
@@ -208,6 +292,29 @@ def test_b_chain_non_spd_latent_gives_nan_there_only(gen):
     keep = [0, 1, 3]
     assert torch.isfinite(ib[keep]).all() and torch.isfinite(ld[keep]).all()
     assert torch.isfinite(tr[keep]).all()
+
+
+def test_b_chain_partly_filled_last_block(gen):
+    """L·S = 11 × 97 = 1,067 blocks: packed warp teams, the last thread block
+    partly filled (its last team the ghost subject). Against the plain
+    version, then with latent 10's σ² negative: NaN in its real blocks,
+    the ghost beside them in the last thread block still the identity."""
+    args = list(chain_inputs(gen, 97, 20, n_lat=11))
+    p = cp.b_chain_plan(20, 11 * 97, args[7].shape[2], card_sms())
+    assert p.team == cp.WARP and p.blocks * p.teams > 11 * 97
+    ib, ld, tr = k1.b_chain(*args)
+    ibr, ldr, trr = k1.b_chain_reference(*args)
+    assert rel_err(ib, ibr) <= 1e-4
+    assert float(((ld - ldr).abs() / ldr.abs().clamp(min=1.0)).max()) <= 1e-4
+    assert float(((tr - trr).abs() / trr.abs().clamp(min=1.0)).max()) <= 1e-4
+    args[6] = args[6].clone()
+    args[6][-1] = -50.0
+    ib, ld, tr = k1.b_chain(*args)
+    torch.cuda.synchronize()
+    assert torch.isnan(ib[-1, -2]).any() and torch.isnan(ld[-1]) and torch.isnan(tr[-1])
+    assert torch.equal(ib[-1, -1], torch.eye(20, device="cuda"))
+    assert torch.isfinite(ib[:-1]).all() and torch.isfinite(ld[:-1]).all()
+    assert torch.isfinite(tr[:-1]).all()
 
 
 def test_gp_block_operators_routes_to_the_kernels(gen):
