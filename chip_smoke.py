@@ -7,7 +7,9 @@ Builds the port's CUDA kernels from ``lvae_torch/csrc`` (K2 ``chol_inv``,
 K1 ``b_chain``, K3 ``kernel_matrix``, K4 ``block_pair`` and K5 ``adam``,
 one ``nvcc`` each, all started together), holds each against its plain
 PyTorch version on the card, forward and gradient (K2 at every n from 2 to
-64, K2 and K1 at batches that leave a block partly filled), then runs the
+64, K2 and K1 at batches that leave a block partly filled; K3's symmetric
+walk bit-equal to its general walk and to the transpose, K4 bit-equal
+with scalar stores and to the transpose of each block), then runs the
 main paths
 at the full width of ``configs/healthmnist_lvae.txt`` (ConvVAE on 36×36
 frames, L=32 latent GPs, M=60 inducing points, P=100 subjects × T=20
@@ -88,6 +90,7 @@ from lvae_torch.kernels_cuda import build  # noqa: E402
 from lvae_torch.kernels_cuda import chol_plan as cp  # noqa: E402
 from lvae_torch.kernels_cuda import cholesky as k2  # noqa: E402
 from lvae_torch.kernels_cuda import kernel_matrix as k3  # noqa: E402
+from lvae_torch.kernels_cuda import km_plan  # noqa: E402
 from lvae_torch.models.vae import make_vae  # noqa: E402
 from lvae_torch.ops import kernels as kx  # noqa: E402
 from lvae_torch.ops import linalg as la  # noqa: E402
@@ -700,12 +703,23 @@ def kernel_matrix_bound(spec, shape, q: int) -> dict:
 
 
 def k3_inputs(spec, kp, x1, x2, dev):
-    """(spec, constrained scale, g, x1, x2) on ``dev``."""
+    """(spec, constrained scale, g, x1, x2) on ``dev``; ``x2 is x1`` stays
+    one tensor, so that K3 takes its symmetric walk, as on the main path."""
     scale = kx.constrain(kp.raw_scale.to(dev))
     ls = kx.constrain(kp.raw_lengthscale.to(dev))
-    return (spec, scale.contiguous(), (0.5 / (ls * ls)).contiguous(),
-            torch.as_tensor(x1, device=dev).contiguous(),
-            torch.as_tensor(x2, device=dev).contiguous())
+    t1 = torch.as_tensor(x1, device=dev).contiguous()
+    t2 = t1 if x2 is x1 else torch.as_tensor(x2, device=dev).contiguous()
+    return (spec, scale.contiguous(), (0.5 / (ls * ls)).contiguous(), t1, t2)
+
+
+def general_walk(args):
+    """The same K3 inputs with x2 a copy of x1: the general walk."""
+    return (*args[:4], args[3].clone())
+
+
+def bitwise_diff(a: torch.Tensor, b: torch.Tensor) -> int:
+    """Entries whose bits differ (NaN equal to NaN of the same bits)."""
+    return int((a.view(torch.int32) != b.view(torch.int32)).sum())
 
 
 def random_kp(gen, spec, n_lat, dev):
@@ -751,10 +765,12 @@ def check_k3(world: World, dev: str = "cuda") -> dict:
     n_lat = world.cfg.latent_dim
     main = k3_inputs(spec, kp, labels, labels, dev)
     small = world.labels[:STD_COMPARE_P * world.cfg.T]
+    odd = labels[:517]
     cases = [
         ("standard closed-KL prior", main),
         ("card-vs-CPU replay shape", k3_inputs(spec, random_kp(gen, spec, 32, dev), small,
                                                 small, dev)),
+        ("symmetric, N % 4 != 0", k3_inputs(spec, random_kp(gen, spec, 9, dev), odd, odd, dev)),
         ("not tile multiples", k3_inputs(spec, random_kp(gen, spec, 3, dev), labels[:517],
                                          labels[:1030], dev)),
         ("below the gate, called directly", k3_inputs(spec, random_kp(gen, spec, 2, dev),
@@ -765,9 +781,19 @@ def check_k3(world: World, dev: str = "cuda") -> dict:
         want = k3.kernel_matrix_reference(*args)
         torch.cuda.synchronize()
         err = max_rel(got, want)
-        say("kernel", f"K3 {name} {list(got.shape)}: rel err {err:.3e} (tol {K3_RTOL:g})")
+        msg = f"K3 {name} {list(got.shape)}: rel err {err:.3e} (tol {K3_RTOL:g})"
         if not (err <= K3_RTOL and got.shape == want.shape):
             raise AssertionError(f"K3 disagrees with its plain version at {name}")
+        if args[4] is args[3]:
+            # the symmetric walk against the general one on a copy, and K[l] = K[l]ᵀ
+            general = k3.kernel_matrix_fused(*general_walk(args))
+            diff, asym = bitwise_diff(got, general), bitwise_diff(got, got.mT)
+            msg += f"; symmetric vs general walk {diff} entries differ, K[l] vs K[l]ᵀ {asym}"
+            if diff or asym:
+                raise AssertionError(f"K3's symmetric walk is not bit-equal at {name}")
+            del general
+        say("kernel", msg)
+        del got, want
 
     # every factor kind (centred categorical, both-one) with row and column masks
     comp = kx.KernelComponent
@@ -803,6 +829,13 @@ def check_k3(world: World, dev: str = "cuda") -> dict:
         f"(tol {K3_GRAD_RTOL:g})")
     if not max(g_errs.values()) <= K3_GRAD_RTOL:
         raise AssertionError("K3's gradient disagrees with autograd of the plain version")
+    # the backward of the closed-KL prior (plain torch, FusedKernelMatrix)
+    cot = torch.randn(n_lat, n, n, generator=gen, device=dev)
+    with la.full_precision():
+        bwd = profile_window(lambda: k3.kernel_matrix_backward(*main, cot), 5)
+    del cot
+    say("kernel", f"K3 backward [{n_lat},{n},{n}]: device {bwd['device_ms']:.4f} ms a call, "
+        f"{bwd['kernels_per_call']:g} kernels; top {json.dumps(bwd['top'])}")
 
     got = k3.kernel_matrix_fused(*main)
     want = k3.kernel_matrix_reference(*main)
@@ -810,11 +843,12 @@ def check_k3(world: World, dev: str = "cuda") -> dict:
     rel = max_rel(got, want)
     del got, want
     rows = []
-    for args in (main, cases[1][1]):
+    for args in (main, cases[1][1], general_walk(main)):
         shape = (args[1].shape[0], args[3].shape[0], args[4].shape[0])
         row = timing_row(shape, args, lambda a: k3.kernel_matrix_fused(*a),
                          lambda a: k3.kernel_matrix_reference(*a), None,
                          kernel_matrix_bound(spec, shape, q))
+        row["walk"] = "symmetric" if args[4] is args[3] else "general"
         say("kernel", "K3 times " + json.dumps(row))
         rows.append(row)
     row = rows[0]
@@ -836,6 +870,7 @@ def check_k3(world: World, dev: str = "cuda") -> dict:
         "shape": row["shape"],
         "max_rel_err": rel,
         "per_shape": rows,
+        "backward_ms": bwd["device_ms"],
     }
 
 
@@ -873,7 +908,9 @@ def check_k4(world: World) -> dict:
                                world.cfg.T))
     cases = [("Hensman batch, smoke cohort", train), ("validation cohort, ragged + ghost", val)]
     cases += [(f"ragged + ghost T={t}", k4_args(chain_inputs(
-        gen, world.spec0, world.spec1, 8, 6, t))) for t in (2, 64, 128, 150)]
+        gen, world.spec0, world.spec1, 8, 6, t))) for t in (2, 3, 37, 64, 128, 150)]
+    cases.append(("S·T² % 4 != 0 (S=7, T=3)", k4_args(chain_inputs(
+        gen, world.spec0, world.spec1, 5, 7, 3))))
     comp = kx.KernelComponent
     cat_spec0 = kx.KernelSpec(components=(
         comp(kind="cat_mod", rbf_col=-1, eq_cols=(), and_cols=(), cat_mod=(3, 2)),
@@ -900,6 +937,15 @@ def check_k4(world: World) -> dict:
         if bool((args[7][-1] == 0).all()) and not (
                 bool((k0[:, -1] == 0).all()) and bool((k1[:, -1] == 0).all())):
             raise AssertionError(f"K4 wrote nonzeros into a ghost subject at {name}")
+        # every block bitwise symmetric; scalar stores bit-equal to the wrapper's
+        asym = bitwise_diff(k0, k0.mT) + bitwise_diff(k1, k1.mT)
+        scalar = km_plan.k4_plan(args[2].shape[0], *args[6].shape[:2])._replace(vec=False)
+        o0, o1 = k4._launch(*args, scalar)
+        diff = bitwise_diff(k0, o0) + bitwise_diff(k1, o1)
+        say("kernel", f"K4 {name}: K[l,s] vs K[l,s]ᵀ {asym} entries differ; scalar stores vs "
+            f"the wrapper's {diff}")
+        if asym or diff:
+            raise AssertionError(f"K4 is not bit-equal to itself at {name}")
 
     k0, k1 = k4.block_pair(*train)
     r0, r1 = k4.block_pair_reference(*train)

@@ -22,7 +22,6 @@ source's head note gives its bound and design.
 from __future__ import annotations
 
 import ctypes
-import functools
 
 import torch
 
@@ -30,6 +29,7 @@ from lvae_torch.kernels_cuda import build
 from lvae_torch.kernels_cuda import chol_plan as plan
 from lvae_torch.kernels_cuda.kernel_matrix import (  # noqa: F401  (table limits re-exported)
     MAX_AND, MAX_COMPONENTS, MAX_EQ, block_param_grads, fits, masked_block_stack, spec_table,
+    table_array,
 )
 from lvae_torch.ops import kernels as kx
 from lvae_torch.ops import linalg as la
@@ -82,12 +82,7 @@ def b_chain_reference(spec0, spec1, s0, g0, s1, g1, noise, xb, mask):
     return ib, logdet, tr
 
 
-@functools.lru_cache(maxsize=64)
-def _table(spec0: kx.KernelSpec, spec1: kx.KernelSpec):
-    """The specs' component table as the ctypes array the entry point
-    reads, built once per pair of specs."""
-    table = spec_table(spec0, spec1)
-    return (ctypes.c_int * len(table))(*table)
+_table = table_array  # the specs' ctypes table, built once per pair (shared with K3, K4)
 
 
 def _check(name: str, t: torch.Tensor, shape, device) -> None:

@@ -10,7 +10,9 @@ note gives its bound and design.
 
 * :func:`block_pair` — the forward: the kernel for a CUDA tensor (f32,
   contiguous, both specs within the component table; anything else raises),
-  the plain version for a CPU tensor.
+  the plain version for a CPU tensor. Its launch geometry is
+  ``km_plan.k4_plan``: a flat walk over the ``S·T·T`` plane, four entries
+  of one latent a thread.
 * :func:`block_pair_reference` — the plain PyTorch version, the two
   ``masked_block_stack`` calls.
 * :class:`BlockPair` — the ``autograd.Function``; its backward is the port of
@@ -29,16 +31,15 @@ from typing import Tuple
 import torch
 
 from lvae_torch.kernels_cuda import build
+from lvae_torch.kernels_cuda import km_plan as kp
 from lvae_torch.kernels_cuda.kernel_matrix import (
-    MAX_SMEM, block_param_grads, fits, masked_block_stack, spec_table,
+    block_param_grads, fits, masked_block_stack, table_array,
 )
 from lvae_torch.ops import kernels as kx
 from lvae_torch.ops import linalg as la
 
 SOURCE = "lvae_torch/csrc/block_pair.cu"
 REPLACES = "lvae_tpu/kernels_pallas/kernel_matrix.py:254"  # _block_pair_pallas
-
-LAT_CHUNK = 4  # latents per block: kLatChunk of block_pair.cu, which refuses another value
 
 _fn = None
 
@@ -48,37 +49,28 @@ def _kernel():
     if _fn is None:
         fn = build.load("block_pair").lvae_block_pair_f32
         fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [
-            ctypes.POINTER(ctypes.c_int), ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            ctypes.c_void_p,
+            ctypes.POINTER(ctypes.c_int), *[ctypes.c_int] * 5, ctypes.c_void_p,
         ]
         fn.restype = ctypes.c_int
         _fn = fn
     return _fn
 
 
-def _fits_shared_memory(t: int, q: int, c0: int, c1: int) -> bool:
-    """Whether a block's shared memory holds a subject's ``T×Q``
-    covariates, its mask and a latent chunk's parameters of both specs, the
-    layout of ``block_pair.cu``. The kernel's entry point refuses a size the
-    device does not take, so a mismatch raises and never launches."""
-    return 4 * (t * q + t + 2 * LAT_CHUNK * (c0 + c1)) <= MAX_SMEM
-
-
 def usable(spec0: kx.KernelSpec, spec1: kx.KernelSpec, kp0: kx.KernelParams,
            xb: torch.Tensor) -> bool:
     """Shape and dtype gate of the K4 route (``ops/elbo.py:193-200`` in the
     JAX package): f32, ``[L, C]`` parameters, both specs non-empty and within
-    the component table, and a subject's covariates within a block's shared
-    memory. The JAX gate's ``L·S·T²·4 <= 2 MB`` is the TPU's VMEM budget for
-    a grid-less Pallas call; the CUDA kernel has a grid, so it has no such
-    limit. The caller adds that ``xb`` lies on a CUDA device."""
+    the component table, and ``S·T·T`` within the kernel's 32-bit flat index
+    (it stages nothing in shared memory). The JAX gate's ``L·S·T²·4 <= 2
+    MB`` is the TPU's VMEM budget for a grid-less Pallas call; the CUDA
+    kernel has a grid, so it has no such limit. The caller adds that ``xb``
+    lies on a CUDA device."""
     return (
         xb.dtype == torch.float32
         and kp0.raw_scale.ndim == 2
         and fits(spec0)
         and fits(spec1)
-        and _fits_shared_memory(xb.shape[1], xb.shape[2], len(spec0.components),
-                                len(spec1.components))
+        and kp.k4_fits(xb.shape[0], xb.shape[1])
     )
 
 
@@ -114,12 +106,10 @@ def block_pair(spec0, spec1, s0, g0, s1, g1, xb, mask) -> Tuple[torch.Tensor, to
     if xb.ndim != 3:
         raise ValueError(f"block_pair kernel needs xb [S, T, Q], got {tuple(xb.shape)}")
     n_subj, t, q = xb.shape
-    table = spec_table(spec0, spec1)
+    table_array(spec0, spec1)  # raises on a spec the table cannot hold
     c0, c1 = len(spec0.components), len(spec1.components)
     if c0 == 0 or c1 == 0:
         raise ValueError("block_pair kernel needs two non-empty specs")
-    if not _fits_shared_memory(t, q, c0, c1):
-        raise ValueError(f"block_pair kernel: T={t}, Q={q} exceed the block's shared memory")
     n_lat = s0.shape[0]
     dev = xb.device
     for name, arr, shape in (
@@ -127,19 +117,31 @@ def block_pair(spec0, spec1, s0, g0, s1, g1, xb, mask) -> Tuple[torch.Tensor, to
         ("g1", g1, (n_lat, c1)), ("xb", xb, (n_subj, t, q)), ("mask", mask, (n_subj, t)),
     ):
         _check(name, arr, shape, dev)
-    k0 = torch.empty((n_lat, n_subj, t, t), dtype=torch.float32, device=dev)
+    # raises beyond the 32-bit flat index or the grid
+    plan = kp.k4_plan(n_lat, n_subj, t)
+    return _launch(spec0, spec1, s0, g0, s1, g1, xb, mask, plan)
+
+
+def _launch(spec0, spec1, s0, g0, s1, g1, xb, mask, plan: kp.K4Plan):
+    """The kernel on checked inputs with the launch plan ``plan``;
+    :func:`block_pair` passes its own plan, the card tests another (scalar
+    stores on a plane that takes 16-byte ones)."""
+    n_subj, t, q = xb.shape
+    n_lat = s0.shape[0]
+    k0 = torch.empty((n_lat, n_subj, t, t), dtype=torch.float32, device=xb.device)
     k1 = torch.empty_like(k0)
     if k0.numel() == 0:
         return k0, k1
     fn = _kernel()
-    table_c = (ctypes.c_int * len(table))(*table)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(xb.device):
+        stream = torch.cuda.current_stream(xb.device).cuda_stream
         err = fn(s0.data_ptr(), g0.data_ptr(), s1.data_ptr(), g1.data_ptr(), xb.data_ptr(),
-                 mask.data_ptr(), k0.data_ptr(), k1.data_ptr(), n_lat, n_subj, t, q, table_c,
-                 c0, c1, LAT_CHUNK, stream)
+                 mask.data_ptr(), k0.data_ptr(), k1.data_ptr(), n_lat, n_subj, t, q,
+                 table_array(spec0, spec1),
+                 len(spec0.components), len(spec1.components), int(plan.vec), plan.blocks,
+                 plan.latents, stream)
     if err != 0:
-        raise RuntimeError(f"block_pair kernel launch failed: cudaError {err}")
+        raise RuntimeError(f"block_pair kernel launch failed: cudaError {err} (plan {plan})")
     block_pair.launches += 1
     return k0, k1
 

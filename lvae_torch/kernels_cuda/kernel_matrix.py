@@ -9,7 +9,10 @@ source's head note gives its bound and design.
 
 * :func:`kernel_matrix_fused` — the forward: the kernel for a CUDA tensor
   (f32, contiguous, a spec within the component table; anything else
-  raises), the plain version for a CPU tensor.
+  raises), the plain version for a CPU tensor. Its launch geometry is
+  ``km_plan.k3_plan``: the symmetric walk (tiles ``I >= J``, each
+  off-diagonal tile also stored transposed) when ``x1`` and ``x2`` are one
+  tensor, the general walk otherwise, with bit-equal results.
 * :func:`kernel_matrix_reference` — the plain PyTorch version.
 * :class:`FusedKernelMatrix` — the ``autograd.Function``; its backward is
   the port of ``_fused_bwd_impl``: analytic (d scale, d g), plain tensor
@@ -17,7 +20,8 @@ source's head note gives its bound and design.
 * :func:`kernel_matrix_kernel` — raw parameters in, ``K`` in ``x1``'s dtype
   with optional row/column masks: the counterpart of ``kernel_matrix_pallas``,
   which ``ops/kernels.kernel_matrix`` calls inside :func:`usable`'s shapes.
-* :func:`spec_table` — the int component table that K1 and K3 take.
+* :func:`spec_table` — the int component table that K1, K3 and K4 take;
+  :func:`table_array` the cached ctypes array of it.
 
 :func:`masked_block_stack` rebuilds the masked ``K [L, S, T, T]`` blocks and
 :func:`block_param_grads` maps a cotangent of those blocks to the
@@ -28,11 +32,13 @@ uses both.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import List, Tuple
 
 import torch
 
 from lvae_torch.kernels_cuda import build
+from lvae_torch.kernels_cuda import km_plan as kp
 from lvae_torch.ops import kernels as kx
 from lvae_torch.ops import linalg as la
 
@@ -43,8 +49,6 @@ REPLACES = "lvae_tpu/kernels_pallas/kernel_matrix.py:97"  # _kernel_matrix_palla
 # kMaxEq, kMaxAnd)
 MAX_COMPONENTS, MAX_EQ, MAX_AND = 16, 4, 4
 MIN_N = 512  # the JAX package's gate: square evaluations from 512 x 512
-TILE = 256  # kTile of kernel_matrix.cu
-MAX_SMEM = 232448  # bytes of shared memory a block can have on Hopper
 
 _fn = None
 
@@ -54,7 +58,7 @@ def _kernel():
     if _fn is None:
         fn = build.load("kernel_matrix").lvae_kernel_matrix_f32
         fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [
-            ctypes.POINTER(ctypes.c_int), ctypes.c_int, ctypes.c_void_p,
+            ctypes.POINTER(ctypes.c_int), *[ctypes.c_int] * 7, ctypes.c_void_p,
         ]
         fn.restype = ctypes.c_int
         _fn = fn
@@ -88,8 +92,12 @@ def spec_table(*specs: kx.KernelSpec) -> List[int]:
     return rows
 
 
-def _smem_bytes(n_lat: int, c: int, q: int) -> int:
-    return 4 * (2 * n_lat * c + q * TILE + q)
+@functools.lru_cache(maxsize=64)
+def table_array(*specs: kx.KernelSpec):
+    """The specs' component table as the ctypes array the entry points
+    read, built once per tuple of specs."""
+    table = spec_table(*specs)
+    return (ctypes.c_int * len(table))(*table)
 
 
 def usable(spec: kx.KernelSpec, params: kx.KernelParams, x1: torch.Tensor,
@@ -97,8 +105,9 @@ def usable(spec: kx.KernelSpec, params: kx.KernelParams, x1: torch.Tensor,
     """Shape and dtype gate of K3 (``ops/kernels.py:216-228`` in the JAX
     package): f32, ``[L, C]`` parameters, ``[N, Q]`` covariates without
     batch dims, ``N1, N2 >= 512``, a non-empty spec within the table and
-    parameters that fit the block's shared memory. The caller adds that
-    ``x1`` lies on a CUDA device."""
+    parameters that fit a block's shared memory beside its tile (either
+    walk of ``km_plan``). The caller adds that ``x1`` lies on a CUDA
+    device."""
     return (
         x1.dtype == torch.float32
         and params.raw_scale.ndim == 2
@@ -107,8 +116,7 @@ def usable(spec: kx.KernelSpec, params: kx.KernelParams, x1: torch.Tensor,
         and x1.shape[0] >= MIN_N
         and x2.shape[0] >= MIN_N
         and fits(spec)
-        and _smem_bytes(params.raw_scale.shape[0], len(spec.components),
-                        x1.shape[1]) <= MAX_SMEM
+        and kp.k3_fits(params.raw_scale.shape[0], len(spec.components), x1.shape[1])
     )
 
 
@@ -136,7 +144,9 @@ def kernel_matrix_fused(spec: kx.KernelSpec, scale: torch.Tensor, g: torch.Tenso
 
     CPU tensors: the plain version. CUDA tensors: the kernel, which takes f32
     contiguous inputs and a spec within the component table; anything else
-    raises."""
+    raises. When ``x1`` and ``x2`` are one tensor (:func:`km_plan.same_storage`)
+    the kernel walks the symmetric tiles only; a copy takes the general walk,
+    with bit-equal results."""
     if x1.device.type == "cpu":
         return kernel_matrix_reference(spec, scale, g, x1, x2)
     if not x1.is_cuda:
@@ -145,30 +155,39 @@ def kernel_matrix_fused(spec: kx.KernelSpec, scale: torch.Tensor, g: torch.Tenso
         raise ValueError("kernel_matrix kernel needs x1 [N1, Q], x2 [N2, Q] and [L, C] "
                          f"parameters, got {tuple(x1.shape)}, {tuple(x2.shape)}, "
                          f"{tuple(scale.shape)}")
-    table = spec_table(spec)
+    table_array(spec)  # raises on a spec the table cannot hold
     n_lat, c = scale.shape
     (n1, q), n2 = x1.shape, x2.shape[0]
     if c != len(spec.components):
         raise ValueError(f"kernel_matrix kernel: {c} parameter columns for "
                          f"{len(spec.components)} components")
-    if _smem_bytes(n_lat, c, q) > MAX_SMEM:
-        raise ValueError(f"kernel_matrix kernel: L={n_lat}, C={c}, Q={q} exceed the "
-                         "block's shared memory")
     dev = x1.device
     for name, arr, shape in (("scale", scale, (n_lat, c)), ("g", g, (n_lat, c)),
                              ("x1", x1, (n1, q)), ("x2", x2, (n2, q))):
         _check(name, arr, shape, dev)
-    out = torch.empty((n_lat, n1, n2), dtype=torch.float32, device=dev)
+    # raises where shared memory or the grid cannot hold the problem
+    plan = kp.k3_plan(n_lat, n1, n2, q, c, kp.same_storage(x1, x2))
+    return _launch(spec, scale, g, x1, x2, plan)
+
+
+def _launch(spec: kx.KernelSpec, scale: torch.Tensor, g: torch.Tensor, x1: torch.Tensor,
+            x2: torch.Tensor, plan: kp.K3Plan) -> torch.Tensor:
+    """The kernel on checked inputs with the launch plan ``plan``;
+    :func:`kernel_matrix_fused` passes its own plan, the card tests others
+    (the scalar stores on a row that takes 16-byte ones)."""
+    n_lat, c = scale.shape
+    (n1, q), n2 = x1.shape, x2.shape[0]
+    out = torch.empty((n_lat, n1, n2), dtype=torch.float32, device=x1.device)
     if out.numel() == 0:
         return out
     fn = _kernel()
-    table_c = (ctypes.c_int * len(table))(*table)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(x1.device):
+        stream = torch.cuda.current_stream(x1.device).cuda_stream
         err = fn(scale.data_ptr(), g.data_ptr(), x1.data_ptr(), x2.data_ptr(),
-                 out.data_ptr(), n_lat, n1, n2, q, table_c, c, stream)
+                 out.data_ptr(), n_lat, n1, n2, q, table_array(spec), c, int(plan.symmetric),
+                 int(plan.vec), plan.grid_x, plan.grid_y, plan.smem, plan.bucket, stream)
     if err != 0:
-        raise RuntimeError(f"kernel_matrix kernel launch failed: cudaError {err}")
+        raise RuntimeError(f"kernel_matrix kernel launch failed: cudaError {err} (plan {plan})")
     kernel_matrix_fused.launches += 1
     return out
 
@@ -236,8 +255,10 @@ def kernel_matrix_kernel(spec: kx.KernelSpec, params: kx.KernelParams, x1: torch
     scale = kx.constrain(params.raw_scale)
     ls = kx.constrain(params.raw_lengthscale)
     g = 0.5 / (ls * ls)
-    out = FusedKernelMatrix.apply(spec, scale.contiguous(), g.contiguous(),
-                                  x1.contiguous(), x2.contiguous())
+    x1c = x1.contiguous()
+    # one tensor stays one (copied once), so the kernel sees K(X, X) as symmetric
+    x2c = x1c if kp.same_storage(x1, x2) else x2.contiguous()
+    out = FusedKernelMatrix.apply(spec, scale.contiguous(), g.contiguous(), x1c, x2c)
     dtype = x1.dtype
     out = out.to(dtype)
     if mask1 is not None:

@@ -357,21 +357,22 @@ def test_extra_spd_of_another_shape_is_factored_apart():
 
 
 def test_usable_gate():
-    """f32, ``[L, C]`` parameters, both specs within the table and a
-    subject's covariates within a block's shared memory. No T limit below
-    that, and no ``L·S·T²`` budget (the TPU's VMEM limit)."""
+    """f32, ``[L, C]`` parameters, both specs within the table and ``S·T²``
+    within the kernel's 32-bit flat index. No T limit below that (the
+    kernel stages nothing in shared memory), and no ``L·S·T²`` budget (the
+    TPU's VMEM limit)."""
     ts0, ts1 = specs("config", tkx)
     kp = tkx.init_kernel_params(ts0, 3)
 
     def can(t_len, dtype=torch.float32, s0=ts0, s1=ts1, kp0=kp, q=6):
         return bp.usable(s0, s1, kp0, torch.zeros((2, t_len, q), dtype=dtype))
 
-    assert all(can(t_len) for t_len in (1, 2, 20, 128, 150, 1000))
+    assert all(can(t_len) for t_len in (1, 2, 20, 128, 150, 1000, 10000))
     assert not can(20, torch.float64)
     assert not can(20, kp0=tkx.init_kernel_params(ts0))  # [C] parameters
     assert not can(20, s1=tkx.KernelSpec(components=ts1.components * 9))  # > 16 components
     assert not can(20, s0=tkx.KernelSpec(components=()))
-    assert not can(10000, q=6)  # 10000 × 6 covariates exceed the shared memory
+    assert not can(33000, q=6)  # 2 × 33000² flat entries exceed the 32-bit index
 
 
 def test_wrapper_refuses_other_devices():

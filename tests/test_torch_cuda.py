@@ -24,7 +24,9 @@ block partly filled, K1 at such a batch too, and another packing of warp
 teams must give bit-equal results (every entry is computed in the same
 order whatever thread does it). The block pair (K4) is held at max |Δ| over max |reference| ≤ 1e-6 (the
 same expf and products per term as the plain version) and its gradient at
-1e-4.
+1e-4. For the same reason K3's symmetric walk (x1 is x2) must give the
+general walk's bits on a copy, with each ``K[l]`` bitwise symmetric, and
+K4's scalar stores the 16-byte stores' bits.
 """
 
 import math
@@ -38,6 +40,7 @@ from lvae_torch.kernels_cuda import block_pair as k4
 from lvae_torch.kernels_cuda import chol_plan as cp
 from lvae_torch.kernels_cuda import cholesky as k2
 from lvae_torch.kernels_cuda import kernel_matrix as k3
+from lvae_torch.kernels_cuda import km_plan
 from lvae_torch.ops import elbo as eb
 from lvae_torch.ops import kernels as kx
 from lvae_torch.ops import linalg as la
@@ -382,7 +385,8 @@ def k3_params(gen, spec, n_lat):
 
 
 @pytest.mark.parametrize("name", ["healthmnist", "cat_mod"])
-@pytest.mark.parametrize("shape", [(3, 517, 1030), (2, 70, 37), (32, 520, 520)])
+@pytest.mark.parametrize("shape", [(3, 517, 1030), (2, 70, 37), (32, 520, 520),
+                                   (32, 2000, 2000)])
 def test_kernel_matrix_kernel_matches_plain_version(gen, name, shape):
     n_lat, n1, n2 = shape
     spec = k3_spec(name)
@@ -426,6 +430,63 @@ def test_kernel_matrix_gradient_and_masks_on_the_card(gen):
     want, want_g = run(plain)
     assert float((got - want).abs().max() / want.abs().max()) <= 1e-5
     assert bool((got[:, m1 == 0] == 0).all()) and bool((got[:, :, m2 == 0] == 0).all())
+    for a, b in zip(got_g, want_g):
+        assert float((a - b).abs().max() / b.abs().max()) <= 1e-4
+
+
+@pytest.mark.parametrize("name", ["healthmnist", "cat_mod"])
+@pytest.mark.parametrize("shape", [(32, 2000, 2000), (32, 520, 520), (9, 517, 517),
+                                   (3, 70, 70), (1, 1, 1)])
+def test_kernel_matrix_symmetric_walk_is_bit_equal_to_the_general_walk(gen, name, shape):
+    """x1 is x2: the symmetric walk (tiles I >= J, mirrored through shared
+    memory) against the general walk on a copy, bitwise, and each K[l]
+    bitwise symmetric; also with scalar stores. N = 517 and 70 leave rows
+    that take no 16-byte store."""
+    n_lat, n, _ = shape
+    spec = k3_spec(name)
+    kp = k3_params(gen, spec, n_lat)
+    x = covariates(gen, n)
+    scale = kx.constrain(kp.raw_scale)
+    g = 0.5 / kx.constrain(kp.raw_lengthscale) ** 2
+    before = k3.kernel_matrix_fused.launches
+    sym = k3.kernel_matrix_fused(spec, scale, g, x, x)
+    general = k3.kernel_matrix_fused(spec, scale, g, x, x.clone())
+    plan = km_plan.k3_plan(n_lat, n, n, x.shape[1], len(spec.components), True)
+    scalar = k3._launch(spec, scale, g, x, x, plan._replace(vec=False))
+    torch.cuda.synchronize()
+    assert k3.kernel_matrix_fused.launches == before + 3
+    bits = [t.view(torch.int32) for t in (sym, general, scalar)]
+    assert torch.equal(bits[0], bits[1]) and torch.equal(bits[0], bits[2])
+    assert torch.equal(bits[0], sym.mT.contiguous().view(torch.int32))
+    want = k3.kernel_matrix_reference(spec, scale, g, x, x)
+    assert float((sym - want).abs().max() / want.abs().max()) <= 1e-5
+
+
+def test_kernel_matrix_symmetric_gradient_on_the_card(gen):
+    """The closed-KL prior's call, x1 is x2 through ``kx.kernel_matrix``: K3's
+    symmetric walk forward, FusedKernelMatrix's backward, against autograd of
+    the plain version."""
+    spec = k3_spec("healthmnist")
+    kp = k3_params(gen, spec, 4)
+    x = covariates(gen, 600)
+    cot = torch.randn(4, 600, 600, generator=gen, device="cuda")
+
+    def run(fn):
+        leaves = [t.clone().requires_grad_(True) for t in kp]
+        out = fn(spec, kx.KernelParams(*leaves), x, x)
+        (out * cot).sum().backward()
+        return out.detach(), [t.grad for t in leaves]
+
+    def plain(spec, params, x1, x2):
+        scale = kx.constrain(params.raw_scale)
+        g = 0.5 / kx.constrain(params.raw_lengthscale) ** 2
+        return k3.kernel_matrix_reference(spec, scale, g, x1, x2)
+
+    before = k3.kernel_matrix_fused.launches
+    got, got_g = run(kx.kernel_matrix)
+    assert k3.kernel_matrix_fused.launches == before + 1
+    want, want_g = run(plain)
+    assert float((got - want).abs().max() / want.abs().max()) <= 1e-5
     for a, b in zip(got_g, want_g):
         assert float((a - b).abs().max() / b.abs().max()) <= 1e-4
 
@@ -505,7 +566,8 @@ def pair_args(gen, n_subj, t, n_lat=4):
     return spec0, spec1, s0, g0, s1, g1, xb, mask
 
 
-@pytest.mark.parametrize("shape", [(32, 20, 20), (4, 5, 2), (4, 3, 128), (3, 2, 150)])
+@pytest.mark.parametrize("shape", [(32, 20, 20), (4, 5, 2), (4, 3, 128), (3, 2, 150),
+                                   (4, 3, 3), (4, 3, 37), (5, 7, 3)])
 def test_block_pair_kernel_matches_plain_version(gen, shape):
     n_lat, n_subj, t = shape
     args = pair_args(gen, n_subj, t, n_lat)
@@ -518,6 +580,19 @@ def test_block_pair_kernel_matches_plain_version(gen, shape):
         assert tuple(got.shape) == (n_lat, n_subj, t, t)
         assert float((got - want).abs().max() / want.abs().max()) <= 1e-6
     assert not k0[:, -1].any() and not k1_[:, -1].any()  # the ghost subject
+
+
+@pytest.mark.parametrize("shape", [(32, 20, 20), (4, 3, 37), (5, 7, 3), (3, 2, 150)])
+def test_block_pair_scalar_stores_and_transpose_are_bit_equal(gen, shape):
+    """The plan with scalar stores gives the wrapper's bits; each block is
+    bitwise symmetric. S·T² = 4107 and 63 take no 16-byte store."""
+    n_lat, n_subj, t = shape
+    args = pair_args(gen, n_subj, t, n_lat)
+    k0, k1_ = k4.block_pair(*args)
+    o0, o1 = k4._launch(*args, km_plan.k4_plan(n_lat, n_subj, t)._replace(vec=False))
+    for got, want in ((o0, k0), (o1, k1_)):
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+        assert torch.equal(want.view(torch.int32), want.mT.contiguous().view(torch.int32))
 
 
 @pytest.mark.parametrize("t", [20, 150])
