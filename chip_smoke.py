@@ -7,7 +7,8 @@ Builds the port's CUDA kernels from ``lvae_torch/csrc`` (K2 ``chol_inv``,
 K1 ``b_chain``, K3 ``kernel_matrix``, K4 ``block_pair`` and K5 ``adam``,
 one ``nvcc`` each, all started together), holds each against its plain
 PyTorch version on the card, forward and gradient (K2 at every n from 2 to
-64, K2 and K1 at batches that leave a block partly filled; K3's symmetric
+64, K2 and K1 at batches that leave a block partly filled, K1 also at the
+VI shapes ``[32,100,20,20]`` and a ragged ``[32,120,20,20]``; K3's symmetric
 walk bit-equal to its general walk and to the transpose, K4 bit-equal
 with scalar stores and to the transpose of each block), then runs the
 main paths
@@ -29,15 +30,26 @@ frames, random frames and weights from ``--seed``):
   the port's generator: 2 pre-training epochs, 4 epochs with validation,
   tests, generation and checkpoints, a resumed run, and 2 epochs on the K4
   route (K1 off, the block-pair switch on), with the kernels each step and
-  each validation launched checked on both routes.
+  each validation launched checked on both routes; the run's reference GP
+  files (``gp_model.pth``, ``zt_list.pth``, ``m.pth``, ``H.pth``) written
+  again and read back;
+* the VI regime through ``lvae_torch.cli.main`` with
+  ``--variational_inference_training=True`` on the same data and
+  pre-trained VAE: 3 phase-1 epochs over the whole cohort (K1 once and K2
+  at least once a step, checked), 1000 phase-2 steps on the test split (K1
+  and K2 once), generation, and a run resumed from ``model_vi.ckpt``;
+* the RNN encoder (``type_nnet=rnn``, hidden 64) with each cell, LSTM and
+  GRU: one Hensman epoch (5 steps, launches checked) and one K-subject
+  request of whole 20-frame sequences through ``LVAEPredictor``.
 
 Each path is replayed with ``device="cpu"`` (the plain versions) and the
 card's answers are held against the CPU's; the standard regime at P=26
 subjects (N = 520, still at K3's gate), since an N = 2000 replay is about a
 TFLOP of f32 Cholesky work a step on the CPU; the CLI run's final
-checkpoint through ``validate`` and ``mse_test_gp_approx``. One
-``batch_loss`` from that checkpoint is held on the K4 route against the K1
-route.
+checkpoint through ``validate`` and ``mse_test_gp_approx``; VI from
+``model_vi.ckpt`` (3 phase-1 and 4 phase-2 steps, one noise); the RNN runs
+from H + 0.1·I with cuDNN's TF32 off. One ``batch_loss`` from the CLI
+run's final checkpoint is held on the K4 route against the K1 route.
 
 Phases print one line each. Any failure raises and exits non-zero; without
 CUDA the script exits non-zero before printing a result. The last lines
@@ -57,6 +69,7 @@ times are host-clock medians of calls that end in a synchronise.
 from __future__ import annotations
 
 import argparse
+import copy
 import itertools
 import json
 import math
@@ -100,7 +113,11 @@ from lvae_torch.train.standard import StandardConfig, StandardTrainer  # noqa: E
 from lvae_torch.train.state import (  # noqa: E402
     init_gp_params, init_inducing_points, make_optimizer,
 )
+from lvae_torch.train.vi import VITrainer  # noqa: E402
 from lvae_torch.utils.checkpoint import read_checkpoint  # noqa: E402
+from lvae_torch.utils.torch_compat import (  # noqa: E402
+    load_reference_gp_state, save_reference_gp_state,
+)
 
 CONFIG = os.path.join(ROOT, "configs", "healthmnist_lvae.txt")
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, HBM3
@@ -185,6 +202,7 @@ class World:
         req_f, req_l = make_cohort(rng, range(1000, 1000 + K_SUBJECTS), cfg.T, self.hw)
         req_f = req_f.reshape(K_SUBJECTS, cfg.T, self.hw, self.hw, 1)
         req_l = req_l.reshape(K_SUBJECTS, cfg.T, -1)
+        self.req_frames, self.req_labels = req_f, req_l  # whole sequences (RNN serving)
         self.obs_frames, self.obs_labels = req_f[:, :T_OBS], req_l[:, :T_OBS]
         self.query_labels = req_l[:, T_OBS:T_OBS + N_QUERY]
         self.new_frames, self.new_labels = make_cohort(
@@ -217,9 +235,18 @@ class World:
             generator=torch.Generator().manual_seed(self.seed),
         )
 
-    def trainer(self, device: str) -> HensmanTrainer:
-        """A Hensman trainer at the config file's settings, on ``device``;
-        every trainer made here starts from the same state."""
+    def rnn_model(self, cell: str):
+        """A fresh RNN encoder model (``type_nnet=rnn``, hidden 64, the
+        config default) with the seed's random weights, on the CPU."""
+        cfg = self.cfg
+        return make_vae("rnn", cfg.latent_dim, cfg.num_dim, vy_init=cfg.vy_init, T=cfg.T,
+                        hidden_dim=cfg.hidden_dim, type_rnn=cell,
+                        generator=torch.Generator().manual_seed(self.seed))
+
+    def trainer(self, device: str, model=None) -> HensmanTrainer:
+        """A Hensman trainer at the config file's settings, on ``device``,
+        for ``model`` (the ConvVAE by default); every trainer made here for
+        one model kind starts from the same state."""
         cfg = self.cfg
         hcfg = HensmanConfig(
             spec0=self.spec0, spec1=self.spec1, latent_dim=cfg.latent_dim,
@@ -234,7 +261,7 @@ class World:
             data, labels, mask = self.frames, self.labels, self.pixmask
 
         return HensmanTrainer(
-            self.model(), hcfg, Cohort, self.blocks, self.z,
+            model or self.model(), hcfg, Cohort, self.blocks, self.z,
             subjects_per_batch=cfg.subjects_per_batch, learning_rate=cfg.learning_rate,
             seed=self.seed, t_buckets=cfg.T_buckets, device=device,
         )
@@ -275,6 +302,14 @@ class World:
         s_dim, t = self.cfg.subjects_per_batch, self.cfg.T
         xb = torch.as_tensor(self.labels[: s_dim * t].reshape(s_dim, t, -1), device="cuda")
         mask = torch.ones(s_dim, t, device="cuda")
+        return (self.spec0, self.spec1, *constrained(self.gp.kp0), *constrained(self.gp.kp1),
+                self.noise.cuda(), xb.contiguous(), mask)
+
+    def vi_chain_inputs(self):
+        """The B-chain's inputs of a VI phase-1 step, the whole cohort
+        ``[L, P, T]``: constrained params from ``init_gp_params``."""
+        xb = torch.as_tensor(self.labels.reshape(self.cfg.P, self.cfg.T, -1), device="cuda")
+        mask = torch.ones(self.cfg.P, self.cfg.T, device="cuda")
         return (self.spec0, self.spec1, *constrained(self.gp.kp0), *constrained(self.gp.kp1),
                 self.noise.cuda(), xb.contiguous(), mask)
 
@@ -623,7 +658,11 @@ def check_k1(world: World) -> dict:
     returns the kernels-line entry (without the main path's launches)."""
     gen = torch.Generator(device="cuda").manual_seed(world.seed + 2)
     train = world.train_chain_inputs()
-    cases = [("training shape, smoke cohort", train)]
+    vi_shapes = [("VI phase 1, the whole cohort", world.vi_chain_inputs()),
+                 ("VI phase 2, a ragged joint cohort",
+                  chain_inputs(gen, world.spec0, world.spec1, world.cfg.latent_dim,
+                               world.cfg.P + VAL_SUBJECTS, world.cfg.T))]
+    cases = [("training shape, smoke cohort", train)] + vi_shapes
     cases += [(f"ragged + ghost T={t}", chain_inputs(gen, world.spec0, world.spec1, 8, 6, t))
               for t in (2, 20, 31, 32, 33, 64, 65, 128)]
     for name, args in cases:
@@ -648,7 +687,7 @@ def check_k1(world: World) -> dict:
         if not torch.equal(ib, ib.mT):
             raise AssertionError(f"K1 B^-1 is not exactly symmetric at {name}")
 
-    bad = list(cases[2][1])
+    bad = list(dict(cases)["ragged + ghost T=20"])
     bad[6] = bad[6].clone()
     bad[6][3] = -50.0  # sigma^2 of latent 3: its real blocks are indefinite
     ib, ld, tr = k1.b_chain(*bad)
@@ -664,9 +703,13 @@ def check_k1(world: World) -> dict:
     ib, ld, tr = k1.b_chain(*train)
     ibr, ldr, trr = k1.b_chain_reference(*train)
     max_abs = max(float((a - b).abs().max()) for a, b in ((ib, ibr), (ld, ldr), (tr, trr)))
-    row = timing_row(ib.shape[:3], train, lambda a: k1.b_chain(*a),
-                     lambda a: k1.b_chain_reference(*a), None, b_chain_bound(train))
-    say("kernel", "K1 times " + json.dumps(row))
+    per_shape = []
+    for args in [train] + [a for _, a in vi_shapes]:
+        row = timing_row([args[2].shape[0], *args[7].shape[:2]], args, lambda a: k1.b_chain(*a),
+                         lambda a: k1.b_chain_reference(*a), None, b_chain_bound(args))
+        say("kernel", f"K1 times {json.dumps(row)} | {card_line()}")
+        per_shape.append(row)
+    row = per_shape[0]
     return {
         "name": "b_chain",
         "route": "cuda",
@@ -684,6 +727,7 @@ def check_k1(world: World) -> dict:
         "library_call": "none: no single PyTorch call computes the chain",
         "shape": row["shape"],
         "max_rel_err": rel_err(ib, ibr),
+        "per_shape": per_shape,
     }
 
 
@@ -1078,13 +1122,15 @@ def check_k5(world: World, dev: str = "cuda") -> dict:
 
 
 # ---------------------------------------------------------------- training
-def train(world: World, device: str, h_shift: float = 0.0) -> dict:
-    """TRAIN_EPOCHS Hensman epochs on ``device``, from the trainer's initial
-    state with ``h_shift``·I added to H; returns the per-epoch and per-step
-    metrics, the final (m_nat, H_nat), the kernels launched in each step,
-    whether each step's natural-gradient update was applied (the PSD-cone
-    guard keeps the old (m, H) otherwise) and the trainer."""
-    trainer = world.trainer(device)
+def train(world: World, device: str, h_shift: float = 0.0, cell=None,
+          epochs: int = TRAIN_EPOCHS) -> dict:
+    """``epochs`` Hensman epochs on ``device`` (the ConvVAE, or the RNN
+    encoder with ``cell``), from the trainer's initial state with
+    ``h_shift``·I added to H; returns the per-epoch and per-step metrics,
+    the final (m_nat, H_nat), the kernels launched in each step, whether
+    each step's natural-gradient update was applied (the PSD-cone guard
+    keeps the old (m, H) otherwise) and the trainer."""
+    trainer = world.trainer(device, world.rnn_model(cell) if cell else None)
     if h_shift:
         h = trainer.state.H_nat
         trainer.state = trainer.state._replace(
@@ -1103,10 +1149,10 @@ def train(world: World, device: str, h_shift: float = 0.0) -> dict:
         return out
 
     trainer.train_step = counted_step
-    epochs = [trainer.run_epoch() for _ in range(TRAIN_EPOCHS)]
+    metrics = [trainer.run_epoch() for _ in range(epochs)]
     trainer.train_step = real_step
     return {
-        "epochs": [m._asdict() for m in epochs],
+        "epochs": [m._asdict() for m in metrics],
         "steps": [{k: float(v) for k, v in m._asdict().items()} for m in step_metrics],
         "m_nat": trainer.state.m_nat.detach().cpu().double().numpy(),
         "H_nat": trainer.state.H_nat.detach().cpu().double().numpy(),
@@ -1310,6 +1356,16 @@ def pipeline_flags(data: str, results: str, *extra) -> list:
     return lines + list(extra)
 
 
+def counted(fn, into: list):
+    """``fn`` that appends the kernel launches of each call to ``into``."""
+    def wrapped(*args, **kwargs):
+        before = launch_counts()
+        out = fn(*args, **kwargs)
+        into.append({k: v - before[k] for k, v in launch_counts().items()})
+        return out
+    return wrapped
+
+
 class PathCounter:
     """While active: the kernel launches of every Hensman ``train_step`` and
     every pipeline ``validate`` call, and the pipeline ``cli.main`` ran."""
@@ -1320,14 +1376,6 @@ class PathCounter:
                        pipeline_mod.LVAEPipeline.run)
         step, validate, run = self._saved
         counter = self
-
-        def counted(fn, into):
-            def wrapped(*args, **kwargs):
-                before = launch_counts()
-                out = fn(*args, **kwargs)
-                into.append({k: v - before[k] for k, v in launch_counts().items()})
-                return out
-            return wrapped
 
         def keep_run(pipe):
             counter.pipeline = pipe
@@ -1555,6 +1603,285 @@ def compare_pipeline(card: dict, cpu: dict) -> dict:
     bad = [f"{k} {v:.3e} > {tols[k]:g}" for k, v in errs.items() if not v <= tols[k]]
     if bad:
         raise AssertionError("pipeline card vs CPU: " + "; ".join(bad))
+    return errs
+
+
+# ---------------------------------------------------------------------- VI
+VI_EPOCHS = 3  # phase-1 steps of the CLI run (one an epoch, the whole cohort)
+VI_RESUME_EPOCHS = 2
+VI_COMPARE_STEPS = 3  # phase-1 steps replayed on the card and the CPU from model_vi.ckpt
+VI_COMPARE_PRED_STEPS = 4  # phase-2 steps replayed likewise (the CLI run takes 1000)
+
+
+class VICounter:
+    """While active: the kernel launches of every ``VITrainer.train_step``
+    and of each phase 2 (``optimize_prediction_set``), and the trainer."""
+
+    def __enter__(self):
+        self.steps, self.predictions, self.trainer = [], [], None
+        self._saved = (VITrainer.train_step, VITrainer.optimize_prediction_set)
+        step, pred = self._saved
+        counter = self
+
+        def keep(trainer, *args, **kwargs):
+            counter.trainer = trainer
+            return step(trainer, *args, **kwargs)
+
+        VITrainer.train_step = counted(keep, self.steps)
+        VITrainer.optimize_prediction_set = counted(pred, self.predictions)
+        return self
+
+    def __exit__(self, *exc):
+        VITrainer.train_step, VITrainer.optimize_prediction_set = self._saved
+        return False
+
+    def check(self, n_steps: int, n_predictions: int, where: str) -> None:
+        """``n_steps`` phase-1 steps, each K1 once and K2 at least once;
+        ``n_predictions`` phase-2 runs, each K1 and K2 once (its operators
+        are built once, its steps launch neither)."""
+        if len(self.steps) != n_steps or len(self.predictions) != n_predictions:
+            raise AssertionError(f"{where}: {len(self.steps)} steps and {len(self.predictions)} "
+                                 f"phase-2 runs, expected {n_steps} and {n_predictions}")
+        for got in self.steps:
+            if got["b_chain"] != 1 or got["chol_inv"] < 1:
+                raise AssertionError(f"{where}: a phase-1 step launched {json.dumps(got)}, "
+                                     "expected K1 once and K2 at least once")
+        for got in self.predictions:
+            if got["b_chain"] != 1 or got["chol_inv"] != 1:
+                raise AssertionError(f"{where}: phase 2 launched {json.dumps(got)}, expected "
+                                     "K1 and K2 once")
+
+
+def vi_flags(run: dict, results: str, *extra) -> list:
+    return pipeline_flags(
+        run["data"], results, "--variational_inference_training=True", "--hensman=False",
+        "--run_tests=False", "--run_validation=False",
+        f"--model_params={run['results']}/model_params_vae.ckpt", *extra)
+
+
+def run_vi(world: World, root: str, run: dict, device: str = "cuda") -> dict:
+    """The VI regime through ``lvae_torch.cli.main`` on the pipeline's data
+    and pre-trained VAE: VI_EPOCHS phase-1 epochs over the whole P=100
+    cohort, phase 2 (1000 steps) on the test split, generation; then a run
+    resumed from ``model_vi.ckpt`` (phase 1 only). Returns seconds, launches
+    and the results."""
+    results = os.path.join(root, "vi")
+    cfg_path = write_flags(os.path.join(root, "vi.txt"), vi_flags(
+        run, results, f"--epochs={VI_EPOCHS}", "--generate_images=True", "--gp_model_folder=",
+        f"--seed={world.seed}"))
+    reset_launch_counts()
+    with VICounter() as counter:
+        seconds = cli_run([f"--f={cfg_path}"], device)
+    counts = launch_counts()
+    counter.check(VI_EPOCHS, 1, "VI")
+    hist = counter.trainer.history
+    if len(hist) != VI_EPOCHS or not all(math.isfinite(v) for m in hist for v in m.values()):
+        raise AssertionError(f"VI losses: {hist}")
+    state = read_checkpoint(os.path.join(results, "model_vi.ckpt"))
+    pred = read_checkpoint(os.path.join(results, "vi_prediction.ckpt"))
+    grid = np.load(os.path.join(results, "recon_complete_best.npz"))
+    n_rows, lat = world.cfg.P * world.cfg.T, world.cfg.latent_dim
+    if state["kind"] != "vi" or tuple(state["mu"].shape) != (n_rows, lat) \
+            or not torch.isfinite(state["mu"]).all():
+        raise AssertionError(f"model_vi.ckpt: {state['kind']} {tuple(state['mu'].shape)}")
+    if pred["mu_pred"].shape[1] != lat or not torch.isfinite(pred["mu_pred"]).all():
+        raise AssertionError(f"vi_prediction.ckpt: {tuple(pred['mu_pred'].shape)}")
+    if not (np.isfinite(grid["grid"]).all() and grid["filled"].any()):
+        raise AssertionError(f"VI generation grid {grid['grid'].shape}")
+
+    resumed = os.path.join(root, "vi_resumed")
+    flags = [f for f in vi_flags(run, resumed, f"--epochs={VI_RESUME_EPOCHS}",
+                                 "--generate_images=False", f"--gp_model_folder={results}",
+                                 f"--seed={world.seed}") if "prediction" not in f]
+    resume_s = cli_run([f"--f={write_flags(os.path.join(root, 'vi_resume.txt'), flags)}"], device)
+    step = float(read_checkpoint(os.path.join(resumed, "model_vi.ckpt"))["opt"]["state"][0]["step"])
+    if step != VI_EPOCHS + VI_RESUME_EPOCHS:
+        raise AssertionError(f"the resumed VI run ended at Adam step {step}, not "
+                             f"{VI_EPOCHS} + {VI_RESUME_EPOCHS}")
+    return {"seconds": seconds, "resume_seconds": resume_s, "counts": counts,
+            "counter": counter, "results": results, "losses": hist[-1],
+            "n_pred": int(pred["mu_pred"].shape[0]), "trainer": counter.trainer}
+
+
+def vi_replay(world: World, root: str, run: dict, vi: dict, device: str) -> dict:
+    """From ``model_vi.ckpt`` on ``device``: VI_COMPARE_STEPS phase-1 steps
+    and VI_COMPARE_PRED_STEPS phase-2 steps with noise from one seeded CPU
+    generator; returns the losses and the final moments."""
+    cfg, _ = parse_flag_lines(vi_flags(run, os.path.join(root, f"vi_replay_{device}"),
+                                       f"--gp_model_folder={vi['results']}"))
+    pipe = pipeline_mod.LVAEPipeline(cfg, device=device)
+    trainer = pipe.build_vi_trainer()
+    gen = torch.Generator().manual_seed(world.seed + 11)
+    steps = []
+    for _ in range(VI_COMPARE_STEPS):
+        eps = torch.randn(trainer.state.mu.shape, generator=gen)
+        steps.append(dict(zip(("net", "recon", "nll", "gp"), trainer.train_step(eps=eps).tolist())))
+    eps = torch.randn((VI_COMPARE_PRED_STEPS, vi["n_pred"], world.cfg.latent_dim), generator=gen)
+    mu_pred, _ = trainer.optimize_prediction_set(pipe.prediction_dataset,
+                                                 epochs=VI_COMPARE_PRED_STEPS, log_every=0,
+                                                 eps=eps)
+    return {"steps": steps, "pred_steps": trainer.pred_history, "mu_pred": mu_pred,
+            "mu": trainer.state.mu.detach().cpu().double().numpy(),
+            "log_var": trainer.state.log_var.detach().cpu().double().numpy()}
+
+
+def compare_vi(card: dict, cpu: dict) -> dict:
+    errs = {"phase1_steps": compare_losses(card["steps"], cpu["steps"],
+                                           keys=("net", "recon", "nll", "gp")),
+            "phase2_steps": compare_losses(card["pred_steps"], cpu["pred_steps"],
+                                           keys=("net", "recon", "gp")),
+            "end_state": {key: float(np.abs(card[key] - cpu[key]).max() / np.abs(cpu[key]).max())
+                          for key in ("mu", "log_var", "mu_pred")}}
+    check_within(errs)
+    return errs
+
+
+def vi_step_times(trainer: VITrainer) -> dict:
+    """Warm phase-1 steps on the card: the host clock of 4 steps ending in a
+    synchronise (median of the last 3), then a profiler window of 2."""
+    step_ms = []
+    for _ in range(4):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer.train_step()
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    return {"host_ms": statistics.median(step_ms[1:]),
+            "profile": profile_window(trainer.train_step, 2)}
+
+
+# --------------------------------------------------------------------- RNN
+RNN_CELLS = ("lstm", "gru")
+RNN_EPOCHS = 1  # Hensman epochs (5 steps) of each cell on the card and on the CPU
+
+
+def serve_rnn(world: World, model, device: str) -> dict:
+    """One K-subject trajectory request (whole T-frame sequences) through
+    ``LVAEPredictor`` with the RNN model on ``device``; returns the frames,
+    the fold's and the request's K2 launches and host-clock ms."""
+    cfg = world.cfg
+    mu, _ = encode_dataset(model, world.frames, device=device)
+    pred = LVAEPredictor(model=model, gp_params=world.gp, noise=world.noise, spec0=world.spec0,
+                         spec1=world.spec1, z=world.z, id_covariate=cfg.id_covariate,
+                         basis_labels=world.labels, basis_mu=mu, eps=cfg.eps, device=device)
+    before = k2.cholesky_inverse.launches
+    bundle = pred.aot_compile(batch_size=BATCH, t_obs=cfg.T, n_query=N_QUERY,
+                              k_subjects=K_SUBJECTS)
+    fold_launches = k2.cholesky_inverse.launches - before
+    times = []
+    for _ in range(3 if device == "cuda" else 1):
+        before = k2.cholesky_inverse.launches
+        if device == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = bundle.predict_trajectories(world.req_frames, world.req_labels,
+                                          world.query_labels)
+        times.append((time.perf_counter() - t0) * 1e3)
+        request_launches = k2.cholesky_inverse.launches - before
+    shape = (K_SUBJECTS, N_QUERY, cfg.num_dim)
+    if out.shape != shape or not np.isfinite(out).all():
+        raise AssertionError(f"RNN trajectories: shape {out.shape}, expected {shape}")
+    return {"out": out, "fold_launches": fold_launches, "request_launches": request_launches,
+            "request_ms": times}
+
+
+def run_rnn(world: World, cell: str, device: str = "cuda") -> dict:
+    """RNN_EPOCHS Hensman epochs with the RNN encoder on the card and on the
+    CPU from H + H_SHIFT·I (launches checked per step, card held against
+    the CPU), then one request served from the card-trained model on both."""
+    card, cpu = (train(world, dev, H_SHIFT, cell=cell, epochs=RNN_EPOCHS)
+                 for dev in (device, "cpu"))
+    if any(n1 != 1 or n2 < 2 for n1, n2 in card["per_step"]):
+        raise AssertionError(f"an RNN ({cell}) step did not launch K1 once and K2 at least "
+                             f"twice: {card['per_step']}")
+    if any(step != (0, 0) for step in cpu["per_step"]):
+        raise AssertionError("a CPU RNN run launched a CUDA kernel")
+    for r in (card, cpu):
+        check_training(r)
+    errs = {"steps": compare_losses(card["steps"], cpu["steps"]),
+            "end_state": compare_variational(card, cpu)}
+    trained = card["trainer"].model
+    served = {"card": serve_rnn(world, copy.deepcopy(trained), device),
+              "cpu": serve_rnn(world, copy.deepcopy(trained), "cpu")}
+    if served["card"]["fold_launches"] < 1 or served["card"]["request_launches"] < 1:
+        raise AssertionError(f"RNN serving launched K2 {served['card']['fold_launches']} "
+                             f"times in the fold, {served['card']['request_launches']} a request")
+    errs["serving"] = {"trajectories": float(np.abs(served["card"]["out"] -
+                                                    served["cpu"]["out"]).max())}
+    if not errs["serving"]["trajectories"] <= FRAME_ATOL:
+        raise AssertionError(f"RNN serving card vs CPU {errs['serving']} > {FRAME_ATOL}")
+    check_within({k: v for k, v in errs.items() if k != "serving"})
+    return {"card": card, "errs": errs, "served": served["card"]}
+
+
+def tf32_gradient_effect(world: World) -> dict:
+    """How far cuDNN's TF32 switch moves the encoders' gradients on the card
+    (their forward passes run under ``full_precision``): per model, the
+    largest per-tensor max |Δ| over max |ref| between two passes with
+    ``cudnn.allow_tf32`` off, and between on and off; the switch is left
+    off."""
+    x = torch.as_tensor(world.frames[:K_SUBJECTS * world.cfg.T], device="cuda")
+    out = {}
+    models = {cell: world.rnn_model(cell) for cell in RNN_CELLS}
+    models["conv"] = world.model()
+    for name, model in models.items():
+        model = model.cuda().eval()
+        grads = []
+        for tf32 in (False, False, True):
+            torch.backends.cudnn.allow_tf32 = tf32
+            model.zero_grad()
+            mu, lv = model.encode(x)
+            (mu.square().sum() + lv.sum()).backward()
+            grads.append([p.grad.clone() for p in model.parameters() if p.grad is not None])
+        torch.backends.cudnn.allow_tf32 = False
+        rel = [max(float((a - b).abs().max() / b.abs().max().clamp(min=1e-30))
+                   for a, b in zip(g, grads[0])) for g in grads[1:]]
+        out[name] = {"off_twice": rel[0], "on_vs_off": rel[1]}
+    return out
+
+
+# ------------------------------------------------------------------ export
+GP_FILES = ("gp_model.pth", "zt_list.pth", "m.pth", "H.pth")
+EXPORT_ATOL = 1e-5  # raw GP parameters back from the files: f32 rounding of constrain
+
+
+def check_export(world: World, root: str, run: dict, pipe) -> dict:
+    """The Hensman CLI run's reference GP files: written again from its
+    final state (``pipe`` resumed from ``model_final.ckpt``) they are the
+    same bits; read back, the parameters, z, m and H are the state's."""
+    cfg = world.cfg
+    spec = dict(id_covariate=cfg.id_covariate, **cfg.kernel_spec_kwargs())
+    state, tdata = pipe.trainer.state, pipe.trainer.tdata
+    again = os.path.join(root, "export")
+    save_reference_gp_state(again, state.trainables.gp, tdata.z, state.m_nat, state.H_nat,
+                            latent_dim=cfg.latent_dim, constrain_scales=cfg.constrain_scales,
+                            **spec)
+    for name in GP_FILES:
+        a, b = (torch.load(os.path.join(d, name), map_location="cpu", weights_only=True)
+                for d in (run["results"], again))
+        pairs = [(a[k], b[k]) for k in a] if isinstance(a, dict) else [(a, b)]
+        if (isinstance(a, dict) and sorted(a) != sorted(b)) or not all(
+                x.dtype == torch.float64 and torch.equal(x, y) for x, y in pairs):
+            raise AssertionError(f"{name}: the pipeline's file differs from a second export")
+    kp0, kp1, noise, z, m, h = load_reference_gp_state(run["results"], cfg.latent_dim, **spec)
+    errs = {}
+    gp = state.trainables.gp
+    for name, got, want, comps in (("kp0", kp0, gp.kp0, world.spec0.components),
+                                   ("kp1", kp1, gp.kp1, world.spec1.components)):
+        rbf = [c for c, comp in enumerate(comps) if comp.rbf_col >= 0]
+        errs[f"{name}.raw_scale"] = float((got.raw_scale - want.raw_scale.detach().cpu()
+                                           .double()).abs().max())
+        errs[f"{name}.raw_lengthscale"] = float((got.raw_lengthscale[:, rbf] - want.raw_lengthscale
+                                                 .detach().cpu().double()[:, rbf]).abs().max())
+    want_noise = torch.ones(cfg.latent_dim, dtype=torch.float64) if cfg.constrain_scales else \
+        kx.constrain(gp.raw_noise.detach().cpu()).double()
+    errs["noise"] = float((noise - want_noise).abs().max())
+    bad = [f"{k} {v:.3e}" for k, v in errs.items() if not v <= EXPORT_ATOL]
+    for name, got, want in (("z", z, tdata.z), ("m", m, state.m_nat), ("H", h, state.H_nat)):
+        if not torch.equal(got, want.detach().cpu().double()):
+            bad.append(f"{name} not equal")
+    if bad:
+        raise AssertionError("reference GP files read back: " + "; ".join(bad))
     return errs
 
 
@@ -1909,15 +2236,62 @@ def main() -> int:
             f"{KL_RTOL}, recon, nll and test MSEs <= {LOSS_RTOL}; "
             f"{time.perf_counter() - t0:.1f} s)")
 
+        # the Hensman run's reference GP files, before the profile trains on
+        export_errs = check_export(world, PIPE_DIR, pipe_run, card_pipe)
+        say("export", f"gp_model.pth, zt_list.pth, m.pth, H.pth of the CLI run: a second "
+            f"export from model_final.ckpt gives the same bits; read back, |raw param "
+            f"difference| {json.dumps(export_errs)} (<= {EXPORT_ATOL:g}), z, m, H equal")
+
         say("profile", "pipeline_epoch " + json.dumps(profile_window(card_pipe.trainer.run_epoch, 1)))
         say("profile", "pipeline_validation " + json.dumps(
             profile_window(lambda: pipe_validate(card_pipe), 2)))
+
+        # phase 8: the VI regime through lvae_torch.cli.main; counts from 0 just before it
+        vi = run_vi(world, PIPE_DIR, pipe_run)
+        say("vi", f"CLI run: {VI_EPOCHS} phase-1 epochs (P={world.cfg.P} x T={world.cfg.T}), "
+            f"1000 phase-2 steps ({vi['n_pred']} rows), generation in {vi['seconds']:.3f} s, "
+            f"resumed run ({VI_RESUME_EPOCHS} epochs) {vi['resume_seconds']:.3f} s | {card}; "
+            f"launches {json.dumps(vi['counts'])}; a phase-1 step "
+            f"{json.dumps(vi['counter'].steps[0])}, phase 2 "
+            f"{json.dumps(vi['counter'].predictions[0])}; last epoch {json.dumps(vi['losses'])}")
+        t0 = time.perf_counter()
+        vi_card = vi_replay(world, PIPE_DIR, pipe_run, vi, "cuda")
+        vi_cpu = vi_replay(world, PIPE_DIR, pipe_run, vi, "cpu")
+        vi_errs = compare_vi(vi_card, vi_cpu)
+        say("compare", f"VI card vs CPU from model_vi.ckpt ({VI_COMPARE_STEPS} phase-1 and "
+            f"{VI_COMPARE_PRED_STEPS} phase-2 steps, one noise): {json.dumps(vi_errs)} "
+            f"(tolerances {json.dumps(LOSS_TOLS)}, mu/log_var/mu_pred {VARIATIONAL_RTOL}; "
+            f"{time.perf_counter() - t0:.1f} s | {card})")
+        vi_warm = vi_step_times(vi["trainer"])
+        say("vi", f"phase-1 step (host clock, warm) median {vi_warm['host_ms']:.3f} ms over 3 "
+            f"(N={world.cfg.P * world.cfg.T} rows, L={world.cfg.latent_dim}) | {card}")
+        say("profile", f"vi_step {json.dumps(vi_warm['profile'])} | {card}")
     finally:
         shutil.rmtree(PIPE_DIR, ignore_errors=True)
 
-    # phase 8: the kernels line
+    # phase 9: the RNN encoder, Hensman steps and serving; counts from 0 just before it
+    reset_launch_counts()
+    rnn = {cell: run_rnn(world, cell) for cell in RNN_CELLS}
+    rnn_counts = launch_counts()
+    for cell, r in rnn.items():
+        say("rnn", f"{cell} (hidden {world.cfg.hidden_dim}, T={world.cfg.T}): {RNN_EPOCHS} "
+            f"epoch(s), per step (K1, K2) {r['card']['per_step']}; request K={K_SUBJECTS} "
+            f"host ms {[round(t, 3) for t in r['served']['request_ms']]} (K2 {r['served']['fold_launches']} "
+            f"in the fold, {r['served']['request_launches']} a request) | {card}")
+        say("compare", f"RNN {cell} card vs CPU {json.dumps(r['errs'])} (tolerances "
+            f"{json.dumps(LOSS_TOLS)}, m/H {VARIATIONAL_RTOL}, frames {FRAME_ATOL})")
+    say("rnn", f"launches {json.dumps(rnn_counts)}")
+    warm = hensman_step_times(rnn["lstm"]["card"]["trainer"])
+    say("rnn", f"lstm Hensman step (host clock, warm) median {warm['host_ms']:.3f} ms over 5 "
+        f"| {card}")
+    say("profile", f"rnn_train_step {json.dumps(warm['profile'])} | {card}")
+    say("rnn", "cuDNN TF32 switch, encoder gradients rel (the script keeps it off): "
+        f"{json.dumps(tf32_gradient_effect(world))} | {card}")
+
+    # phase 10: the kernels line
     paths = {"serving": serve_counts, "training": train_launches, "standard": std_counts,
-             "pipeline": pipe_run["counts"], "pipeline_k4": k4_run["counts"]}
+             "pipeline": pipe_run["counts"], "pipeline_k4": k4_run["counts"],
+             "vi": vi["counts"], "rnn": rnn_counts}
     for e, key in ((entry, "chol_inv"), (k1_entry, "b_chain"), (k3_entry, "kernel_matrix"),
                    (k4_entry, "block_pair"), (k5_entry, "adam")):
         e["launches_by_path"] = {path: counts[key] for path, counts in paths.items()}

@@ -1,9 +1,10 @@
 """lvae_torch — the PyTorch/CUDA port of lvae_tpu for NVIDIA Hopper.
 
-Trains and serves a longitudinal VAE: ConvVAE/SimpleVAE encoding and
-decoding, the additive-GP prior with Hensman SVI and the standard
-full-batch regimes, validation, test-set prediction and generation, and the
-reference-format CLI (``python -m lvae_torch.cli``); the sparse GP posterior
+Trains and serves a longitudinal VAE: ConvVAE, SimpleVAE and RNN (LSTM or
+GRU) encoding and decoding, the additive-GP prior with Hensman SVI, the
+standard full-batch and the VI regimes, validation, test-set prediction
+and generation, the reference-format CLI (``python -m lvae_torch.cli``) and
+the reference's GP resume files; the sparse GP posterior
 over latent trajectories with a folded cohort basis, a low-rank per-request
 extension and a fixed-shape serving bundle. Every CUDA kernel sits beside a
 plain PyTorch version that runs when the tensors lie on the CPU. The package

@@ -77,6 +77,7 @@ def main_pretrain(argv, device: str = "cuda") -> int:
         cfg.type_nnet, cfg.latent_dim, cfg.num_dim or dataset.num_dim,
         vy_init=cfg.vy_init, dropout=cfg.dropout, dropout_input=cfg.dropout_input,
         generator=torch.Generator().manual_seed(cfg.seed),
+        T=cfg.T or None, hidden_dim=cfg.hidden_dim, type_rnn=cfg.type_rnn,
     )
     pre = VAEPretrainer(
         model, dataset, loss_function=cfg.loss_function,

@@ -46,7 +46,8 @@ def vae_forward(model: nn.Module, x: torch.Tensor, eps: Optional[torch.Tensor] =
 def encode_dataset(
     model: nn.Module, data, batch_size: int = 1000, device="cuda"
 ) -> Tuple[np.ndarray, np.ndarray]:
-    """Encode every sample: ``(mu [N, L], log_var [N, L])``.
+    """Encode every sample: ``(mu [N, L], log_var [N, L])``. For an RNN
+    encoder the rows must be subject-major, N a multiple of its ``T``.
 
     The model is moved to ``device`` (in place, as ``nn.Module.to`` does)."""
     model, dev = _on(model, device)
@@ -56,6 +57,15 @@ def encode_dataset(
     if n == 0:
         empty = np.zeros((0, model.latent_dim), np.float32)
         return empty, empty.copy()
+    t = getattr(model, "T", None)
+    if t:
+        # a recurrent encoder consumes whole subject sequences: chunks are
+        # multiples of T, and the row-0 tail padding forms whole fake
+        # subjects that never mix into a real one's recurrence
+        if n % t:
+            raise ValueError(
+                f"RNN encoder needs subject-major data with N divisible by T={t}; got N={n}")
+        batch_size = max(t, min(batch_size, n) // t * t)
     idx = _chunk_indices(n, batch_size)
     x = torch.as_tensor(data, dtype=dtype, device=dev)
     mus, lvs = [], []

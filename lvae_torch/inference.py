@@ -188,7 +188,8 @@ class LVAEPredictor:
 class CompiledServing:
     """Fixed-shape serving bundle.
 
-    Requests of any length are served in chunks of ``batch_size`` rows with
+    Requests of any length are served in chunks of ``batch_size`` rows (for
+    an RNN encoder rounded down to a multiple of its ``T``, at least T) with
     tail padding, so every model call sees one batch shape; the trajectory
     path holds the folded cohort basis ``(H, c)`` on the device and serves
     each request of ``k_subjects`` new subjects without refolding the
@@ -206,6 +207,17 @@ class CompiledServing:
         self.batch_size = int(batch_size)
         self.predictor = predictor
         model = predictor.model
+        # a recurrent encoder consumes whole subject sequences: the batch is
+        # a multiple of T (zero tail padding then forms whole fake subjects)
+        self.seq_len = int(getattr(model, "T", 0) or 0)
+        if self.seq_len:
+            self.batch_size = max(self.seq_len, self.batch_size // self.seq_len * self.seq_len)
+            if t_obs is not None and n_query is not None and t_obs != self.seq_len:
+                # a request is one subject's observed frames; the encoder
+                # must see them as one recurrence
+                raise ValueError(
+                    f"RNN trajectory serving requires t_obs == T={self.seq_len} (one whole "
+                    f"subject sequence); got t_obs={t_obs}")
         if model.is_conv:
             hw = model.image_hw
             self._in_shape = (self.batch_size, hw, hw, 1)

@@ -4,6 +4,8 @@
   pool→FC 2592→300→30→latent, mirrored decoder with two stride-2 transposed
   convolutions and a sigmoid output.
 * :class:`SimpleVAE` — MLP num_dim→300→30→latent and mirror.
+* ``models/rnn.RNNVAE`` — a bidirectional LSTM/GRU encoder over each
+  subject's sequence and an MLP decoder (``type_nnet='rnn'``).
 
 Both carry a learnable per-pixel observation noise ``raw_log_vy``, a
 softplus-floored log-variance with floor ``exp(-8)``.
@@ -190,13 +192,24 @@ def vy_from_params(model: nn.Module) -> torch.Tensor:
 
 def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
     """Redraw every linear and convolution layer from ``generator`` with
-    PyTorch's default scheme, U(±1/√fan_in) for weight and bias."""
+    PyTorch's default scheme, U(±1/√fan_in) for weight and bias, and every
+    recurrent layer's tensors with U(±1/√hidden) (an RNN's biases that
+    flax's cells lack stay zero, ``models/rnn.pinned_bias_mask``)."""
+    from lvae_torch.models.rnn import pinned_bias_mask
+
     with torch.no_grad():
         for mod in model.modules():
             if isinstance(mod, (nn.Linear, nn.Conv2d, nn.ConvTranspose2d)):
                 bound = 1.0 / math.sqrt(mod.weight[0].numel())
                 mod.weight.uniform_(-bound, bound, generator=generator)
                 mod.bias.uniform_(-bound, bound, generator=generator)
+            elif isinstance(mod, (nn.LSTM, nn.GRU)):
+                bound = 1.0 / math.sqrt(mod.hidden_size)
+                pinned = pinned_bias_mask(model.type_rnn, mod.hidden_size)
+                for name, w in mod.named_parameters():
+                    w.uniform_(-bound, bound, generator=generator)
+                    if name in pinned:
+                        w.mul_(pinned[name].to(w.dtype))
     return model
 
 
@@ -209,10 +222,15 @@ def make_vae(
     dropout_input: float = 0.2,
     generator: Optional[torch.Generator] = None,
     dtype: torch.dtype = torch.float32,
+    T: Optional[int] = None,
+    hidden_dim: int = 64,
+    type_rnn: str = "lstm",
 ) -> nn.Module:
     """Model selection as the reference's flags name it; with ``generator``
     the weights are drawn from it (see :func:`init_weights`). ``dtype`` is
-    the parameters' type whatever torch's default dtype is."""
+    the parameters' type whatever torch's default dtype is. ``T``,
+    ``hidden_dim`` and ``type_rnn`` shape the RNN encoder, which needs
+    ``T``."""
     if type_nnet == "conv":
         hw = int(round(num_dim ** 0.5))
         if hw * hw != num_dim:
@@ -224,7 +242,12 @@ def make_vae(
     elif type_nnet == "simple":
         model = SimpleVAE(latent_dim=latent_dim, num_dim=num_dim, vy_init=vy_init, dtype=dtype)
     elif type_nnet == "rnn":
-        raise NotImplementedError("the RNN encoder is not ported to lvae_torch yet")
+        from lvae_torch.models.rnn import RNNVAE
+
+        if not T or T <= 0:
+            raise ValueError("type_nnet='rnn' requires T")
+        model = RNNVAE(latent_dim=latent_dim, num_dim=num_dim, T=T, hidden_dim=hidden_dim,
+                       type_rnn=type_rnn, vy_init=vy_init, dtype=dtype)
     else:
         raise ValueError(
             f"Unknown type_nnet {type_nnet!r} (expected 'conv', 'simple' or 'rnn')"

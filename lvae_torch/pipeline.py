@@ -5,11 +5,13 @@ validation → test MSE → image generation, the programmatic equivalent of
 the reference's ``LVAE.py``, on one device (``cuda`` unless the caller asks
 for the CPU).
 
-Regimes ported: Hensman SVI and the standard full-batch ones (closed,
-GPapprox, GPapprox_closed, GPPVAE with ``mini_batch``). Each of these
-raises ``NotImplementedError`` naming its ROADMAP item: the VI regime
-(item 7), the RNN encoder (item 8), a device mesh (item 9), bfloat16 and
-the orbax checkpoint backends (item 10).
+Regimes ported: Hensman SVI, the standard full-batch ones (closed,
+GPapprox, GPapprox_closed, GPPVAE with ``mini_batch``) and the VI regime
+(``variational_inference_training``, :meth:`LVAEPipeline.run_vi`), with the
+ConvVAE, SimpleVAE and RNN encoders. A Hensman run also writes the
+reference's GP resume files (``utils/torch_compat.py``). Each of these
+raises ``NotImplementedError`` naming its ROADMAP item: a device mesh
+(item 9), bfloat16 and the orbax checkpoint backends (item 10).
 """
 
 from __future__ import annotations
@@ -35,11 +37,13 @@ from lvae_torch.ops import kernels as kx
 from lvae_torch.train import state as st
 from lvae_torch.train.hensman import HensmanConfig, HensmanTrainer
 from lvae_torch.train.standard import StandardConfig, StandardTrainer
+from lvae_torch.train.vi import VIConfig, VITrainer
 from lvae_torch.utils.checkpoint import (
     read_checkpoint, save_checkpoint, try_load_checkpoint, vae_state_dict,
 )
 from lvae_torch.utils.device import resolve_device
 from lvae_torch.utils.metrics import MetricsLogger, device_memory_stats
+from lvae_torch.utils.torch_compat import save_reference_gp_state
 
 DTYPES = {"float32": torch.float32, "float64": torch.float64}
 
@@ -48,8 +52,6 @@ def check_ported(cfg) -> None:
     """Raise ``NotImplementedError`` for a configuration the port does not
     run yet, naming the ROADMAP item that brings it."""
     waiting = []
-    if getattr(cfg, "type_nnet", "") == "rnn":
-        waiting.append("type_nnet=rnn (the RNN encoder, ROADMAP queue 1 item 8)")
     if getattr(cfg, "data_mesh", 1) * getattr(cfg, "latent_mesh", 1) > 1:
         waiting.append("data_mesh/latent_mesh > 1 (parallelism, ROADMAP queue 1 item 9)")
     if "bfloat16" in (getattr(cfg, "dtype", ""), getattr(cfg, "model_dtype", "")):
@@ -120,6 +122,7 @@ class LVAEPipeline:
             cfg.type_nnet, cfg.latent_dim, self.num_dim, vy_init=cfg.vy_init,
             dropout=cfg.dropout, dropout_input=cfg.dropout_input,
             generator=torch.Generator().manual_seed(cfg.seed), dtype=model_dtype,
+            T=cfg.T or None, hidden_dim=cfg.hidden_dim, type_rnn=cfg.type_rnn,
         )
         self.spec0, self.spec1 = kx.split_kernel_spec(
             id_covariate=cfg.id_covariate, **cfg.kernel_spec_kwargs()
@@ -134,15 +137,16 @@ class LVAEPipeline:
         return self.cfg.results_path or self.cfg.save_path
 
     # ---------------------------------------------------------------- setup
-    def _load_pretrained_vae(self, trainer) -> None:
-        """Seed the VAE from ``cfg.model_params``: a port checkpoint
-        (``.ckpt``) or the reference's torch ``state_dict`` (``.pth``)."""
+    def _load_pretrained_vae(self, vae) -> None:
+        """Seed the VAE module ``vae`` from ``cfg.model_params``: a port
+        checkpoint (``.ckpt``) or the reference's torch ``state_dict``
+        (``.pth``)."""
         sd = self._pretrained_vae_state_dict()
         if sd is None:
             print("Did not load pre-trained values.")
             return
         try:
-            trainer.state.trainables.vae.load_state_dict(sd)
+            vae.load_state_dict(sd)
             print("Loaded pre-trained values.")
         except Exception as e:  # noqa: BLE001
             print(f"Did not load pre-trained values: {e}")
@@ -181,7 +185,8 @@ class LVAEPipeline:
                 t_buckets=cfg.T_buckets, device=self.device,
             )
         elif cfg.variational_inference_training:
-            self.run_vi()
+            raise RuntimeError("the VI regime has no amortised trainer; run() routes it "
+                               "through run_vi()")
         else:
             scfg = StandardConfig(
                 spec0=self.spec0, spec1=self.spec1, latent_dim=cfg.latent_dim,
@@ -196,7 +201,7 @@ class LVAEPipeline:
                 learning_rate=cfg.learning_rate, seed=cfg.seed, dtype=self.dtype,
                 pseudo_minibatch=cfg.mini_batch, device=self.device,
             )
-        self._load_pretrained_vae(self.trainer)
+        self._load_pretrained_vae(self.trainer.state.trainables.vae)
         self._try_resume(self.trainer)
         return self.trainer
 
@@ -390,16 +395,79 @@ class LVAEPipeline:
                          np.arange(len(self.dataset))], f)
         save_checkpoint(os.path.join(out, "model_final.ckpt"), self.trainer.state)
         if cfg.hensman:
-            print("reference GP-state export (gp_model.pth, zt_list.pth, m.pth, H.pth) is "
-                  "not ported to lvae_torch yet (ROADMAP queue 1 item 11)")
+            # the reference's GP resume files (gp_model.pth, zt_list.pth,
+            # m.pth, H.pth), so that the GP resumes in the reference
+            state = self.trainer.state
+            tr = state.trainables
+            if state.m_nat is not None:
+                m_out, h_out = state.m_nat, state.H_nat
+            else:
+                m_out, h_out = tr.m, st.psd_from_factor(tr.h_factor)
+            save_reference_gp_state(
+                out, tr.gp, self.trainer.tdata.z, m_out, h_out, latent_dim=cfg.latent_dim,
+                constrain_scales=cfg.constrain_scales, id_covariate=cfg.id_covariate,
+                **cfg.kernel_spec_kwargs(),
+            )
         self.metrics.flush()
 
-    def run_vi(self, pred_epochs: int = 1000):
-        """The VI regime waits for ``train/vi.py``."""
-        raise NotImplementedError(
-            "variational_inference_training is not ported to lvae_torch yet "
-            "(train/vi.py, ROADMAP queue 1 item 7)"
+    def build_vi_trainer(self) -> VITrainer:
+        """The VI regime's trainer: the pre-trained VAE (or the fresh one),
+        the initial GP hyperparameters and inducing points, and the state
+        of ``gp_model_folder/model_vi.ckpt`` where there is one."""
+        cfg = self.cfg
+        self._load_pretrained_vae(self.model)
+        gp = st.init_gp_params(self.spec0, self.spec1, cfg.latent_dim,
+                               constrain_scales=cfg.constrain_scales, dtype=self.dtype)
+        z = st.init_inducing_points(self.dataset.labels, cfg.M, seed=cfg.seed)
+        vicfg = VIConfig(
+            spec0=self.spec0, spec1=self.spec1, latent_dim=cfg.latent_dim, weight=cfg.weight,
+            loss_function=cfg.loss_function, constrain_scales=cfg.constrain_scales, eps=cfg.eps,
         )
+        self.trainer = VITrainer(
+            self.model, vicfg, self.dataset, self.blocks, z, gp,
+            learning_rate=cfg.learning_rate, seed=cfg.seed, dtype=self.dtype, device=self.device,
+        )
+        if cfg.gp_model_folder:
+            path = os.path.join(cfg.gp_model_folder, "model_vi.ckpt")
+            state = try_load_checkpoint(path, like=self.trainer.state)
+            if state is not None:
+                self.trainer.state = state
+                print(f"Loaded VI state (resumed from {path})")
+        return self.trainer
+
+    def run_vi(self, pred_epochs: int = 1000):
+        """The VI regime end to end: ``cfg.epochs`` steps of phase 1 (free
+        per-row moments, decoder and GP hyperparameters), ``model_vi.ckpt``;
+        then ``pred_epochs`` steps inferring the prediction cohort's latents
+        jointly with the trained ones (the reference fixes 1000),
+        ``vi_prediction.ckpt``; then the generation grid decoded from the
+        jointly inferred cohort. Validation and tests do not run here."""
+        cfg = self.cfg
+        if cfg.run_tests or cfg.run_validation:
+            print("WARNING: run_tests/run_validation are not supported under "
+                  "variational_inference_training; ignoring")
+        trainer = self.build_vi_trainer()
+        trainer.fit(cfg.epochs, log_every=1)
+        os.makedirs(cfg.save_path, exist_ok=True)
+        save_checkpoint(os.path.join(cfg.save_path, "model_vi.ckpt"), trainer.state)
+        if self.prediction_dataset is not None:
+            mu_pred, lv_pred = trainer.optimize_prediction_set(
+                self.prediction_dataset, epochs=pred_epochs)
+            save_checkpoint(os.path.join(cfg.save_path, "vi_prediction.ckpt"),
+                            {"mu_pred": mu_pred, "log_var_pred": lv_pred})
+            if cfg.generate_images and self.generation_dataset is not None:
+                prediction_x, prediction_mu = trainer.joint_cohort(
+                    self.prediction_dataset, mu_pred)
+                gp = trainer.state.gp
+                raw = gp.raw_noise.detach()
+                noise = torch.ones_like(raw) if cfg.constrain_scales else kx.constrain(raw)
+                recon_complete_gen(
+                    self.generation_dataset, self.model, gp, noise, self.spec0, self.spec1,
+                    prediction_x, prediction_mu, trainer.z_ind, cfg.id_covariate,
+                    self.out_dir, epoch=cfg.epochs, eps=cfg.eps, device=self.device,
+                )
+        self.metrics.flush()
+        return None
 
     def run(self):
         """Full experiment: train → save → validate → test → generate."""

@@ -194,6 +194,15 @@ class HensmanTrainer:
         t_buckets: int = 1,
         device="cuda",
     ):
+        t_model = int(getattr(model, "T", 0) or 0)
+        lens = np.unique(np.asarray(blocks.t_lens))
+        if t_model and (lens.size != 1 or int(lens[0]) != t_model):
+            # the recurrence has no validity mask: a short subject's padded
+            # slots would carry row 0's frames into its real timesteps
+            raise ValueError(
+                f"RNN encoder (T={t_model}) requires a fixed-T cohort with exactly T rows per "
+                f"subject; got subject lengths {sorted(set(lens.tolist()))}. Use the MLP/conv "
+                "encoders for ragged (varying_T) cohorts.")
         self.device = resolve_device(device)
         self.model = model.to(device=self.device, dtype=dtype)
         self.cfg = cfg

@@ -2,7 +2,8 @@
 lvae_tpu.train.pretrain).
 
 Adam (lr 1e-3, optax's form) on ``Σ(recon|nll + KL(q‖N(0, I)))`` over
-shuffled batches of ``min(N, 256)`` frames, the ragged tail dropped; the
+shuffled batches of ``min(N, 256)`` frames (for an RNN encoder, whole
+subjects, rounded down to a multiple of T), the ragged tail dropped; the
 trained weights seed an L-VAE run. An epoch is a Python loop of steps.
 
 The epoch's permutation and each step's reparameterisation noise are drawn
@@ -88,6 +89,15 @@ class VAEPretrainer:
                                        device=self.device)
         self.n = len(dataset)
         self.batch_size = min(self.n, batch_size)
+        # a recurrent encoder consumes whole subject sequences: batches are
+        # subject-major multiples of T
+        self.seq_len = int(getattr(model, "T", 0) or 0)
+        if self.seq_len:
+            if self.n % self.seq_len:
+                raise ValueError(
+                    f"RNN pre-training needs subject-major data with N divisible by "
+                    f"T={self.seq_len}; got N={self.n}")
+            self.batch_size = max(self.seq_len, self.batch_size // self.seq_len * self.seq_len)
         params = list(self.model.parameters())
         for p in params:
             p.requires_grad_(True)
@@ -104,9 +114,14 @@ class VAEPretrainer:
 
     def epoch_order(self) -> torch.Tensor:
         """This epoch's batches ``[n_batches, batch_size]`` of frame rows: a
-        permutation from the state's generator, its ragged tail dropped."""
+        permutation from the state's generator (of whole subjects for an
+        RNN encoder), its ragged tail dropped."""
         n_batches = self.n // self.batch_size
-        perm = torch.randperm(self.n, generator=self.state.rng)
+        if self.seq_len:  # whole subjects, each a run of T consecutive rows
+            subjects = torch.randperm(self.n // self.seq_len, generator=self.state.rng)
+            perm = (subjects[:, None] * self.seq_len + torch.arange(self.seq_len)).reshape(-1)
+        else:
+            perm = torch.randperm(self.n, generator=self.state.rng)
         return perm[: n_batches * self.batch_size].reshape(n_batches, self.batch_size)
 
     def run_epoch(self, order: Optional[torch.Tensor] = None,

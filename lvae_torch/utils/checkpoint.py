@@ -15,7 +15,10 @@ training state is stored whole, so resume is exact:
 * ``rng`` — the CPU generator's state; ``step``;
 * ``metadata`` — the caller's dict (epoch, validation loss, ...).
 
-A pre-trained VAE is stored alone (kind ``vae``, its ``state_dict``). A
+A pre-trained VAE is stored alone (kind ``vae``, its ``state_dict``). A VI
+state (kind ``vi``) holds ``mu``, ``log_var``, ``vae``, ``gp``, ``opt`` and
+``rng``; the VI regime's prediction set (kind ``vi_prediction``) the dict
+``{"mu_pred", "log_var_pred"}``. A
 training state is restored INTO a live one (``like``): tensors are copied in place,
 so the optimizer keeps its references to the parameters, and each tensor
 lands on the device and in the dtype of the one it replaces. Writes go to a
@@ -29,10 +32,14 @@ from __future__ import annotations
 import os
 from typing import Any, Dict, Optional
 
+import numpy as np
 import torch
 from torch import nn
 
 from lvae_torch.train.state import GPParams, HensmanState
+from lvae_torch.train.vi import VIState
+
+PREDICTION_KEYS = ("mu_pred", "log_var_pred")
 
 FORMAT = "lvae_torch"
 VERSION = 1
@@ -68,9 +75,17 @@ def _vae_sd(vae: nn.Module) -> Dict[str, torch.Tensor]:
 
 def state_payload(state: Any) -> Dict[str, Any]:
     """The checkpoint dict of ``state``: a bare VAE module (kind ``vae``, a
-    pre-training result) or a Hensman or standard training state."""
+    pre-training result), a Hensman, standard or VI training state, or the
+    VI prediction set's dict of arrays."""
     if isinstance(state, nn.Module):
         return {"kind": "vae", "vae": _vae_sd(state)}
+    if isinstance(state, dict):
+        return {"kind": "vi_prediction",
+                **{k: torch.as_tensor(np.asarray(state[k])).clone() for k in PREDICTION_KEYS}}
+    if isinstance(state, VIState):
+        return {"kind": "vi", "mu": _cpu(state.mu), "log_var": _cpu(state.log_var),
+                "vae": _vae_sd(state.vae), "gp": _gp_dict(state.gp),
+                "opt": _cpu_tree(state.opt_state.state_dict()), "rng": state.rng.get_state()}
     tr = state.trainables
     hensman = isinstance(state, HensmanState)
     out: Dict[str, Any] = {
@@ -125,22 +140,43 @@ def _like_tensor(src: Optional[torch.Tensor], like: Optional[torch.Tensor]):
     return src.to(device=like.device, dtype=like.dtype)
 
 
+def _restore_gp(dst: GPParams, gp: Dict[str, torch.Tensor]) -> None:
+    for name, t in (("kp0.raw_scale", dst.kp0.raw_scale),
+                    ("kp0.raw_lengthscale", dst.kp0.raw_lengthscale),
+                    ("kp1.raw_scale", dst.kp1.raw_scale),
+                    ("kp1.raw_lengthscale", dst.kp1.raw_lengthscale),
+                    ("raw_noise", dst.raw_noise)):
+        _copy_into(t, gp[name], name)
+
+
+def _kind_of(like: Any) -> str:
+    if isinstance(like, dict):
+        return "vi_prediction"
+    if isinstance(like, VIState):
+        return "vi"
+    return "hensman" if isinstance(like, HensmanState) else "standard"
+
+
 def restore_into(payload: Dict[str, Any], like: Any) -> Any:
     """Copy a training checkpoint dict into the live training state
-    ``like`` (the trainables in place) and return the restored state."""
-    kind = payload["kind"]
-    want = "hensman" if isinstance(like, HensmanState) else "standard"
+    ``like`` (the trainables in place) and return the restored state; for
+    the VI prediction set's dict, return the stored arrays as numpy."""
+    kind, want = payload["kind"], _kind_of(like)
     if kind != want:
         raise ValueError(f"a {kind!r} checkpoint does not restore a {want} state")
+    if kind == "vi_prediction":
+        return {k: payload[k].numpy() for k in PREDICTION_KEYS}
+    if kind == "vi":
+        for name in ("mu", "log_var"):
+            _copy_into(getattr(like, name), payload[name], name)
+        like.vae.load_state_dict(payload["vae"])
+        _restore_gp(like.gp, payload["gp"])
+        like.opt_state.load_state_dict(payload["opt"])
+        like.rng.set_state(payload["rng"])
+        return like
     tr = like.trainables
     tr.vae.load_state_dict(payload["vae"])
-    gp = payload["gp"]
-    for name, dst in (("kp0.raw_scale", tr.gp.kp0.raw_scale),
-                      ("kp0.raw_lengthscale", tr.gp.kp0.raw_lengthscale),
-                      ("kp1.raw_scale", tr.gp.kp1.raw_scale),
-                      ("kp1.raw_lengthscale", tr.gp.kp1.raw_lengthscale),
-                      ("raw_noise", tr.gp.raw_noise)):
-        _copy_into(dst, gp[name], name)
+    _restore_gp(tr.gp, payload["gp"])
     for name in ("m", "h_factor", "z"):
         _copy_into(getattr(tr, name), payload.get(name), name)
     like.opt_state.load_state_dict(payload["opt"])

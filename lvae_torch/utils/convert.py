@@ -9,20 +9,29 @@ import in the JAX package's ``utils/torch_compat.py``:
                      flipped kernel relative to lax.conv_transpose)
   Dense              kernel [I, O]                 → weight [O, I]
 
+  RNN cell          per-gate kernels [I, H]        → weight_ih/hh [G·H, I]
+                    (gates in torch's order: i, f, g, o for the LSTM,
+                    r, z, n for the GRU; the backward cell → ``*_reverse``)
+
 The ConvVAE's ``fc1`` consumes, and ``fc4`` produces, the flattened feature
 map, whose order is H-W-C in flax (NHWC) and C-H-W in PyTorch (NCHW): their
-input and output axes are permuted accordingly. Nothing here imports JAX:
-the caller passes the flax params tree with numpy-convertible leaves.
+input and output axes are permuted accordingly. flax's LSTM cell has biases
+on its hidden-side gates only, so torch's ``bias_ih`` is zero; its GRU cell
+has the input-side biases and the candidate's hidden-side one, which sits
+inside r ⊙ (·) as in torch, so ``bias_hh`` is ``[0, 0, hn.bias]``. Nothing
+here imports JAX: the caller passes the flax params tree with
+numpy-convertible leaves.
 
-:func:`hensman_state_from_jax` and :func:`standard_state_from_jax` carry a
-whole training state over, the optimizer's moments included (optax's Adam
-or the fused flat Adam), so that both packages can start from one state.
+:func:`hensman_state_from_jax`, :func:`standard_state_from_jax` and
+:func:`vi_state_from_jax` carry a whole training state over, the
+optimizer's moments included (optax's Adam or the fused flat Adam), so that
+both packages can start from one state.
 """
 
 from __future__ import annotations
 
 from collections.abc import Mapping
-from typing import Dict, List, Optional
+from typing import Callable, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -31,13 +40,36 @@ from lvae_torch.ops.kernels import KernelParams
 from lvae_torch.train import state as st
 from lvae_torch.train.standard import StandardState
 from lvae_torch.train.state import GPParams
+from lvae_torch.train.vi import VIState
 
-_LINEARS = ("fc1", "fc21", "fc211", "fc221", "fc3", "fc31", "fc4")
+_LINEARS = ("fc1", "fc21", "fc211", "fc221", "fc3", "fc31", "fc4", "embed", "fc_mu", "fc_lv")
+# flax gate names of each cell, in torch's gate order
+_RNN_GATES = {"lstm": ("i", "f", "g", "o"), "gru": ("r", "z", "n")}
+
+
+def _rnn_cell_to_torch(cell, suffix: str, to_np) -> Dict[str, np.ndarray]:
+    """One flax ``OptimizedLSTMCell``/``GRUCell`` → torch's four tensors of
+    one direction."""
+    kind = "lstm" if "ii" in cell else "gru"
+    gates = _RNN_GATES[kind]
+    w_ih = np.concatenate([to_np(cell[f"i{g}"]["kernel"]) for g in gates], axis=1).T
+    w_hh = np.concatenate([to_np(cell[f"h{g}"]["kernel"]) for g in gates], axis=1).T
+    h = w_hh.shape[1]
+    zeros = np.zeros(h, w_hh.dtype)
+    if kind == "lstm":
+        b_ih = np.zeros(4 * h, w_hh.dtype)
+        b_hh = np.concatenate([to_np(cell[f"h{g}"]["bias"]) for g in gates])
+    else:
+        b_ih = np.concatenate([to_np(cell[f"i{g}"]["bias"]) for g in gates])
+        b_hh = np.concatenate([zeros, zeros, to_np(cell["hn"]["bias"])])
+    return {f"rnn.weight_ih_l0{suffix}": w_ih, f"rnn.weight_hh_l0{suffix}": w_hh,
+            f"rnn.bias_ih_l0{suffix}": b_ih, f"rnn.bias_hh_l0{suffix}": b_hh}
 
 
 def vae_state_dict_from_jax(params, dtype=np.float32) -> Dict[str, torch.Tensor]:
-    """flax ConvVAE/SimpleVAE params tree → the port's ``state_dict``, in
-    ``dtype`` (float32 unless a float64 test asks for more)."""
+    """flax ConvVAE/SimpleVAE/RNNVAE params tree → the port's
+    ``state_dict``, in ``dtype`` (float32 unless a float64 test asks for
+    more)."""
 
     def _np(arr) -> np.ndarray:
         return np.asarray(arr, dtype=dtype)
@@ -45,8 +77,12 @@ def vae_state_dict_from_jax(params, dtype=np.float32) -> Dict[str, torch.Tensor]
     p = params["params"]
     sd: Dict[str, np.ndarray] = {}
     for name in _LINEARS:
-        sd[f"{name}.weight"] = _np(p[name]["kernel"]).T
-        sd[f"{name}.bias"] = _np(p[name]["bias"])
+        if name in p:
+            sd[f"{name}.weight"] = _np(p[name]["kernel"]).T
+            sd[f"{name}.bias"] = _np(p[name]["bias"])
+    for name, suffix in (("rnn_fwd", ""), ("rnn_bwd", "_reverse")):
+        if name in p:
+            sd.update(_rnn_cell_to_torch(p[name]["cell"], suffix, _np))
     if "conv1" in p:
         for name in ("conv1", "conv2"):
             sd[f"{name}.weight"] = _np(p[name]["kernel"]).transpose(3, 2, 0, 1)
@@ -155,12 +191,14 @@ def _unravel_like(flat: np.ndarray, tree):
     return rebuild(tree)
 
 
-def _optimizer_from_jax(opt_state, jax_trainables, model, params, learning_rate,
-                        dtype, device) -> torch.optim.Optimizer:
+def _optimizer_from_jax(opt_state, jax_tree, port_order: Callable, params,
+                        learning_rate) -> torch.optim.Optimizer:
     """The port's optimizer over ``params`` carrying the JAX optimizer's
     state: a ``FusedAdamState`` (flat moments, padded on a TPU) becomes
     :class:`FusedAdam`'s ``mu``/``nu``/``count``; optax's Adam moments become
-    ``torch.optim.Adam``'s ``exp_avg``/``exp_avg_sq``/``step``."""
+    ``torch.optim.Adam``'s ``exp_avg``/``exp_avg_sq``/``step``.
+    ``port_order`` maps a tree shaped like ``jax_tree`` (the optimized
+    values) to its tensors in the order of ``params``."""
     adam = _adam_state(opt_state)
     fused = adam is not None and hasattr(adam.mu, "shape")  # one flat array
     opt = st.make_optimizer(params, learning_rate, kind="fused" if fused else "adam")
@@ -170,12 +208,11 @@ def _optimizer_from_jax(opt_state, jax_trainables, model, params, learning_rate,
     if fused:
         n = opt.mu.numel()
         for buf, flat in ((opt.mu, adam.mu), (opt.nu, adam.nu)):
-            tree = _unravel_like(np.asarray(flat)[:n], jax_trainables)
-            buf.copy_(torch.cat([x.reshape(-1) for x in
-                                 _in_port_order(tree, model, dtype, device)]))
+            tree = _unravel_like(np.asarray(flat)[:n], jax_tree)
+            buf.copy_(torch.cat([x.reshape(-1) for x in port_order(tree)]))
         opt.count = count
         return opt
-    moments = [_in_port_order(tree, model, dtype, device) for tree in (adam.mu, adam.nu)]
+    moments = [port_order(tree) for tree in (adam.mu, adam.nu)]
     sd = opt.state_dict()
     sd["state"] = {
         i: {"step": torch.tensor(float(count), dtype=torch.float32),
@@ -192,8 +229,9 @@ def _trainables_and_optimizer(state, model, learning_rate, dtype, device):
     params = list(tr.parameters())
     for p in params:
         p.requires_grad_(True)
-    opt = _optimizer_from_jax(state.opt_state, state.trainables, model, params,
-                              learning_rate, dtype, device)
+    opt = _optimizer_from_jax(state.opt_state, state.trainables,
+                              lambda tree: _in_port_order(tree, model, dtype, device),
+                              params, learning_rate)
     return tr, opt
 
 
@@ -231,3 +269,40 @@ def standard_state_from_jax(state, model, learning_rate: float = 1e-3,
     return StandardState(trainables=tr, opt_state=opt,
                          rng=torch.Generator().manual_seed(seed),
                          step=int(np.asarray(state.step)))
+
+
+def vi_state_from_jax(state, model, learning_rate: float = 1e-3, seed: int = 0,
+                      dtype=torch.float32, device="cpu") -> VIState:
+    """A JAX ``VIState`` (numpy-convertible leaves) → the port's.
+
+    The per-row (mu, log_var), the VAE (loaded into ``model``, moved to
+    ``device``/``dtype``), the GP parameters and optax's Adam moments of
+    ``(mu, log_var, vae, gp)`` are carried over. JAX's random key has no
+    counterpart: the new state's CPU generator is seeded from ``seed``."""
+    np_dtype = torch.empty((), dtype=dtype).numpy().dtype
+    model.to(device=device, dtype=dtype)
+    model.load_state_dict(
+        {k: v.to(device) for k, v in vae_state_dict_from_jax(state.vae, np_dtype).items()})
+
+    def t(x) -> torch.Tensor:
+        return _optional_tensor(x, dtype, device)
+
+    def gp_of(tree) -> GPParams:
+        return GPParams(kp0=KernelParams(t(tree.kp0.raw_scale), t(tree.kp0.raw_lengthscale)),
+                        kp1=KernelParams(t(tree.kp1.raw_scale), t(tree.kp1.raw_lengthscale)),
+                        raw_noise=t(tree.raw_noise))
+
+    def port_order(tree) -> List[torch.Tensor]:
+        mu, log_var, vae, gp = tree
+        sd = vae_state_dict_from_jax(vae, np_dtype)
+        return [t(mu), t(log_var)] + [sd[n].to(device) for n, _ in model.named_parameters()] \
+            + gp_of(gp).tensors()
+
+    mu, log_var, gp = t(state.mu), t(state.log_var), gp_of(state.gp)
+    params = [mu, log_var, *model.parameters(), *gp.tensors()]
+    for p in params:
+        p.requires_grad_(True)
+    jax_tree = (state.mu, state.log_var, state.vae, state.gp)
+    opt = _optimizer_from_jax(state.opt_state, jax_tree, port_order, params, learning_rate)
+    return VIState(mu=mu, log_var=log_var, vae=model, gp=gp, opt_state=opt,
+                   rng=torch.Generator().manual_seed(seed))

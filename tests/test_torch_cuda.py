@@ -26,7 +26,9 @@ order whatever thread does it). The block pair (K4) is held at max |Δ| over max
 same expf and products per term as the plain version) and its gradient at
 1e-4. For the same reason K3's symmetric walk (x1 is x2) must give the
 general walk's bits on a copy, with each ``K[l]`` bitwise symmetric, and
-K4's scalar stores the 16-byte stores' bits.
+K4's scalar stores the 16-byte stores' bits. Last, one VI phase-1 step
+(K1 once, K2 at least once) and the RNN encoder under cuDNN with TF32 off
+are held against the CPU.
 """
 
 import math
@@ -641,3 +643,80 @@ def test_block_pair_wrapper_rejects_what_the_kernel_does_not_take(gen):
         k4.block_pair(*args[:2], args[2][:, :1].contiguous(), *args[3:])
     with pytest.raises(ValueError):
         k4.block_pair(*args[:6], args[6].transpose(0, 1).contiguous().transpose(0, 1), args[7])
+
+
+def vi_trainers(gen, p=6, t=20, n_lat=4, m_ind=8, num_dim=30):
+    """One VI cohort (f32, every subject t frames) and a trainer for it on
+    the card and on the CPU, from the same weights and GP parameters."""
+    import numpy as np
+
+    from lvae_torch.data.blocks import build_subject_blocks
+    from lvae_torch.data.datasets import ArrayDataset
+    from lvae_torch.models.vae import make_vae
+    from lvae_torch.train.state import init_gp_params
+    from lvae_torch.train.vi import VIConfig, VITrainer
+
+    rng = np.random.default_rng(0)
+    labels = np.asarray([[i, (i - 3.0) * (s % 2), s, s % 2, s % 2, (s // 2) % 2]
+                         for s in range(p) for i in range(t)], np.float32)
+    ds = ArrayDataset(data=rng.uniform(size=(p * t, num_dim)).astype(np.float32), labels=labels,
+                      mask=(rng.uniform(size=(p * t, num_dim)) > 0.2).astype(np.float32))
+    spec0, spec1 = kx.split_kernel_spec(
+        id_covariate=2, cat_kernel=[2], sqexp_kernel=[0],
+        cat_int_kernel=[{"cont_covariate": 0, "cat_covariate": 2}])
+    cfg = VIConfig(spec0, spec1, latent_dim=n_lat, weight=0.15, loss_function="mse",
+                   constrain_scales=True, eps=1e-5)
+    blocks = build_subject_blocks(labels, 2)
+    z = labels[rng.choice(p * t, m_ind, replace=False)]
+    gp = init_gp_params(spec0, spec1, n_lat, constrain_scales=True)
+    return [VITrainer(make_vae("simple", n_lat, num_dim, generator=torch.Generator().manual_seed(1)),
+                      cfg, ds, blocks, z, gp, device=dev) for dev in ("cuda", "cpu")]
+
+
+def test_vi_phase1_step_on_the_card_matches_the_cpu(gen):
+    """One phase-1 step launches K1 once and K2 at least once on the card;
+    losses and the updated moments agree with the CPU's plain versions
+    (recon 1e-3, the GP term and net 1e-2, as chip_smoke.py holds them)."""
+    card, cpu = vi_trainers(gen)
+    eps = torch.randn(card.state.mu.shape, generator=torch.Generator().manual_seed(2))
+    b1, b2 = k1.b_chain.launches, k2.cholesky_inverse.launches
+    got = card.train_step(eps=eps).cpu()
+    torch.cuda.synchronize()
+    assert k1.b_chain.launches - b1 == 1 and k2.cholesky_inverse.launches - b2 >= 1
+    want = cpu.train_step(eps=eps)
+    rel = ((got - want).abs() / want.abs()).tolist()
+    assert rel[1] <= 1e-3 and rel[0] <= 1e-2 and rel[3] <= 1e-2, rel
+    for a, b in ((card.state.mu, cpu.state.mu), (card.state.log_var, cpu.state.log_var)):
+        assert float((a.detach().cpu() - b.detach()).abs().max() / b.detach().abs().max()) <= 1e-2
+
+
+@pytest.mark.parametrize("cell", ["lstm", "gru"])
+def test_rnn_encode_on_the_card_matches_the_cpu(gen, cell, monkeypatch):
+    """cuDNN's recurrence with TF32 off against the CPU's, f32, at the
+    config file's widths (hidden 64, 1296 pixels, T = 20): the encoding
+    within 1e-4 and every gradient within 1e-3 of its largest entry."""
+    import copy
+
+    from lvae_torch.models.vae import make_vae
+
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    cpu = make_vae("rnn", 32, 1296, T=20, hidden_dim=64, type_rnn=cell,
+                   generator=torch.Generator().manual_seed(0))
+    card = copy.deepcopy(cpu).cuda()
+    x = torch.rand(5 * 20, 1296, generator=torch.Generator().manual_seed(1))
+    with torch.no_grad():
+        want, got = cpu.encode(x), card.encode(x.cuda())
+    for g, w in zip(got, want):
+        assert float((g.cpu() - w).abs().max() / w.abs().max()) <= 1e-4
+    # the gradient in eval mode (the trainers' mode without dropout): cuDNN
+    # differentiates only a training-mode forward, which encode() selects
+    for model, inp in ((cpu, x), (card, x.cuda())):
+        model.eval()
+        mu, lv = model.encode(inp)
+        (mu.square().sum() + lv.sum()).backward()
+    for (name, a), b in zip(card.named_parameters(), cpu.parameters()):
+        assert (a.grad is None) == (b.grad is None), name
+        if b.grad is None:  # the decoder
+            continue
+        scale = float(b.grad.abs().max())
+        assert float((a.grad.cpu() - b.grad).abs().max()) <= 1e-3 * max(scale, 1e-30), name

@@ -12,7 +12,8 @@ on the CPU with ``--device=cpu``.
 * Checkpoints: a full training state round trip (the continued run equals
   the uninterrupted one), a reference ``.pth`` VAE seeding the model.
 * Serving a trained model: ``from_pipeline`` and ``from_checkpoint`` agree.
-* The regimes that wait raise ``NotImplementedError`` naming their item.
+* The VI regime is routed to ``run_vi``; the configurations that wait
+  raise ``NotImplementedError`` naming their item.
 
 ``tests/test_torch_pipeline_parity.py`` holds the pipeline's schedule,
 rollback and records against lvae_tpu's on the same files.
@@ -251,7 +252,7 @@ def test_reference_pth_seeds_the_vae(small, tmp_path, capsys):
 
 
 @pytest.mark.parametrize("flag,item", [
-    ("--type_nnet=rnn", "item 8"), ("--data_mesh=2", "item 9"),
+    ("--dtype=bfloat16", "item 10"), ("--data_mesh=2", "item 9"),
     ("--model_dtype=bfloat16", "item 10"), ("--checkpoint_backend=orbax", "item 10"),
 ])
 def test_waiting_configurations_raise(small, tmp_path, flag, item):
@@ -259,11 +260,24 @@ def test_waiting_configurations_raise(small, tmp_path, flag, item):
         LVAEPipeline(small_cfg(small, tmp_path, flag), device="cpu")
 
 
-def test_vi_regime_raises(small, tmp_path):
-    pipe = LVAEPipeline(small_cfg(small, tmp_path, "--variational_inference_training=True"),
-                        device="cpu")
-    with pytest.raises(NotImplementedError, match="item 7"):
-        pipe.run()
+def test_vi_regime_raises(small, tmp_path, monkeypatch):
+    """The VI regime no longer raises: ``run()`` routes it to ``run_vi``,
+    which writes ``model_vi.ckpt`` (and the prediction set's checkpoint);
+    ``build_trainer`` refuses it, as in JAX."""
+    pipe = LVAEPipeline(small_cfg(small, tmp_path, "--variational_inference_training=True",
+                                  "--hensman=False", "--epochs=2"), device="cpu")
+    routed = []
+    real = LVAEPipeline.run_vi
+    monkeypatch.setattr(LVAEPipeline, "run_vi",
+                        lambda self: routed.append(True) or real(self, pred_epochs=2))
+    assert pipe.run() is None and routed == [True]
+    state = ck.read_checkpoint(str(tmp_path / "model_vi.ckpt"))
+    assert state["kind"] == "vi" and state["mu"].shape == (10, 2)
+    assert len(pipe.trainer.history) == 2 and len(pipe.trainer.pred_history) == 2
+    pred = ck.read_checkpoint(str(tmp_path / "vi_prediction.ckpt"))
+    assert pred["mu_pred"].shape == (10, 2)
+    with pytest.raises(RuntimeError, match="run_vi"):
+        pipe.build_trainer()
 
 
 def test_device_flag_is_split_off():

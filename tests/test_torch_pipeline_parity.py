@@ -15,7 +15,7 @@ What does not depend on randomness is compared:
 * the records: ``metrics.jsonl`` steps and keys, ``diagnostics.pkl``
   entries and keys, the ``plot_values.pkl`` layout, the ``result_error*.csv``
   shapes and the artefact names (the port saves each PDF's grid also as
-  ``.npz``; it does not write the reference GP-state export yet);
+  ``.npz``), and the reference GP-state files' keys, shapes and dtypes;
 * ``gp_health`` on the JAX run's final GP state, converted, on both routes.
 
 Tiny sizes: 2 subjects × 5 frames, L = 2, M = 4, 6 epochs of 2 steps.
@@ -58,8 +58,8 @@ MODEL_FLAGS = ["--type_nnet=conv", "--latent_dim=2", "--num_dim=1296", "--dropou
                "--subjects_per_batch=1", "--type_KL=GPapprox_closed", "--loss_function=mse",
                "--T=5", "--gp_model_folder=", "--model_params="]
 EVAL_FLAGS = ["--run_tests=True", "--run_validation=True", "--generate_images=True"]
-# the reference GP-state export, which the port does not write yet
-EXPORT_ONLY = {"gp_model.pth", "zt_list.pth", "m.pth", "H.pth"}
+# the reference GP-state export
+GP_FILES = ("gp_model.pth", "zt_list.pth", "m.pth", "H.pth")
 # validation losses handed out in call order: epochs 2, 4, 6, then run()'s
 VAL_NETS = (3.0, 1.0, 2.0, 9.0)
 
@@ -192,7 +192,16 @@ def test_records_match_jax(scheduled):
 def compare_records(jres, tres, epochs):
     jnames, tnames = set(os.listdir(jres)), set(os.listdir(tres))
     grids = {n for n in tnames if n.endswith(".npz")}
-    assert tnames - grids == jnames - EXPORT_ONLY
+    assert tnames - grids == jnames
+    for name in GP_FILES:  # both write the same tensors (their values follow each run)
+        if name in jnames:
+            want, got = (torch.load(d / name, map_location="cpu") for d in (jres, tres))
+            if isinstance(want, dict):
+                assert sorted(got) == sorted(want), name
+                want, got = list(want.values()), [got[k] for k in want]
+            else:
+                want, got = [want], [got]
+            assert [(g.shape, g.dtype) for g in got] == [(w.shape, w.dtype) for w in want]
     assert grids == {n[:-4] + ".npz" for n in jnames if n.endswith(".pdf")}
     for name in sorted(n for n in jnames if n.startswith("result_error")):
         assert np.loadtxt(tres / name).shape == np.loadtxt(jres / name).shape, name
