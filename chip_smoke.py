@@ -40,7 +40,20 @@ frames, random frames and weights from ``--seed``):
   and K2 once), generation, and a run resumed from ``model_vi.ckpt``;
 * the RNN encoder (``type_nnet=rnn``, hidden 64) with each cell, LSTM and
   GRU: one Hensman epoch (5 steps, launches checked) and one K-subject
-  request of whole 20-frame sequences through ``LVAEPredictor``.
+  request of whole 20-frame sequences through ``LVAEPredictor``;
+* subject- and latent-parallel training and serving (``lvae_torch.parallel``):
+  one world of 2 gloo ranks sharing the card runs, at the (data, latent)
+  meshes (1, 2) and (2, 1), the Hensman run's 10 steps from H + 0.1·I
+  through ``ShardedHensmanTrainer``, a 2-subject request through
+  ``LVAEPredictor(mesh=)`` and, at (1, 2), 2 closed-KL epochs through
+  ``ShardedStandardTrainer``, each rank recording the shape of every K1,
+  K2 and K3 launch (checked against the per-rank shapes) and held against
+  the single-process card runs; the same 10 steps in f64 are held to
+  1e-8 of one f64 process, and one f32 process with each batch's subjects
+  rolled by half a batch shows how far f32 rounding alone moves the run;
+  a world of one NCCL rank trains one epoch on the trivial mesh;
+  ``torchrun --nproc_per_node=2 -m lvae_torch.cli ... --data_mesh=2`` runs
+  2 epochs with validation and tests on the pipeline's data.
 
 Each path is replayed with ``device="cpu"`` (the plain versions) and the
 card's answers are held against the CPU's; the standard regime at P=26
@@ -51,7 +64,8 @@ checkpoint through ``validate`` and ``mse_test_gp_approx``; VI from
 from H + 0.1·I with cuDNN's TF32 off. One ``batch_loss`` from the CLI
 run's final checkpoint is held on the K4 route against the K1 route.
 
-Phases print one line each. Any failure raises and exits non-zero; without
+Phases print one line each. Any failure raises and exits non-zero (a rank
+that fails too); without
 CUDA the script exits non-zero before printing a result. The last lines
 are a ``{"kernels": [...]}`` JSON object, the card's name and power limit,
 and ``{"ok": true, "device": {...}}``.
@@ -107,6 +121,10 @@ from lvae_torch.kernels_cuda import km_plan  # noqa: E402
 from lvae_torch.models.vae import make_vae  # noqa: E402
 from lvae_torch.ops import kernels as kx  # noqa: E402
 from lvae_torch.ops import linalg as la  # noqa: E402
+from lvae_torch.parallel import (  # noqa: E402
+    ShardedHensmanTrainer, ShardedStandardTrainer, initialize_distributed, make_mesh,
+)
+from lvae_torch.parallel.distributed import free_port, join_ranks, spawn_ranks  # noqa: E402
 from lvae_torch.train.hensman import HensmanConfig, HensmanTrainer  # noqa: E402
 from lvae_torch.train.hensman import batch_loss as hensman_batch_loss  # noqa: E402
 from lvae_torch.train.standard import StandardConfig, StandardTrainer  # noqa: E402
@@ -226,13 +244,13 @@ class World:
             np.float32)
         self.blocks = build_subject_blocks(self.labels, cfg.id_covariate)
 
-    def model(self):
+    def model(self, dtype=torch.float32):
         """A fresh ConvVAE with the seed's random weights, on the CPU."""
         cfg = self.cfg
         return make_vae(
             cfg.type_nnet, cfg.latent_dim, cfg.num_dim, vy_init=cfg.vy_init,
             dropout=cfg.dropout, dropout_input=cfg.dropout_input,
-            generator=torch.Generator().manual_seed(self.seed),
+            generator=torch.Generator().manual_seed(self.seed), dtype=dtype,
         )
 
     def rnn_model(self, cell: str):
@@ -243,10 +261,10 @@ class World:
                         hidden_dim=cfg.hidden_dim, type_rnn=cell,
                         generator=torch.Generator().manual_seed(self.seed))
 
-    def trainer(self, device: str, model=None) -> HensmanTrainer:
+    def trainer(self, device: str, model=None, dtype=torch.float32) -> HensmanTrainer:
         """A Hensman trainer at the config file's settings, on ``device``,
-        for ``model`` (the ConvVAE by default); every trainer made here for
-        one model kind starts from the same state."""
+        for ``model`` (the ConvVAE by default) in ``dtype``; every trainer
+        made here for one model kind and dtype starts from the same state."""
         cfg = self.cfg
         hcfg = HensmanConfig(
             spec0=self.spec0, spec1=self.spec1, latent_dim=cfg.latent_dim,
@@ -263,7 +281,7 @@ class World:
         return HensmanTrainer(
             model or self.model(), hcfg, Cohort, self.blocks, self.z,
             subjects_per_batch=cfg.subjects_per_batch, learning_rate=cfg.learning_rate,
-            seed=self.seed, t_buckets=cfg.T_buckets, device=device,
+            seed=self.seed, t_buckets=cfg.T_buckets, dtype=dtype, device=device,
         )
 
     def standard_trainer(self, device: str, type_kl: str = "closed",
@@ -1123,14 +1141,17 @@ def check_k5(world: World, dev: str = "cuda") -> dict:
 
 # ---------------------------------------------------------------- training
 def train(world: World, device: str, h_shift: float = 0.0, cell=None,
-          epochs: int = TRAIN_EPOCHS) -> dict:
-    """``epochs`` Hensman epochs on ``device`` (the ConvVAE, or the RNN
-    encoder with ``cell``), from the trainer's initial state with
+          epochs: int = TRAIN_EPOCHS, dtype=torch.float32, roll: bool = False) -> dict:
+    """``epochs`` Hensman epochs on ``device`` (the ConvVAE in ``dtype``, or
+    the RNN encoder with ``cell``), from the trainer's initial state with
     ``h_shift``·I added to H; returns the per-epoch and per-step metrics,
     the final (m_nat, H_nat), the kernels launched in each step, whether
     each step's natural-gradient update was applied (the PSD-cone guard
-    keeps the old (m, H) otherwise) and the trainer."""
-    trainer = world.trainer(device, world.rnn_model(cell) if cell else None)
+    keeps the old (m, H) otherwise) and the trainer. ``roll`` takes each
+    batch's subjects, and their noise, from the middle of the batch on: the
+    same loss, its subject sums added in another order."""
+    model = world.rnn_model(cell) if cell else world.model(dtype)
+    trainer = world.trainer(device, model, dtype=dtype)
     if h_shift:
         h = trainer.state.H_nat
         trainer.state = trainer.state._replace(
@@ -1139,6 +1160,11 @@ def train(world: World, device: str, h_shift: float = 0.0, cell=None,
     real_step = trainer.train_step
 
     def counted_step(table, rows, eps=None):
+        if roll:  # the noise as the step draws it, then half the batch rolled round
+            s, t = rows.shape[0], table.index.shape[1]
+            eps = torch.randn((s * t, world.cfg.latent_dim), generator=trainer.state.rng,
+                              dtype=dtype).reshape(s, t, -1).roll(s // 2, 0).reshape(s * t, -1)
+            rows = rows.roll(s // 2)
         b1, b2 = k1.b_chain.launches, k2.cholesky_inverse.launches
         m_before = trainer.state.m_nat
         out = real_step(table, rows, eps)
@@ -1416,9 +1442,10 @@ def cli_run(args, device: str) -> float:
     return time.perf_counter() - t0
 
 
-def check_pipeline_run(results: str, epochs: int, hw: int) -> dict:
-    """Every artefact present; losses, test MSEs and grids finite."""
-    missing = [a for a in PIPE_ARTEFACTS if not os.path.exists(os.path.join(results, a))]
+def check_pipeline_run(results: str, epochs: int, hw: int, artefacts=PIPE_ARTEFACTS) -> dict:
+    """Every artefact present; losses, test MSEs and the generation grid
+    (where ``artefacts`` name it) finite."""
+    missing = [a for a in artefacts if not os.path.exists(os.path.join(results, a))]
     if missing:
         raise AssertionError(f"pipeline artefacts missing: {missing}")
     with open(os.path.join(results, "diagnostics.pkl"), "rb") as f:
@@ -1429,10 +1456,11 @@ def check_pipeline_run(results: str, epochs: int, hw: int) -> dict:
             for name in ("result_error.csv", "result_error_best.csv")}
     if not all(np.isfinite(v).all() and len(v) == 2 for v in errs.values()):
         raise AssertionError(f"test MSEs: {errs}")
-    grid = np.load(os.path.join(results, "recon_complete.npz"))
-    if grid["grid"].shape[1:] != (20, hw, hw) or not np.isfinite(grid["grid"]).all() \
-            or not grid["filled"].any():
-        raise AssertionError(f"generation grid {grid['grid'].shape}")
+    if "recon_complete.npz" in artefacts:
+        grid = np.load(os.path.join(results, "recon_complete.npz"))
+        if grid["grid"].shape[1:] != (20, hw, hw) or not np.isfinite(grid["grid"]).all() \
+                or not grid["filled"].any():
+            raise AssertionError(f"generation grid {grid['grid'].shape}")
     return {"losses": hist[-1], "test_mse": errs}
 
 
@@ -1977,11 +2005,13 @@ def compare(card: dict, cpu: dict) -> dict:
     return errs
 
 
-def profile_window(fn, reps: int) -> dict:
+def profile_window(fn, reps: int, collectives: bool = False) -> dict:
     """Device time per call of ``fn`` from a ``torch.profiler`` trace of
     ``reps`` warm calls: wall ms (host clock, ending in a synchronise), the
     sum of device-kernel ms, the device's idle share of the wall time, the
-    kernels launched per call, and the five kernels that take most time."""
+    kernels launched per call, and the five kernels that take most time;
+    with ``collectives``, also the host and device ms per call of the
+    collective ops (``all_reduce``/``broadcast`` and what they launch)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -2000,7 +2030,7 @@ def profile_window(fn, reps: int) -> dict:
     ]
     busy_us = sum(r[0] for r in rows)
     rows.sort(reverse=True)
-    return {
+    out = {
         "wall_ms": wall * 1e3 / reps,
         "device_ms": busy_us / 1e3 / reps,
         "idle_share": 1.0 - busy_us / 1e6 / wall,
@@ -2008,6 +2038,15 @@ def profile_window(fn, reps: int) -> dict:
         "top": [{"kernel": key[:70], "ms": us / 1e3 / reps, "per_call": n / reps}
                 for us, n, key in rows[:5]],
     }
+    if collectives:
+        ops = [e for e in prof.key_averages()
+               if any(k in e.key.lower() for k in ("all_reduce", "allreduce", "broadcast"))
+               and e.count]
+        out["collectives"] = {
+            "host_ms": sum(e.self_cpu_time_total for e in ops) / 1e3 / reps,
+            "device_ms": sum(e.device_time_total for e in ops) / 1e3 / reps,
+            "ops": sorted({e.key for e in ops})}
+    return out
 
 
 def hensman_step_times(trainer: HensmanTrainer) -> dict:
@@ -2025,6 +2064,335 @@ def hensman_step_times(trainer: HensmanTrainer) -> dict:
         step_ms.append((time.perf_counter() - t0) * 1e3)
     return {"host_ms": statistics.median(step_ms[1:]), "first_ms": step_ms[0],
             "profile": profile_window(lambda: trainer.train_step(table, rows), 3)}
+
+
+# ---------------------------------------------------------------- parallel
+PAR_DIR = os.path.join(ROOT, "build", "chip_smoke_parallel")  # git-ignored
+PAR_SHAPES = ((1, 2), (2, 1))  # (data, latent) meshes of 2 ranks sharing the card
+PAR_TIMEOUT = 300  # seconds a world of ranks may take
+PAR_CLI_EPOCHS = 2
+# a request of 2 new subjects: the basis then holds P + 2 subjects, which
+# divide the data axis, and the 2 query subjects split over it
+PAR_REQUEST = 2
+# sharded vs one process, both on the card in f32, are held to the
+# card-vs-CPU limits (LOSS_TOLS, VARIATIONAL_RTOL, LATENT_RTOL). The same
+# pair in f64 (the plain versions: the kernels take f32) is held to
+# PAR_F64_RTOL on every step's net, KL and recon and on the final (m, H).
+# f64 keeps the fixed 1e-6 jitter, so K0zz's condition number is near
+# 3.5e7 (5.7e4 in f32, whose jitter is floored; printed by the phase) and
+# f64 rounding reaches about 1e-8 over 10 steps; a term counted twice or
+# dropped on a shard moves the KL by 1e-3 or more
+PAR_F64_RTOL = 1e-6
+
+
+class ShapeLog:
+    """While active: the shape of every launch of K1, K2 and K3, read
+    through the wrappers' private ``_launch`` (each public wrapper calls it
+    once a launch; the launch counts stay the wrappers')."""
+
+    def __enter__(self):
+        self.shapes = {"b_chain": [], "chol_inv": [], "kernel_matrix": []}
+        self._saved = (k1._launch, k2._launch, k3._launch)
+
+        def record(name, fn, shape_of):
+            def wrapped(*args, **kwargs):
+                self.shapes[name].append(shape_of(*args))
+                return fn(*args, **kwargs)
+            return wrapped
+
+        # K1: [latents, subjects, T]; K2: the stack; K3: [latents, N1, N2]
+        k1._launch = record("b_chain", self._saved[0], lambda *a: [a[2].shape[0], *a[7].shape[:2]])
+        k2._launch = record("chol_inv", self._saved[1], lambda a, p: list(a.shape))
+        k3._launch = record("kernel_matrix", self._saved[2],
+                            lambda spec, scale, g, x1, x2, *rest: [scale.shape[0], x1.shape[0],
+                                                                   x2.shape[0]])
+        return self
+
+    def __exit__(self, *exc):
+        k1._launch, k2._launch, k3._launch = self._saved
+        return False
+
+    def distinct(self) -> dict:
+        return {name: sorted({tuple(s) for s in shapes}) for name, shapes in self.shapes.items()}
+
+
+def run_ranks(nprocs: int, fn, args: tuple, name: str) -> list:
+    """``fn(*args)`` on ``nprocs`` spawned ranks on the card
+    (``parallel.distributed.spawn_ranks``); returns each rank's result. A
+    rank that fails, or a world past PAR_TIMEOUT, raises."""
+    out = os.path.join(PAR_DIR, name)
+    return join_ranks(spawn_ranks(nprocs, fn, args, out), out, PAR_TIMEOUT)
+
+
+def request_of(world: World, k: int = PAR_REQUEST):
+    """The first ``k`` request subjects' observed frames and labels and
+    their queries, flat."""
+    def flat(a):
+        return a[:k].reshape((-1,) + a.shape[2:])
+
+    return flat(world.obs_frames), flat(world.obs_labels), flat(world.query_labels)
+
+
+def par_step_times(trainer: HensmanTrainer) -> dict:
+    """Warm sharded steps: the host clock of 6 steps ending in a
+    synchronise (median of the last 5), then a profiler window of 3 with
+    the device time of the whole step and of its collectives."""
+    table = trainer.tables[0]
+    rows = torch.arange(trainer.subjects_per_batch)
+    step_ms = []
+    for _ in range(6):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer.train_step(table, rows)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    window = profile_window(lambda: trainer.train_step(table, rows), 3, collectives=True)
+    return {"host_ms": statistics.median(step_ms[1:]), "profile": window}
+
+
+def sharded_epochs(world: World, mesh, dtype=torch.float32) -> dict:
+    """The single-process card run's Hensman epochs through
+    ``ShardedHensmanTrainer`` on ``mesh`` (from H + H_SHIFT·I; the order and
+    noise come from the same seeded generator on every rank): each step's
+    metrics and kernel launches, the launch counts (set to 0 just before),
+    the shapes launched, the final (m, H) and the trainer."""
+    trainer = world.trainer(str(mesh.device), world.model(dtype), dtype=dtype)
+    h = trainer.state.H_nat
+    trainer.state = trainer.state._replace(
+        H_nat=h + H_SHIFT * torch.eye(h.shape[-1], dtype=h.dtype, device=h.device))
+    sharded = ShardedHensmanTrainer(trainer, mesh)
+    steps, per_step, real_step = [], [], trainer.train_step
+
+    def counted_step(table, rows, eps=None):
+        before = launch_counts()
+        out = real_step(table, rows, eps)
+        per_step.append({k: v - before[k] for k, v in launch_counts().items()})
+        steps.append({k: float(v) for k, v in out._asdict().items()})
+        return out
+
+    trainer.train_step = counted_step
+    reset_launch_counts()
+    with ShapeLog() as log:
+        for _ in range(TRAIN_EPOCHS):
+            sharded.run_epoch()
+    trainer.train_step = real_step
+    return {"steps": steps, "per_step": per_step, "launches": launch_counts(),
+            "shapes": log.distinct(),
+            "m_nat": trainer.state.m_nat.detach().cpu().double().numpy(),
+            "H_nat": trainer.state.H_nat.detach().cpu().double().numpy(),
+            "trainer": trainer}
+
+
+def par_hensman(world: World, shape) -> dict:
+    """Rank side of a mesh: the single-process card run's Hensman epochs in
+    f32 and in f64, then its serving request, and at (1, 2) the closed
+    standard epochs, each with the kernels it launched and their shapes;
+    the step's host time and its collectives; the seconds of each part."""
+    seconds = {}
+    t0 = time.perf_counter()
+    mesh = make_mesh(*shape)
+    dev = str(mesh.device)
+    out = sharded_epochs(world, mesh)
+    trainer = out.pop("trainer")
+    seconds["hensman"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["timing"] = par_step_times(trainer)
+    seconds["timing"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    f64 = sharded_epochs(world, mesh, torch.float64)
+    out["f64"] = {k: f64[k] for k in ("steps", "m_nat", "H_nat")}
+    seconds["f64"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    model = world.model()
+    mu, _ = encode_dataset(model, world.frames, device=dev)
+    pred = LVAEPredictor(
+        model=model, gp_params=world.gp, noise=world.noise, spec0=world.spec0,
+        spec1=world.spec1, z=world.z, id_covariate=world.cfg.id_covariate,
+        basis_labels=world.labels, basis_mu=mu, eps=world.cfg.eps, device=dev, mesh=mesh)
+    reset_launch_counts()
+    with ShapeLog() as log:
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        out["served"] = pred.predict_latent_trajectory(*request_of(world))
+        torch.cuda.synchronize()
+    out["serve"] = {"ms": (time.perf_counter() - t1) * 1e3, "launches": launch_counts(),
+                    "shapes": log.distinct()}
+    seconds["serve"] = time.perf_counter() - t0
+
+    if shape == (1, 2):
+        t0 = time.perf_counter()
+        std = ShardedStandardTrainer(world.standard_trainer(dev, "closed"), mesh)
+        reset_launch_counts()
+        with ShapeLog() as log:
+            out["closed"] = [std.run_epoch()._asdict() for _ in range(STD_EPOCHS)]
+        out["closed_launches"] = {"launches": launch_counts(), "shapes": log.distinct()}
+        seconds["closed"] = time.perf_counter() - t0
+    out["seconds"] = seconds
+    return out
+
+
+def par_meshes(seed: int, spawned_at: float) -> dict:
+    """Rank side: :func:`par_hensman` at each mesh of PAR_SHAPES, in turn,
+    over one process group (cuDNN's TF32 off, as in the parent), and the
+    seconds from the spawn to the group."""
+    started = time.time() - spawned_at
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    world = World(seed)
+    out = {shape: par_hensman(world, shape) for shape in PAR_SHAPES}
+    return {"meshes": out, "backend": torch.distributed.get_backend(),
+            "start_s": started}
+
+
+def k0zz_condition(world: World) -> dict:
+    """The largest condition number over the latents of the initial K0zz
+    with its jitter, in f32 (floored jitter) and in f64 (the fixed eps)."""
+    spec0 = world.spec0
+    out = {}
+    for dtype in (torch.float32, torch.float64):
+        kp0 = world.gp.kp0.to(device="cuda", dtype=dtype)
+        z = torch.as_tensor(world.z, device="cuda", dtype=dtype)
+        kzz = kx.add_adaptive_jitter(kx.kernel_matrix(spec0, kp0, z, z), world.cfg.eps)
+        out[str(dtype).split(".")[-1]] = float(torch.linalg.cond(kzz.double()).max())
+    return out
+
+
+def nccl_world_of_one(seed: int) -> dict:
+    """This process as a world of one rank on an NCCL group (its own card):
+    one epoch of the sharded Hensman trainer on the trivial 1 x 1 mesh,
+    whose gradient and metric sums cross NCCL; the group is torn down
+    after."""
+    env = dict(os.environ)
+    initialize_distributed(f"localhost:{free_port()}", 1, 0)
+    try:
+        mesh = make_mesh(1, 1)
+        world = World(seed)
+        trainer = world.trainer(str(mesh.device))
+        h = trainer.state.H_nat
+        trainer.state = trainer.state._replace(
+            H_nat=h + H_SHIFT * torch.eye(h.shape[-1], dtype=h.dtype, device=h.device))
+        m = ShardedHensmanTrainer(trainer, mesh).run_epoch()
+        out = {"epoch": m._asdict(), "group": repr(mesh.world_group),
+               "backend": torch.distributed.get_backend()}
+    finally:
+        torch.distributed.destroy_process_group()
+        os.environ.clear()
+        os.environ.update(env)
+    return out
+
+
+def expected_par_shapes(world: World, shape) -> dict:
+    """What each rank must launch at mesh ``(data, latent)``: K1 on
+    ``[L/l, S/d, T]``; K2 on the stacked ``[2L/l, M, M]``, the natural
+    gradient's ``[L/l, M, M]`` and, serving, the fold's ``[L/l, P'/d, T, T]``
+    (P' = P + the request's subjects); K3 on ``[L/l, N, N]``."""
+    cfg = world.cfg
+    d, l = shape
+    lat = cfg.latent_dim // l
+    n = cfg.P * cfg.T
+    return {"b_chain": [(lat, cfg.subjects_per_batch // d, cfg.T)],
+            "chol_inv": [(2 * lat, cfg.M, cfg.M), (lat, cfg.M, cfg.M)],
+            "serve": [(lat, (cfg.P + PAR_REQUEST) // d, cfg.T, cfg.T)],
+            "kernel_matrix": [(lat, n, n)]}
+
+
+def check_par_launches(world: World, shape, ranks: list) -> None:
+    """Every rank launched K1 and K2 each step, at the per-rank shapes, K2
+    at the fold's, and at (1, 2) K3 at ``[L/l, N, N]``."""
+    want = expected_par_shapes(world, shape)
+    for rank, r in enumerate(ranks):
+        where = f"mesh {shape} rank {rank}"
+        if r["backend"] != "gloo":
+            raise AssertionError(f"{where}: backend {r['backend']}, expected gloo")
+        if any(s["b_chain"] != 1 or s["chol_inv"] != 3 for s in r["per_step"]):
+            raise AssertionError(f"{where}: a step did not launch K1 once and K2 three times: "
+                                 f"{r['per_step']}")
+        got = r["shapes"]
+        if got["b_chain"] != want["b_chain"] or got["chol_inv"] != sorted(want["chol_inv"]):
+            raise AssertionError(f"{where}: kernel shapes {got}, expected {want}")
+        if tuple(want["serve"][0]) not in r["serve"]["shapes"]["chol_inv"]:
+            raise AssertionError(f"{where}: serving launched K2 at {r['serve']['shapes']}, "
+                                 f"expected {want['serve']}")
+        if "closed" in r and r["closed_launches"]["shapes"]["kernel_matrix"] != \
+                want["kernel_matrix"]:
+            raise AssertionError(f"{where}: K3 at {r['closed_launches']['shapes']}, expected "
+                                 f"{want['kernel_matrix']}")
+
+
+def check_parallel(shape, ranks: list, single: dict, single64: dict, served_ref: np.ndarray,
+                   closed_ref: list) -> dict:
+    """Every rank: each f32 step within the card-vs-CPU limits of the
+    single-process card run, the final (m, H), the served latents and, at
+    (1, 2), the closed epochs; each f64 step and the f64 (m, H) within
+    PAR_F64_RTOL of the single-process f64 run."""
+    errs = {}
+    for rank, r in enumerate(ranks):
+        where = f"mesh {shape} rank {rank}"
+        e = errs[f"rank{rank}"] = {
+            "steps": compare_losses(r["steps"], single["steps"], keys=("net", "kld", "recon")),
+            "end_state": compare_variational(r, single),
+            "served": float(np.abs(r["served"] - served_ref).max() / np.abs(served_ref).max()),
+            "f64": compare_losses(r["f64"]["steps"], single64["steps"],
+                                  keys=("net", "kld", "recon"))
+            | compare_variational(r["f64"], single64),
+        }
+        if "closed" in r:
+            e["closed"] = compare_losses(r["closed"], closed_ref, keys=STD_LOSS_KEYS)
+        check_within({k: e[k] for k in ("steps", "end_state", "closed") if k in e})
+        if not e["served"] <= LATENT_RTOL:
+            raise AssertionError(f"{where}: served latents rel {e['served']:.3e} > {LATENT_RTOL}")
+        bad = {k: v for k, v in e["f64"].items() if not v <= PAR_F64_RTOL}
+        if bad:
+            raise AssertionError(f"{where}: f64 sharded vs one process {bad} > {PAR_F64_RTOL}")
+    return errs
+
+
+def run_parallel_cli(world: World, pipe_run: dict) -> dict:
+    """``torchrun --nproc_per_node=2 -m lvae_torch.cli ... --data_mesh=2`` on
+    the pipeline's data, from its pre-trained VAE, for PAR_CLI_EPOCHS
+    epochs with validation and tests (generation off: the in-process CLI
+    runs it). Each output line is stamped on arrival: the seconds to the
+    ranks' process groups and to the first epoch are start-up."""
+    import threading
+
+    root = os.path.dirname(pipe_run["results"])
+    results = os.path.join(root, "parallel_cli")
+    flags = write_flags(os.path.join(root, "parallel.txt"), pipeline_flags(
+        pipe_run["data"], results, f"--epochs={PAR_CLI_EPOCHS}",
+        f"--test_freq={PAR_CLI_EPOCHS}", f"--checkpoint_every={PAR_CLI_EPOCHS}",
+        "--run_tests=True", "--run_validation=True", "--generate_images=False",
+        f"--model_params={pipe_run['results']}/model_params_vae.ckpt", "--gp_model_folder=",
+        f"--seed={world.seed}"))
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node=2",
+           "-m", "lvae_torch.cli", f"--f={flags}", "--data_mesh=2"]
+    env = dict(os.environ, PYTHONUNBUFFERED="1",
+               PYTHONPATH=ROOT + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    timer = threading.Timer(PAR_TIMEOUT, proc.kill)
+    timer.start()
+    try:
+        lines = [(time.perf_counter() - t0, line.rstrip("\n")) for line in proc.stdout]
+        rc = proc.wait()
+    finally:
+        timer.cancel()
+    seconds = time.perf_counter() - t0
+    if rc != 0:
+        print("\n".join(line for _, line in lines[-80:]), file=sys.stderr)
+        raise AssertionError(f"torchrun CLI exited {rc}")
+    out = check_pipeline_run(results, PAR_CLI_EPOCHS, world.hw, artefacts=[
+        a for a in PIPE_ARTEFACTS if a != "model_params_vae.ckpt"
+        and not a.startswith("recon_complete")])
+    inits = [(s, line) for s, line in lines if line.startswith("initialize_distributed:")]
+    groups = sorted({line.split(" on ")[0] + ": " + line.split("backend ")[1].split(",")[0]
+                     for _, line in inits})
+    if len(groups) != 2:
+        raise AssertionError(f"torchrun: {len(groups)} ranks reported a process group")
+    first_epoch = next((s for s, line in lines if line.startswith("Iter ")), None)
+    return {"seconds": seconds, "groups": groups, "to_groups_s": max(s for s, _ in inits),
+            "to_first_epoch_s": first_epoch, **out}
 
 
 def main() -> int:
@@ -2159,7 +2527,7 @@ def main() -> int:
 
     # warm steps on the card: host clock per step, then a profiler window
     trainer = card_run["trainer"]
-    warm = hensman_step_times(trainer)
+    warm = warm_single = hensman_step_times(trainer)
     say("training", f"step (host clock, warm) median {warm['host_ms']:.3f} ms over 5, first "
         f"{warm['first_ms']:.3f} ms (S={trainer.subjects_per_batch} T={world.cfg.T} "
         f"L={world.cfg.latent_dim} M={world.cfg.M})")
@@ -2266,6 +2634,15 @@ def main() -> int:
         say("vi", f"phase-1 step (host clock, warm) median {vi_warm['host_ms']:.3f} ms over 3 "
             f"(N={world.cfg.P * world.cfg.T} rows, L={world.cfg.latent_dim}) | {card}")
         say("profile", f"vi_step {json.dumps(vi_warm['profile'])} | {card}")
+
+        # the CLI on a mesh of 2 ranks sharing the card, through torchrun
+        par_cli = run_parallel_cli(world, pipe_run)
+        say("parallel", f"torchrun --nproc_per_node=2 -m lvae_torch.cli --data_mesh=2: "
+            f"{PAR_CLI_EPOCHS} epochs, validation and tests in {par_cli['seconds']:.3f} s "
+            f"(the ranks' groups at {par_cli['to_groups_s']:.1f} s, the first epoch's line at "
+            f"{par_cli['to_first_epoch_s']} s); groups {par_cli['groups']}; last epoch "
+            f"{json.dumps(par_cli['losses'])}; test MSEs {json.dumps(par_cli['test_mse'])} "
+            f"| {card}")
     finally:
         shutil.rmtree(PIPE_DIR, ignore_errors=True)
 
@@ -2288,10 +2665,81 @@ def main() -> int:
     say("rnn", "cuDNN TF32 switch, encoder gradients rel (the script keeps it off): "
         f"{json.dumps(tf32_gradient_effect(world))} | {card}")
 
-    # phase 10: the kernels line
+    # phase 10: subject- and latent-parallel training and serving, 2 gloo
+    # ranks sharing the card at each mesh; each rank sets its counts to 0
+    # just before its Hensman epochs and reads them just after. One process
+    # on the card first: the f64 pair of the sharded runs, and the f32 run
+    # with each batch's subject sums taken in another order
+    served_ref = gpu["pred"].predict_latent_trajectory(*request_of(world))
+    closed_ref = std_runs["closed"]["epochs"][:STD_EPOCHS]
+    t0 = time.perf_counter()
+    card_64 = train(world, "cuda", H_SHIFT, dtype=torch.float64)
+    roll_errs = {}
+    for name, base, dtype in (("f32", card_c, torch.float32), ("f64", card_64, torch.float64)):
+        rolled = train(world, "cuda", H_SHIFT, dtype=dtype, roll=True)
+        roll_errs[name] = compare_losses(rolled["steps"], base["steps"],
+                                         keys=("net", "kld", "recon"))
+        roll_errs[name] |= compare_variational(rolled, base)
+    say("compare", f"one process on the card, each batch's subjects rolled by half a batch vs "
+        f"in order (the same loss, its subject sums in another order; not held): "
+        f"{json.dumps(roll_errs)}; K0zz's condition number at the start "
+        f"{json.dumps(k0zz_condition(world))} ({time.perf_counter() - t0:.1f} s | {card})")
+    shutil.rmtree(PAR_DIR, ignore_errors=True)
+    par_counts = {k: 0 for k in launch_counts()}
+    try:
+        t0 = time.perf_counter()
+        meshes = run_ranks(2, par_meshes, (args.seed, time.time()), "meshes")
+        say("parallel", f"2 gloo ranks on cuda:0 ran meshes {list(PAR_SHAPES)} in "
+            f"{time.perf_counter() - t0:.1f} s: spawn to group "
+            f"{[round(r['start_s'], 1) for r in meshes]} s a rank, then seconds a part "
+            f"{json.dumps({str(sh): [{k: round(v, 1) for k, v in r['meshes'][sh]['seconds'].items()} for r in meshes] for sh in PAR_SHAPES})}")
+        for shape in PAR_SHAPES:
+            ranks = [r["meshes"][shape] | {"backend": r["backend"]} for r in meshes]
+            check_par_launches(world, shape, ranks)
+            errs = check_parallel(shape, ranks, card_c, card_64, served_ref, closed_ref)
+            for r in ranks:  # each count set to 0 just before its run in the rank
+                runs = [r["launches"], r["serve"]["launches"]]
+                runs += [r["closed_launches"]["launches"]] if "closed" in r else []
+                for counts in runs:
+                    for k, v in counts.items():
+                        par_counts[k] += v
+            r0 = ranks[0]
+            say("parallel", f"mesh (data, latent) = {shape}, 2 gloo ranks on cuda:0: "
+                f"{len(r0['steps'])} Hensman steps each; launches a rank "
+                f"{json.dumps([r['launches'] for r in ranks])}; kernel shapes "
+                f"{json.dumps(r0['shapes'])}; serving K2 {json.dumps(r0['serve']['shapes'])}"
+                + (f"; closed K3 {json.dumps(r0['closed_launches']['shapes'])}"
+                   if "closed" in r0 else "") + f" | {card}")
+            say("compare", f"parallel {shape} vs one process on the card: {json.dumps(errs)} "
+                f"(tolerances {json.dumps(LOSS_TOLS)}, m/H {VARIATIONAL_RTOL}, served latents "
+                f"{LATENT_RTOL}, f64 {PAR_F64_RTOL})")
+            coll = [r["timing"]["profile"]["collectives"] for r in ranks]
+            say("parallel", f"mesh {shape}: step host median "
+                f"{[round(r['timing']['host_ms'], 3) for r in ranks]} ms a rank (one process "
+                f"{warm_single['host_ms']:.3f} ms); device "
+                f"{[round(r['timing']['profile']['device_ms'], 3) for r in ranks]} ms a step, "
+                f"collectives host {[round(c['host_ms'], 3) for c in coll]} ms and device "
+                f"{[round(c['device_ms'], 3) for c in coll]} ms a step ({coll[0]['ops']}); "
+                f"serving request {[round(r['serve']['ms'], 3) for r in ranks]} ms | {card}")
+        for kernel in ("b_chain", "chol_inv", "kernel_matrix"):
+            if par_counts[kernel] < 1:
+                raise AssertionError(f"{kernel} was not launched on the parallel paths")
+        t0 = time.perf_counter()
+        nccl = nccl_world_of_one(args.seed)
+        if nccl["backend"] != "nccl":
+            raise AssertionError(f"the world of one rank ran on {nccl['backend']}, not nccl")
+        n_errs = compare_losses([nccl["epoch"]], card_c["epochs"][:1])
+        say("parallel", f"world of 1 on NCCL ({nccl['group']}), trivial mesh: epoch 1 "
+            f"{json.dumps(nccl['epoch'])}; vs one process {json.dumps(n_errs)} "
+            f"({time.perf_counter() - t0:.1f} s | {card})")
+        check_within({"nccl": n_errs})
+    finally:
+        shutil.rmtree(PAR_DIR, ignore_errors=True)
+
+    # phase 11: the kernels line
     paths = {"serving": serve_counts, "training": train_launches, "standard": std_counts,
              "pipeline": pipe_run["counts"], "pipeline_k4": k4_run["counts"],
-             "vi": vi["counts"], "rnn": rnn_counts}
+             "vi": vi["counts"], "rnn": rnn_counts, "parallel": par_counts}
     for e, key in ((entry, "chol_inv"), (k1_entry, "b_chain"), (k3_entry, "kernel_matrix"),
                    (k4_entry, "block_pair"), (k5_entry, "adam")):
         e["launches_by_path"] = {path: counts[key] for path, counts in paths.items()}

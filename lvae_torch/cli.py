@@ -8,7 +8,10 @@ Flag files use the reference's format (one ``--flag=value`` per line,
 kernel structure as Python literals), so a reference user's configs work
 unchanged. Every command runs on the CUDA card; ``--device=cpu`` (read
 before the flag file is parsed, anywhere on the command line) runs it on
-the CPU through the plain versions of the kernels.
+the CPU through the plain versions of the kernels. With ``--data_mesh``
+or ``--latent_mesh`` above 1, training runs one process per rank:
+
+``torchrun --nproc_per_node=2 -m lvae_torch.cli --f=config.txt --data_mesh=2``
 """
 
 from __future__ import annotations
@@ -44,14 +47,23 @@ def main_lvae(argv, device: str = "cuda") -> int:
         print(f"WARNING: unknown flag --{k}={v}")
     _print_config(cfg)
     import torch
+    import torch.distributed as dist
 
     from lvae_torch.pipeline import LVAEPipeline
     from lvae_torch.utils.device import resolve_device
 
     dev = resolve_device(device)
-    name = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
-    print(f"Running on device: {dev} ({name})")
-    LVAEPipeline(cfg, device=dev).run()
+    started = dist.is_initialized()
+    try:
+        pipeline = LVAEPipeline(cfg, device=dev)
+        dev = pipeline.device
+        name = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
+        where = "" if pipeline.mesh is None else f", {pipeline.mesh}"
+        print(f"Running on device: {dev} ({name}){where}")
+        pipeline.run()
+    finally:
+        if not started and dist.is_initialized():  # the group this run started
+            dist.destroy_process_group()
     return 0
 
 

@@ -75,10 +75,13 @@ def mse_test_gp_approx(
     generator: Optional[torch.Generator] = None,
     verbose: bool = True,
     device="cuda",
+    mesh=None,
 ) -> TestResult:
     """Sparse-GP test evaluation: (1) the VAE reconstruction's masked MSE;
     (2) the test latents predicted from the prediction cohort's encodings
-    through the sparse posterior, decoded, and their masked MSE."""
+    through the sparse posterior, decoded, and their masked MSE. With
+    ``mesh`` the posterior runs mesh-parallel (every rank of the mesh calls
+    this)."""
     if verbose:
         print("Running tests with a test set")
         print(f"Length of test dataset:  {len(test_dataset)}")
@@ -93,6 +96,7 @@ def mse_test_gp_approx(
         spec0, spec1, gp.kp0, gp.kp1, on_device(noise, tdtype, dev),
         np.asarray(prediction_x, dtype), np.asarray(prediction_mu, dtype),
         np.asarray(test_dataset.labels, dtype), on_device(z, tdtype, dev), id_covariate, eps,
+        mesh=mesh,
     )
     recon_gp = decode_latents(model, z_pred, device=dev)
     gp_mse = _masked_mse_mean(model, on_device(recon_gp, data.dtype, dev), data, mask)

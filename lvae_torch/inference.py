@@ -68,6 +68,7 @@ class LVAEPredictor:
     basis_mu: np.ndarray
     eps: float = 1e-6
     device: object = "cuda"
+    mesh: object = None  # a parallel.mesh.Mesh: the GP posterior runs mesh-parallel
 
     # ------------------------------------------------------------- factories
     @classmethod
@@ -87,6 +88,8 @@ class LVAEPredictor:
             id_covariate=pipeline.cfg.id_covariate,
             basis_labels=np.asarray(pipeline.dataset.labels), basis_mu=mu,
             eps=pipeline.cfg.eps, device=pipeline.device,
+            # a sharded pipeline's mesh carries over to the GP posterior
+            mesh=getattr(pipeline, "mesh", None),
         )
 
     @classmethod
@@ -109,12 +112,13 @@ class LVAEPredictor:
 
     def __post_init__(self):
         self.device = resolve_device(self.device)
-        self.model = self.model.to(self.device).eval()
+        self.model = self.model.to(device=self.device, dtype=torch.float32).eval()
         self.gp_params = self.gp_params.to(device=self.device, dtype=torch.float32)
         self.noise = _f32(self.noise, self.device)
         self.z = _f32(self.z, self.device)
         self.basis_labels = np.asarray(self.basis_labels)
-        self.basis_mu = np.asarray(self.basis_mu)
+        # a float64 pipeline's encodings join the float32 posterior
+        self.basis_mu = np.asarray(self.basis_mu, np.float32)
 
     # ------------------------------------------------------------ primitives
     def encode(self, data) -> np.ndarray:
@@ -155,7 +159,7 @@ class LVAEPredictor:
         return predict_latents(
             self.spec0, self.spec1, self.gp_params.kp0, self.gp_params.kp1,
             self.noise, basis_labels, basis_mu,
-            np.asarray(query_labels), self.z, self.id_covariate, self.eps,
+            np.asarray(query_labels), self.z, self.id_covariate, self.eps, mesh=self.mesh,
         )
 
     def predict_trajectory(

@@ -30,6 +30,7 @@ from lvae_torch.kernels_cuda import block_pair as bp
 from lvae_torch.ops import kernels as kx
 from lvae_torch.ops import linalg as la
 from lvae_torch.ops.linalg import _full_precision
+from lvae_torch.ops.shard import LOCAL, Local
 
 
 class GPBlockOperators(NamedTuple):
@@ -69,6 +70,7 @@ def gp_block_operators(
     mask: Optional[torch.Tensor] = None,
     eps: float = 1e-6,
     extra_spd: Optional[torch.Tensor] = None,
+    view: Local = LOCAL,
 ) -> GPBlockOperators:
     """The kernel operators shared by the bounds: kernel evaluations, the
     per-subject ``T×T`` chain of ``B = K1 + σ²I`` and the inducing ``M×M``
@@ -78,7 +80,9 @@ def gp_block_operators(
     inducing points. ``extra_spd`` (``[L, M, M]`` SPD, the Hensman step's
     variational H) is factored in one call with K0zz, stacked ``[K0zz; H]``,
     and returned as ``extra_chol``/``extra_inv``; an ``extra_spd`` of
-    another shape is factored in a call of its own.
+    another shape is factored in a call of its own. The operators are those
+    of the subjects and latents given; ``view`` says over which latents the
+    f32 jitter of K0zz takes its mean (:mod:`lvae_torch.ops.shard`).
 
     The per-subject chain takes one of three routes, as in the JAX package:
 
@@ -105,7 +109,7 @@ def gp_block_operators(
     l_lat = k0xz_flat.shape[0]
     k0xz = k0xz_flat.reshape(l_lat, p, t, m_ind)
 
-    k0zz = kx.add_adaptive_jitter(kx.kernel_matrix(spec0, kp0, z, z), eps)
+    k0zz = kx.add_adaptive_jitter(kx.kernel_matrix(spec0, kp0, z, z), eps, view)
     extra_chol = extra_inv = None
     if extra_spd is not None and extra_spd.shape == k0zz.shape:
         stacked = torch.cat([k0zz, extra_spd.to(k0zz.dtype)], dim=0)
@@ -173,66 +177,81 @@ def kl_closed(K: torch.Tensor, mu: torch.Tensor, log_var: torch.Tensor) -> torch
     return 0.5 * (tr + qf - n + logdet_k - torch.sum(log_var, dim=-1))
 
 
-def _w_cholesky(ops: GPBlockOperators):
+def _w_cholesky(ops: GPBlockOperators, k0zx_ib_k0xz: torch.Tensor, logdet_b: torch.Tensor,
+                view: Local):
     """Cholesky of ``W = K0zz + K0zx B⁻¹ K0xz`` (with the f32 relative
-    jitter) and ``log|Σ| = log|W| + log|B| − log|K0zz|``: shared by
-    :func:`gp_elbo` and :func:`dubo`."""
-    w = kx.add_rel_jitter(la.symmetrize(ops.K0zz + ops.K0zx_iB_K0xz))
+    jitter) and ``log|Σ| = log|W| + log|B| − log|K0zz|``, from the subject
+    sums ``K0zx B⁻¹ K0xz`` and ``log|B|``: shared by :func:`gp_elbo` and
+    :func:`dubo`."""
+    w = kx.add_rel_jitter(la.symmetrize(ops.K0zz + k0zx_ib_k0xz), view=view)
     lw = la.cholesky(w)
-    logdet_sigma = -ops.logdet_K0zz + ops.logdet_B + la.logdet_from_chol(lw, batch_dims=1)
+    logdet_sigma = -ops.logdet_K0zz + logdet_b + la.logdet_from_chol(lw, batch_dims=1)
     return lw, logdet_sigma
 
 
-def _sigma_quadform(ops: GPBlockOperators, lw: torch.Tensor, y: torch.Tensor):
-    """``yᵀ Σ⁻¹ y`` per latent dim via Woodbury: ``yᵀB⁻¹y − ‖Lw⁻¹ K0zx B⁻¹ y‖²``."""
+def _quadform_sums(ops: GPBlockOperators, y: torch.Tensor):
+    """The subject sums ``(yᵀB⁻¹y, K0zx B⁻¹ y)`` per latent dim of the
+    Woodbury quadratic form, for ``y [L, P, T]``."""
     ib_y = torch.einsum("lptu,lpu->lpt", ops.iB, y)
     qf1 = torch.einsum("lpt,lpt->l", y, ib_y)
     pvec = torch.einsum("lptm,lpt->lm", ops.K0xz, ib_y)
+    return qf1, pvec
+
+
+def _sigma_quadform(lw: torch.Tensor, qf1: torch.Tensor, pvec: torch.Tensor):
+    """``yᵀ Σ⁻¹ y`` per latent dim via Woodbury: ``yᵀB⁻¹y − ‖Lw⁻¹ K0zx B⁻¹ y‖²``."""
     half = la.solve_triangular(lw, pvec[..., None])
     return qf1 - torch.sum(half[..., 0] ** 2, dim=-1)
 
 
-def _nystrom_trace(ops: GPBlockOperators):
-    """``tr(B⁻¹(K0_blockdiag − Q0))``, the inducing-point slack term; the
-    first trace comes from kernel K1 where it ran."""
+def _trace_ib_k0(ops: GPBlockOperators):
+    """``tr(B⁻¹ K0_blockdiag)`` per latent dim (a subject sum), from kernel
+    K1 where it ran."""
     if ops.tr_iB_K0 is not None:
-        t1 = ops.tr_iB_K0
-    else:
-        t1 = torch.einsum("lptu,lptu->l", ops.iB, ops.K0_st)
-    return t1 - torch.einsum("lmn,lmn->l", ops.K0zx_iB_K0xz, ops.iK0zz)
+        return ops.tr_iB_K0
+    return torch.einsum("lptu,lptu->l", ops.iB, ops.K0_st)
+
+
+def _nystrom_trace(ops: GPBlockOperators, t1: torch.Tensor, k0zx_ib_k0xz: torch.Tensor):
+    """``tr(B⁻¹(K0_blockdiag − Q0))``, the inducing-point slack term, from
+    the subject sums ``t1`` and ``K0zx B⁻¹ K0xz``."""
+    return t1 - torch.einsum("lmn,lmn->l", k0zx_ib_k0xz, ops.iK0zz)
 
 
 @_full_precision
-def gp_elbo(ops: GPBlockOperators, yb: torch.Tensor) -> torch.Tensor:
+def gp_elbo(ops: GPBlockOperators, yb: torch.Tensor, view: Local = LOCAL) -> torch.Tensor:
     """Sample-based inducing-point marginal-likelihood bound per latent dim,
     ``[L]``, for a latent sample ``yb [P, T, L]``: with
     ``Σ = B + K0xz K0zz⁻¹ K0zx``,
-    ``−½(N log 2π + log|Σ| + yᵀΣ⁻¹y) − ½ tr(B⁻¹(K0_blockdiag − Q0))``."""
+    ``−½(N log 2π + log|Σ| + yᵀΣ⁻¹y) − ½ tr(B⁻¹(K0_blockdiag − Q0))``.
+    Its subject sums are summed over ``view``'s ranks first, so every rank
+    of a latent gets that latent's whole bound."""
     mask = ops.mask
     y = (yb * mask[..., None]).permute(2, 0, 1)  # [L, P, T]
-    lw, logdet = _w_cholesky(ops)
-    qf = _sigma_quadform(ops, lw, y)
-    tr = _nystrom_trace(ops)
-    n_real = torch.sum(mask)
+    qf1, pvec = _quadform_sums(ops, y)
+    s1, logdet_b, qf1, pvec, t1, n_real = view.data_sums(
+        ops.K0zx_iB_K0xz, ops.logdet_B, qf1, pvec, _trace_ib_k0(ops), torch.sum(mask))
+    lw, logdet = _w_cholesky(ops, s1, logdet_b, view)
+    qf = _sigma_quadform(lw, qf1, pvec)
+    tr = _nystrom_trace(ops, t1, s1)
     const = -0.5 * n_real * math.log(2.0 * math.pi)
     return const - 0.5 * (logdet + qf) - 0.5 * tr
 
 
 @_full_precision
-def dubo(ops: GPBlockOperators, mu_b: torch.Tensor, log_var_b: torch.Tensor) -> torch.Tensor:
+def dubo(ops: GPBlockOperators, mu_b: torch.Tensor, log_var_b: torch.Tensor,
+         view: Local = LOCAL) -> torch.Tensor:
     """Deviance upper bound on the KL per latent dim, ``[L]``: the sparse
     bound on the variational mean and variance ``[P, T, L]`` instead of a
-    latent sample."""
+    latent sample. Its subject sums are summed over ``view``'s ranks first,
+    so every rank of a latent gets that latent's whole bound."""
     mask = ops.mask
     dtype = mu_b.dtype
     m = (mu_b * mask[..., None]).permute(2, 0, 1)  # [L, P, T]
     v = (torch.exp(log_var_b) * mask[..., None]).permute(2, 0, 1)
     log_v_masked = (log_var_b * mask[..., None]).permute(2, 0, 1)
 
-    lw, logdet_sigma = _w_cholesky(ops)
-    qf = _sigma_quadform(ops, lw, m)
-    tr = _nystrom_trace(ops)
-
+    qf1, pvec = _quadform_sums(ops, m)
     logdet_d = torch.sum(log_v_masked, dim=(1, 2))
     eye_t = torch.eye(ops.iB.shape[-1], dtype=v.dtype, device=v.device)
     tr_ib_d = torch.sum(ops.iB * (eye_t * v[..., :, None]), dim=(1, 2, 3))
@@ -245,11 +264,16 @@ def dubo(ops: GPBlockOperators, mu_b: torch.Tensor, log_var_b: torch.Tensor) -> 
     sqrt_v = torch.sqrt(v_safe) * mask[None, :, :]
     d05_ib_k0xz = ops.iB_K0xz * sqrt_v[..., None]  # [L, P, T, M]
     g = torch.einsum("lptm,lptn->lmn", d05_ib_k0xz, d05_ib_k0xz)
+    s1, logdet_b, qf1, pvec, t1, logdet_d, tr_ib_d, g, n_real = view.data_sums(
+        ops.K0zx_iB_K0xz, ops.logdet_B, qf1, pvec, _trace_ib_k0(ops), logdet_d, tr_ib_d, g,
+        torch.sum(mask).to(dtype))
+
+    lw, logdet_sigma = _w_cholesky(ops, s1, logdet_b, view)
+    qf = _sigma_quadform(lw, qf1, pvec)
+    tr = _nystrom_trace(ops, t1, s1)
     eye_m = torch.eye(g.shape[-1], dtype=g.dtype, device=g.device)
     tr_iw_g = torch.sum(la.cho_solve(lw, g) * eye_m, dim=(-2, -1))
     tr_isigma_d = tr_ib_d - tr_iw_g
-
-    n_real = torch.sum(mask).to(dtype)
     return 0.5 * (tr_isigma_d + qf - n_real + logdet_sigma - logdet_d + tr)
 
 
@@ -275,6 +299,7 @@ def minibatch_kld(
     N_tot,
     natural_gradient: bool = False,
     H_factor: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+    view: Local = LOCAL,
 ) -> Tuple[torch.Tensor, Optional[NaturalGradients]]:
     """Unbiased SVI estimate of the KL upper bound (Hensman training).
 
@@ -285,6 +310,13 @@ def minibatch_kld(
     rescaling, computed outside autograd. ``H_factor`` is a precomputed
     ``(chol(H), H⁻¹)``, as ``gp_block_operators`` returns it for
     ``extra_spd=H``.
+
+    On one rank's shard (``view``, :mod:`lvae_torch.ops.shard`) the bound is
+    that rank's share: the A–F terms, sums over (latent, subject), count on
+    every rank whose subjects and latents they are; KL(q(u)‖p(u)) and the
+    ``−L·N_tot/2`` constant, sums over latents, on one rank of each latent
+    shard. ``P_batch`` is the whole batch's count of real subjects. The
+    natural gradients' subject sums are summed over the ranks first.
     """
     mask = ops.mask
     latent_dim = ops.K0xz.shape[0]
@@ -325,10 +357,11 @@ def minibatch_kld(
     kld_qu_pu = 0.5 * (tr1 + qf1 - latent_dim * m_ind + logdet_k - logdet_h)
 
     scale = _scalar(P_tot, dtype, dev) / _scalar(P_batch, dtype, dev)
+    w_pairs, w_latents = view.weight("data", "latent"), view.weight("latent")
     kld_total = (
-        scale * 0.5 * (a_term + b_term + c_term + d_term + e_term - f_term)
-        + kld_qu_pu
-        - latent_dim * _scalar(N_tot, dtype, dev) / 2.0
+        w_pairs * (scale * 0.5 * (a_term + b_term + c_term + d_term + e_term - f_term))
+        + w_latents * kld_qu_pu
+        - w_latents * (latent_dim * _scalar(N_tot, dtype, dev) / 2.0)
     )
 
     ng = None
@@ -338,8 +371,9 @@ def minibatch_kld(
             k0zx_ib_mu = torch.einsum(
                 "lptm,lptu,lpu->lm", ops.K0xz.detach(), ops.iB.detach(), mu.detach()
             )
+            k0zx_ib_mu, k0zx_ib_k0xz = view.data_sums(k0zx_ib_mu, ops.K0zx_iB_K0xz.detach())
             ng_a = ik0zz @ k0zx_ib_mu[..., None]  # [L, M, 1]
-            ng_b = ik0zz @ ops.K0zx_iB_K0xz.detach() @ ik0zz + ik0zz
+            ng_b = ik0zz @ k0zx_ib_k0xz @ ik0zz + ik0zz
             grad_m = -ng_a + ng_b @ m.detach()
             grad_h = 0.5 * (-ih.detach() + ng_b)
         ng = NaturalGradients(grad_m=grad_m, grad_H=grad_h, iH=ih.detach())
@@ -354,6 +388,7 @@ def natural_gradient_update(
     H: torch.Tensor,
     ng: NaturalGradients,
     lr: float,
+    view: Local = LOCAL,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Natural-gradient step on (m, H) in inverse space:
     ``iH_new = iH + lr (grad_H + grad_Hᵀ)``, ``H ← iH_new⁻¹``,
@@ -365,7 +400,9 @@ def natural_gradient_update(
     synchronisation. The second test is the port's own: the JAX package
     keeps such a step, and every later bound then reads a NaN factor of H
     and every later step is refused (seen in f32 on the card, from the
-    reference's nearly singular initial H; ROADMAP queue 3)."""
+    reference's nearly singular initial H; ROADMAP queue 3). The guard reads
+    every latent of ``view``: on a latent shard a step is kept only where
+    every rank's new (m, H) is finite, as one process decides for all L."""
     if ng.iH is not None:
         ih = ng.iH
     else:
@@ -374,6 +411,6 @@ def natural_gradient_update(
     _, h_new = la.cholesky_and_inverse(ih_new)
     m_new = h_new @ (ih @ m - lr * (ng.grad_m - 2.0 * (ng.grad_H @ m)))
     l_h_new, _ = la.cholesky_and_inverse(h_new)
-    ok = (torch.isfinite(m_new).all() & torch.isfinite(h_new).all()
-          & torch.isfinite(l_h_new).all())
+    ok = view.all_latents(torch.isfinite(m_new).all() & torch.isfinite(h_new).all()
+                          & torch.isfinite(l_h_new).all())
     return torch.where(ok, m_new, m), torch.where(ok, h_new, H)

@@ -25,6 +25,8 @@ from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
+from lvae_torch.ops.shard import LOCAL, Local
+
 MIN_LOG = -16.0
 DEFAULT_SCALE = math.log(2.0)  # softplus(0), the GPyTorch ScaleKernel default
 DEFAULT_LENGTHSCALE = 2.5
@@ -101,6 +103,10 @@ class KernelParams(NamedTuple):
 
     def to(self, *args, **kwargs) -> "KernelParams":
         return KernelParams(*(t.to(*args, **kwargs) for t in self))
+
+    def latents(self, sel) -> "KernelParams":
+        """The GPs ``sel`` (an index or slice of the leading latent axis)."""
+        return KernelParams(*(t[sel] for t in self))
 
 
 def _softplus(x: torch.Tensor) -> torch.Tensor:
@@ -343,18 +349,19 @@ def _eye(m: int, like: torch.Tensor) -> torch.Tensor:
     return torch.eye(m, dtype=like.dtype, device=like.device)
 
 
-def add_adaptive_jitter(kzz: torch.Tensor, eps: float) -> torch.Tensor:
+def add_adaptive_jitter(kzz: torch.Tensor, eps: float, view: Local = LOCAL) -> torch.Tensor:
     """``K(z,z) + ε_eff·I`` — the serving inducing-matrix jitter.
 
     K0zz is often rank-deficient by construction (an RBF over a covariate
     with few distinct values duplicates inducing rows), so in float32 the
     jitter is floored relative to the kernel's scale
-    (``max(eps, 3e-4·mean diag)``); float64 keeps the fixed ``eps``.
+    (``max(eps, 3e-4·mean diag)``, the mean over every latent of ``view``);
+    float64 keeps the fixed ``eps``.
     """
     m = kzz.shape[-1]
     eye = _eye(m, kzz)
     if kzz.dtype == torch.float32:
-        diag_mean = torch.sum(kzz * eye) / (kzz.numel() // m)
+        diag_mean = view.latent_mean(torch.sum(kzz * eye), kzz.numel() // m)
         eps_eff = torch.maximum(
             torch.tensor(eps, dtype=kzz.dtype, device=kzz.device), 3e-4 * diag_mean
         )
@@ -363,14 +370,15 @@ def add_adaptive_jitter(kzz: torch.Tensor, eps: float) -> torch.Tensor:
     return kzz + eps_eff * eye
 
 
-def add_rel_jitter(h: torch.Tensor, rel: float = 3e-4) -> torch.Tensor:
+def add_rel_jitter(h: torch.Tensor, rel: float = 3e-4, view: Local = LOCAL) -> torch.Tensor:
     """Float32-only relative diagonal jitter for derived operators such as
-    ``H = K0zz + Σ_s K0zx_s B_s⁻¹ K0xz_s``; float64 is a no-op."""
+    ``H = K0zz + Σ_s K0zx_s B_s⁻¹ K0xz_s`` (the diagonal's mean over every
+    latent of ``view``); float64 is a no-op."""
     if h.dtype != torch.float32:
         return h
     m = h.shape[-1]
     eye = _eye(m, h)
-    diag_mean = torch.sum(h * eye) / (h.numel() // m)
+    diag_mean = view.latent_mean(torch.sum(h * eye), h.numel() // m)
     return h + (rel * diag_mean) * eye
 
 

@@ -25,6 +25,7 @@ import torch
 from lvae_torch.ops import kernels as kx
 from lvae_torch.ops import linalg as la
 from lvae_torch.ops.linalg import _full_precision
+from lvae_torch.ops.shard import LOCAL, Local
 
 
 class PredictInputs(NamedTuple):
@@ -45,14 +46,16 @@ class PredictInputs(NamedTuple):
     align: torch.Tensor
 
 
-def _cohort_fold(spec0, spec1, kp0, kp1, noise, xb, mask, mu_b, z, eps):
+def _cohort_fold(spec0, spec1, kp0, kp1, noise, xb, mask, mu_b, z, eps, view: Local = LOCAL):
     """Fold the training cohort's block solves once — the shared first half
     of :func:`gp_predict` and :func:`precompute_predict_basis`.
 
     Returns ``(k0xz [L,P,T,M], k0zz [L,M,M], ib [L,P,T,T], ib_mu [L,P,T],
     h_nojit [L,M,M], c [L,M])`` where ``h_nojit = symmetrize(K0zz + Σ_s
     K0zx_s B_s⁻¹ K0xz_s)`` without the f32 relative jitter and ``c = Σ_s
-    K0zx_s B_s⁻¹ μ_s``. K0zz carries the adaptive jitter.
+    K0zx_s B_s⁻¹ μ_s``. K0zz carries the adaptive jitter. On a rank's shard
+    (``view``) the subjects are that rank's and the two subject sums are
+    summed over the ranks.
     """
     p, t, q = xb.shape
     m_ind = z.shape[0]
@@ -60,16 +63,17 @@ def _cohort_fold(spec0, spec1, kp0, kp1, noise, xb, mask, mu_b, z, eps):
     k0xz = kx.kernel_matrix(spec0, kp0, x_flat, z, mask1=mask.reshape(p * t))
     latent_dim = k0xz.shape[0]
     k0xz = k0xz.reshape(latent_dim, p, t, m_ind)
-    k0zz = kx.add_adaptive_jitter(kx.kernel_matrix(spec0, kp0, z, z), eps)
+    k0zz = kx.add_adaptive_jitter(kx.kernel_matrix(spec0, kp0, z, z), eps, view)
 
     b = kx.block_b_operator(spec1, kp1, xb, mask, noise)
     _, ib = la.cholesky_and_inverse(b)
 
     ib_k0xz = ib @ k0xz
-    h_nojit = la.symmetrize(k0zz + torch.einsum("lptm,lptn->lmn", k0xz, ib_k0xz))
     mu = (mu_b * mask[..., None]).permute(2, 0, 1)  # [L, P, T]
     ib_mu = torch.einsum("lptu,lpu->lpt", ib, mu)
-    c = torch.einsum("lptm,lpt->lm", k0xz, ib_mu)
+    k0zx_ib_k0xz, c = view.data_sums(torch.einsum("lptm,lptn->lmn", k0xz, ib_k0xz),
+                                     torch.einsum("lptm,lpt->lm", k0xz, ib_mu))
+    h_nojit = la.symmetrize(k0zz + k0zx_ib_k0xz)
     return k0xz, k0zz, ib, ib_mu, h_nojit, c
 
 
@@ -83,8 +87,14 @@ def gp_predict(
     inputs: PredictInputs,
     z: torch.Tensor,
     eps: float = 1e-6,
+    view: Local = LOCAL,
 ) -> torch.Tensor:
-    """Posterior mean latents at the query blocks: ``[Pq, Tq, L]``."""
+    """Posterior mean latents at the query blocks: ``[Pq, Tq, L]``.
+
+    On a rank's shard (``view``, :func:`lvae_torch.parallel.mesh.sharded_gp_predict`)
+    the parameters and ``mu_b`` hold the rank's latents, the query blocks
+    the rank's queries, and the training blocks the whole cohort, of which
+    the rank folds its subjects (``view.rows``)."""
     xb, mask, mu_b = inputs.xb, inputs.mask, inputs.mu_b
     Xb, Xmask, align = inputs.Xb, inputs.Xmask, inputs.align
     q = xb.shape[2]
@@ -96,13 +106,14 @@ def gp_predict(
     X_flat = Xb.reshape(pq * tq, q)
     Xmask_flat = Xmask.reshape(pq * tq)
 
+    rows = view.rows
     k0xz, k0zz, ib, ib_mu, h_nojit, c = _cohort_fold(
-        spec0, spec1, kp0, kp1, noise, xb, mask, mu_b, z, eps
+        spec0, spec1, kp0, kp1, noise, xb[rows], mask[rows], mu_b[rows], z, eps, view
     )
     latent_dim = k0xz.shape[0]
     k0Xz = kx.kernel_matrix(spec0, kp0, X_flat, z, mask1=Xmask_flat)
 
-    h = kx.add_rel_jitter(h_nojit)
+    h = kx.add_rel_jitter(h_nojit, view=view)
     lh = la.cholesky(h)
 
     sol = la.cho_solve(lh, c[..., None])[..., 0]  # H⁻¹ K0zx B⁻¹ μ
@@ -110,7 +121,9 @@ def gp_predict(
     mu_tilde = ib_mu - torch.einsum("lptu,lpu->lpt", ib, back)  # [L, P, T]
 
     # shared term over all queries
-    d = torch.einsum("lptm,lpt->lm", k0xz, mu_tilde)
+    (d,) = view.data_sums(torch.einsum("lptm,lpt->lm", k0xz, mu_tilde))
+    # a query's aligned block may be another rank's subject
+    mu_tilde = view.gather_rows(mu_tilde, xb.shape[0], dim=1)
     lk0zz = la.cholesky(k0zz)
     shared = torch.einsum(
         "lnm,lm->ln", k0Xz, la.cho_solve(lk0zz, d[..., None])[..., 0]
@@ -182,10 +195,14 @@ def predict_latents(
     z,
     id_covariate: int,
     eps: float = 1e-6,
+    mesh=None,
 ) -> np.ndarray:
     """Flat-array convenience wrapper: returns ``Z_pred [N_test, L]``.
 
-    Runs on the device of ``z``; the flat arrays are host numpy."""
+    Runs on the device of ``z``; the flat arrays are host numpy. With
+    ``mesh`` the posterior runs mesh-parallel
+    (:func:`lvae_torch.parallel.mesh.sharded_gp_predict`) and every rank
+    returns the whole result."""
     from lvae_torch.data.blocks import scatter_to_flat
 
     train_mu = np.asarray(train_mu)
@@ -193,7 +210,12 @@ def predict_latents(
         train_labels, train_mu, test_labels, id_covariate,
         dtype=train_mu.dtype, device=z.device,
     )
-    zb = gp_predict(spec0, spec1, kp0, kp1, noise, inputs, z, eps)
+    if mesh is not None:
+        from lvae_torch.parallel.mesh import sharded_gp_predict
+
+        zb = sharded_gp_predict(spec0, spec1, kp0, kp1, noise, inputs, z, mesh, eps=eps)
+    else:
+        zb = gp_predict(spec0, spec1, kp0, kp1, noise, inputs, z, eps)
     return scatter_to_flat(zb.cpu().numpy(), te_index, te_mask, test_labels.shape[0])
 
 

@@ -3,15 +3,19 @@
 Wires config → data → model → GP prior → training regime → artefacts →
 validation → test MSE → image generation, the programmatic equivalent of
 the reference's ``LVAE.py``, on one device (``cuda`` unless the caller asks
-for the CPU).
+for the CPU) or, with ``--data_mesh``/``--latent_mesh`` above 1, on a mesh
+of ranks (one process each, ``torchrun``; ``parallel/``).
 
 Regimes ported: Hensman SVI, the standard full-batch ones (closed,
 GPapprox, GPapprox_closed, GPPVAE with ``mini_batch``) and the VI regime
 (``variational_inference_training``, :meth:`LVAEPipeline.run_vi`), with the
 ConvVAE, SimpleVAE and RNN encoders. A Hensman run also writes the
-reference's GP resume files (``utils/torch_compat.py``). Each of these
-raises ``NotImplementedError`` naming its ROADMAP item: a device mesh
-(item 9), bfloat16 and the orbax checkpoint backends (item 10).
+reference's GP resume files (``utils/torch_compat.py``). On a mesh the
+trainers are the sharded ones (GPPVAE stays in one process, with a
+warning), the sparse-GP tests run mesh-parallel, and rank 0 writes every
+file while the other ranks wait; a checkpoint holds the whole state.
+bfloat16 and the orbax checkpoint backends raise ``NotImplementedError``
+naming ROADMAP item 10.
 """
 
 from __future__ import annotations
@@ -32,6 +36,8 @@ from lvae_torch.evaluation.encode import encode_dataset
 from lvae_torch.evaluation.generation import recon_complete_gen
 from lvae_torch.evaluation.testing import mse_test_exact, mse_test_gp_approx
 from lvae_torch.evaluation.validate import validate
+from lvae_torch.parallel import mesh as pm
+from lvae_torch.parallel.distributed import initialize_distributed
 from lvae_torch.models.vae import make_vae
 from lvae_torch.ops import kernels as kx
 from lvae_torch.train import state as st
@@ -50,17 +56,15 @@ DTYPES = {"float32": torch.float32, "float64": torch.float64}
 
 def check_ported(cfg) -> None:
     """Raise ``NotImplementedError`` for a configuration the port does not
-    run yet, naming the ROADMAP item that brings it."""
+    run, naming the ROADMAP item that says why."""
     waiting = []
-    if getattr(cfg, "data_mesh", 1) * getattr(cfg, "latent_mesh", 1) > 1:
-        waiting.append("data_mesh/latent_mesh > 1 (parallelism, ROADMAP queue 1 item 9)")
     if "bfloat16" in (getattr(cfg, "dtype", ""), getattr(cfg, "model_dtype", "")):
         waiting.append("bfloat16 compute (ROADMAP queue 1 item 10)")
     if getattr(cfg, "checkpoint_backend", "pickle").startswith("orbax"):
         waiting.append("checkpoint_backend=orbax* (a JAX storage layer, ROADMAP queue 1 "
                        "item 10); lvae_torch writes its own torch.save checkpoints")
     if waiting:
-        raise NotImplementedError("not ported to lvae_torch yet: " + "; ".join(waiting))
+        raise NotImplementedError("not ported to lvae_torch: " + "; ".join(waiting))
 
 
 def reference_vae_state_dict(sd: dict) -> dict:
@@ -78,6 +82,13 @@ class LVAEPipeline:
         check_ported(cfg)
         self.cfg = cfg
         self.device = resolve_device(device)
+        self.mesh = None
+        if cfg.data_mesh * cfg.latent_mesh > 1:
+            # one process per rank: the group from torchrun's environment;
+            # a world of another size raises ValueError
+            initialize_distributed(device=self.device)
+            self.mesh = pm.make_mesh(cfg.data_mesh, cfg.latent_mesh, device=self.device)
+            self.device = self.mesh.device
         self.dtype = DTYPES[cfg.dtype]
         ds = datasets or {}
 
@@ -128,13 +139,33 @@ class LVAEPipeline:
             id_covariate=cfg.id_covariate, **cfg.kernel_spec_kwargs()
         )
         self.blocks = build_subject_blocks(self.dataset.labels, cfg.id_covariate)
-        self.metrics = MetricsLogger(cfg.results_path or cfg.save_path)
+        self.metrics = MetricsLogger((cfg.results_path or cfg.save_path) if self.writer else None)
         self.trainer = None
         self.best = {"val": np.inf, "epoch": 0}
 
     @property
     def out_dir(self) -> str:
         return self.cfg.results_path or self.cfg.save_path
+
+    @property
+    def writer(self) -> bool:
+        """Whether this process writes the run's files: rank 0 of a mesh."""
+        return self.mesh is None or self.mesh.writer
+
+    def _save(self, path: str, state, metadata=None) -> None:
+        """A checkpoint of the whole state, written by rank 0 while the
+        other ranks wait."""
+        if self.writer:
+            save_checkpoint(path, state, metadata=metadata)
+        self._barrier()
+
+    def _barrier(self) -> None:
+        if self.mesh is not None:
+            self.mesh.barrier()
+
+    def _agree(self, value: float) -> float:
+        """Rank 0's ``value``: a decision every rank follows alike."""
+        return value if self.mesh is None else self.mesh.agree(value)
 
     # ---------------------------------------------------------------- setup
     def _load_pretrained_vae(self, vae) -> None:
@@ -184,6 +215,8 @@ class LVAEPipeline:
                 learning_rate=cfg.learning_rate, seed=cfg.seed, dtype=self.dtype,
                 t_buckets=cfg.T_buckets, device=self.device,
             )
+            if self.mesh is not None:
+                self.trainer = pm.ShardedHensmanTrainer(self.trainer, self.mesh)
         elif cfg.variational_inference_training:
             raise RuntimeError("the VI regime has no amortised trainer; run() routes it "
                                "through run_vi()")
@@ -201,6 +234,13 @@ class LVAEPipeline:
                 learning_rate=cfg.learning_rate, seed=cfg.seed, dtype=self.dtype,
                 pseudo_minibatch=cfg.mini_batch, device=self.device,
             )
+            if self.mesh is not None:
+                if cfg.mini_batch:
+                    print("WARNING: --data_mesh/--latent_mesh are ignored with "
+                          "mini_batch=True (the GPPVAE pseudo-minibatch regime "
+                          "exists to bound memory); every rank trains it whole")
+                else:
+                    self.trainer = pm.ShardedStandardTrainer(self.trainer, self.mesh)
         self._load_pretrained_vae(self.trainer.state.trainables.vae)
         self._try_resume(self.trainer)
         return self.trainer
@@ -231,7 +271,7 @@ class LVAEPipeline:
         start = getattr(self, "_metrics_logged", 0)
         fresh = hist[start:]
         last = os.path.join(self.out_dir, "model_last.ckpt")
-        if cfg.auto_recover and not bool(st.tree_finite(trainer.state.trainables)):
+        if cfg.auto_recover and not self._agree(bool(st.tree_finite(trainer.state.trainables))):
             # recover before logging: the chunk is replayed, so its epochs
             # must not enter metrics.jsonl or diagnostics.pkl
             self._recover(trainer, epoch, last)
@@ -248,7 +288,7 @@ class LVAEPipeline:
         if cfg.auto_recover or (cfg.checkpoint_every > 0 and epoch % cfg.checkpoint_every == 0):
             # the rolling known-good snapshot (auto_recover: every chunk,
             # finiteness checked above), else the flag's cadence
-            save_checkpoint(last, trainer.state, metadata={"epoch": epoch})
+            self._save(last, trainer.state, metadata={"epoch": epoch})
         if cfg.debug_nans:
             from lvae_torch.utils.debug import assert_state_finite
 
@@ -264,17 +304,18 @@ class LVAEPipeline:
             cfg.latent_dim, cfg.eps, type_kl=cfg.type_KL, num_samples=cfg.num_samples,
             device=self.device,
         )
-        if res.net < self.best["val"]:
-            self.best = {"val": res.net, "epoch": epoch}
+        val = self._agree(res.net)
+        if val < self.best["val"]:
+            self.best = {"val": val, "epoch": epoch}
             print("Saving better model")
-            save_checkpoint(os.path.join(self.out_dir, "model_best.ckpt"), trainer.state,
-                            metadata={"epoch": epoch, "val": res.net})
+            self._save(os.path.join(self.out_dir, "model_best.ckpt"), trainer.state,
+                       metadata={"epoch": epoch, "val": val})
             run_tests = cfg.run_tests and self.test_dataset is not None
             gen = cfg.generate_images and self.generation_dataset is not None
             pred = self.encode_prediction_cohort() if (run_tests or gen) else None
             if run_tests:
                 self._run_tests(save_file="result_error_best.csv", pred=pred)
-            if gen:
+            if gen and self.writer:
                 self._generate(pred, epoch)
         return None
 
@@ -353,16 +394,19 @@ class LVAEPipeline:
         cfg = self.cfg
         model, gp_params, noise = self.current_params()
         prediction_x, prediction_mu = pred or self.encode_prediction_cohort()
+        out = self.out_dir if self.writer else None
         if cfg.type_KL in ("GPapprox", "GPapprox_closed"):
             return mse_test_gp_approx(
                 model, gp_params, noise, self.spec0, self.spec1, self.test_dataset,
                 prediction_x, prediction_mu, self.trainer.tdata.z, cfg.id_covariate, cfg.eps,
-                results_path=self.out_dir, save_file=save_file, device=self.device,
+                results_path=out, save_file=save_file, device=self.device,
+                # a mesh run's posterior runs mesh-parallel
+                mesh=self.mesh,
             )
         spec_full, kp_full = kx.join_specs(self.spec0, self.spec1, gp_params.kp0, gp_params.kp1)
         return mse_test_exact(
             model, kp_full, spec_full, noise, self.test_dataset, prediction_x, prediction_mu,
-            cfg.eps, results_path=self.out_dir, save_file=save_file, device=self.device,
+            cfg.eps, results_path=out, save_file=save_file, device=self.device,
         )
 
     def _generate(self, pred, epoch: int) -> str:
@@ -378,7 +422,13 @@ class LVAEPipeline:
         """Final artefacts in ``cfg.save_path``: ``diagnostics.pkl`` (the
         per-epoch metrics as a list of dicts), ``plot_values.pkl``
         (``[labels, mu, log_var, z sample, row index]`` of the final model
-        on the training cohort) and ``model_final.ckpt``."""
+        on the training cohort) and ``model_final.ckpt``; on a mesh, rank 0
+        writes them while the other ranks wait."""
+        if self.writer:
+            self._write_artifacts()
+        self._barrier()
+
+    def _write_artifacts(self) -> None:
         cfg = self.cfg
         out = cfg.save_path
         os.makedirs(out, exist_ok=True)
@@ -427,6 +477,8 @@ class LVAEPipeline:
             self.model, vicfg, self.dataset, self.blocks, z, gp,
             learning_rate=cfg.learning_rate, seed=cfg.seed, dtype=self.dtype, device=self.device,
         )
+        if self.mesh is not None:
+            self.trainer = pm.ShardedVITrainer(self.trainer, self.mesh)
         if cfg.gp_model_folder:
             path = os.path.join(cfg.gp_model_folder, "model_vi.ckpt")
             state = try_load_checkpoint(path, like=self.trainer.state)
@@ -448,14 +500,15 @@ class LVAEPipeline:
                   "variational_inference_training; ignoring")
         trainer = self.build_vi_trainer()
         trainer.fit(cfg.epochs, log_every=1)
-        os.makedirs(cfg.save_path, exist_ok=True)
-        save_checkpoint(os.path.join(cfg.save_path, "model_vi.ckpt"), trainer.state)
+        if self.writer:
+            os.makedirs(cfg.save_path, exist_ok=True)
+        self._save(os.path.join(cfg.save_path, "model_vi.ckpt"), trainer.state)
         if self.prediction_dataset is not None:
             mu_pred, lv_pred = trainer.optimize_prediction_set(
                 self.prediction_dataset, epochs=pred_epochs)
-            save_checkpoint(os.path.join(cfg.save_path, "vi_prediction.ckpt"),
-                            {"mu_pred": mu_pred, "log_var_pred": lv_pred})
-            if cfg.generate_images and self.generation_dataset is not None:
+            self._save(os.path.join(cfg.save_path, "vi_prediction.ckpt"),
+                       {"mu_pred": mu_pred, "log_var_pred": lv_pred})
+            if cfg.generate_images and self.generation_dataset is not None and self.writer:
                 prediction_x, prediction_mu = trainer.joint_cohort(
                     self.prediction_dataset, mu_pred)
                 gp = trainer.state.gp
@@ -491,6 +544,7 @@ class LVAEPipeline:
         pred = self.encode_prediction_cohort() if (run_tests or gen) else None
         if run_tests:
             result = self._run_tests(pred=pred)
-        if gen:
+        if gen and self.writer:
             self._generate(pred, epoch=-1)
+        self._barrier()
         return result

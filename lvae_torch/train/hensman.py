@@ -13,6 +13,13 @@ inside one compiled program; here they are a Python loop.
   reparameterisation noise of each step) is drawn from a CPU
   ``torch.Generator`` seeded from ``seed`` and moved to the device, so a run
   on the card and one on the CPU consume the same numbers.
+* On a mesh (``parallel/mesh.ShardedHensmanTrainer`` sets ``view``) a rank
+  takes its subjects of each batch (ghost rows pad the batch to the data
+  axis) and its latents: it counts its share of each term, the gradients
+  are summed over the ranks before Adam, the natural gradients' subject
+  sums over the data axis, and (m, H) are updated per latent shard and
+  reassembled. Every rank draws the whole batch order and noise from the
+  same generator and slices out its own.
 """
 
 from __future__ import annotations
@@ -26,6 +33,7 @@ from lvae_torch.data import blocks as bk
 from lvae_torch.models import vae as mv
 from lvae_torch.ops import elbo as eb
 from lvae_torch.ops import kernels as kx
+from lvae_torch.ops.shard import LOCAL, Local
 from lvae_torch.train import state as st
 from lvae_torch.utils.device import resolve_device
 
@@ -102,12 +110,22 @@ def batch_loss(
     p_batch: torch.Tensor,  # scalar: real subjects in the batch
     eps: Optional[torch.Tensor] = None,
     generator: Optional[torch.Generator] = None,
+    view: Local = LOCAL,
 ) -> Tuple[torch.Tensor, Tuple[StepMetrics, Optional[eb.NaturalGradients]]]:
     """Net loss of one subject batch, differentiable in the trainables.
 
     ``eps [S·T, L]`` is the reparameterisation noise; when it is None it is
     drawn from ``generator`` (a CPU generator) and moved to the device.
     Returns ``(net, (metrics, natural gradients or None))``.
+
+    On a rank's shard (``view``) ``idx``, ``bmask`` and ``eps`` hold the
+    rank's subjects, ``trainables``, ``m_nat`` and ``H_nat`` the rank's
+    latents (``view.latent_shard`` of the state), and ``p_batch`` counts
+    the whole batch's real subjects. The
+    loss and the metrics are then the rank's shares: the reconstruction
+    terms on the first latent rank of each data rank, the KL terms as
+    ``minibatch_kld`` counts them; the natural gradients are the rank's
+    latents'.
     """
     s, t = idx.shape
     flat = idx.reshape(-1)
@@ -122,19 +140,23 @@ def batch_loss(
         if generator is None:
             raise ValueError("batch_loss needs eps or a generator to draw it from")
         eps = torch.randn(mu.shape, generator=generator, dtype=mu.dtype)
-    z_lat = mu + eps.to(mu.device, mu.dtype) * torch.exp(0.5 * log_var)
-    recon = model.decode(z_lat)
-    raw_log_vy = model.raw_log_vy.detach() if cfg.vy_fixed else model.raw_log_vy
-    mse_i, nll_i = mv.vae_loss(raw_log_vy, recon, x, pixmask)
-    recon_loss = torch.sum(mse_i * valid)
-    nll_loss = torch.sum(nll_i * valid)
+    if view.weight("data"):
+        z_lat = mu + eps.to(mu.device, mu.dtype) * torch.exp(0.5 * log_var)
+        recon = model.decode(z_lat)
+        raw_log_vy = model.raw_log_vy.detach() if cfg.vy_fixed else model.raw_log_vy
+        mse_i, nll_i = mv.vae_loss(raw_log_vy, recon, x, pixmask)
+        recon_loss = torch.sum(mse_i * valid)
+        nll_loss = torch.sum(nll_i * valid)
+    else:  # another latent rank of these subjects counts their reconstruction
+        recon_loss = nll_loss = mu.new_zeros(())
 
+    lat = view.lat
     gp = trainables.gp
     noise = _noise_from(gp, cfg)
     z_pts = trainables.z if (cfg.learn_inducing and trainables.z is not None) else tdata.z
     xb = (labels * valid[:, None]).reshape(s, t, -1)
-    mu_b = mu.reshape(s, t, cfg.latent_dim)
-    lv_b = log_var.reshape(s, t, cfg.latent_dim)
+    mu_b = mu.reshape(s, t, cfg.latent_dim)[..., lat]
+    lv_b = log_var.reshape(s, t, cfg.latent_dim)[..., lat]
     if cfg.natural_gradient:
         m_var, psd_h = m_nat, H_nat
     else:
@@ -144,13 +166,13 @@ def batch_loss(
     # K0zz and H factor in one stacked call
     ops = eb.gp_block_operators(
         cfg.spec0, cfg.spec1, gp.kp0, gp.kp1, noise, xb, z_pts,
-        mask=bmask, eps=cfg.eps, extra_spd=psd_h,
+        mask=bmask, eps=cfg.eps, extra_spd=psd_h, view=view,
     )
     kld, ng = eb.minibatch_kld(
         ops, m_var, psd_h, mu_b, lv_b,
         P_tot=cfg.P_tot, P_batch=p_batch, N_tot=cfg.N_tot,
         natural_gradient=cfg.natural_gradient,
-        H_factor=(ops.extra_chol, ops.extra_inv),
+        H_factor=(ops.extra_chol, ops.extra_inv), view=view,
     )
 
     scale = cfg.P_tot / p_batch.to(recon_loss.dtype)
@@ -248,6 +270,7 @@ class HensmanTrainer:
             step=0,
         )
         self.history: list = []
+        self.view: Local = LOCAL  # a rank's shard on a mesh (parallel/mesh.py)
 
     # ------------------------------------------------------------- one step
     def train_step(self, table: BlockTable, order_rows: torch.Tensor,
@@ -255,17 +278,29 @@ class HensmanTrainer:
         """One step on the batch of table rows ``order_rows [S]`` (rows at
         or past ``table.num_real`` are ghosts): Adam on the trainables, then
         the natural-gradient update of (m, H). ``eps [S·T, L]`` is drawn from
-        the state's generator when not given. Returns device metrics."""
+        the state's generator when not given. Returns device metrics (on a
+        mesh, summed over the ranks: one process's numbers)."""
         state = self.state
+        view = self.view
         order_rows = order_rows.to(self.device)
         b_idx = table.index[order_rows]
         b_mask = table.mask[order_rows]
         p_batch = torch.sum(order_rows < table.num_real).to(b_mask.dtype)
+        if view is not LOCAL:
+            # the whole batch's noise, as one process draws it, then this
+            # rank's subjects of everything
+            s, t = b_idx.shape
+            if eps is None:
+                eps = torch.randn((s * t, self.cfg.latent_dim), generator=state.rng,
+                                  dtype=self.dtype)
+            eps = view.take_subjects(eps.reshape(s, t, -1)).reshape(-1, self.cfg.latent_dim)
+            b_idx, b_mask = view.take_subjects(b_idx), view.take_subjects(b_mask)
         opt = state.opt_state
         opt.zero_grad(set_to_none=True)
+        shard = view.latent_shard(state)  # views: gradients reach the whole trainables
         net, (metrics, ng) = batch_loss(
-            self.model, self.cfg, state.trainables, state.m_nat, state.H_nat,
-            self.tdata, b_idx, b_mask, p_batch, eps=eps, generator=state.rng,
+            self.model, self.cfg, shard.trainables, shard.m_nat, shard.H_nat,
+            self.tdata, b_idx, b_mask, p_batch, eps=eps, generator=state.rng, view=view,
         )
         net.backward()
         params = list(state.trainables.parameters())
@@ -275,16 +310,19 @@ class HensmanTrainer:
             # moments and step count advance with the others
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
+        view.sum_grads(params)
         opt.step()
         m_nat, H_nat = state.m_nat, state.H_nat
         if self.cfg.natural_gradient:
-            m_nat, H_nat = eb.natural_gradient_update(
-                m_nat, H_nat, ng, self.cfg.natural_gradient_lr
+            n_lat = self.cfg.latent_dim
+            m_new, h_new = eb.natural_gradient_update(
+                shard.m_nat, shard.H_nat, ng, self.cfg.natural_gradient_lr, view
             )
+            m_nat, H_nat = view.gather_latents(m_new, n_lat), view.gather_latents(h_new, n_lat)
         if self.cfg.learn_inducing and state.trainables.z is not None:
             self.tdata = self.tdata._replace(z=state.trainables.z.detach())
         self.state = state._replace(m_nat=m_nat, H_nat=H_nat, step=state.step + 1)
-        return metrics
+        return view.world_metrics(metrics)
 
     # --------------------------------------------------------------- epochs
     def _epoch_order(self, table: BlockTable) -> torch.Tensor:

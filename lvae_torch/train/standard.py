@@ -23,6 +23,13 @@ The reparameterisation noise and the GP bound's latent samples are drawn
 from a CPU ``torch.Generator`` seeded from ``seed`` and moved to the device,
 so a run on the card and one on the CPU consume the same numbers; both
 loss functions also take them as tensors.
+
+On a mesh (``parallel/mesh.ShardedStandardTrainer`` sets ``view``) a rank
+encodes its subjects' frames and computes the GP bound of its latents: the
+sparse bounds sum their subject terms over the data axis first, and the
+closed KL gathers the whole cohort's moments (kernel K3 then builds the
+rank's ``[L', N, N]`` prior). The gradients are summed over the ranks
+before the optimizer step.
 """
 
 from __future__ import annotations
@@ -35,6 +42,7 @@ import torch
 from lvae_torch.models import vae as mv
 from lvae_torch.ops import elbo as eb
 from lvae_torch.ops import kernels as kx
+from lvae_torch.ops.shard import LOCAL, Local
 from lvae_torch.train import state as st
 from lvae_torch.utils.device import resolve_device
 
@@ -89,22 +97,24 @@ def _noises(cfg: StandardConfig, block_mask: torch.Tensor, like: torch.Tensor, e
     return eps.to(like.device, like.dtype), gp_eps
 
 
-def _sparse_gp_loss(cfg: StandardConfig, gp: st.GPParams, noise: torch.Tensor,
-                    tdata: st.TrainData, block_mask: torch.Tensor, mu: torch.Tensor,
-                    log_var: torch.Tensor, gp_eps: Optional[torch.Tensor]) -> torch.Tensor:
+def _sparse_gp_loss(cfg: StandardConfig, kp0: kx.KernelParams, kp1: kx.KernelParams,
+                    noise: torch.Tensor, labels: torch.Tensor, z: torch.Tensor,
+                    block_mask: torch.Tensor, mu: torch.Tensor, log_var: torch.Tensor,
+                    gp_eps: Optional[torch.Tensor], view: Local = LOCAL) -> torch.Tensor:
     """The GPapprox (mean over samples of −Σ gp_elbo) or GPapprox_closed
-    (Σ dubo) loss of the cohort's moments ``[N, L]``."""
+    (Σ dubo) loss of the moments ``[P·T, L]`` of the subjects ``labels``
+    and ``block_mask`` hold (``gp_eps [num_samples, P, T, L]``)."""
     p, t = block_mask.shape
-    latent = cfg.latent_dim
-    xb = tdata.labels.reshape(p, t, -1)
+    latent = mu.shape[-1]
+    xb = labels.reshape(p, t, -1)
     mu_b = mu.reshape(p, t, latent)
     lv_b = log_var.reshape(p, t, latent)
-    ops = eb.gp_block_operators(cfg.spec0, cfg.spec1, gp.kp0, gp.kp1, noise, xb, tdata.z,
-                                mask=block_mask, eps=cfg.eps)
+    ops = eb.gp_block_operators(cfg.spec0, cfg.spec1, kp0, kp1, noise, xb, z,
+                                mask=block_mask, eps=cfg.eps, view=view)
     if cfg.type_KL == "GPapprox_closed":
-        return torch.sum(eb.dubo(ops, mu_b, lv_b))
+        return torch.sum(eb.dubo(ops, mu_b, lv_b, view))
     std = torch.exp(0.5 * lv_b)
-    samples = [-torch.sum(eb.gp_elbo(ops, mu_b + e * std))
+    samples = [-torch.sum(eb.gp_elbo(ops, mu_b + e * std, view))
                for e in gp_eps.to(mu.device, mu.dtype)]
     return torch.stack(samples).mean()
 
@@ -133,39 +143,57 @@ def full_batch_loss(
     eps: Optional[torch.Tensor] = None,
     gp_eps: Optional[torch.Tensor] = None,
     generator: Optional[torch.Generator] = None,
+    view: Local = LOCAL,
 ):
     """One full-batch loss, differentiable in the trainables; returns
     ``(net, StandardMetrics)``. ``eps [N, L]`` is the encoder's
     reparameterisation noise and ``gp_eps [num_samples, P, T, L]`` the
     GPapprox samples' noise; each is drawn from ``generator`` (a CPU
-    generator) when not given."""
+    generator) when not given. On a rank's shard (``view``) every argument
+    is whole, the rank computes with its subjects and latents, and the loss
+    and metrics are the rank's shares."""
+    p, t = block_mask.shape
+    rows, frames, lat = view.rows, view.frames(t), view.lat
     model.train(cfg.dropout)
-    mu, log_var = model.encode(tdata.data)
+    mu, log_var = model.encode(tdata.data[frames])
     eps, gp_eps = _noises(cfg, block_mask, mu, eps, gp_eps, generator)
-    mse_i, nll_i = _recon_losses(model, cfg, tdata.data, tdata.pixmask, mu, log_var, eps)
-    # row validity keeps alignment padding out of the sums: the NLL adds its
-    # Gaussian constant for every pixel whatever the pixel mask
-    row_valid = block_mask.reshape(-1).to(mse_i.dtype)
-    recon_loss = torch.sum(mse_i * row_valid)
-    nll_loss = torch.sum(nll_i * row_valid)
+    if view.weight("data"):
+        mse_i, nll_i = _recon_losses(model, cfg, tdata.data[frames], tdata.pixmask[frames], mu,
+                                     log_var, eps[frames])
+        # row validity keeps alignment padding out of the sums: the NLL adds
+        # its Gaussian constant for every pixel whatever the pixel mask
+        row_valid = block_mask[rows].reshape(-1).to(mse_i.dtype)
+        recon_loss = torch.sum(mse_i * row_valid)
+        nll_loss = torch.sum(nll_i * row_valid)
+    else:  # another latent rank of these subjects counts their reconstruction
+        recon_loss = nll_loss = mu.new_zeros(())
 
-    gp = trainables.gp
+    gp = trainables.gp.latents(lat)
     noise = torch.ones_like(gp.raw_noise) if cfg.constrain_scales else kx.constrain(gp.raw_noise)
+    kp0, kp1 = gp.kp0, gp.kp1
     if cfg.type_KL == "closed":
         # the full additive prior, joined from the split kernels; ghost rows
         # (block_mask 0) get an identity row and column and zero moments, so
-        # each adds exactly 0 to the KL
-        spec_full, kp_full = kx.join_specs(cfg.spec0, cfg.spec1, gp.kp0, gp.kp1)
+        # each adds exactly 0 to the KL. The N×N prior couples every
+        # subject: a rank takes the whole cohort's moments of its latents
+        spec_full, kp_full = kx.join_specs(cfg.spec0, cfg.spec1, kp0, kp1)
+        def whole(x):  # [P'·T, L] of this rank's subjects → [P·T, L']
+            return view.gather_rows(x.reshape(-1, t, x.shape[-1]), p).reshape(p * t, -1)[:, lat]
+
+        mu_all, lv_all = whole(mu), whole(log_var)
         valid = block_mask.reshape(-1).to(mu.dtype)
         k_full = kx.kernel_matrix(spec_full, kp_full, tdata.labels, tdata.labels)
         k_full = k_full * (valid[:, None] * valid[None, :])
         diag_add = valid * noise[:, None] + (1.0 - valid)  # [L, N]
         k_prior = k_full + torch.diag_embed(diag_add)
-        gp_loss = torch.sum(eb.kl_closed(k_prior, mu.t() * valid, log_var.t() * valid))
+        gp_loss = torch.sum(eb.kl_closed(k_prior, mu_all.t() * valid, lv_all.t() * valid))
     elif cfg.type_KL in SPARSE_KL:
-        gp_loss = _sparse_gp_loss(cfg, gp, noise, tdata, block_mask, mu, log_var, gp_eps)
+        gp_loss = _sparse_gp_loss(
+            cfg, kp0, kp1, noise, tdata.labels[frames], tdata.z, block_mask[rows], mu[:, lat],
+            log_var[:, lat], None if gp_eps is None else gp_eps[:, rows, :, lat], view)
     else:
         raise ValueError(f"Unsupported type_KL {cfg.type_KL!r}")
+    gp_loss = view.weight("latent") * gp_loss
 
     net, gp_rep = _report(cfg, recon_loss, nll_loss, gp_loss)
     return net, StandardMetrics(net=net.detach(), recon=recon_loss.detach(),
@@ -213,7 +241,8 @@ def gppvae_grads(
              else kx.constrain(gp.raw_noise.detach()))
     mu_leaf = full_mu.detach().requires_grad_(True)
     lv_leaf = full_lv.detach().requires_grad_(True)
-    gp_raw = _sparse_gp_loss(cfg, gp, noise, tdata, block_mask, mu_leaf, lv_leaf, gp_eps)
+    gp_raw = _sparse_gp_loss(cfg, gp.kp0, gp.kp1, noise, tdata.labels, tdata.z, block_mask,
+                             mu_leaf, lv_leaf, gp_eps)
     # MSE weighs the loss before differentiation, so the cotangents carry
     # weight / latent_dim
     scaled = cfg.weight * gp_raw / latent if cfg.loss_function == "mse" else gp_raw
@@ -258,21 +287,25 @@ def _zero_missing_grads(trainables: st.Trainables) -> None:
 
 def make_standard_step(model, cfg: StandardConfig):
     """One full-batch epoch: ``step_fn(state, tdata, block_mask, eps=None,
-    gp_eps=None) -> (state, metrics)``. Under ``constrain_scales`` the
-    likelihood noise is pinned back to 1 after the optimizer step."""
+    gp_eps=None, view=LOCAL) -> (state, metrics)``. Under
+    ``constrain_scales`` the likelihood noise is pinned back to 1 after the
+    optimizer step. On a rank's shard the gradients and the metrics are
+    summed over the ranks."""
 
-    def step_fn(state: StandardState, tdata, block_mask, eps=None, gp_eps=None):
+    def step_fn(state: StandardState, tdata, block_mask, eps=None, gp_eps=None,
+                view: Local = LOCAL):
         opt = state.opt_state
         opt.zero_grad(set_to_none=True)
         net, metrics = full_batch_loss(model, cfg, state.trainables, tdata, block_mask,
-                                       eps=eps, gp_eps=gp_eps, generator=state.rng)
+                                       eps=eps, gp_eps=gp_eps, generator=state.rng, view=view)
         net.backward()
         _zero_missing_grads(state.trainables)
+        view.sum_grads(list(state.trainables.parameters()))
         opt.step()
         if cfg.constrain_scales:
             with torch.no_grad():
                 state.trainables.gp.raw_noise.fill_(float(kx.unconstrain(1.0)))
-        return state._replace(step=state.step + 1), metrics
+        return state._replace(step=state.step + 1), view.world_metrics(metrics)
 
     return step_fn
 
@@ -282,7 +315,10 @@ def make_gppvae_step(model, cfg: StandardConfig):
     The likelihood noise gets no gradient and is not re-pinned, so it stays
     at its initial value."""
 
-    def step_fn(state: StandardState, tdata, block_mask, eps=None, gp_eps=None):
+    def step_fn(state: StandardState, tdata, block_mask, eps=None, gp_eps=None,
+                view: Local = LOCAL):
+        if view is not LOCAL:
+            raise ValueError("the GPPVAE regime runs in one process")
         opt = state.opt_state
         opt.zero_grad(set_to_none=True)
         metrics = gppvae_grads(model, cfg, state.trainables, tdata, block_mask,
@@ -360,6 +396,7 @@ class StandardTrainer:
         )
         make = make_gppvae_step if pseudo_minibatch else make_standard_step
         self.step_fn = make(self.model, cfg)
+        self.view: Local = LOCAL  # a rank's shard on a mesh (parallel/mesh.py)
         self.history: list = []
 
     def run_epoch(self, eps: Optional[torch.Tensor] = None,
@@ -367,7 +404,7 @@ class StandardTrainer:
         """One epoch (one step); returns its metrics as host floats. ``eps``
         and ``gp_eps`` replace the drawn noise."""
         self.state, metrics = self.step_fn(self.state, self.tdata, self.block_mask,
-                                           eps=eps, gp_eps=gp_eps)
+                                           eps=eps, gp_eps=gp_eps, view=self.view)
         m = StandardMetrics(*torch.stack(list(metrics)).tolist())
         self.history.append(m)
         return m

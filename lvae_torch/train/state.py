@@ -39,6 +39,10 @@ class GPParams(NamedTuple):
     def tensors(self) -> List[torch.Tensor]:
         return [*self.kp0, *self.kp1, self.raw_noise]
 
+    def latents(self, sel) -> "GPParams":
+        """The GPs ``sel`` (an index or slice of the latent axis), as views."""
+        return GPParams(self.kp0.latents(sel), self.kp1.latents(sel), self.raw_noise[sel])
+
 
 def init_gp_params(
     spec0: kx.KernelSpec,

@@ -15,6 +15,9 @@ The reparameterisation noise of both phases is drawn from a CPU
 ``torch.Generator`` (or injected), so a run on the card and one on the CPU
 consume the same numbers. On the card each phase-1 step runs kernel K1 on
 the cohort's B chain and K2 on K0zz; phase 2 builds its GP operators once.
+On a mesh (``parallel/mesh.ShardedVITrainer`` sets ``view``) a phase-1 step
+decodes the rank's subjects and bounds the rank's latents, and the
+gradients are summed over the ranks before Adam.
 """
 
 from __future__ import annotations
@@ -30,6 +33,7 @@ from lvae_torch.evaluation.encode import encode_dataset
 from lvae_torch.models import vae as mv
 from lvae_torch.ops import elbo as eb
 from lvae_torch.ops import kernels as kx
+from lvae_torch.ops.shard import LOCAL, Local
 from lvae_torch.train import state as st
 from lvae_torch.utils.device import resolve_device
 
@@ -51,6 +55,16 @@ class VIState(NamedTuple):
     gp: st.GPParams
     opt_state: torch.optim.Optimizer  # Adam over (mu, log_var, vae, gp)
     rng: torch.Generator  # on the CPU
+
+
+class _Phase1(NamedTuple):
+    net: torch.Tensor
+    recon: torch.Tensor
+    nll: torch.Tensor
+    gp: torch.Tensor
+
+    def stacked(self) -> torch.Tensor:
+        return torch.stack(list(self)).detach()
 
 
 def _noise(gp: st.GPParams, cfg: VIConfig) -> torch.Tensor:
@@ -120,26 +134,35 @@ class VITrainer:
         )
         self.history: List[dict] = []
         self.pred_history: List[dict] = []
+        self.view: Local = LOCAL  # a rank's shard on a mesh (parallel/mesh.py)
 
     # ------------------------------------------------------------- phase 1
     def loss(self, state: VIState, eps: torch.Tensor):
         """Phase 1's net loss and its terms ``(net, recon, nll, gp)`` for the
         reparameterisation noise ``eps [N, L]``, differentiable in the
-        state's tensors. The decoder runs without dropout."""
-        cfg = self.cfg
-        mu, log_var = state.mu, state.log_var
-        state.vae.eval()
-        zs = mu + eps.to(mu.device, mu.dtype) * torch.exp(0.5 * log_var)
-        recon = state.vae.decode(zs)
-        mse_i, nll_i = mv.vae_loss(state.vae.raw_log_vy, recon, self.data_ordered,
-                                   self.pixmask_ordered)
-        recon_loss, nll_loss = torch.sum(mse_i), torch.sum(nll_i)
-        gp = state.gp
+        state's tensors. The decoder runs without dropout. On a rank's shard
+        (``self.view``) they are the rank's shares."""
+        cfg, view = self.cfg, self.view
         p, t = self.block_mask.shape
+        rows, frames, lat = view.rows, view.frames(t), view.lat
+        mu, log_var = state.mu[frames], state.log_var[frames]
+        state.vae.eval()
+        if view.weight("data"):
+            zs = mu + eps[frames].to(mu.device, mu.dtype) * torch.exp(0.5 * log_var)
+            recon = state.vae.decode(zs)
+            mse_i, nll_i = mv.vae_loss(state.vae.raw_log_vy, recon, self.data_ordered[frames],
+                                       self.pixmask_ordered[frames])
+            recon_loss, nll_loss = torch.sum(mse_i), torch.sum(nll_i)
+        else:  # another latent rank of these subjects counts their reconstruction
+            recon_loss = nll_loss = mu.new_zeros(())
+        gp = state.gp.latents(lat)
+        p_rank = mu.shape[0] // t
         ops = eb.gp_block_operators(cfg.spec0, cfg.spec1, gp.kp0, gp.kp1, _noise(gp, cfg),
-                                    self.xb, self.z_ind, self.block_mask, cfg.eps)
-        gp_loss = torch.sum(eb.dubo(ops, mu.reshape(p, t, cfg.latent_dim),
-                                    log_var.reshape(p, t, cfg.latent_dim))) / cfg.latent_dim
+                                    self.xb[rows], self.z_ind, self.block_mask[rows], cfg.eps,
+                                    view=view)
+        gp_loss = view.weight("latent") * torch.sum(eb.dubo(
+            ops, mu.reshape(p_rank, t, cfg.latent_dim)[..., lat],
+            log_var.reshape(p_rank, t, cfg.latent_dim)[..., lat], view)) / cfg.latent_dim
         if cfg.loss_function == "mse":
             net = recon_loss + cfg.weight * gp_loss
         else:
@@ -149,7 +172,7 @@ class VITrainer:
     def train_step(self, eps: Optional[torch.Tensor] = None) -> torch.Tensor:
         """One Adam step of phase 1; ``eps [N, L]`` is drawn from the state's
         generator when not given. Returns the device metrics
-        ``[net, recon, nll, gp]``."""
+        ``[net, recon, nll, gp]`` (on a mesh, summed over the ranks)."""
         state = self.state
         if eps is None:
             eps = torch.randn(state.mu.shape, generator=state.rng, dtype=state.mu.dtype)
@@ -163,8 +186,9 @@ class VITrainer:
                 # constrain_scales) gets a zero gradient, as in optax
                 if p.grad is None:
                     p.grad = torch.zeros_like(p)
+        self.view.sum_grads([p for group in opt.param_groups for p in group["params"]])
         opt.step()
-        return torch.stack([net, recon, nll, gp]).detach()
+        return self.view.world_metrics(_Phase1(net, recon, nll, gp)).stacked()
 
     def fit(self, epochs: int, log_every: int = 100, chunk: int = 100) -> List[dict]:
         """``epochs`` steps of phase 1 (one step is an epoch: the whole

@@ -28,7 +28,10 @@ same expf and products per term as the plain version) and its gradient at
 general walk's bits on a copy, with each ``K[l]`` bitwise symmetric, and
 K4's scalar stores the 16-byte stores' bits. Last, one VI phase-1 step
 (K1 once, K2 at least once) and the RNN encoder under cuDNN with TF32 off
-are held against the CPU.
+are held against the CPU. The sharded Hensman trainer runs on 2 gloo ranks
+sharing the card (meshes (1, 2) and (2, 1), f32, 2 epochs of injected
+batches): every step launches K1 and K2 on each rank, and the losses match
+one process on the card within the card-vs-CPU limits (KL and net 1e-2).
 """
 
 import math
@@ -720,3 +723,27 @@ def test_rnn_encode_on_the_card_matches_the_cpu(gen, cell, monkeypatch):
             continue
         scale = float(b.grad.abs().max())
         assert float((a.grad.cpu() - b.grad).abs().max()) <= 1e-3 * max(scale, 1e-30), name
+
+
+@pytest.mark.parametrize("shape", [(1, 2), (2, 1)], ids=lambda s: f"{s[0]}x{s[1]}")
+def test_sharded_hensman_on_two_ranks_sharing_the_card(gen, shape, tmp_path):
+    import os
+    import sys
+
+    import numpy as np
+
+    # by its file's directory: a machine may have another package named
+    # ``tests``; the spawned ranks inherit this path
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import torch_parallel_worker as w
+
+    rng = np.random.default_rng(1)
+    orders = [rng.permutation(w.P).reshape(-1, w.S) for _ in range(2)]
+    eps = rng.normal(size=(2, w.P // w.S, w.S * w.T, w.L)).astype(np.float32)
+    ctx = w.launch(2, "world_card_hensman", (shape, orders, eps), str(tmp_path), device="cuda")
+    one = w.hensman_steps(w.hensman_trainer(dtype=torch.float32, device="cuda"), orders, eps)
+    steps = 2 * (w.P // w.S)
+    for rank in w.collect(ctx, str(tmp_path)):
+        assert rank["launches"][0] == steps and rank["launches"][1] == 3 * steps
+        np.testing.assert_allclose(rank["epochs"], one["epochs"], rtol=1e-2)
+        np.testing.assert_allclose(rank["H"], one["H"], rtol=1e-2, atol=1e-5)

@@ -251,12 +251,15 @@ def test_reference_pth_seeds_the_vae(small, tmp_path, capsys):
         torch.testing.assert_close(p, model.state_dict()[name], rtol=0, atol=0)
 
 
-@pytest.mark.parametrize("flag,item", [
-    ("--dtype=bfloat16", "item 10"), ("--data_mesh=2", "item 9"),
-    ("--model_dtype=bfloat16", "item 10"), ("--checkpoint_backend=orbax", "item 10"),
+@pytest.mark.parametrize("flag,error,match", [
+    ("--dtype=bfloat16", NotImplementedError, "item 10"),
+    # a mesh needs as many processes as ranks: one process is a world of 1
+    ("--data_mesh=2", ValueError, "world size is 1"),
+    ("--model_dtype=bfloat16", NotImplementedError, "item 10"),
+    ("--checkpoint_backend=orbax", NotImplementedError, "item 10"),
 ])
-def test_waiting_configurations_raise(small, tmp_path, flag, item):
-    with pytest.raises(NotImplementedError, match=item):
+def test_waiting_configurations_raise(small, tmp_path, flag, error, match):
+    with pytest.raises(error, match=match):
         LVAEPipeline(small_cfg(small, tmp_path, flag), device="cpu")
 
 
