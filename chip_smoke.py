@@ -19,8 +19,18 @@ frames, random frames and weights from ``--seed``):
 * serving, through ``LVAEPredictor``, ``aot_compile``, ``impute``,
   ``predict_trajectories``, ``predict_trajectory``,
   ``predict_latent_trajectory`` and ``refresh_basis``;
-* Hensman training with natural gradients, through ``HensmanTrainer``: two
-  epochs of 5 steps (20 subjects, 400 frames a step);
+* Hensman training with natural gradients, through ``HensmanTrainer``'s
+  epoch program: two epochs of 5 steps (20 subjects, 400 frames a step),
+  each step replaying the step captured as a CUDA graph (K1 once and K2
+  three times inside it, counted per replay and by kernel name in a trace
+  of a replayed epoch), held bit-equal to the same step run eagerly on the
+  same draws (cuDNN deterministic; with its default algorithms two eager
+  runs differ too, and both are printed), a resumed run (one epoch, a
+  checkpoint loaded through the state setter, one more) bit-equal to two
+  epochs straight through; the eager and the replayed step's host clock,
+  device time and host launch calls, the capture's cost and a replayed
+  epoch; K5 with its step count on the device bit-equal to the host-scalar
+  launch over 1,000 steps;
 * standard full-batch training, through ``StandardTrainer`` with
   ``hensman=False``: 5 epochs of ``type_KL=closed`` (one step each over all
   N = 2000 frames, K3 building the ``[32, 2000, 2000]`` prior once a step),
@@ -32,7 +42,10 @@ frames, random frames and weights from ``--seed``):
   route (K1 off, the block-pair switch on), with the kernels each step and
   each validation launched checked on both routes; the run's reference GP
   files (``gp_model.pth``, ``zt_list.pth``, ``m.pth``, ``H.pth``) written
-  again and read back;
+  again and read back; one rollback through the pipeline's epoch callback
+  (``auto_recover``, a poisoned epoch) bit-equal to the same restore done
+  by hand; the pre-training epoch program (one captured step) timed and
+  held against the CPU;
 * the VI regime through ``lvae_torch.cli.main`` with
   ``--variational_inference_training=True`` on the same data and
   pre-trained VAE: 3 phase-1 epochs over the whole cohort (K1 once and K2
@@ -83,6 +96,7 @@ times are host-clock medians of calls that end in a synchronise.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import copy
 import itertools
 import json
@@ -126,13 +140,17 @@ from lvae_torch.parallel import (  # noqa: E402
 )
 from lvae_torch.parallel.distributed import free_port, join_ranks, spawn_ranks  # noqa: E402
 from lvae_torch.train.hensman import HensmanConfig, HensmanTrainer  # noqa: E402
+from lvae_torch.train.graph import CapturedStep  # noqa: E402
 from lvae_torch.train.hensman import batch_loss as hensman_batch_loss  # noqa: E402
+from lvae_torch.train.pretrain import VAEPretrainer  # noqa: E402
 from lvae_torch.train.standard import StandardConfig, StandardTrainer  # noqa: E402
 from lvae_torch.train.state import (  # noqa: E402
     init_gp_params, init_inducing_points, make_optimizer,
 )
 from lvae_torch.train.vi import VITrainer  # noqa: E402
-from lvae_torch.utils.checkpoint import read_checkpoint  # noqa: E402
+from lvae_torch.utils.checkpoint import (  # noqa: E402
+    load_checkpoint, read_checkpoint, save_checkpoint,
+)
 from lvae_torch.utils.torch_compat import (  # noqa: E402
     load_reference_gp_state, save_reference_gp_state,
 )
@@ -1080,6 +1098,13 @@ def check_k5(world: World, dev: str = "cuda") -> dict:
     if not max(errs) <= K5_RTOL:
         raise AssertionError("K5 disagrees with its plain version")
 
+    count_ulps = k5_count_vs_host(n, gen, world.cfg.learning_rate, dev)
+    say("kernel", f"K5 with the step count on the device vs the host-scalar launch, "
+        f"{K5_COUNT_STEPS} steps at n={n}: largest difference in ulps (m', v', delta) "
+        f"{json.dumps(count_ulps)} (bit-equal predicted)")
+    if max(count_ulps.values()) != 0:
+        raise AssertionError("K5 with the device count differs from the host-scalar launch")
+
     # from zero, so that the parameters' own rounding (an ulp of a unit-size
     # weight is 1e-4 of a 1e-3 update) does not hide the updates' agreement
     init = [torch.zeros(s, device=dev) for s in shapes]
@@ -1136,54 +1161,92 @@ def check_k5(world: World, dev: str = "cuda") -> dict:
         "fused_adam_step_ms": row["fused_adam_step_ms"],
         "shape": row["shape"],
         "max_rel_err": max(errs),
+        "count_vs_host_ulps": count_ulps,
     }
+
+
+K5_COUNT_STEPS = 1000
+
+
+def ulps(a: torch.Tensor, b: torch.Tensor) -> int:
+    """The largest distance in units in the last place between two f32
+    tensors of one sign pattern (their bit patterns as integers)."""
+    return int((a.view(torch.int32).long() - b.view(torch.int32).long()).abs().max())
+
+
+def k5_count_vs_host(n: int, gen: torch.Generator, lr: float, dev: str) -> dict:
+    """K5 over K5_COUNT_STEPS steps with its bias corrections computed on
+    the device from the step count there, against the launch that takes
+    them as host scalars, on the same gradients: the largest difference in
+    ulps of m', v' and delta over the steps."""
+    m_a, v_a = torch.zeros(n, device=dev), torch.zeros(n, device=dev)
+    m_b, v_b = m_a.clone(), v_a.clone()
+    count = torch.zeros((), dtype=torch.int64, device=dev)
+    worst = {"m": 0, "v": 0, "delta": 0}
+    for step in range(1, K5_COUNT_STEPS + 1):
+        g = 1e-2 * torch.randn(n, generator=gen, device=dev)
+        c1, c2 = k5.bias_corrections(step, 0.9, 0.999)
+        kw = dict(b1=0.9, b2=0.999, lr=lr, eps=1e-8)
+        d_a = k5.fused_adam_update(m_a, v_a, g, c1=c1, c2=c2, **kw)
+        count.add_(1)
+        d_b = k5.fused_adam_update(m_b, v_b, g, count=count, **kw)
+        for key, a, b in (("m", m_a, m_b), ("v", v_a, v_b), ("delta", d_a, d_b)):
+            worst[key] = max(worst[key], ulps(a, b))
+    return worst
 
 
 # ---------------------------------------------------------------- training
 def train(world: World, device: str, h_shift: float = 0.0, cell=None,
-          epochs: int = TRAIN_EPOCHS, dtype=torch.float32, roll: bool = False) -> dict:
-    """``epochs`` Hensman epochs on ``device`` (the ConvVAE in ``dtype``, or
-    the RNN encoder with ``cell``), from the trainer's initial state with
-    ``h_shift``·I added to H; returns the per-epoch and per-step metrics,
-    the final (m_nat, H_nat), the kernels launched in each step, whether
-    each step's natural-gradient update was applied (the PSD-cone guard
-    keeps the old (m, H) otherwise) and the trainer. ``roll`` takes each
-    batch's subjects, and their noise, from the middle of the batch on: the
-    same loss, its subject sums added in another order."""
+          epochs: int = TRAIN_EPOCHS, dtype=torch.float32, roll: bool = False,
+          eager: bool = False) -> dict:
+    """``epochs`` Hensman epochs on ``device`` through ``run_epochs`` (the
+    ConvVAE in ``dtype``, or the RNN encoder with ``cell``), from the
+    trainer's initial state with ``h_shift``·I added to H; returns the
+    per-epoch and per-step metrics, the final (m_nat, H_nat), the kernels
+    launched in each step (K1, K2), whether each step's natural-gradient
+    update was applied (the PSD-cone guard's decision, read from the device
+    with the metrics) and the trainer. On the card the steps replay the
+    captured graph; ``eager`` runs the same step function eagerly instead,
+    on the same draws. ``roll`` takes each batch's subjects, and their
+    noise, from the middle of the batch on (eagerly): the same loss, its
+    subject sums added in another order."""
     model = world.rnn_model(cell) if cell else world.model(dtype)
     trainer = world.trainer(device, model, dtype=dtype)
     if h_shift:
         h = trainer.state.H_nat
         trainer.state = trainer.state._replace(
             H_nat=h + h_shift * torch.eye(h.shape[-1], dtype=h.dtype, device=h.device))
-    per_step, step_metrics, applied = [], [], []
-    real_step = trainer.train_step
+    per_step = []
+    real_step = trainer._run_step
 
-    def counted_step(table, rows, eps=None):
-        if roll:  # the noise as the step draws it, then half the batch rolled round
+    def eager_step(b, rows, eps, out):
+        table = trainer.tables[b]
+        if roll:  # half the batch rolled round, its noise with it
             s, t = rows.shape[0], table.index.shape[1]
-            eps = torch.randn((s * t, world.cfg.latent_dim), generator=trainer.state.rng,
-                              dtype=dtype).reshape(s, t, -1).roll(s // 2, 0).reshape(s * t, -1)
             rows = rows.roll(s // 2)
-        b1, b2 = k1.b_chain.launches, k2.cholesky_inverse.launches
-        m_before = trainer.state.m_nat
-        out = real_step(table, rows, eps)
-        per_step.append((k1.b_chain.launches - b1, k2.cholesky_inverse.launches - b2))
-        step_metrics.append(out)
-        applied.append(trainer.state.m_nat is not m_before and not torch.equal(
-            trainer.state.m_nat, m_before))
-        return out
+            eps = eps.reshape(s, t, -1).roll(s // 2, 0).reshape(s * t, -1)
+        out.copy_(trainer._step(table, rows, eps))
+        trainer._advance()
 
-    trainer.train_step = counted_step
-    metrics = [trainer.run_epoch() for _ in range(epochs)]
-    trainer.train_step = real_step
+    step = eager_step if (eager or roll) else real_step
+
+    def counted_step(b, rows, eps, out):
+        b1, b2 = k1.b_chain.launches, k2.cholesky_inverse.launches
+        step(b, rows, eps, out)
+        per_step.append((k1.b_chain.launches - b1, k2.cholesky_inverse.launches - b2))
+
+    trainer._run_step = counted_step
+    metrics = trainer.run_epochs(epochs)
+    trainer._run_step = real_step
     return {
         "epochs": [m._asdict() for m in metrics],
-        "steps": [{k: float(v) for k, v in m._asdict().items()} for m in step_metrics],
+        "steps": [m._asdict() for m, _ in trainer.last_steps],
         "m_nat": trainer.state.m_nat.detach().cpu().double().numpy(),
         "H_nat": trainer.state.H_nat.detach().cpu().double().numpy(),
+        "params": [p.detach().cpu().double().numpy()
+                   for p in trainer.state.trainables.parameters()],
         "per_step": per_step,
-        "ng_applied": applied,
+        "ng_applied": [kept for _, kept in trainer.last_steps],
         "trainer": trainer,
     }
 
@@ -1393,12 +1456,14 @@ def counted(fn, into: list):
 
 
 class PathCounter:
-    """While active: the kernel launches of every Hensman ``train_step`` and
-    every pipeline ``validate`` call, and the pipeline ``cli.main`` ran."""
+    """While active: the kernel launches of every Hensman step of the epoch
+    program (``_run_step``: a replay of the captured step, or the capture
+    with its warm-up step) and every pipeline ``validate`` call, and the
+    pipeline ``cli.main`` ran."""
 
     def __enter__(self):
         self.steps, self.validations, self.pipeline = [], [], None
-        self._saved = (HensmanTrainer.train_step, pipeline_mod.validate,
+        self._saved = (HensmanTrainer._run_step, pipeline_mod.validate,
                        pipeline_mod.LVAEPipeline.run)
         step, validate, run = self._saved
         counter = self
@@ -1407,13 +1472,13 @@ class PathCounter:
             counter.pipeline = pipe
             return run(pipe)
 
-        HensmanTrainer.train_step = counted(step, self.steps)
+        HensmanTrainer._run_step = counted(step, self.steps)
         pipeline_mod.validate = counted(validate, self.validations)
         pipeline_mod.LVAEPipeline.run = keep_run
         return self
 
     def __exit__(self, *exc):
-        (HensmanTrainer.train_step, pipeline_mod.validate,
+        (HensmanTrainer._run_step, pipeline_mod.validate,
          pipeline_mod.LVAEPipeline.run) = self._saved
         return False
 
@@ -2005,11 +2070,18 @@ def compare(card: dict, cpu: dict) -> dict:
     return errs
 
 
+# the runtime calls by which the host puts work on the card
+HOST_LAUNCH_CALLS = ("cudaLaunchKernel", "cuLaunchKernel", "cudaGraphLaunch", "cudaMemcpy",
+                     "cudaMemset")
+
+
 def profile_window(fn, reps: int, collectives: bool = False) -> dict:
     """Device time per call of ``fn`` from a ``torch.profiler`` trace of
     ``reps`` warm calls: wall ms (host clock, ending in a synchronise), the
     sum of device-kernel ms, the device's idle share of the wall time, the
-    kernels launched per call, and the five kernels that take most time;
+    kernels launched per call, the host's launch calls per call (kernel and
+    graph launches, copies and fills; by name), and the five kernels that
+    take most time;
     with ``collectives``, also the host and device ms per call of the
     collective ops (``all_reduce``/``broadcast`` and what they launch)."""
     from torch.autograd import DeviceType
@@ -2030,11 +2102,15 @@ def profile_window(fn, reps: int, collectives: bool = False) -> dict:
     ]
     busy_us = sum(r[0] for r in rows)
     rows.sort(reverse=True)
+    host_calls = {e.key: e.count / reps for e in prof.key_averages()
+                  if e.device_type == DeviceType.CPU and e.key.startswith(HOST_LAUNCH_CALLS)}
     out = {
         "wall_ms": wall * 1e3 / reps,
         "device_ms": busy_us / 1e3 / reps,
         "idle_share": 1.0 - busy_us / 1e6 / wall,
         "kernels_per_call": sum(r[1] for r in rows) / reps,
+        "host_launches_per_call": sum(host_calls.values()),
+        "host_launch_calls": host_calls,
         "top": [{"kernel": key[:70], "ms": us / 1e3 / reps, "per_call": n / reps}
                 for us, n, key in rows[:5]],
     }
@@ -2064,6 +2140,284 @@ def hensman_step_times(trainer: HensmanTrainer) -> dict:
         step_ms.append((time.perf_counter() - t0) * 1e3)
     return {"host_ms": statistics.median(step_ms[1:]), "first_ms": step_ms[0],
             "profile": profile_window(lambda: trainer.train_step(table, rows), 3)}
+
+
+def replayed_step_times(trainer: HensmanTrainer) -> dict:
+    """Warm replayed steps of the epoch program on the card, the batch and
+    noise of its last dispatched epoch's first step again: the host clock
+    of 6 (median of the last 5) ending in a synchronise, a profiler window
+    of 3, the capture's own cost (a fresh capture with its warm-up step,
+    less an eager step) and a replayed epoch's wall time and profile, in
+    which K1's and K2's kernels are counted by name."""
+    draws = trainer._draws(1)
+    rows, eps = draws[0][0][0, 0], draws[0][1][0, 0]
+    out = torch.empty(5, dtype=trainer.dtype, device=trainer.device)
+    step_ms = []
+    for _ in range(6):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer._run_step(0, rows, eps, out)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    res = {"host_ms": statistics.median(step_ms[1:]),
+           "profile": profile_window(lambda: trainer._run_step(0, rows, eps, out), 3)}
+    table = trainer.tables[0]
+    capture_ms, eager_ms = [], []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        CapturedStep(lambda r, e: trainer._step(table, r, e), (rows, eps), out)
+        torch.cuda.synchronize()
+        capture_ms.append((time.perf_counter() - t0) * 1e3)
+        t0 = time.perf_counter()
+        trainer._step(table, rows, eps)
+        torch.cuda.synchronize()
+        eager_ms.append((time.perf_counter() - t0) * 1e3)
+    res["capture_ms"] = min(c - e for c, e in zip(capture_ms, eager_ms))
+    res["capture_with_warmup_ms"] = capture_ms
+    epoch_ms = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer.run_epoch()
+        epoch_ms.append((time.perf_counter() - t0) * 1e3)
+    res["epoch_ms"] = statistics.median(epoch_ms)
+    epoch = profile_window(trainer.run_epoch, 2)
+    res["epoch_profile"] = epoch
+    res["epoch_kernels_by_name"] = epoch_kernel_names(trainer.run_epoch)
+    return res
+
+
+def epoch_kernel_names(fn) -> dict:
+    """Launches in one call of ``fn`` of K1's (``b_chain_*``) and K2's
+    (``chol_inv_*``) kernels, counted by kernel name in a profiler trace."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    counts = {"b_chain": 0, "chol_inv": 0}
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA:
+            for name in counts:
+                if f"{name}_" in e.key:
+                    counts[name] += e.count
+    return counts
+
+
+GRAPH_STEPS_RTOL = 1e-6  # graph vs eager on the card with cuDNN deterministic, predicted bit-equal
+
+
+@contextlib.contextmanager
+def deterministic_cudnn():
+    """cuDNN restricted to deterministic algorithms inside the block (its
+    default weight-gradient algorithm adds with atomics, in an order that
+    changes from run to run)."""
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = prev
+
+
+def bit_diff(a: np.ndarray, b: np.ndarray) -> dict:
+    """Entries that differ and the largest relative difference."""
+    scale = float(np.abs(b).max()) or 1.0
+    return {"differ": int(np.count_nonzero(a != b)), "rel": float(np.abs(a - b).max()) / scale}
+
+
+def compare_runs(a: dict, b: dict) -> dict:
+    """Two ``train`` runs from one state and draws: per metric, the steps
+    that differ and the largest relative difference over the steps; m_nat,
+    H_nat and every parameter likewise; the first quantity that differs."""
+    out, first = {}, None
+    for key in ("net", "kld", "recon", "nll"):
+        x = np.asarray([m[key] for m in a["steps"]])
+        y = np.asarray([m[key] for m in b["steps"]])
+        out[key] = bit_diff(x, y)
+        if first is None and out[key]["differ"]:
+            first = f"{key} at step {int(np.argmax(x != y)) + 1}"
+    for key in ("m_nat", "H_nat"):
+        out[key] = bit_diff(a[key], b[key])
+    diffs = [bit_diff(x, y) for x, y in zip(a["params"], b["params"])]
+    out["params"] = {"differ": sum(d["differ"] for d in diffs),
+                     "rel": max(d["rel"] for d in diffs)}
+    if first is None:
+        first = next((k for k in ("m_nat", "H_nat", "params") if out[k]["differ"]), None)
+    out["first_difference"] = first
+    return out
+
+
+def graph_vs_eager(world: World) -> dict:
+    """TRAIN_EPOCHS epochs from H + H_SHIFT·I on the card through the
+    captured graph and through the same step function run eagerly, on the
+    same draws, with a second eager run as the witness of the eager path's
+    own repeatability: with cuDNN's default algorithms (reported) and with
+    its deterministic ones (held to GRAPH_STEPS_RTOL)."""
+    res = {}
+    for mode in ("default", "deterministic"):
+        with (deterministic_cudnn() if mode == "deterministic" else contextlib.nullcontext()):
+            graph = train(world, "cuda", H_SHIFT)
+            eager = train(world, "cuda", H_SHIFT, eager=True)
+            witness = train(world, "cuda", H_SHIFT, eager=True)
+        res[mode] = {"graph_vs_eager": compare_runs(graph, eager),
+                     "eager_vs_eager": compare_runs(witness, eager)}
+        if graph["per_step"] != eager["per_step"]:
+            raise AssertionError(f"graph and eager launches differ: {graph['per_step']} "
+                                 f"{eager['per_step']}")
+    held = res["deterministic"]["graph_vs_eager"]
+    worst = max(v["rel"] for k, v in held.items() if k != "first_difference")
+    if not worst <= GRAPH_STEPS_RTOL:
+        raise AssertionError(f"graph vs eager on the card: {json.dumps(res)}")
+    return res
+
+
+def resume_vs_straight(world: World, root: str) -> dict:
+    """Two one-epoch chunks straight through against one chunk, a saved
+    checkpoint loaded into a new trainer through the state setter, and one
+    more chunk, on the card (cuDNN deterministic): the second chunk's
+    metrics, (m, H) and every parameter must be bit-equal."""
+    with deterministic_cudnn():
+        return _resume_vs_straight(world, root)
+
+
+def _resume_vs_straight(world: World, root: str) -> dict:
+    a = world.trainer("cuda")
+    a.run_epochs(1)
+    a.run_epochs(1)
+    b = world.trainer("cuda")
+    b.run_epochs(1)
+    path = save_checkpoint(os.path.join(root, "resume.ckpt"), b.state)
+    c = world.trainer("cuda")
+    c.state = load_checkpoint(path, like=c.state)
+    c.run_epochs(1)
+    got = {"steps": [m._asdict() for m, _ in c.last_steps]}
+    want = {"steps": [m._asdict() for m, _ in a.last_steps]}
+    for run, tr in ((got, c), (want, a)):
+        run.update(m_nat=tr.state.m_nat.cpu().double().numpy(),
+                   H_nat=tr.state.H_nat.cpu().double().numpy(),
+                   params=[p.detach().cpu().double().numpy()
+                           for p in tr.state.trainables.parameters()])
+    res = compare_runs(got, want)
+    if res["first_difference"] is not None or c.state.step != a.state.step:
+        raise AssertionError(f"resume vs straight through: {json.dumps(res)}")
+    return res
+
+
+def rollback_vs_replay(root: str, run: dict) -> dict:
+    """One rollback through the pipeline's epoch callback on the card
+    (``auto_recover``; the second epoch's state poisoned once, so the
+    callback restores the first epoch's snapshot and reseeds the generator)
+    against the same restore done by hand on a second trainer (cuDNN
+    deterministic): the epochs after the rollback and the end state must
+    be bit-equal."""
+    with deterministic_cudnn():
+        return _rollback_vs_replay(root, run)
+
+
+def _rollback_vs_replay(root: str, run: dict) -> dict:
+    results = os.path.join(root, "rollback")
+    cfg, _ = parse_flag_lines(pipeline_flags(
+        run["data"], results, "--epochs=3", "--checkpoint_every=1", "--test_freq=0",
+        "--auto_recover=True", f"--model_params={run['results']}/model_params_vae.ckpt",
+        "--gp_model_folder="))
+    pipe = pipeline_mod.LVAEPipeline(cfg, device="cuda")
+    trainer = pipe.build_trainer()
+    real, poisoned = trainer.run_epochs, []
+
+    def run_epochs(n):
+        out = real(n)
+        if len(trainer.history) == 2 and not poisoned:
+            poisoned.append(True)
+            with torch.no_grad():
+                trainer.state.trainables.gp.kp0.raw_scale.fill_(float("nan"))
+        return out
+
+    trainer.run_epochs = run_epochs
+    pipe.train()
+    if pipe.recoveries != 1 or len(trainer.history) != 3:
+        raise AssertionError(f"rollback: {pipe.recoveries} recoveries, "
+                             f"{len(trainer.history)} epochs")
+    cfg2, _ = parse_flag_lines(pipeline_flags(
+        run["data"], os.path.join(root, "rollback_ref"), "--test_freq=0",
+        f"--model_params={run['results']}/model_params_vae.ckpt", "--gp_model_folder="))
+    ref = pipeline_mod.LVAEPipeline(cfg2, device="cuda").build_trainer()
+    ref.run_epochs(1)
+    path = save_checkpoint(os.path.join(root, "rollback_ref.ckpt"), ref.state)
+    state = load_checkpoint(path, like=ref.state)
+    seed = int(torch.randint(0, 2**62, (1,), generator=state.rng))
+    state.rng.manual_seed(seed + 1)
+    ref.state = state
+    ref.run_epochs(2)
+    got = {"steps": [{k: v for k, v in m._asdict().items()} for m in trainer.history[1:]]}
+    want = {"steps": [{k: v for k, v in m._asdict().items()} for m in ref.history[1:]]}
+    for r, tr in ((got, trainer), (want, ref)):
+        r.update(m_nat=tr.state.m_nat.cpu().double().numpy(),
+                 H_nat=tr.state.H_nat.cpu().double().numpy(),
+                 params=[p.detach().cpu().double().numpy()
+                         for p in tr.state.trainables.parameters()])
+    res = compare_runs(got, want)
+    if res["first_difference"] is not None:
+        raise AssertionError(f"rollback vs replay: {json.dumps(res)}")
+    return res
+
+
+def pretrain_times(world: World) -> dict:
+    """The pre-training epoch program on the card at the cohort's 2000
+    frames (7 batches of 256): a warm epoch's wall time and profile, and
+    the CPU's first epoch from the same weights and draws held to the
+    card's within LOSS_RTOL."""
+    class Cohort:
+        data, mask = world.frames, world.pixmask
+
+        def __len__(self):
+            return len(world.frames)
+
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        pre = VAEPretrainer(world.model(), Cohort(), loss_function="nll", dropout=False,
+                            seed=world.seed, device=dev)
+        runs[dev] = (pre, pre.run_epoch())
+    pre = runs["cuda"][0]
+    errs = {k: rel(a, b) for k, a, b in zip(("loss", "recon", "nll", "kld"), runs["cuda"][1],
+                                            runs["cpu"][1])}
+    if not max(errs.values()) <= LOSS_RTOL:
+        raise AssertionError(f"pretrain epoch card vs CPU: {errs}")
+    ms = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pre.run_epoch()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return {"epoch_ms": statistics.median(ms), "steps": world.frames.shape[0] // pre.batch_size,
+            "profile": profile_window(pre.run_epoch, 2), "card_vs_cpu": errs}
+
+
+def replay_profiles(seed: int, data: str, results: str) -> dict:
+    """Rank side of a world of one: the profiler's traces of CUDA graph
+    replays, in a fresh process. In the long main process a traced replay
+    crashed it (a segmentation fault in the replay, under the profiler,
+    after the earlier phases' many profiler sessions), while each phase
+    before it, followed by a traced replay in a fresh process, did not.
+    Here: the Hensman run's eager and replayed step times, the capture's
+    cost and a replayed epoch (:func:`replayed_step_times`), the
+    pre-training epoch program (:func:`pretrain_times`) and one epoch of
+    the CLI run's resumed pipeline (``data`` and ``results`` its folders)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    world = World(seed)
+    trainer = train(world, "cuda")["trainer"]
+    out = {"eager": hensman_step_times(trainer), "replay": replayed_step_times(trainer),
+           "pretrain": pretrain_times(world)}
+    pipe = resumed_pipeline(PIPE_DIR, {"data": data, "results": results}, "cuda")
+    out["pipeline_epoch"] = profile_window(pipe.trainer.run_epoch, 1)
+    return out
+
+
+GRAPH_DIR = os.path.join(ROOT, "build", "chip_smoke_graph")  # git-ignored
 
 
 # ---------------------------------------------------------------- parallel
@@ -2161,21 +2515,19 @@ def sharded_epochs(world: World, mesh, dtype=torch.float32) -> dict:
     trainer.state = trainer.state._replace(
         H_nat=h + H_SHIFT * torch.eye(h.shape[-1], dtype=h.dtype, device=h.device))
     sharded = ShardedHensmanTrainer(trainer, mesh)
-    steps, per_step, real_step = [], [], trainer.train_step
+    per_step, real_step = [], trainer._run_step
 
-    def counted_step(table, rows, eps=None):
+    def counted_step(b, rows, eps, out):
         before = launch_counts()
-        out = real_step(table, rows, eps)
+        real_step(b, rows, eps, out)
         per_step.append({k: v - before[k] for k, v in launch_counts().items()})
-        steps.append({k: float(v) for k, v in out._asdict().items()})
-        return out
 
-    trainer.train_step = counted_step
+    trainer._run_step = counted_step
     reset_launch_counts()
     with ShapeLog() as log:
-        for _ in range(TRAIN_EPOCHS):
-            sharded.run_epoch()
-    trainer.train_step = real_step
+        sharded.run_epochs(TRAIN_EPOCHS)
+    trainer._run_step = real_step
+    steps = [m._asdict() for m, _ in trainer.last_steps]
     return {"steps": steps, "per_step": per_step, "launches": launch_counts(),
             "shapes": log.distinct(),
             "m_nat": trainer.state.m_nat.detach().cpu().double().numpy(),
@@ -2483,8 +2835,8 @@ def main() -> int:
     steps = len(card_run["per_step"])
     say("training", f"{steps} steps in {train_s:.3f} s (first call included); launches "
         f"{json.dumps(train_launches)}; per step (K1, K2) {card_run['per_step']}")
-    if any(n1 != 1 or n2 < 2 for n1, n2 in card_run["per_step"]):
-        raise AssertionError("a training step did not launch K1 once and K2 at least twice")
+    if any(step != (1, 3) for step in card_run["per_step"]):
+        raise AssertionError("a training step did not launch K1 once and K2 3 times")
     check_training(card_run)
     for e, m in enumerate(card_run["epochs"]):
         say("training", f"card epoch {e + 1}: {json.dumps(m)}")
@@ -2525,12 +2877,33 @@ def main() -> int:
         f"at the raw init {kl_first:.3e}")
     check_within(t_errs)
 
-    # warm steps on the card: host clock per step, then a profiler window
+    # the captured step against the same step run eagerly, from one state
+    # and one set of draws; resume from a checkpoint against the run
+    # straight through
+    t0 = time.perf_counter()
+    gve = graph_vs_eager(world)
+    for mode in ("default", "deterministic"):
+        say("compare", f"graph vs eager on the card, {steps} steps from H+{H_SHIFT}I, cuDNN "
+            f"{mode}: {json.dumps(gve[mode]['graph_vs_eager'])}; eager vs eager (witness) "
+            f"{json.dumps(gve[mode]['eager_vs_eager'])}"
+            + (f" (held <= {GRAPH_STEPS_RTOL:g} rel)" if mode == "deterministic" else "")
+            + f" | {card}")
+    os.makedirs(GRAPH_DIR, exist_ok=True)
+    try:
+        res = resume_vs_straight(world, GRAPH_DIR)
+    finally:
+        shutil.rmtree(GRAPH_DIR, ignore_errors=True)
+    say("compare", f"resume (1 epoch, save, load through the state setter, 1 epoch) vs 2 "
+        f"epochs straight through on the card: {json.dumps(res)} "
+        f"({time.perf_counter() - t0:.1f} s)")
+
+    # warm steps on the card, eager and replayed in this call: host clock
+    # per step, then a profiler window; the capture's cost; a replayed epoch
     trainer = card_run["trainer"]
     warm = warm_single = hensman_step_times(trainer)
-    say("training", f"step (host clock, warm) median {warm['host_ms']:.3f} ms over 5, first "
-        f"{warm['first_ms']:.3f} ms (S={trainer.subjects_per_batch} T={world.cfg.T} "
-        f"L={world.cfg.latent_dim} M={world.cfg.M})")
+    say("training", f"eager step (host clock, warm) median {warm['host_ms']:.3f} ms over 5, "
+        f"first {warm['first_ms']:.3f} ms (S={trainer.subjects_per_batch} T={world.cfg.T} "
+        f"L={world.cfg.latent_dim} M={world.cfg.M}) | {card}")
     say("profile", "train_step " + json.dumps(warm["profile"]))
 
     # phase 6: the standard training path on the card; counts from 0 just before it
@@ -2610,7 +2983,40 @@ def main() -> int:
             f"export from model_final.ckpt gives the same bits; read back, |raw param "
             f"difference| {json.dumps(export_errs)} (<= {EXPORT_ATOL:g}), z, m, H equal")
 
-        say("profile", "pipeline_epoch " + json.dumps(profile_window(card_pipe.trainer.run_epoch, 1)))
+        t0 = time.perf_counter()
+        rb = rollback_vs_replay(PIPE_DIR, pipe_run)
+        say("compare", f"pipeline rollback (auto_recover, epoch 2 poisoned once) vs the same "
+            f"restore by hand, 2 epochs after it on the card: {json.dumps(rb)} "
+            f"({time.perf_counter() - t0:.1f} s)")
+
+        # the profiler traces of graph replays, in a fresh process
+        t0 = time.perf_counter()
+        try:
+            prof = run_ranks(1, replay_profiles, (args.seed, pipe_run["data"],
+                                                  pipe_run["results"]), "replay")[0]
+        finally:
+            shutil.rmtree(PAR_DIR, ignore_errors=True)
+        replay, eager = prof["replay"], prof["eager"]
+        say("training", f"in one fresh process: eager step (host clock, warm) median "
+            f"{eager['host_ms']:.3f} ms, replayed step {replay['host_ms']:.3f} ms over 5; "
+            f"capture {replay['capture_ms']:.3f} ms beyond an eager step (with its warm-up "
+            f"step {[round(t, 3) for t in replay['capture_with_warmup_ms']]} ms); replayed "
+            f"epoch ({steps // TRAIN_EPOCHS} steps) {replay['epoch_ms']:.3f} ms "
+            f"({time.perf_counter() - t0:.1f} s) | {card}")
+        say("profile", "train_step_fresh " + json.dumps(eager["profile"]))
+        say("profile", "replayed_step " + json.dumps(replay["profile"]))
+        say("profile", "replayed_epoch " + json.dumps(replay["epoch_profile"]))
+        names = replay["epoch_kernels_by_name"]
+        say("training", f"replayed epoch, kernels by name in the trace {json.dumps(names)}")
+        if names != {"b_chain": steps // TRAIN_EPOCHS, "chol_inv": 3 * steps // TRAIN_EPOCHS}:
+            raise AssertionError(f"a replayed epoch's trace shows {names}, expected K1 once "
+                                 "and K2 3 times a step")
+        say("profile", "pipeline_epoch " + json.dumps(prof["pipeline_epoch"]))
+        pre = prof["pretrain"]
+        say("pipeline", f"pre-training epoch program ({pre['steps']} steps of 256 frames, one "
+            f"captured step) warm epoch {pre['epoch_ms']:.3f} ms; card vs CPU first epoch "
+            f"{json.dumps(pre['card_vs_cpu'])} | {card}")
+        say("profile", "pretrain_epoch " + json.dumps(pre["profile"]))
         say("profile", "pipeline_validation " + json.dumps(
             profile_window(lambda: pipe_validate(card_pipe), 2)))
 

@@ -84,14 +84,18 @@ class RNNVAE(nn.Module):
         with torch.no_grad():
             for name, mask in pinned_bias_mask(type_rnn, hidden_dim).items():
                 getattr(self.rnn, name).mul_(mask.to(dtype))
+                # moves with the module, so that the hook reads it on the
+                # gradient's device (a copy there would break a CUDA graph's
+                # capture); not in the state_dict
+                self.register_buffer(f"pin_mask_{name}", mask.to(dtype), persistent=False)
         self._pin_biases()
 
     def _pin_biases(self) -> None:
         """Zero the gradient of the pinned bias entries (once a tensor)."""
-        for name, mask in pinned_bias_mask(self.type_rnn, self.hidden_dim).items():
+        for name in pinned_bias_mask(self.type_rnn, self.hidden_dim):
             bias = getattr(self.rnn, name)
             if not getattr(bias, "_pinned", False):
-                bias.register_hook(lambda g, m=mask: g * m.to(g.device, g.dtype))
+                bias.register_hook(lambda g, n=name: g * getattr(self, f"pin_mask_{n}"))
                 bias._pinned = True
 
     def encode(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -284,7 +284,12 @@ class NaturalGradients(NamedTuple):
 
 
 def _scalar(x, dtype, device) -> torch.Tensor:
-    return torch.as_tensor(x, dtype=dtype, device=device)
+    """``x`` as a 0-dim tensor on ``device``: a tensor is cast, a Python
+    number is filled on the device (no host-to-device copy, which a CUDA
+    graph's capture refuses)."""
+    if isinstance(x, torch.Tensor):
+        return x.to(dtype=dtype, device=device)
+    return torch.full((), x, dtype=dtype, device=device)
 
 
 @_full_precision
@@ -383,6 +388,31 @@ def minibatch_kld(
 
 @_full_precision
 @torch.no_grad()
+def natural_gradient_proposal(
+    m: torch.Tensor,
+    H: torch.Tensor,
+    ng: NaturalGradients,
+    lr: float,
+    view: Local = LOCAL,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The natural-gradient step on (m, H) in inverse space and the guard's
+    decision: ``(m_new, H_new, ok)``, with ``ok`` a device boolean (see
+    :func:`natural_gradient_update`, which applies it)."""
+    if ng.iH is not None:
+        ih = ng.iH
+    else:
+        _, ih = la.cholesky_and_inverse(H)
+    ih_new = ih + lr * (ng.grad_H + ng.grad_H.mT)
+    _, h_new = la.cholesky_and_inverse(ih_new)
+    m_new = h_new @ (ih @ m - lr * (ng.grad_m - 2.0 * (ng.grad_H @ m)))
+    l_h_new, _ = la.cholesky_and_inverse(h_new)
+    ok = view.all_latents(torch.isfinite(m_new).all() & torch.isfinite(h_new).all()
+                          & torch.isfinite(l_h_new).all())
+    return m_new, h_new, ok
+
+
+@_full_precision
+@torch.no_grad()
 def natural_gradient_update(
     m: torch.Tensor,
     H: torch.Tensor,
@@ -403,14 +433,5 @@ def natural_gradient_update(
     reference's nearly singular initial H; ROADMAP queue 3). The guard reads
     every latent of ``view``: on a latent shard a step is kept only where
     every rank's new (m, H) is finite, as one process decides for all L."""
-    if ng.iH is not None:
-        ih = ng.iH
-    else:
-        _, ih = la.cholesky_and_inverse(H)
-    ih_new = ih + lr * (ng.grad_H + ng.grad_H.mT)
-    _, h_new = la.cholesky_and_inverse(ih_new)
-    m_new = h_new @ (ih @ m - lr * (ng.grad_m - 2.0 * (ng.grad_H @ m)))
-    l_h_new, _ = la.cholesky_and_inverse(h_new)
-    ok = view.all_latents(torch.isfinite(m_new).all() & torch.isfinite(h_new).all()
-                          & torch.isfinite(l_h_new).all())
+    m_new, h_new, ok = natural_gradient_proposal(m, H, ng, lr, view)
     return torch.where(ok, m_new, m), torch.where(ok, h_new, H)

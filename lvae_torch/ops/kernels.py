@@ -167,8 +167,8 @@ def _component_base(
         col, num = comp.cat_mod
         eq = x1[..., :, col, None] == x2[..., None, :, col]
         # both branches in ``dtype``: Python-float branches of torch.where
-        # would be rounded to float32 first
-        other = torch.tensor(-1.0 / (num - 1), dtype=dtype, device=x1.device)
+        # would be rounded to float32 first (a fill, not a host copy)
+        other = torch.full((), -1.0 / (num - 1), dtype=dtype, device=x1.device)
         d = torch.where(eq, torch.ones_like(other), other)
         disc = d if disc is None else disc * d
     sqdist = None
@@ -363,7 +363,7 @@ def add_adaptive_jitter(kzz: torch.Tensor, eps: float, view: Local = LOCAL) -> t
     if kzz.dtype == torch.float32:
         diag_mean = view.latent_mean(torch.sum(kzz * eye), kzz.numel() // m)
         eps_eff = torch.maximum(
-            torch.tensor(eps, dtype=kzz.dtype, device=kzz.device), 3e-4 * diag_mean
+            torch.full((), eps, dtype=kzz.dtype, device=kzz.device), 3e-4 * diag_mean
         )
     else:
         eps_eff = eps

@@ -317,6 +317,11 @@ class ShardedHensmanTrainer(_ShardedTrainer):
     ``[K0zz; H]`` latents and its ``ih_new``, and every rank reports one
     process's numbers. The dataset and block tables stay whole on every
     rank.
+
+    The inner trainer's epoch program runs its steps eagerly here: the
+    view's collectives (``sum_grads``, ``data_sums``, the metrics' sum) go
+    through ``torch.distributed``, which a CUDA graph cannot capture, so a
+    mesh view never captures its step (one process on the card does).
     """
 
     def __init__(self, trainer, mesh: Mesh):

@@ -3,8 +3,19 @@
 One step: a subject batch through the VAE and its masked reconstruction
 loss, the GP operators (kernel K1 builds the per-subject B chain on the
 card), the minibatch KL bound, one Adam step on the trainables and one
-natural-gradient step on (m, H). The JAX package scans steps and epochs
-inside one compiled program; here they are a Python loop.
+natural-gradient step on (m, H).
+
+The epoch program (the JAX package's ``make_epochs_fn``): ``run_epochs(n)``
+draws a chunk's permutations and noise on the host, copies them to the
+device once, runs every step of the chunk and reads the chunk's metrics
+once (``_dispatch_epochs``, then ``_materialize_metrics``); ``fit`` without
+a callback dispatches chunk k+1 before it reads chunk k. The step is one
+function on fixed buffers that updates the state in place. On the card it
+is captured once per batch shape ``[S, T_bucket]`` (and route switch) as a
+CUDA graph (``train/graph.CapturedStep``) and replayed for every batch; on
+the CPU, and on a mesh view, whose collectives cannot be captured, it runs
+eagerly. Assigning ``trainer.state`` drops the graphs, so that the next
+chunk captures again on the new state's tensors.
 
 * Fixed-T and ragged cohorts share one path through padded blocks and
   validity masks; ghost subjects pad the final batch, contribute exactly
@@ -24,7 +35,7 @@ inside one compiled program; here they are a Python loop.
 
 from __future__ import annotations
 
-from typing import List, NamedTuple, Optional, Sequence, Tuple
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -35,6 +46,9 @@ from lvae_torch.ops import elbo as eb
 from lvae_torch.ops import kernels as kx
 from lvae_torch.ops.shard import LOCAL, Local
 from lvae_torch.train import state as st
+from lvae_torch.train.graph import (
+    CapturedStep, epochs_per_slab, finish_host_copy, start_host_copy,
+)
 from lvae_torch.utils.device import resolve_device
 
 
@@ -269,38 +283,48 @@ class HensmanTrainer:
             rng=torch.Generator().manual_seed(seed),
             step=0,
         )
-        self.history: list = []
+        self.history: List[StepMetrics] = []
+        # the last chunk's steps: their metrics and whether each kept its
+        # natural-gradient update (the guard's decision)
+        self.last_steps: List[Tuple[StepMetrics, bool]] = []
         self.view: Local = LOCAL  # a rank's shard on a mesh (parallel/mesh.py)
 
+    # ---------------------------------------------------------------- state
+    @property
+    def state(self) -> st.HensmanState:
+        return self._state
+
+    @state.setter
+    def state(self, value: st.HensmanState) -> None:
+        """A new state drops the captured steps: a graph reads and writes the
+        tensors it was captured on, so the next chunk captures again."""
+        self._state = value
+        self._graphs: Dict[tuple, CapturedStep] = {}
+
     # ------------------------------------------------------------- one step
-    def train_step(self, table: BlockTable, order_rows: torch.Tensor,
-                   eps: Optional[torch.Tensor] = None) -> StepMetrics:
-        """One step on the batch of table rows ``order_rows [S]`` (rows at
-        or past ``table.num_real`` are ghosts): Adam on the trainables, then
-        the natural-gradient update of (m, H). ``eps [S·T, L]`` is drawn from
-        the state's generator when not given. Returns device metrics (on a
-        mesh, summed over the ranks: one process's numbers)."""
-        state = self.state
-        view = self.view
-        order_rows = order_rows.to(self.device)
-        b_idx = table.index[order_rows]
-        b_mask = table.mask[order_rows]
-        p_batch = torch.sum(order_rows < table.num_real).to(b_mask.dtype)
+    def _step(self, table: BlockTable, rows: torch.Tensor, eps: torch.Tensor) -> torch.Tensor:
+        """The step function on device buffers: batch ``rows [S]`` of
+        ``table`` with noise ``eps [S·T, L]``. Adam on the trainables, then
+        the natural-gradient update of (m, H), both in place; returns
+        ``[net, recon, nll, kld, kept]`` on the device, ``kept`` 1 where
+        the guard kept the natural-gradient update (on a mesh, the metrics
+        summed over the ranks). Safe to capture (``train/graph.py``)."""
+        state, view, cfg = self._state, self.view, self.cfg
+        b_idx = table.index[rows]
+        b_mask = table.mask[rows]
+        p_batch = torch.sum(rows < table.num_real).to(b_mask.dtype)
         if view is not LOCAL:
             # the whole batch's noise, as one process draws it, then this
             # rank's subjects of everything
             s, t = b_idx.shape
-            if eps is None:
-                eps = torch.randn((s * t, self.cfg.latent_dim), generator=state.rng,
-                                  dtype=self.dtype)
-            eps = view.take_subjects(eps.reshape(s, t, -1)).reshape(-1, self.cfg.latent_dim)
+            eps = view.take_subjects(eps.reshape(s, t, -1)).reshape(-1, cfg.latent_dim)
             b_idx, b_mask = view.take_subjects(b_idx), view.take_subjects(b_mask)
         opt = state.opt_state
         opt.zero_grad(set_to_none=True)
         shard = view.latent_shard(state)  # views: gradients reach the whole trainables
         net, (metrics, ng) = batch_loss(
-            self.model, self.cfg, shard.trainables, shard.m_nat, shard.H_nat,
-            self.tdata, b_idx, b_mask, p_batch, eps=eps, generator=state.rng, view=view,
+            self.model, cfg, shard.trainables, shard.m_nat, shard.H_nat,
+            self.tdata, b_idx, b_mask, p_batch, eps=eps, view=view,
         )
         net.backward()
         params = list(state.trainables.parameters())
@@ -312,45 +336,145 @@ class HensmanTrainer:
                 p.grad = torch.zeros_like(p)
         view.sum_grads(params)
         opt.step()
-        m_nat, H_nat = state.m_nat, state.H_nat
-        if self.cfg.natural_gradient:
-            n_lat = self.cfg.latent_dim
-            m_new, h_new = eb.natural_gradient_update(
-                shard.m_nat, shard.H_nat, ng, self.cfg.natural_gradient_lr, view
-            )
-            m_nat, H_nat = view.gather_latents(m_new, n_lat), view.gather_latents(h_new, n_lat)
+        kept = torch.ones((), dtype=net.dtype, device=net.device)
+        if cfg.natural_gradient:
+            m_new, h_new, ok = eb.natural_gradient_proposal(
+                shard.m_nat, shard.H_nat, ng, cfg.natural_gradient_lr, view)
+            n_lat = cfg.latent_dim
+            m_new = view.gather_latents(torch.where(ok, m_new, shard.m_nat), n_lat)
+            h_new = view.gather_latents(torch.where(ok, h_new, shard.H_nat), n_lat)
+            state.m_nat.copy_(m_new)
+            state.H_nat.copy_(h_new)
+            kept = ok.to(net.dtype)
+        return torch.stack([*view.world_metrics(metrics), kept])
+
+    def train_step(self, table: BlockTable, order_rows: torch.Tensor,
+                   eps: Optional[torch.Tensor] = None) -> StepMetrics:
+        """One eager step on the batch of table rows ``order_rows [S]``
+        (rows at or past ``table.num_real`` are ghosts): Adam on the
+        trainables, then the natural-gradient update of (m, H), in place.
+        ``eps [S·T, L]`` is drawn from the state's generator when not given.
+        Returns device metrics (on a mesh, summed over the ranks: one
+        process's numbers)."""
+        if eps is None:
+            shape = (order_rows.shape[0] * table.index.shape[1], self.cfg.latent_dim)
+            eps = torch.randn(shape, generator=self._state.rng, dtype=self.dtype)
+        out = self._step(table, order_rows.to(self.device), eps.to(self.device, self.dtype))
+        self._advance()
+        return StepMetrics(*out[:4])
+
+    def _advance(self) -> None:
+        """Count a step taken (its tensors were updated in place)."""
+        state = self._state
         if self.cfg.learn_inducing and state.trainables.z is not None:
+            # keep the serving/eval view (tdata.z) on the learned points
             self.tdata = self.tdata._replace(z=state.trainables.z.detach())
-        self.state = state._replace(m_nat=m_nat, H_nat=H_nat, step=state.step + 1)
-        return view.world_metrics(metrics)
+        self._state = state._replace(step=state.step + 1)
+
+    def _run_step(self, b: int, rows: torch.Tensor, eps: torch.Tensor,
+                  out: torch.Tensor) -> None:
+        """Step ``rows``/``eps`` of bucket ``b`` into the metrics row
+        ``out [5]``: on the card the captured step (captured at the first
+        batch of its shape and route switches, which runs as the warm-up),
+        on the CPU and on a mesh view the eager one."""
+        table = self.tables[b]
+        if self.device.type != "cuda" or self.view is not LOCAL:
+            out.copy_(self._step(table, rows, eps))
+        else:
+            key = (b, kx.use_b_chain_kernel, kx.use_block_pair_kernel)
+            captured = self._graphs.get(key)
+            if captured is None:
+                self._graphs[key] = CapturedStep(
+                    lambda r, e: self._step(table, r, e), (rows, eps), out)
+            else:
+                out.copy_(captured.replay(rows, eps))
+        self._advance()
 
     # --------------------------------------------------------------- epochs
+    @property
+    def steps_per_epoch(self) -> int:
+        return sum(t.index.shape[0] // self.subjects_per_batch for t in self.tables)
+
     def _epoch_order(self, table: BlockTable) -> torch.Tensor:
         """This epoch's batches of table rows ``[n_batches, S]``: a
         permutation of the real subjects from the state's generator, then
         the ghost rows."""
         p_pad = table.index.shape[0]
-        perm = torch.randperm(table.num_real, generator=self.state.rng)
+        perm = torch.randperm(table.num_real, generator=self._state.rng)
         perm = torch.cat([perm, torch.arange(table.num_real, p_pad)])
         return perm.reshape(p_pad // self.subjects_per_batch, self.subjects_per_batch)
+
+    def _draws(self, n: int, orders=None) -> List[Tuple[torch.Tensor, torch.Tensor]]:
+        """A chunk's draws per bucket on the device: the batch rows
+        ``[n, n_batches, S]`` and the noise ``[n, n_batches, S·T, L]``. They
+        come from the state's generator in the order the steps would draw
+        them one by one: per epoch and bucket the permutation, then one
+        ``randn`` a step. ``orders[e][b]`` replaces a drawn permutation.
+        They are filled in a fresh pinned slab on the host and copied to the
+        card at once (the allocator keeps a pinned block until its copy is
+        done, so a slab in flight is never refilled)."""
+        gen, s, n_lat = self._state.rng, self.subjects_per_batch, self.cfg.latent_dim
+        pin = self.device.type == "cuda"
+        slabs = []
+        for table in self.tables:
+            nb, t = table.index.shape[0] // s, table.index.shape[1]
+            slabs.append((torch.empty((n, nb, s), dtype=torch.int64, pin_memory=pin),
+                          torch.empty((n, nb, s * t, n_lat), dtype=self.dtype, pin_memory=pin)))
+        for e in range(n):
+            for b, (table, (rows, eps)) in enumerate(zip(self.tables, slabs)):
+                rows[e] = (self._epoch_order(table) if orders is None
+                           else torch.as_tensor(orders[e][b]))
+                for i in range(rows.shape[1]):
+                    eps[e, i].normal_(generator=gen)  # torch.randn's draw
+        return [(rows.to(self.device, non_blocking=True), eps.to(self.device, non_blocking=True))
+                for rows, eps in slabs]
+
+    def _dispatch_epochs(self, n: int, orders=None):
+        """Run an ``n``-epoch chunk without waiting for the device; returns
+        its per-step metrics ``[n, steps, 5]`` and, on the card, their host
+        copy in flight and the event that marks it done. The chunk's draws
+        go to the device in one copy, or in parts of whole epochs where
+        they exceed ``graph.SLAB_BYTES``."""
+        out = torch.empty((n, self.steps_per_epoch, 5), dtype=self.dtype, device=self.device)
+        item = self.tdata.labels.element_size()
+        epoch_bytes = sum(t.index.shape[0] * (t.index.shape[1] * self.cfg.latent_dim * item + 8)
+                          for t in self.tables)
+        part = epochs_per_slab(epoch_bytes)
+        for start in range(0, n, part):
+            m = min(part, n - start)
+            draws = self._draws(m, None if orders is None else orders[start:start + m])
+            for e in range(m):
+                k = 0
+                for b, (rows, eps) in enumerate(draws):
+                    for i in range(rows.shape[1]):
+                        self._run_step(b, rows[e, i], eps[e, i], out[start + e, k])
+                        k += 1
+        return start_host_copy(out)
+
+    def _materialize_metrics(self, chunk, n: int) -> List[StepMetrics]:
+        """Wait for a dispatched chunk's metrics; returns each epoch's mean
+        over its steps as host floats (appended to ``history``); its steps'
+        metrics and guard decisions become ``last_steps``."""
+        host = finish_host_copy(chunk)
+        out = []
+        for e in range(n):
+            m = StepMetrics(*host[e, :, :4].mean(0).tolist())
+            self.history.append(m)
+            out.append(m)
+        self.last_steps = [(StepMetrics(*row[:4]), row[4] > 0)
+                           for row in host.reshape(-1, 5).tolist()]
+        return out
+
+    def run_epochs(self, n: int) -> List[StepMetrics]:
+        """Run ``n`` epochs as one chunk; returns their metrics."""
+        return self._materialize_metrics(self._dispatch_epochs(n), n)
 
     def run_epoch(self, order: Optional[Sequence] = None) -> StepMetrics:
         """One epoch over every bucket; returns the epoch's mean metrics as
         host floats. ``order`` (one ``[n_batches, S]`` array of table rows per
         bucket) replaces the drawn permutations."""
-        step_ms: List[StepMetrics] = []
-        for b, table in enumerate(self.tables):
-            rows = self._epoch_order(table) if order is None else torch.as_tensor(order[b])
-            for batch in rows:
-                step_ms.append(self.train_step(table, batch))
-        mean = torch.stack([torch.stack(m) for m in step_ms]).mean(0).tolist()
-        m = StepMetrics(*mean)
-        self.history.append(m)
-        return m
-
-    def run_epochs(self, n: int) -> List[StepMetrics]:
-        """Run ``n`` epochs; returns their metrics."""
-        return [self.run_epoch() for _ in range(n)]
+        chunk = self._dispatch_epochs(1, None if order is None else [order])
+        return self._materialize_metrics(chunk, 1)[0]
 
     def _log_chunk(self, ms, done: int, epochs: int, log_every: int):
         for i, m in enumerate(ms):
@@ -363,11 +487,17 @@ class HensmanTrainer:
                     flush=True,
                 )
 
-    def fit(self, epochs: int, log_every: int = 1, callback=None, chunk: int = 25):
-        """Train ``epochs`` epochs, calling ``callback(trainer, done, last
-        metrics)`` after every ``chunk`` epochs. A callback that returns
-        ``"rollback"`` has restored an earlier state: the chunk's epochs are
-        then run again, so the run trains as many epochs as it reports."""
+    def fit(self, epochs: int, log_every: int = 1, callback=None, chunk: int = 25,
+            overlap: Optional[bool] = None):
+        """Train ``epochs`` epochs in ``chunk``-epoch chunks, calling
+        ``callback(trainer, done, last metrics)`` after every chunk. A
+        callback that returns ``"rollback"`` has restored an earlier state:
+        the chunk's epochs are then run again, so the run trains as many
+        epochs as it reports. Without a callback (and unless ``overlap`` is
+        False) chunk k+1 is dispatched before chunk k's metrics are read:
+        the same values, printed in the same order."""
+        if callback is None and overlap is not False:
+            return self._fit_overlapped(epochs, log_every, chunk)
         done = 0
         while done < epochs:
             n = min(max(chunk, 1), epochs - done)
@@ -376,4 +506,21 @@ class HensmanTrainer:
             done += n
             if callback is not None and callback(self, done, ms[-1]) == "rollback":
                 done -= n
+        return self.history
+
+    def _fit_overlapped(self, epochs: int, log_every: int, chunk: int):
+        dispatched = printed = 0
+        pending = None  # (n, chunk) in flight
+        while dispatched < epochs or pending is not None:
+            nxt = None
+            if dispatched < epochs:
+                n = min(max(chunk, 1), epochs - dispatched)
+                nxt = (n, self._dispatch_epochs(n))
+                dispatched += n
+            if pending is not None:
+                pn, pchunk = pending
+                self._log_chunk(self._materialize_metrics(pchunk, pn), printed, epochs,
+                                log_every)
+                printed += pn
+            pending = nxt
         return self.history

@@ -4,7 +4,15 @@ lvae_tpu.train.pretrain).
 Adam (lr 1e-3, optax's form) on ``Σ(recon|nll + KL(q‖N(0, I)))`` over
 shuffled batches of ``min(N, 256)`` frames (for an RNN encoder, whole
 subjects, rounded down to a multiple of T), the ragged tail dropped; the
-trained weights seed an L-VAE run. An epoch is a Python loop of steps.
+trained weights seed an L-VAE run.
+
+The epoch program is the Hensman trainer's (``train/hensman.py``; the JAX
+package's ``make_pretrain_epoch_fn``): a chunk's permutations and noise are
+drawn on the host and copied to the device once, every step updates the
+state in place, and the chunk's metrics are read once. Every batch has one
+shape, so on the card the step is captured once as a CUDA graph
+(``train/graph.CapturedStep``) and replayed; on the CPU it runs eagerly.
+Assigning ``state`` drops the graph.
 
 The epoch's permutation and each step's reparameterisation noise are drawn
 from a CPU ``torch.Generator`` seeded from ``seed`` and moved to the device
@@ -21,6 +29,9 @@ import torch
 from torch import nn
 
 from lvae_torch.models import vae as mv
+from lvae_torch.train.graph import (
+    CapturedStep, epochs_per_slab, finish_host_copy, start_host_copy,
+)
 from lvae_torch.train.state import make_optimizer
 from lvae_torch.utils.device import resolve_device
 
@@ -108,6 +119,16 @@ class VAEPretrainer:
         self.history: List[PretrainMetrics] = []
 
     @property
+    def state(self) -> PretrainState:
+        return self._state
+
+    @state.setter
+    def state(self, value: PretrainState) -> None:
+        """A new state drops the captured step (it reads the old tensors)."""
+        self._state = value
+        self._graph: Optional[CapturedStep] = None
+
+    @property
     def params(self) -> nn.Module:
         """The trained model (the JAX package's params tree)."""
         return self.state.model
@@ -124,41 +145,88 @@ class VAEPretrainer:
             perm = torch.randperm(self.n, generator=self.state.rng)
         return perm[: n_batches * self.batch_size].reshape(n_batches, self.batch_size)
 
+    def _step(self, rows: torch.Tensor, eps: torch.Tensor) -> torch.Tensor:
+        """The step function on device buffers: Adam on the batch of frame
+        ``rows [B]`` with noise ``eps [B, L]``, in place; returns its
+        ``[loss, recon, nll, kld]``. Safe to capture."""
+        opt = self.state.opt_state
+        opt.zero_grad(set_to_none=True)
+        loss, metrics = pretrain_loss(self.model, self.data[rows], self.pixmask[rows], eps,
+                                      self.loss_function, self.dropout, self.vy_fixed)
+        loss.backward()
+        for p in self.model.parameters():  # a frozen raw_log_vy advances Adam as in optax
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        opt.step()
+        return metrics
+
+    def _run_step(self, rows: torch.Tensor, eps: torch.Tensor, out: torch.Tensor) -> None:
+        if self.device.type != "cuda":
+            out.copy_(self._step(rows, eps))
+        elif self._graph is None:  # captured at the first batch, which runs as the warm-up
+            self._graph = CapturedStep(self._step, (rows, eps), out)
+        else:
+            out.copy_(self._graph.replay(rows, eps))
+        self._state = self._state._replace(step=self._state.step + 1)
+
+    def _dispatch_epochs(self, n: int, order=None, eps=None):
+        """Run an ``n``-epoch chunk; returns its per-step metrics
+        ``[n, n_batches, 4]`` (on the card, their host copy in flight and the
+        event that marks it done). The draws follow the steps' own order:
+        per epoch the permutation, then one ``randn`` a step, filled in a
+        fresh pinned slab and copied to the card at once (in parts of whole
+        epochs where they exceed ``graph.SLAB_BYTES``). ``order``
+        ``[n, n_batches, B]`` and ``eps`` ``[n, n_batches, B, L]`` replace
+        them."""
+        n_batches, b, n_lat = self.n // self.batch_size, self.batch_size, self.model.latent_dim
+        pin = self.device.type == "cuda"
+        out = torch.empty((n, n_batches, 4), dtype=self.data.dtype, device=self.device)
+        part = epochs_per_slab(n_batches * b * (n_lat * self.data.element_size() + 8))
+        for start in range(0, n, part):
+            m = min(part, n - start)
+            rows_h = torch.empty((m, n_batches, b), dtype=torch.int64, pin_memory=pin)
+            eps_h = torch.empty((m, n_batches, b, n_lat), dtype=self.data.dtype, pin_memory=pin)
+            for e in range(m):
+                rows_h[e] = (self.epoch_order() if order is None
+                             else torch.as_tensor(order[start + e]))
+                for i in range(n_batches):
+                    if eps is None:
+                        eps_h[e, i].normal_(generator=self.state.rng)  # torch.randn's draw
+                    else:
+                        eps_h[e, i] = torch.as_tensor(eps[start + e][i])
+            rows_d = rows_h.to(self.device, non_blocking=True)
+            eps_d = eps_h.to(self.device, non_blocking=True)
+            for e in range(m):
+                for i in range(n_batches):
+                    self._run_step(rows_d[e, i], eps_d[e, i], out[start + e, i])
+        return start_host_copy(out)
+
+    def _materialize_metrics(self, chunk, n: int) -> List[PretrainMetrics]:
+        """Wait for a chunk's metrics; each epoch's sums over its steps,
+        added in step order, as host floats (appended to ``history``)."""
+        host = finish_host_copy(chunk)
+        out = []
+        for e in range(n):
+            sums = host[e, 0]
+            for row in host[e, 1:]:
+                sums = sums + row
+            m = PretrainMetrics(*sums.tolist())
+            self.history.append(m)
+            out.append(m)
+        return out
+
     def run_epoch(self, order: Optional[torch.Tensor] = None,
                   eps: Optional[torch.Tensor] = None) -> PretrainMetrics:
         """One epoch; returns its summed metrics as host floats. ``order``
         (``[n_batches, B]`` rows) and ``eps`` (``[n_batches, B, L]``)
         replace the drawn permutation and noise."""
-        state = self.state
-        if order is None:
-            order = self.epoch_order()
-        opt = state.opt_state
-        params = list(self.model.parameters())
-        sums = torch.zeros(4, dtype=self.data.dtype, device=self.device)
-        for b, rows in enumerate(torch.as_tensor(order)):
-            rows = rows.to(self.device)
-            x, mk = self.data[rows], self.pixmask[rows]
-            if eps is None:
-                e = torch.randn((rows.shape[0], self.model.latent_dim), generator=state.rng,
-                                dtype=self.data.dtype)
-            else:
-                e = eps[b]
-            opt.zero_grad(set_to_none=True)
-            loss, metrics = pretrain_loss(self.model, x, mk, e, self.loss_function,
-                                          self.dropout, self.vy_fixed)
-            loss.backward()
-            for p in params:  # a frozen raw_log_vy advances Adam as in optax
-                if p.grad is None:
-                    p.grad = torch.zeros_like(p)
-            opt.step()
-            sums = sums + metrics
-        self.state = state._replace(step=state.step + len(order))
-        m = PretrainMetrics(*sums.tolist())
-        self.history.append(m)
-        return m
+        chunk = self._dispatch_epochs(1, None if order is None else [order],
+                                      None if eps is None else [eps])
+        return self._materialize_metrics(chunk, 1)[0]
 
     def run_epochs(self, n: int) -> List[PretrainMetrics]:
-        return [self.run_epoch() for _ in range(n)]
+        """``n`` epochs as one chunk; returns their metrics."""
+        return self._materialize_metrics(self._dispatch_epochs(n), n)
 
     def fit(self, epochs: int, log_every: int = 1, callback=None, chunk: int = 25):
         """Train ``epochs`` epochs, calling ``callback(trainer, done, last

@@ -144,14 +144,33 @@ def make_optimizer(params, learning_rate: float = 1e-3,
     (β = (0.9, 0.999), eps 1e-8 outside the square root, bias correction);
     ``"flatten"`` is the same Adam, since flattening only changed the TPU's
     layout; ``"fused"`` is :class:`~lvae_torch.kernels_cuda.adam.FusedAdam`,
-    one launch of kernel K5 a step on the card."""
+    one launch of kernel K5 a step on the card.
+
+    On the card ``torch.optim.Adam`` is built ``capturable``: its step count
+    lives on the device, so a step captured in a CUDA graph advances it and
+    its bias correction on every replay (the CPU does not support it and
+    keeps the host count). A state saved on the other device loads with the
+    optimizer's own setting."""
     kind = kind or os.environ.get("LVAE_OPT", "adam")
     params = list(params)
     if kind in ("adam", "flatten"):
-        return torch.optim.Adam(params, lr=learning_rate, betas=(0.9, 0.999), eps=1e-8)
+        capturable = bool(params) and params[0].is_cuda
+        opt = torch.optim.Adam(params, lr=learning_rate, betas=(0.9, 0.999), eps=1e-8,
+                               capturable=capturable)
+        opt.register_load_state_dict_pre_hook(_keep_capturable)
+        return opt
     if kind == "fused":
         return FusedAdam(params, lr=learning_rate)
     raise ValueError(f"unknown optimizer kind {kind!r}")
+
+
+def _keep_capturable(optimizer: torch.optim.Optimizer, state_dict: dict) -> dict:
+    """``state_dict`` with each group's ``capturable`` set to the live
+    optimizer's: Adam reads the saved flag, and a card's (capturable) state
+    would otherwise refuse to step on the CPU, a CPU's refuse a capture."""
+    groups = [dict(saved, capturable=live["capturable"])
+              for saved, live in zip(state_dict["param_groups"], optimizer.param_groups)]
+    return {**state_dict, "param_groups": groups}
 
 
 def tree_finite(tensors) -> torch.Tensor:

@@ -32,6 +32,11 @@ are held against the CPU. The sharded Hensman trainer runs on 2 gloo ranks
 sharing the card (meshes (1, 2) and (2, 1), f32, 2 epochs of injected
 batches): every step launches K1 and K2 on each rank, and the losses match
 one process on the card within the card-vs-CPU limits (KL and net 1e-2).
+The Hensman step captured as a CUDA graph: it captures on the K1 and the
+K4 route and counts each replay's launches; graph and eager steps, and a
+run resumed through the state setter, give the same bits (cuDNN held to
+its deterministic algorithms); K5 reading its step count from the device
+gives the host-scalar launch's bits over 1,000 steps.
 """
 
 import math
@@ -747,3 +752,138 @@ def test_sharded_hensman_on_two_ranks_sharing_the_card(gen, shape, tmp_path):
         assert rank["launches"][0] == steps and rank["launches"][1] == 3 * steps
         np.testing.assert_allclose(rank["epochs"], one["epochs"], rtol=1e-2)
         np.testing.assert_allclose(rank["H"], one["H"], rtol=1e-2, atol=1e-5)
+
+
+# ------------------------------------------------- the captured Hensman step
+def card_trainer(optimizer=None, p=5, t=4, n_lat=3, m_ind=6, s=2):
+    """A Hensman trainer on the card (f32, ConvVAE, natural gradients) over a
+    small HealthMNIST-layout cohort with a ghost in the last batch; every
+    call starts from the same state, H + 0.1·I (f32 factors the card's
+    H⁻¹ either way). ``optimizer`` names ``make_optimizer``'s kind."""
+    import numpy as np
+
+    from lvae_torch.data.blocks import build_subject_blocks
+    from lvae_torch.data.datasets import ArrayDataset
+    from lvae_torch.models.vae import make_vae
+    from lvae_torch.train import hensman as th
+    from lvae_torch.train.state import make_optimizer
+
+    rng = np.random.default_rng(0)
+    labels = np.asarray([[i, (i - 1.0) * (k % 2), k, k % 2, k % 2, (k // 2) % 2]
+                         for k in range(p) for i in range(t)], np.float32)
+    ds = ArrayDataset(data=rng.uniform(size=(p * t, 36, 36, 1)).astype(np.float32),
+                      labels=labels,
+                      mask=(rng.uniform(size=(p * t, 1296)) > 0.2).astype(np.float32))
+    spec0, spec1 = kx.split_kernel_spec(
+        id_covariate=2, cat_kernel=[2], sqexp_kernel=[0],
+        cat_int_kernel=[{"cont_covariate": 0, "cat_covariate": 2},
+                        {"cont_covariate": 1, "cat_covariate": 4}])
+    cfg = th.HensmanConfig(spec0, spec1, latent_dim=n_lat, P_tot=p, N_tot=p * t, weight=0.15,
+                           loss_function="mse", natural_gradient=True, natural_gradient_lr=0.01,
+                           constrain_scales=True, eps=1e-5, dropout=False)
+    trainer = th.HensmanTrainer(
+        make_vae("conv", n_lat, 1296, dropout=0.0, generator=torch.Generator().manual_seed(1)),
+        cfg, ds, build_subject_blocks(labels, 2), labels[rng.choice(p * t, m_ind, replace=False)],
+        subjects_per_batch=s, seed=0, device="cuda")
+    h = trainer.state.H_nat
+    state = trainer.state._replace(H_nat=h + 0.1 * torch.eye(m_ind, device="cuda"))
+    if optimizer is not None:
+        state = state._replace(opt_state=make_optimizer(
+            state.trainables.parameters(), 1e-3, optimizer))
+    trainer.state = state
+    return trainer
+
+
+def trainer_arrays(trainer):
+    st = trainer.state
+    return [st.m_nat, st.H_nat, *(p.detach() for p in st.trainables.parameters())]
+
+
+@pytest.mark.parametrize("route", ["k1", "k4"])
+def test_hensman_step_captures_and_replays_on_each_route(gen, route, monkeypatch):
+    """``run_epochs`` on the card captures the step (on the K1 and the K4
+    route) and replays it: the counters add each step's launches per replay,
+    the same as an eager step's, and flipping a route switch captures
+    again."""
+    monkeypatch.setattr(kx, "use_b_chain_kernel", None if route == "k1" else False)
+    monkeypatch.setattr(kx, "use_block_pair_kernel", route == "k4")
+    trainer = card_trainer()
+    before = (k1.b_chain.launches, k2.cholesky_inverse.launches, k4.block_pair.launches)
+    ms = trainer.run_epochs(2)
+    steps = 2 * trainer.steps_per_epoch
+    got = (k1.b_chain.launches - before[0], k2.cholesky_inverse.launches - before[1],
+           k4.block_pair.launches - before[2])
+    assert got == ((steps, 3 * steps, 0) if route == "k1" else (0, 4 * steps, steps))
+    assert len(trainer._graphs) == 1 and all(math.isfinite(v) for m in ms for v in m)
+    assert all(kept for _, kept in trainer.last_steps)
+    monkeypatch.setattr(kx, "use_block_pair_kernel", route != "k4")
+    trainer.run_epochs(1)
+    assert len(trainer._graphs) == 2
+
+
+@pytest.mark.parametrize("optimizer", ["adam", "fused"])
+def test_graph_and_eager_steps_are_bit_equal(gen, optimizer, monkeypatch):
+    """Three steps replayed from the captured graph and the same three steps
+    of the step function run eagerly, from one state on the same draws,
+    give the same bits: metrics, (m, H) and every parameter (cuDNN held to
+    its deterministic algorithms: its default weight gradient adds with
+    atomics, so two eager runs differ too). With the fused optimizer K5
+    launches once a step inside the graph."""
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    graph, eager = card_trainer(optimizer), card_trainer(optimizer)
+    order = [[[4, 5], [0, 3], [2, 1]]]
+    k5_before = k5.fused_adam_update.launches
+    graph.run_epoch(order=order[0])
+    assert k5.fused_adam_update.launches - k5_before == (3 if optimizer == "fused" else 0)
+
+    def eager_step(b, rows, eps, out):
+        out.copy_(eager._step(eager.tables[b], rows, eps))
+        eager._advance()
+
+    eager._run_step = eager_step
+    eager.run_epoch(order=order[0])
+    assert not eager._graphs and graph._graphs
+    assert graph.history == eager.history
+    assert graph.last_steps == eager.last_steps
+    for a, b in zip(trainer_arrays(graph), trainer_arrays(eager)):
+        assert torch.equal(a, b)
+
+
+def test_adam_kernel_count_on_the_device_matches_host_scalars(gen):
+    """K5 reading the step count from device memory gives the bits of the
+    launch that takes the bias corrections as host scalars, over 1,000
+    steps."""
+    n = 4099
+    m_a, v_a = torch.zeros(n, device="cuda"), torch.zeros(n, device="cuda")
+    m_b, v_b = m_a.clone(), v_a.clone()
+    count = torch.zeros((), dtype=torch.int64, device="cuda")
+    kw = dict(b1=0.9, b2=0.999, lr=1e-3, eps=1e-8)
+    for step in range(1, 1001):
+        g = torch.randn(n, generator=gen, device="cuda")
+        c1, c2 = k5.bias_corrections(step, 0.9, 0.999)
+        d_a = k5.fused_adam_update(m_a, v_a, g, c1=c1, c2=c2, **kw)
+        count.add_(1)
+        d_b = k5.fused_adam_update(m_b, v_b, g, count=count, **kw)
+        assert torch.equal(m_a, m_b) and torch.equal(v_a, v_b) and torch.equal(d_a, d_b), step
+
+
+def test_state_assignment_drops_the_graphs(gen, tmp_path, monkeypatch):
+    """A state assigned after a chunk (here a checkpoint loaded into a new
+    trainer) trains on: the next chunk captures again, and its epoch is
+    bit-equal to the run that went straight through (cuDNN deterministic)."""
+    from lvae_torch.utils.checkpoint import load_checkpoint, save_checkpoint
+
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    straight = card_trainer()
+    straight.run_epochs(2)
+    first = card_trainer()
+    first.run_epochs(1)
+    path = save_checkpoint(str(tmp_path / "s.ckpt"), first.state)
+    resumed = card_trainer()
+    resumed.run_epochs(1)  # a graph on the old state
+    resumed.state = load_checkpoint(path, like=resumed.state)
+    assert not resumed._graphs
+    resumed.run_epochs(1)
+    assert resumed.history[-1] == straight.history[-1]
+    for a, b in zip(trainer_arrays(resumed), trainer_arrays(straight)):
+        assert torch.equal(a, b)

@@ -261,13 +261,13 @@ def test_epochs_are_reproducible_and_cover_every_subject():
     for _ in range(2):
         _, ttr = make_pair("conv_ng_mse")
         seen = []
-        real = ttr.train_step
+        real = ttr._run_step  # the epoch program's step
 
-        def spy(table, rows, eps=None):
+        def spy(b, rows, eps, out):
             seen.append(rows.tolist())
-            return real(table, rows, eps)
+            return real(b, rows, eps, out)
 
-        ttr.train_step = spy
+        ttr._run_step = spy
         runs.append((ttr.run_epochs(2), seen))
     assert runs[0][0] == runs[1][0] and runs[0][1] == runs[1][1]
     first = runs[0][1][:3]
