@@ -18,7 +18,13 @@ frames, random frames and weights from ``--seed``):
 
 * serving, through ``LVAEPredictor``, ``aot_compile``, ``impute``,
   ``predict_trajectories``, ``predict_trajectory``,
-  ``predict_latent_trajectory`` and ``refresh_basis``;
+  ``predict_latent_trajectory`` and ``refresh_basis``: the bundle's
+  encode, decode, recon and trajectory programs captured as CUDA graphs
+  at construction and replayed per request (K2 once inside each
+  trajectory replay), held bit-equal to the same programs run eagerly
+  (cuDNN deterministic) over the K=8 request, encode, decode, the
+  256-frame impute and a request after ``refresh_basis``, a sibling from
+  ``for_k_subjects`` unchanged by its parent's refresh;
 * Hensman training with natural gradients, through ``HensmanTrainer``'s
   epoch program: two epochs of 5 steps (20 subjects, 400 frames a step),
   each step replaying the step captured as a CUDA graph (K1 once and K2
@@ -48,9 +54,13 @@ frames, random frames and weights from ``--seed``):
   held against the CPU;
 * the VI regime through ``lvae_torch.cli.main`` with
   ``--variational_inference_training=True`` on the same data and
-  pre-trained VAE: 3 phase-1 epochs over the whole cohort (K1 once and K2
-  at least once a step, checked), 1000 phase-2 steps on the test split (K1
-  and K2 once), generation, and a run resumed from ``model_vi.ckpt``;
+  pre-trained VAE: 3 phase-1 epochs over the whole cohort through
+  ``fit``'s epoch program (each step a replay of the captured step, K1 and
+  K2 once inside it, checked), 1000 phase-2 steps on the test split, each
+  a replay (K1 and K2 once, in the operators' build), generation, and a
+  run resumed from ``model_vi.ckpt``; from that checkpoint 3 phase-1
+  epochs, a resume through the state setter and 1000 phase-2 steps, each
+  held bit-equal to the same steps run eagerly (cuDNN deterministic);
 * the RNN encoder (``type_nnet=rnn``, hidden 64) with each cell, LSTM and
   GRU: one Hensman epoch (5 steps, launches checked) and one K-subject
   request of whole 20-frame sequences through ``LVAEPredictor``;
@@ -76,6 +86,17 @@ checkpoint through ``validate`` and ``mse_test_gp_approx``; VI from
 ``model_vi.ckpt`` (3 phase-1 and 4 phase-2 steps, one noise); the RNN runs
 from H + 0.1·I with cuDNN's TF32 off. One ``batch_loss`` from the CLI
 run's final checkpoint is held on the K4 route against the K1 route.
+
+The profiler traces of graph replays (the Hensman step and epoch, the
+pre-training epoch, a serving request and impute, a VI phase-1 step and a
+phase-2 run, each beside its eager twin, and each capture's cost) are
+taken in a fresh process, a world of one rank: a traced replay crashed
+the long main process. There K1's and K2's kernels are counted by name in
+the traces of a replayed Hensman epoch, 5 replayed requests, a replayed
+impute, 5 replayed VI phase-1 epochs and a replayed phase 2, and each
+count is held to what the path must launch and to the launch counters,
+which add a graph's recorded launches after each replay (the kernels
+line's ``launches_traced``).
 
 Phases print one line each. Any failure raises and exits non-zero (a rank
 that fails too); without
@@ -120,6 +141,7 @@ from lvae_torch import cli  # noqa: E402
 from lvae_torch import pipeline as pipeline_mod  # noqa: E402
 from lvae_torch.config import load_flag_file, parse_flag_lines  # noqa: E402
 from lvae_torch.data.blocks import build_subject_blocks  # noqa: E402
+from lvae_torch.data.datasets import ArrayDataset  # noqa: E402
 from lvae_torch.data.healthmnist import generate_healthmnist  # noqa: E402
 from lvae_torch.evaluation.encode import encode_dataset  # noqa: E402
 from lvae_torch.evaluation.testing import mse_test_gp_approx  # noqa: E402
@@ -140,14 +162,14 @@ from lvae_torch.parallel import (  # noqa: E402
 )
 from lvae_torch.parallel.distributed import free_port, join_ranks, spawn_ranks  # noqa: E402
 from lvae_torch.train.hensman import HensmanConfig, HensmanTrainer  # noqa: E402
-from lvae_torch.train.graph import CapturedStep  # noqa: E402
+from lvae_torch.train.graph import CapturedStep, eager_steps  # noqa: E402
 from lvae_torch.train.hensman import batch_loss as hensman_batch_loss  # noqa: E402
 from lvae_torch.train.pretrain import VAEPretrainer  # noqa: E402
 from lvae_torch.train.standard import StandardConfig, StandardTrainer  # noqa: E402
 from lvae_torch.train.state import (  # noqa: E402
     init_gp_params, init_inducing_points, make_optimizer,
 )
-from lvae_torch.train.vi import VITrainer  # noqa: E402
+from lvae_torch.train.vi import VIConfig, VITrainer  # noqa: E402
 from lvae_torch.utils.checkpoint import (  # noqa: E402
     load_checkpoint, read_checkpoint, save_checkpoint,
 )
@@ -301,6 +323,20 @@ class World:
             subjects_per_batch=cfg.subjects_per_batch, learning_rate=cfg.learning_rate,
             seed=self.seed, t_buckets=cfg.T_buckets, dtype=dtype, device=device,
         )
+
+    def vi_trainer(self, device: str) -> VITrainer:
+        """A VI trainer at the config file's settings over the whole cohort,
+        on ``device``; every trainer made here starts from the same state."""
+        cfg = self.cfg
+        vcfg = VIConfig(spec0=self.spec0, spec1=self.spec1, latent_dim=cfg.latent_dim,
+                        weight=cfg.weight, loss_function=cfg.loss_function,
+                        constrain_scales=cfg.constrain_scales, eps=cfg.eps)
+
+        class Cohort:
+            data, labels, mask = self.frames, self.labels, self.pixmask
+
+        return VITrainer(self.model(), vcfg, Cohort, self.blocks, self.z, self.gp,
+                         learning_rate=cfg.learning_rate, seed=self.seed, device=device)
 
     def standard_trainer(self, device: str, type_kl: str = "closed",
                          pseudo_minibatch: bool = False, optimizer: str = "adam",
@@ -1298,6 +1334,13 @@ def launch_counts() -> dict:
             "adam": k5.fused_adam_update.launches, "block_pair": k4.block_pair.launches}
 
 
+def graph_launches(graph: CapturedStep) -> dict:
+    """The kernel launches of one replay of ``graph``, by name (its
+    ``launches`` follow ``train/graph.COUNTERS``: K1, K2, K3, K4, K5)."""
+    return dict(zip(("b_chain", "chol_inv", "kernel_matrix", "block_pair", "adam"),
+                    graph.launches))
+
+
 def reset_launch_counts() -> None:
     k1.b_chain.launches = 0
     k2.cholesky_inverse.launches = 0
@@ -1707,12 +1750,14 @@ VI_COMPARE_PRED_STEPS = 4  # phase-2 steps replayed likewise (the CLI run takes 
 
 
 class VICounter:
-    """While active: the kernel launches of every ``VITrainer.train_step``
-    and of each phase 2 (``optimize_prediction_set``), and the trainer."""
+    """While active: the kernel launches of every phase-1 step of
+    ``VITrainer.fit`` (``_run_step``: a replay of the captured step, or the
+    capture with its warm-up step) and of each phase 2
+    (``optimize_prediction_set``), and the trainer."""
 
     def __enter__(self):
         self.steps, self.predictions, self.trainer = [], [], None
-        self._saved = (VITrainer.train_step, VITrainer.optimize_prediction_set)
+        self._saved = (VITrainer._run_step, VITrainer.optimize_prediction_set)
         step, pred = self._saved
         counter = self
 
@@ -1720,25 +1765,27 @@ class VICounter:
             counter.trainer = trainer
             return step(trainer, *args, **kwargs)
 
-        VITrainer.train_step = counted(keep, self.steps)
+        VITrainer._run_step = counted(keep, self.steps)
         VITrainer.optimize_prediction_set = counted(pred, self.predictions)
         return self
 
     def __exit__(self, *exc):
-        VITrainer.train_step, VITrainer.optimize_prediction_set = self._saved
+        VITrainer._run_step, VITrainer.optimize_prediction_set = self._saved
         return False
 
     def check(self, n_steps: int, n_predictions: int, where: str) -> None:
-        """``n_steps`` phase-1 steps, each K1 once and K2 at least once;
-        ``n_predictions`` phase-2 runs, each K1 and K2 once (its operators
-        are built once, its steps launch neither)."""
+        """``n_steps`` phase-1 steps, each K1 and K2 once on the counters (a
+        replay adds its graph's record, which the fresh process's traces
+        hold against the kernels that ran); ``n_predictions`` phase-2 runs,
+        each K1 and K2 once (its operators are built once, its steps launch
+        neither)."""
         if len(self.steps) != n_steps or len(self.predictions) != n_predictions:
             raise AssertionError(f"{where}: {len(self.steps)} steps and {len(self.predictions)} "
                                  f"phase-2 runs, expected {n_steps} and {n_predictions}")
         for got in self.steps:
-            if got["b_chain"] != 1 or got["chol_inv"] < 1:
+            if got["b_chain"] != 1 or got["chol_inv"] != 1:
                 raise AssertionError(f"{where}: a phase-1 step launched {json.dumps(got)}, "
-                                     "expected K1 once and K2 at least once")
+                                     "expected K1 and K2 once")
         for got in self.predictions:
             if got["b_chain"] != 1 or got["chol_inv"] != 1:
                 raise AssertionError(f"{where}: phase 2 launched {json.dumps(got)}, expected "
@@ -1796,14 +1843,20 @@ def run_vi(world: World, root: str, run: dict, device: str = "cuda") -> dict:
             "n_pred": int(pred["mu_pred"].shape[0]), "trainer": counter.trainer}
 
 
+def vi_pipeline(root: str, run: dict, vi: dict, name: str, device: str):
+    """A VI pipeline on the CLI run's data (results in ``root/name``) and
+    its trainer, resumed from the VI CLI run's ``model_vi.ckpt``."""
+    cfg, _ = parse_flag_lines(vi_flags(run, os.path.join(root, name),
+                                       f"--gp_model_folder={vi['results']}"))
+    pipe = pipeline_mod.LVAEPipeline(cfg, device=device)
+    return pipe, pipe.build_vi_trainer()
+
+
 def vi_replay(world: World, root: str, run: dict, vi: dict, device: str) -> dict:
     """From ``model_vi.ckpt`` on ``device``: VI_COMPARE_STEPS phase-1 steps
     and VI_COMPARE_PRED_STEPS phase-2 steps with noise from one seeded CPU
     generator; returns the losses and the final moments."""
-    cfg, _ = parse_flag_lines(vi_flags(run, os.path.join(root, f"vi_replay_{device}"),
-                                       f"--gp_model_folder={vi['results']}"))
-    pipe = pipeline_mod.LVAEPipeline(cfg, device=device)
-    trainer = pipe.build_vi_trainer()
+    pipe, trainer = vi_pipeline(root, run, vi, f"vi_replay_{device}", device)
     gen = torch.Generator().manual_seed(world.seed + 11)
     steps = []
     for _ in range(VI_COMPARE_STEPS):
@@ -1841,6 +1894,290 @@ def vi_step_times(trainer: VITrainer) -> dict:
         step_ms.append((time.perf_counter() - t0) * 1e3)
     return {"host_ms": statistics.median(step_ms[1:]),
             "profile": profile_window(trainer.train_step, 2)}
+
+
+# ----------------------------------------------- captured serving and VI
+VI_GVE_EPOCHS = 3  # phase-1 epochs from model_vi.ckpt, replayed and eager
+VI_PRED_STEPS = 1000  # phase-2 steps, replayed and eager (the CLI run's count)
+VI_PROFILE_PRED_STEPS = 100  # phase-2 steps of a traced run in the fresh process
+
+
+def serving_answers(world: World, bundle, sib) -> dict:
+    """Every answer of a full-width bundle and its K=1 sibling: encode,
+    decode and impute of the 256-frame request, the K-subject request, the
+    sibling's request, and both requests after a refresh of the parent."""
+    one = (world.obs_frames[:1], world.obs_labels[:1], world.query_labels[:1])
+    out = {"encode": bundle.encode(world.impute_frames),
+           "impute": bundle.impute(world.impute_frames, world.impute_mask),
+           "trajectories": bundle.predict_trajectories(
+               world.obs_frames, world.obs_labels, world.query_labels),
+           "sibling": sib.predict_trajectories(*one)}
+    out["decode"] = bundle.decode(out["encode"])
+    bundle.refresh_basis(world.new_frames, world.new_labels)
+    out["trajectories_after_refresh"] = bundle.predict_trajectories(
+        world.obs_frames, world.obs_labels, world.query_labels)
+    out["sibling_after_refresh"] = sib.predict_trajectories(*one)
+    return out
+
+
+def serving_graph_vs_eager(world: World, pred: LVAEPredictor) -> dict:
+    """The bundle's replayed programs against the same programs run eagerly
+    (under ``graph.eager_steps``), each on a bundle of its own from
+    ``pred``, with cuDNN's default algorithms (reported: the decoder's
+    transposed convolutions may add with atomics, so two eager calls can
+    differ) and its deterministic ones (held bit-equal, and the sibling's
+    answer the same bits before and after its parent's refresh, replayed
+    and eager)."""
+    res = {}
+    for mode in ("default", "deterministic"):
+        with (deterministic_cudnn() if mode == "deterministic" else contextlib.nullcontext()):
+            runs = []
+            for eager in (False, True):
+                bundle = pred.aot_compile(batch_size=BATCH, t_obs=T_OBS, n_query=N_QUERY,
+                                          k_subjects=K_SUBJECTS)
+                sib = bundle.for_k_subjects(1)
+                with eager_steps() if eager else contextlib.nullcontext():
+                    runs.append(serving_answers(world, bundle, sib))
+        res[mode] = {"graph_vs_eager": {k: bit_diff(runs[0][k], runs[1][k]) for k in runs[0]},
+                     "sibling_across_refresh": [
+                         bit_diff(r["sibling_after_refresh"], r["sibling"])["differ"]
+                         for r in runs]}
+    held = res["deterministic"]
+    if any(held["sibling_across_refresh"]):
+        raise AssertionError(f"a parent's refresh moved its sibling's answer: {held}")
+    if any(d["differ"] for d in held["graph_vs_eager"].values()):
+        raise AssertionError(f"serving graph vs eager on the card: {json.dumps(res)}")
+    return res
+
+
+def vi_state_arrays(trainer: VITrainer) -> list:
+    """Every tensor phase 1 optimises (mu, log_var, the VAE, the GP), as f64."""
+    return [p.detach().cpu().double().numpy()
+            for p in trainer.state.opt_state.param_groups[0]["params"]]
+
+
+def compare_vi_runs(a: VITrainer, b: VITrainer, epochs=slice(None)) -> dict:
+    """Per phase-1 metric over the ``epochs`` of each history, and over
+    every optimised tensor: the entries that differ, the largest relative
+    difference."""
+    out = {key: bit_diff(np.asarray([m[key] for m in a.history[epochs]]),
+                         np.asarray([m[key] for m in b.history[epochs]]))
+           for key in ("net", "recon", "nll", "gp")}
+    diffs = [bit_diff(x, y) for x, y in zip(vi_state_arrays(a), vi_state_arrays(b))]
+    out["params"] = {"differ": sum(d["differ"] for d in diffs),
+                     "rel": max(d["rel"] for d in diffs)}
+    return out
+
+
+def vi_graph_vs_eager(root: str, run: dict, vi: dict, device: str = "cuda") -> dict:
+    """From the VI CLI run's ``model_vi.ckpt``, with cuDNN's deterministic
+    algorithms: VI_GVE_EPOCHS phase-1 epochs replayed against the same
+    steps run eagerly (one state, one set of draws), the launches of each
+    replay; a resume (1 epoch, a checkpoint loaded into a new trainer
+    through the state setter, the rest) against the run straight through;
+    then VI_PRED_STEPS phase-2 steps replayed against eager ones. All held
+    bit-equal; the host clock of each run."""
+    with deterministic_cudnn():
+        return _vi_graph_vs_eager(root, run, vi, device)
+
+
+def _vi_graph_vs_eager(root: str, run: dict, vi: dict, device: str) -> dict:
+    pipe, graph = vi_pipeline(root, run, vi, "vi_graph", device)
+    _, eager = vi_pipeline(root, run, vi, "vi_eager", device)
+    per_step, times = [], {}
+    graph._run_step = counted(graph._run_step, per_step)
+    for name, tr in (("graph", graph), ("eager", eager)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with eager_steps() if tr is eager else contextlib.nullcontext():
+            tr.fit(VI_GVE_EPOCHS, log_every=0, chunk=VI_GVE_EPOCHS)
+        torch.cuda.synchronize()
+        times[f"phase1_{name}_ms"] = (time.perf_counter() - t0) * 1e3
+    del graph._run_step
+    if len(graph._graphs) != (device == "cuda") or eager._graphs:
+        raise AssertionError(f"graphs: {len(graph._graphs)} replayed, {len(eager._graphs)} eager")
+    res = {"phase1": compare_vi_runs(graph, eager), "per_step": per_step,
+           "per_replay": [graph_launches(g) for g in graph._graphs.values()]}
+
+    _, first = vi_pipeline(root, run, vi, "vi_first", device)
+    first.fit(1, log_every=0)
+    path = save_checkpoint(os.path.join(root, "vi_resume.ckpt"), first.state)
+    _, resumed = vi_pipeline(root, run, vi, "vi_resumed_gve", device)
+    resumed.fit(1, log_every=0)  # a graph on the state it started from
+    resumed.state = load_checkpoint(path, like=resumed.state)
+    if resumed._graphs:
+        raise AssertionError("the VI state setter kept the graphs")
+    resumed.fit(VI_GVE_EPOCHS - 1, log_every=0)
+    res["resume"] = compare_vi_runs(resumed, graph, slice(1, None))
+
+    pred = {}
+    for name, tr in (("graph", graph), ("eager", eager)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with eager_steps() if tr is eager else contextlib.nullcontext():
+            pred[name] = tr.optimize_prediction_set(pipe.prediction_dataset,
+                                                    epochs=VI_PRED_STEPS, log_every=0)
+        times[f"phase2_{name}_ms"] = (time.perf_counter() - t0) * 1e3
+    res["phase2"] = {key: bit_diff(np.asarray([m[key] for m in graph.pred_history]),
+                                   np.asarray([m[key] for m in eager.pred_history]))
+                     for key in ("net", "recon", "gp")}
+    res["phase2"]["mu_pred"] = bit_diff(pred["graph"][0], pred["eager"][0])
+    res["phase2"]["log_var_pred"] = bit_diff(pred["graph"][1], pred["eager"][1])
+    res["times"] = times
+    for part in ("phase1", "resume", "phase2"):
+        if any(d["differ"] for d in res[part].values()):
+            raise AssertionError(f"VI {part} graph vs eager on the card: {json.dumps(res)}")
+    for got in per_step:
+        if got["b_chain"] != 1 or got["chol_inv"] != 1:
+            raise AssertionError(f"a replayed VI step counted {json.dumps(got)}")
+    return res
+
+
+def host_median_ms(fn, reps: int) -> float:
+    """Median host clock of ``reps`` calls of ``fn``, each ending in a
+    synchronise (after one warm call)."""
+    fn()
+    ms = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(ms)
+
+
+def capture_ms(program, inputs, eager_call, inference: bool = False) -> dict:
+    """The cost of capturing ``program`` on ``inputs`` (a fresh graph with
+    its warm-up call, in a pool of its own), less an eager call: the least
+    of 2."""
+    with_warmup, beyond = [], []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        CapturedStep(program, inputs, inference=inference)
+        torch.cuda.synchronize()
+        c = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        eager_call()
+        torch.cuda.synchronize()
+        with_warmup.append(c)
+        beyond.append(c - (time.perf_counter() - t0) * 1e3)
+    return {"capture_ms": min(beyond), "with_warmup_ms": with_warmup}
+
+
+TRACED_REPLAYS = 5  # replayed requests, VI phase-1 epochs, whose kernels the trace counts
+
+
+def traced_launches(fn) -> dict:
+    """K1's and K2's launches in one call of ``fn``, counted by kernel name
+    in a trace of the card (:func:`epoch_kernel_names`) and by the launch
+    counters (which add a graph's launches after each replay)."""
+    before = launch_counts()
+    traced = epoch_kernel_names(fn)
+    after = launch_counts()
+    return {"traced": traced, "counted": {k: after[k] - before[k] for k in traced}}
+
+
+def check_traced(got: dict, want: dict, where: str) -> None:
+    """The trace shows ``want``'s launches, and the counters agree."""
+    if got["traced"] != want or got["counted"] != want:
+        raise AssertionError(f"{where}: launches {json.dumps(got)}, expected {json.dumps(want)} "
+                             "in the trace and on the counters")
+
+
+def serving_replay_times(world: World) -> dict:
+    """The serving bundle in a fresh process: the host clock and the
+    profile of a replayed and of an eager K-subject request and 256-frame
+    impute, the fold's profile, each program's capture cost, the launches
+    the trajectory graph records and the kernels of TRACED_REPLAYS
+    replayed requests and of a replayed impute, by name in a trace."""
+    model = world.model()
+    mu, _ = encode_dataset(model, world.frames, device="cuda")
+    pred = LVAEPredictor(model=model, gp_params=world.gp, noise=world.noise, spec0=world.spec0,
+                         spec1=world.spec1, z=world.z, id_covariate=world.cfg.id_covariate,
+                         basis_labels=world.labels, basis_mu=mu, eps=world.cfg.eps, device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    bundle = pred.aot_compile(batch_size=BATCH, t_obs=T_OBS, n_query=N_QUERY,
+                              k_subjects=K_SUBJECTS)
+    torch.cuda.synchronize()
+    out = {"aot_compile_ms": (time.perf_counter() - t0) * 1e3,
+           "trajectory_replay_launches": graph_launches(bundle._graphs["trajectory"])}
+
+    def request():
+        bundle.predict_trajectories(world.obs_frames, world.obs_labels, world.query_labels)
+
+    def impute():
+        bundle.impute(world.impute_frames, world.impute_mask)
+
+    def requests():
+        for _ in range(TRACED_REPLAYS):
+            request()
+
+    out["traced"] = {"requests": traced_launches(requests), "impute": traced_launches(impute)}
+    for name in ("replayed", "eager"):
+        with eager_steps() if name == "eager" else contextlib.nullcontext():
+            out[name] = {"request_ms": host_median_ms(request, 10),
+                         "impute_ms": host_median_ms(impute, 5),
+                         "request_profile": profile_window(request, 5),
+                         "impute_profile": profile_window(impute, 3)}
+    fold = copy.copy(bundle)  # its own basis, so the bundle's buffers stay
+    out["fold_ms"] = host_median_ms(fold._fold_basis, 3)
+    out["fold_profile"] = profile_window(fold._fold_basis, 3)
+    captures = {}
+    with torch.inference_mode():
+        for name, g in bundle._graphs.items():
+            inputs = [x.clone() for x in g.inputs]
+            captures[name] = capture_ms(bundle._program(name), inputs,
+                                        lambda: bundle._program(name)(*inputs), inference=True)
+    out["captures"] = captures
+    return out
+
+
+def vi_replay_times(world: World) -> dict:
+    """The VI programs at full width in a fresh process (a trainer made from
+    the world): a replayed and an eager phase-1 step (host clock, profile),
+    the capture's cost, the launches the graph records, a replayed chunk of
+    epochs; phase 2's replayed and eager runs of VI_PROFILE_PRED_STEPS; the
+    kernels of a chunk of TRACED_REPLAYS replayed epochs and of a replayed
+    phase 2, by name in a trace."""
+    trainer = world.vi_trainer("cuda")
+    eps = torch.randn(trainer.state.mu.shape, generator=torch.Generator().manual_seed(1)).cuda()
+    out_row = torch.empty(4, device="cuda")
+    trainer._run_step(eps, out_row)  # the capture
+    (graph,) = trainer._graphs.values()
+    res = {"replay_launches": graph_launches(graph)}
+
+    def replayed():
+        trainer._run_step(eps, out_row)
+
+    def eager():
+        trainer._step(eps)
+
+    res["replayed"] = {"step_ms": host_median_ms(replayed, 6),
+                       "profile": profile_window(replayed, 3)}
+    res["eager"] = {"step_ms": host_median_ms(eager, 4), "profile": profile_window(eager, 2)}
+    res["capture"] = capture_ms(trainer._step, (eps,), eager)
+    res["fit_ms_an_epoch"] = host_median_ms(lambda: trainer.fit(5, log_every=0, chunk=5), 1) / 5
+    res["traced"] = {"phase1": traced_launches(
+        lambda: trainer.fit(TRACED_REPLAYS, log_every=0, chunk=TRACED_REPLAYS))}
+    if len(trainer._graphs) != 1:
+        raise AssertionError(f"the traced epochs captured again: {len(trainer._graphs)} graphs")
+    pred_ds = ArrayDataset(data=world.new_frames, labels=world.new_labels,
+                           mask=np.ones((len(world.new_labels), world.cfg.num_dim), np.float32))
+
+    def phase2():
+        trainer.optimize_prediction_set(pred_ds, epochs=VI_PROFILE_PRED_STEPS, log_every=0)
+
+    res["traced"]["phase2"] = traced_launches(phase2)
+    res["phase2_replayed"] = {"run_ms": host_median_ms(phase2, 2),
+                              "profile": profile_window(phase2, 1)}
+    with eager_steps():
+        res["phase2_eager"] = {"run_ms": host_median_ms(phase2, 2),
+                               "profile": profile_window(phase2, 1)}
+    return res
+
 
 
 # --------------------------------------------------------------------- RNN
@@ -2013,7 +2350,8 @@ def serve(world: World, device: str) -> dict:
     for _ in reps(N_FOLDS):
         bundle = step("fold", lambda: pred.aot_compile(
             batch_size=BATCH, t_obs=T_OBS, n_query=N_QUERY, k_subjects=K_SUBJECTS))
-    out["basis_c"] = bundle._basis.c.cpu().numpy()
+    # a copy: refresh_basis overwrites the bundle's basis buffers in place
+    out["basis_c"] = bundle._basis.c.cpu().numpy().copy()
     for _ in range(3):
         out["impute"] = step("impute", lambda: bundle.impute(world.impute_frames, world.impute_mask))
     for _ in reps(N_REQUESTS):
@@ -2184,7 +2522,7 @@ def replayed_step_times(trainer: HensmanTrainer) -> dict:
     res["epoch_ms"] = statistics.median(epoch_ms)
     epoch = profile_window(trainer.run_epoch, 2)
     res["epoch_profile"] = epoch
-    res["epoch_kernels_by_name"] = epoch_kernel_names(trainer.run_epoch)
+    res["epoch_kernels_by_name"] = traced_launches(trainer.run_epoch)
     return res
 
 
@@ -2404,14 +2742,17 @@ def replay_profiles(seed: int, data: str, results: str) -> dict:
     before it, followed by a traced replay in a fresh process, did not.
     Here: the Hensman run's eager and replayed step times, the capture's
     cost and a replayed epoch (:func:`replayed_step_times`), the
-    pre-training epoch program (:func:`pretrain_times`) and one epoch of
-    the CLI run's resumed pipeline (``data`` and ``results`` its folders)."""
+    pre-training epoch program (:func:`pretrain_times`), the serving
+    bundle's replayed and eager requests (:func:`serving_replay_times`),
+    the VI programs (:func:`vi_replay_times`) and one epoch of the CLI
+    run's resumed pipeline (``data`` and ``results`` its folders)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     world = World(seed)
     trainer = train(world, "cuda")["trainer"]
     out = {"eager": hensman_step_times(trainer), "replay": replayed_step_times(trainer),
-           "pretrain": pretrain_times(world)}
+           "pretrain": pretrain_times(world), "serving": serving_replay_times(world),
+           "vi": vi_replay_times(world)}
     pipe = resumed_pipeline(PIPE_DIR, {"data": data, "results": results}, "cuda")
     out["pipeline_epoch"] = profile_window(pipe.trainer.run_epoch, 1)
     return out
@@ -2792,7 +3133,7 @@ def main() -> int:
             raise AssertionError(f"K2 was not launched during a call of {name}")
     check_outputs(gpu["out"], world)
     t = {name: [s * 1e3 for s in v] for name, v in gpu["times"].items()}
-    say("serving", f"fold (aot_compile) cold {t['fold'][0]:.3f} ms, warm median "
+    say("serving", f"aot_compile (fold and 4 captures) cold {t['fold'][0]:.3f} ms, warm median "
         f"{statistics.median(t['fold'][1:]):.3f} ms over {N_FOLDS - 1} (P={world.cfg.P} "
         f"T={world.cfg.T} L={world.cfg.latent_dim} M={world.cfg.M})")
     say("serving", f"predict_trajectories K={K_SUBJECTS} median "
@@ -2815,16 +3156,18 @@ def main() -> int:
     say("compare", f"card vs CPU {json.dumps(errs)} (latents rel <= {LATENT_RTOL}, "
         f"frames abs <= {FRAME_ATOL})")
 
-    # where the device time goes, warm, after the main path's counts were read
-    pred, bundle = gpu["pred"], gpu["bundle"]
-    prof = {
-        "fold": profile_window(lambda: pred.aot_compile(
-            batch_size=BATCH, t_obs=T_OBS, n_query=N_QUERY, k_subjects=K_SUBJECTS), 3),
-        "predict_trajectories": profile_window(lambda: bundle.predict_trajectories(
-            world.obs_frames, world.obs_labels, world.query_labels), N_REQUESTS),
-    }
-    for name, row in prof.items():
-        say("profile", f"{name} {json.dumps(row)}")
+    # the captured programs against the same programs run eagerly (their
+    # traces are taken in a fresh process, below)
+    say("serving", f"captured programs {sorted(gpu['bundle']._graphs)}; the trajectory graph "
+        f"records {json.dumps(graph_launches(gpu['bundle']._graphs['trajectory']))}")
+    t0 = time.perf_counter()
+    s_gve = serving_graph_vs_eager(world, gpu["pred"])
+    for mode in ("default", "deterministic"):
+        say("compare", f"serving graph vs eager on the card, cuDNN {mode}: "
+            f"{json.dumps(s_gve[mode]['graph_vs_eager'])}; sibling's entries that differ "
+            f"across its parent's refresh {s_gve[mode]['sibling_across_refresh']}"
+            + (" (held bit-equal)" if mode == "deterministic" else "")
+            + f" ({time.perf_counter() - t0:.1f} s | {card})")
 
     # phase 5: the Hensman training path on the card; counts from 0 just before it
     reset_launch_counts()
@@ -3006,11 +3349,47 @@ def main() -> int:
         say("profile", "train_step_fresh " + json.dumps(eager["profile"]))
         say("profile", "replayed_step " + json.dumps(replay["profile"]))
         say("profile", "replayed_epoch " + json.dumps(replay["epoch_profile"]))
-        names = replay["epoch_kernels_by_name"]
-        say("training", f"replayed epoch, kernels by name in the trace {json.dumps(names)}")
-        if names != {"b_chain": steps // TRAIN_EPOCHS, "chol_inv": 3 * steps // TRAIN_EPOCHS}:
-            raise AssertionError(f"a replayed epoch's trace shows {names}, expected K1 once "
-                                 "and K2 3 times a step")
+        # the kernels of the replayed paths, by name in the fresh process's
+        # traces, each held to its graph's launches and to the counters
+        epoch_steps = steps // TRAIN_EPOCHS
+        traced = {"hensman_epoch": (epoch_steps, replay["epoch_kernels_by_name"],
+                                    {"b_chain": epoch_steps, "chol_inv": 3 * epoch_steps}),
+                  "serving_requests": (TRACED_REPLAYS, prof["serving"]["traced"]["requests"],
+                                       {"b_chain": 0, "chol_inv": TRACED_REPLAYS}),
+                  "serving_impute": (1, prof["serving"]["traced"]["impute"],
+                                     {"b_chain": 0, "chol_inv": 0}),
+                  "vi_phase1_epochs": (TRACED_REPLAYS, prof["vi"]["traced"]["phase1"],
+                                       {"b_chain": TRACED_REPLAYS, "chol_inv": TRACED_REPLAYS}),
+                  # the run's first step is the capture's warm-up
+                  "vi_phase2_run": (VI_PROFILE_PRED_STEPS - 1, prof["vi"]["traced"]["phase2"],
+                                    {"b_chain": 1, "chol_inv": 1})}
+        for path, (replays, got, want) in traced.items():
+            say("launches", f"{path} ({replays} replayed): K1, K2 by name in the trace "
+                f"{json.dumps(got['traced'])}, on the counters {json.dumps(got['counted'])}")
+            check_traced(got, want, path)
+        sv = prof["serving"]
+        say("serving", f"in one fresh process: aot_compile (fold and 4 captures) "
+            f"{sv['aot_compile_ms']:.3f} ms; K={K_SUBJECTS} request replayed "
+            f"{sv['replayed']['request_ms']:.3f} ms, eager {sv['eager']['request_ms']:.3f} ms "
+            f"(host clock, median of 10); impute {BATCH * 1e3 / sv['replayed']['impute_ms']:.1f} "
+            f"frames/s replayed, {BATCH * 1e3 / sv['eager']['impute_ms']:.1f} eager; fold "
+            f"{sv['fold_ms']:.3f} ms; captures {json.dumps(sv['captures'])}; the trajectory "
+            f"graph records {json.dumps(sv['trajectory_replay_launches'])} | {card}")
+        for name in ("replayed", "eager"):
+            for what in ("request", "impute"):
+                say("profile", f"serving_{what}_{name} " + json.dumps(sv[name][f"{what}_profile"]))
+        say("profile", "serving_fold " + json.dumps(sv["fold_profile"]))
+        vr = prof["vi"]
+        say("vi", f"in one fresh process: phase-1 step replayed {vr['replayed']['step_ms']:.3f} "
+            f"ms, eager {vr['eager']['step_ms']:.3f} ms (host clock); capture "
+            f"{json.dumps(vr['capture'])}; the graph records {json.dumps(vr['replay_launches'])}; "
+            f"fit {vr['fit_ms_an_epoch']:.3f} ms an epoch; phase 2 ({VI_PROFILE_PRED_STEPS} "
+            f"steps with its operators and capture) replayed "
+            f"{vr['phase2_replayed']['run_ms']:.3f} ms, eager {vr['phase2_eager']['run_ms']:.3f} "
+            f"ms | {card}")
+        for name in ("replayed", "eager"):
+            say("profile", f"vi_step_{name} " + json.dumps(vr[name]["profile"]))
+            say("profile", f"vi_phase2_{name} " + json.dumps(vr[f"phase2_{name}"]["profile"]))
         say("profile", "pipeline_epoch " + json.dumps(prof["pipeline_epoch"]))
         pre = prof["pretrain"]
         say("pipeline", f"pre-training epoch program ({pre['steps']} steps of 256 frames, one "
@@ -3036,6 +3415,19 @@ def main() -> int:
             f"{VI_COMPARE_PRED_STEPS} phase-2 steps, one noise): {json.dumps(vi_errs)} "
             f"(tolerances {json.dumps(LOSS_TOLS)}, mu/log_var/mu_pred {VARIATIONAL_RTOL}; "
             f"{time.perf_counter() - t0:.1f} s | {card})")
+        t0 = time.perf_counter()
+        v_gve = vi_graph_vs_eager(PIPE_DIR, pipe_run, vi)
+        vt = v_gve["times"]
+        say("compare", f"VI graph vs eager on the card from model_vi.ckpt (cuDNN deterministic, "
+            f"held bit-equal): phase 1 ({VI_GVE_EPOCHS} epochs) {json.dumps(v_gve['phase1'])}; "
+            f"resume through the state setter {json.dumps(v_gve['resume'])}; phase 2 "
+            f"({VI_PRED_STEPS} steps) {json.dumps(v_gve['phase2'])} "
+            f"({time.perf_counter() - t0:.1f} s | {card})")
+        say("vi", f"phase 1 counters per step {json.dumps(v_gve['per_step'])}, recorded per "
+            f"replay {json.dumps(v_gve['per_replay'])}; host clock {VI_GVE_EPOCHS} epochs "
+            f"replayed {vt['phase1_graph_ms']:.3f} ms (capture included), eager "
+            f"{vt['phase1_eager_ms']:.3f} ms; phase 2 {VI_PRED_STEPS} steps replayed "
+            f"{vt['phase2_graph_ms']:.3f} ms, eager {vt['phase2_eager_ms']:.3f} ms | {card}")
         vi_warm = vi_step_times(vi["trainer"])
         say("vi", f"phase-1 step (host clock, warm) median {vi_warm['host_ms']:.3f} ms over 3 "
             f"(N={world.cfg.P * world.cfg.T} rows, L={world.cfg.latent_dim}) | {card}")
@@ -3151,6 +3543,9 @@ def main() -> int:
         e["launches_by_path"] = {path: counts[key] for path, counts in paths.items()}
         e["launches"] = sum(e["launches_by_path"].values())
     entry["launches_by_step"] = gpu["launches"]
+    for e, key in ((entry, "chol_inv"), (k1_entry, "b_chain")):
+        e["launches_traced"] = {path: {"replays": replays, "traced": got["traced"][key]}
+                                for path, (replays, got, _) in traced.items()}
     print(json.dumps({"kernels": [entry, k1_entry, k3_entry, k4_entry, k5_entry]}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -10,10 +10,12 @@ Packages a trained L-VAE into a predictor for three capabilities:
 * :meth:`LVAEPredictor.encode` / :meth:`decode` — raw latent access.
 
 :meth:`LVAEPredictor.aot_compile` builds a :class:`CompiledServing` bundle
-with a fixed batch shape and a pre-folded GP basis. PyTorch runs eagerly, so
-the bundle compiles nothing: it keeps the JAX package's name so that each
-entry point has its counterpart. Everything runs on ``device``, ``cuda``
-unless the caller passes ``"cpu"``; arrays cross the API as host numpy.
+with a fixed batch shape and a pre-folded GP basis: the counterpart of the
+JAX package's ahead-of-time compiled executables are, on the card, its
+programs captured once as CUDA graphs at their fixed shapes and replayed
+per request (``train/graph.StepGraphs``); on the CPU they run eagerly.
+Everything runs on ``device``, ``cuda`` unless the caller passes ``"cpu"``;
+arrays cross the API as host numpy.
 """
 
 from __future__ import annotations
@@ -31,11 +33,13 @@ from lvae_torch.data.blocks import build_subject_blocks
 from lvae_torch.evaluation.encode import decode_latents, encode_dataset
 from lvae_torch.ops import kernels as kx
 from lvae_torch.ops.predict import (
+    PredictBasis,
     extend_predict_basis,
     gp_predict_extend_batch,
     precompute_predict_basis,
     predict_latents,
 )
+from lvae_torch.train.graph import StepGraphs
 from lvae_torch.train.state import GPParams
 from lvae_torch.utils.device import resolve_device
 
@@ -198,6 +202,19 @@ class CompiledServing:
     path holds the folded cohort basis ``(H, c)`` on the device and serves
     each request of ``k_subjects`` new subjects without refolding the
     cohort.
+
+    Its programs (``encode``, ``decode`` and ``recon`` at the batch shape,
+    and with ``t_obs``/``n_query`` the trajectory program encode → GP
+    extension → decode at ``[k_subjects, t_obs]``) are captured on the card
+    at construction as CUDA graphs over fixed input buffers, in one memory
+    pool, and each request replays them; on the CPU they run eagerly. A
+    graph reads the addresses it was captured with, so the basis lives in
+    fixed buffers of this bundle that :meth:`refresh_basis` overwrites.
+
+    One caller at a time may use a bundle and its siblings
+    (:meth:`for_k_subjects`): they share the batch programs' fixed input
+    and output buffers, and each answer is copied out of them before the
+    next replay overwrites them.
     """
 
     def __init__(
@@ -229,17 +246,77 @@ class CompiledServing:
             self._in_shape = (self.batch_size, model.num_dim)
         self.t_obs, self.n_query = t_obs, n_query
         self.k_subjects = int(k_subjects)
-        self._basis = None
+        self._basis: Optional[PredictBasis] = None
+        self._graphs = StepGraphs(
+            torch.cuda.graph_pool_handle() if self.device.type == "cuda" else None,
+            inference=True)
+        latent = predictor.basis_mu.shape[1]
+        self._capture("encode", self._in_shape)
+        self._capture("decode", (self.batch_size, latent))
+        self._capture("recon", self._in_shape)
         if t_obs is not None and n_query is not None:
             self._fold_basis()
+            self._capture_trajectory()
 
     @property
     def device(self) -> torch.device:
         return self.predictor.device
 
+    # -------------------------------------------------------------- programs
+    def _program(self, name: str):
+        """The program ``name`` as a function of its inputs, which it moves
+        to the device (a no-op on the captured programs' fixed inputs)."""
+        model = self.predictor.model
+        fn = {
+            "encode": lambda x: model.encode(x)[0],
+            "decode": model.decode,
+            "recon": lambda x: model.decode(model.encode(x)[0]),
+            "trajectory": self._trajectory,
+        }[name]
+        return lambda *inputs: fn(*(x.to(self.device) for x in inputs))
+
+    def _trajectory(self, obs, obs_mask, obs_lab, query_lab) -> torch.Tensor:
+        """Encode the K subjects' observed frames ``obs [K·t_obs, ...]``,
+        extend the basis by them and decode the posterior latents at the
+        queries: frames ``[K·n_query, ...]``."""
+        pr = self.predictor
+        k, t_obs, n_query = self.k_subjects, self.t_obs, self.n_query
+        mu_obs, _ = pr.model.encode(obs)
+        ones_q = torch.ones((k, n_query), dtype=torch.float32, device=obs.device)
+        z_pred = gp_predict_extend_batch(
+            pr.spec0, pr.spec1, pr.gp_params.kp0, pr.gp_params.kp1, pr.noise,
+            self._basis, obs_lab, obs_mask, mu_obs.reshape(k, t_obs, -1),
+            query_lab, ones_q, pr.z,
+        )
+        return pr.model.decode(z_pred.reshape(k * n_query, -1))
+
+    def _capture(self, name: str, *shapes) -> None:
+        """On the card, capture the program ``name`` over fixed inputs of
+        ``shapes`` (its warm-up runs on zeros); on the CPU nothing."""
+        if self.device.type == "cuda":
+            inputs = [torch.zeros(shape, dtype=torch.float32, device=self.device)
+                      for shape in shapes]
+            self._graphs.capture(name, self._program(name), inputs)
+
+    def _capture_trajectory(self) -> None:
+        k, t_obs, n_query = self.k_subjects, self.t_obs, self.n_query
+        q = self.predictor.basis_labels.shape[1]
+        self._capture("trajectory", (k * t_obs,) + self._in_shape[1:], (k, t_obs),
+                      (k, t_obs, q), (k, n_query, q))
+
+    def _call(self, name: str, *inputs: torch.Tensor) -> torch.Tensor:
+        """The program ``name`` on ``inputs`` (host or device tensors of its
+        fixed shapes): on the card a replay of its graph, whose output the
+        next replay overwrites; on the CPU the eager program."""
+        return self._graphs.run(name, self._program(name), inputs,
+                                eager=self.device.type != "cuda")
+
     def for_k_subjects(self, k_subjects: int) -> "CompiledServing":
-        """A sibling bundle serving ``k_subjects``-sized requests; it shares
-        this bundle's folded cohort basis."""
+        """A sibling bundle serving ``k_subjects``-sized requests: it shares
+        this bundle's encode, decode and recon programs and captures only
+        its own trajectory program, over a copy of the folded cohort basis
+        (a later :meth:`refresh_basis` of either bundle leaves the other's
+        basis as it is)."""
         if self.t_obs is None or self.n_query is None:
             raise ValueError(
                 "bundle built without trajectory support: pass "
@@ -247,6 +324,10 @@ class CompiledServing:
             )
         sib = copy.copy(self)
         sib.k_subjects = int(k_subjects)
+        sib._basis = PredictBasis(*(t.clone() for t in self._basis))
+        sib._graphs = StepGraphs(self._graphs.pool, inference=True)
+        sib._graphs.update((name, g) for name, g in self._graphs.items() if name != "trajectory")
+        sib._capture_trajectory()
         return sib
 
     def _blocks_on_device(self, labels, mu):
@@ -261,7 +342,8 @@ class CompiledServing:
 
     @torch.inference_mode()
     def _fold_basis(self) -> None:
-        """Fold the whole basis cohort's block solves into ``(H, c)``."""
+        """Fold the whole basis cohort's block solves into ``(H, c)``, the
+        bundle's basis buffers."""
         pr = self.predictor
         xb, mask, mu_b = self._blocks_on_device(pr.basis_labels, pr.basis_mu)
         self._basis = precompute_predict_basis(
@@ -274,10 +356,12 @@ class CompiledServing:
         """Fold new TRAINING subjects into the serving basis, in place.
 
         ``(H, c)`` are sums over subject blocks, so the new subjects' blocks
-        are encoded and added incrementally (equal to a full refold).
-        ``new_labels`` must carry subject ids not already in the basis; once
-        folded, a subject is a training subject — do not send it as new in a
-        request. Sibling bundles hold their own basis reference.
+        are encoded and added incrementally (equal to a full refold), and
+        the sums are copied into this bundle's basis buffers, which its
+        captured trajectory program reads. ``new_labels`` must carry subject
+        ids not already in the basis; once folded, a subject is a training
+        subject — do not send it as new in a request. Sibling bundles hold
+        their own basis.
         """
         pr = self.predictor
         new_labels = np.asarray(new_labels, np.float32)
@@ -290,11 +374,15 @@ class CompiledServing:
             )
         mu_new = self.encode(new_data)[: new_labels.shape[0]]
         xb, mask, mu_b = self._blocks_on_device(new_labels, mu_new)
-        self._basis = extend_predict_basis(
+        grown = extend_predict_basis(
             pr.spec0, pr.spec1, pr.gp_params.kp0, pr.gp_params.kp1, pr.noise,
             self._basis, xb, mask, mu_b, pr.z,
         )
+        for fixed, value in zip(self._basis, grown):
+            fixed.copy_(value)
         # keep this bundle's predictor view consistent with the grown basis
+        # (the replaced predictor holds the same model and GP tensors, which
+        # the captured programs read)
         self.predictor = dataclasses.replace(
             pr,
             basis_labels=np.concatenate([pr.basis_labels, new_labels]),
@@ -318,25 +406,16 @@ class CompiledServing:
                 "bundle built without trajectory support: pass t_obs/n_query "
                 "to aot_compile"
             )
-        pr = self.predictor
-        dev = self.device
         k, t_obs, n_query = self.k_subjects, self.t_obs, self.n_query
         frame = self._in_shape[1:]
-        obs = _f32(np.asarray(observed_data, np.float32).reshape((k * t_obs,) + frame), dev)
         if observed_mask is None:
             observed_mask = np.ones((k, t_obs), np.float32)
-        obs_mask = _f32(observed_mask, dev)
-        obs_lab = _f32(np.asarray(observed_labels, np.float32).reshape(k, t_obs, -1), dev)
-        query_lab = _f32(np.asarray(query_labels, np.float32).reshape(k, n_query, -1), dev)
-
-        mu_obs, _ = pr.model.encode(obs)
-        ones_q = torch.ones((k, n_query), dtype=torch.float32, device=dev)
-        z_pred = gp_predict_extend_batch(
-            pr.spec0, pr.spec1, pr.gp_params.kp0, pr.gp_params.kp1, pr.noise,
-            self._basis, obs_lab, obs_mask, mu_obs.reshape(k, t_obs, -1),
-            query_lab, ones_q, pr.z,
-        )
-        out = pr.model.decode(z_pred.reshape(k * n_query, -1))
+        inputs = (np.reshape(observed_data, (k * t_obs,) + frame),
+                  np.reshape(observed_mask, (k, t_obs)),
+                  np.reshape(observed_labels, (k, t_obs, -1)),
+                  np.reshape(query_labels, (k, n_query, -1)))
+        out = self._call("trajectory", *(torch.from_numpy(np.ascontiguousarray(a, np.float32))
+                                         for a in inputs))
         return out.reshape((k, n_query) + frame).cpu().numpy()
 
     def predict_trajectory(self, observed_data, observed_labels, query_labels) -> np.ndarray:
@@ -355,31 +434,45 @@ class CompiledServing:
         mask[0] = 1.0
         return self.predict_trajectories(obs, labs, queries, observed_mask=mask)[0]
 
+    def _check_seq_rows(self, n: int) -> None:
+        if self.seq_len and n % self.seq_len:
+            raise ValueError(
+                f"RNN serving needs subject-major requests with N divisible "
+                f"by T={self.seq_len}; got N={n} (a partial subject would be "
+                f"zero-padded into its own recurrence)"
+            )
+
     @torch.inference_mode()
-    def _chunked(self, fn, x: np.ndarray) -> np.ndarray:
+    def _chunked(self, name: str, x: np.ndarray) -> np.ndarray:
+        """The program ``name`` over the rows of ``x`` in zero-padded chunks
+        of ``batch_size``: the request is staged once in host memory (pinned
+        on the card), each chunk copied into the program's fixed input, and
+        each output copied out before the next call."""
         n, b = x.shape[0], self.batch_size
-        dev = self.device
-        outs = []
-        for i in range(0, max(n, 1), b):
-            chunk = x[i : i + b]
-            pad = b - chunk.shape[0]
-            if pad:
-                chunk = np.concatenate([chunk, np.zeros((pad,) + chunk.shape[1:], chunk.dtype)])
-            out = fn(_f32(chunk, dev))
-            outs.append(out[: b - pad] if pad else out)
-        return torch.cat(outs).cpu().numpy()
+        chunks = max(1, -(-n // b))
+        host = torch.zeros((chunks * b,) + x.shape[1:], dtype=torch.float32,
+                           pin_memory=self.device.type == "cuda")
+        host[:n] = torch.from_numpy(x)
+        out = None
+        for i in range(chunks):
+            y = self._call(name, host[i * b:(i + 1) * b])
+            if out is None:
+                out = y.new_empty((chunks * b,) + tuple(y.shape[1:]))
+            out[i * b:(i + 1) * b].copy_(y)
+        return out[:n].cpu().numpy()
 
     def encode(self, data) -> np.ndarray:
         data = np.asarray(data, np.float32).reshape((-1,) + self._in_shape[1:])
-        return self._chunked(lambda x: self.predictor.model.encode(x)[0], data)
+        self._check_seq_rows(data.shape[0])
+        return self._chunked("encode", data)
 
     def decode(self, latents) -> np.ndarray:
-        return self._chunked(self.predictor.model.decode, np.asarray(latents, np.float32))
+        return self._chunked("decode", np.asarray(latents, np.float32))
 
     def impute(self, data, mask=None) -> np.ndarray:
         data = np.asarray(data, np.float32).reshape((-1,) + self._in_shape[1:])
-        model = self.predictor.model
-        recon = self._chunked(lambda x: model.decode(model.encode(x)[0]), data)
+        self._check_seq_rows(data.shape[0])
+        recon = self._chunked("recon", data)
         if mask is None:
             return recon
         mask = np.asarray(mask, np.float32).reshape(recon.shape)

@@ -408,9 +408,10 @@ class ShardedVITrainer(_ShardedTrainer):
         trainer.view = mesh.view(trainer.block_mask.shape[0], trainer.cfg.latent_dim,
                                  "ShardedVITrainer")
 
-    def fit(self, epochs: int, log_every: int = 100, chunk: int = 100):
-        # VITrainer.fit has no callback parameter
-        return self.inner.fit(epochs, log_every=log_every, chunk=chunk)
+    def fit(self, epochs: int, log_every: int = 100, chunk: int = 100, overlap=None):
+        # VITrainer.fit has no callback parameter; the inner trainer's steps
+        # run eagerly on the view
+        return self.inner.fit(epochs, log_every=log_every, chunk=chunk, overlap=overlap)
 
     def optimize_prediction_set(self, *args, **kwargs):
         mu_pred, lv_pred = self.inner.optimize_prediction_set(*args, **kwargs)

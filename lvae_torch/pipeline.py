@@ -14,8 +14,8 @@ reference's GP resume files (``utils/torch_compat.py``). On a mesh the
 trainers are the sharded ones (GPPVAE stays in one process, with a
 warning), the sparse-GP tests run mesh-parallel, and rank 0 writes every
 file while the other ranks wait; a checkpoint holds the whole state.
-bfloat16 and the orbax checkpoint backends raise ``NotImplementedError``
-naming ROADMAP item 10.
+bfloat16 compute and the orbax checkpoint backends raise
+``NotImplementedError`` naming ROADMAP items 13 and 10.
 """
 
 from __future__ import annotations
@@ -59,7 +59,7 @@ def check_ported(cfg) -> None:
     run, naming the ROADMAP item that says why."""
     waiting = []
     if "bfloat16" in (getattr(cfg, "dtype", ""), getattr(cfg, "model_dtype", "")):
-        waiting.append("bfloat16 compute (ROADMAP queue 1 item 10)")
+        waiting.append("bfloat16 compute (ROADMAP queue 1 item 13, the next module slice)")
     if getattr(cfg, "checkpoint_backend", "pickle").startswith("orbax"):
         waiting.append("checkpoint_backend=orbax* (a JAX storage layer, ROADMAP queue 1 "
                        "item 10); lvae_torch writes its own torch.save checkpoints")

@@ -35,7 +35,7 @@ chunk captures again on the new state's tensors.
 
 from __future__ import annotations
 
-from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
+from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -47,7 +47,7 @@ from lvae_torch.ops import kernels as kx
 from lvae_torch.ops.shard import LOCAL, Local
 from lvae_torch.train import state as st
 from lvae_torch.train.graph import (
-    CapturedStep, epochs_per_slab, finish_host_copy, start_host_copy,
+    StepGraphs, epochs_per_slab, finish_host_copy, run_chunks, start_host_copy,
 )
 from lvae_torch.utils.device import resolve_device
 
@@ -299,7 +299,7 @@ class HensmanTrainer:
         """A new state drops the captured steps: a graph reads and writes the
         tensors it was captured on, so the next chunk captures again."""
         self._state = value
-        self._graphs: Dict[tuple, CapturedStep] = {}
+        self._graphs = StepGraphs()
 
     # ------------------------------------------------------------- one step
     def _step(self, table: BlockTable, rows: torch.Tensor, eps: torch.Tensor) -> torch.Tensor:
@@ -378,16 +378,9 @@ class HensmanTrainer:
         batch of its shape and route switches, which runs as the warm-up),
         on the CPU and on a mesh view the eager one."""
         table = self.tables[b]
-        if self.device.type != "cuda" or self.view is not LOCAL:
-            out.copy_(self._step(table, rows, eps))
-        else:
-            key = (b, kx.use_b_chain_kernel, kx.use_block_pair_kernel)
-            captured = self._graphs.get(key)
-            if captured is None:
-                self._graphs[key] = CapturedStep(
-                    lambda r, e: self._step(table, r, e), (rows, eps), out)
-            else:
-                out.copy_(captured.replay(rows, eps))
+        self._graphs.run((b, kx.use_b_chain_kernel, kx.use_block_pair_kernel),
+                         lambda r, e: self._step(table, r, e), (rows, eps), out,
+                         eager=self.device.type != "cuda" or self.view is not LOCAL)
         self._advance()
 
     # --------------------------------------------------------------- epochs
@@ -496,31 +489,13 @@ class HensmanTrainer:
         epochs as it reports. Without a callback (and unless ``overlap`` is
         False) chunk k+1 is dispatched before chunk k's metrics are read:
         the same values, printed in the same order."""
-        if callback is None and overlap is not False:
-            return self._fit_overlapped(epochs, log_every, chunk)
-        done = 0
-        while done < epochs:
-            n = min(max(chunk, 1), epochs - done)
-            ms = self.run_epochs(n)
-            self._log_chunk(ms, done, epochs, log_every)
-            done += n
-            if callback is not None and callback(self, done, ms[-1]) == "rollback":
-                done -= n
-        return self.history
+        lag = callback is None and overlap is not False
 
-    def _fit_overlapped(self, epochs: int, log_every: int, chunk: int):
-        dispatched = printed = 0
-        pending = None  # (n, chunk) in flight
-        while dispatched < epochs or pending is not None:
-            nxt = None
-            if dispatched < epochs:
-                n = min(max(chunk, 1), epochs - dispatched)
-                nxt = (n, self._dispatch_epochs(n))
-                dispatched += n
-            if pending is not None:
-                pn, pchunk = pending
-                self._log_chunk(self._materialize_metrics(pchunk, pn), printed, epochs,
-                                log_every)
-                printed += pn
-            pending = nxt
+        def read(done: int, n: int, chunk_):
+            ms = self._materialize_metrics(chunk_, n) if lag else chunk_
+            self._log_chunk(ms, done, epochs, log_every)
+            return None if callback is None else callback(self, done + n, ms[-1])
+
+        # without the lag each chunk runs through run_epochs and is read at once
+        run_chunks(epochs, chunk, self._dispatch_epochs if lag else self.run_epochs, read, lag)
         return self.history

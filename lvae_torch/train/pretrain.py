@@ -30,7 +30,7 @@ from torch import nn
 
 from lvae_torch.models import vae as mv
 from lvae_torch.train.graph import (
-    CapturedStep, epochs_per_slab, finish_host_copy, start_host_copy,
+    StepGraphs, finish_host_copy, run_chunks, run_staged, start_host_copy,
 )
 from lvae_torch.train.state import make_optimizer
 from lvae_torch.utils.device import resolve_device
@@ -126,7 +126,7 @@ class VAEPretrainer:
     def state(self, value: PretrainState) -> None:
         """A new state drops the captured step (it reads the old tensors)."""
         self._state = value
-        self._graph: Optional[CapturedStep] = None
+        self._graphs = StepGraphs()
 
     @property
     def params(self) -> nn.Module:
@@ -161,44 +161,36 @@ class VAEPretrainer:
         return metrics
 
     def _run_step(self, rows: torch.Tensor, eps: torch.Tensor, out: torch.Tensor) -> None:
-        if self.device.type != "cuda":
-            out.copy_(self._step(rows, eps))
-        elif self._graph is None:  # captured at the first batch, which runs as the warm-up
-            self._graph = CapturedStep(self._step, (rows, eps), out)
-        else:
-            out.copy_(self._graph.replay(rows, eps))
+        # captured at the first batch, which runs as the warm-up
+        self._graphs.run(None, self._step, (rows, eps), out, eager=self.device.type != "cuda")
         self._state = self._state._replace(step=self._state.step + 1)
 
     def _dispatch_epochs(self, n: int, order=None, eps=None):
         """Run an ``n``-epoch chunk; returns its per-step metrics
         ``[n, n_batches, 4]`` (on the card, their host copy in flight and the
         event that marks it done). The draws follow the steps' own order:
-        per epoch the permutation, then one ``randn`` a step, filled in a
-        fresh pinned slab and copied to the card at once (in parts of whole
-        epochs where they exceed ``graph.SLAB_BYTES``). ``order``
+        per epoch the permutation, then one ``randn`` a step, staged on the
+        host and copied to the card at once (``graph.run_staged``). ``order``
         ``[n, n_batches, B]`` and ``eps`` ``[n, n_batches, B, L]`` replace
         them."""
         n_batches, b, n_lat = self.n // self.batch_size, self.batch_size, self.model.latent_dim
-        pin = self.device.type == "cuda"
         out = torch.empty((n, n_batches, 4), dtype=self.data.dtype, device=self.device)
-        part = epochs_per_slab(n_batches * b * (n_lat * self.data.element_size() + 8))
-        for start in range(0, n, part):
-            m = min(part, n - start)
-            rows_h = torch.empty((m, n_batches, b), dtype=torch.int64, pin_memory=pin)
-            eps_h = torch.empty((m, n_batches, b, n_lat), dtype=self.data.dtype, pin_memory=pin)
-            for e in range(m):
-                rows_h[e] = (self.epoch_order() if order is None
-                             else torch.as_tensor(order[start + e]))
-                for i in range(n_batches):
-                    if eps is None:
-                        eps_h[e, i].normal_(generator=self.state.rng)  # torch.randn's draw
-                    else:
-                        eps_h[e, i] = torch.as_tensor(eps[start + e][i])
-            rows_d = rows_h.to(self.device, non_blocking=True)
-            eps_d = eps_h.to(self.device, non_blocking=True)
-            for e in range(m):
-                for i in range(n_batches):
-                    self._run_step(rows_d[e, i], eps_d[e, i], out[start + e, i])
+        perm = None
+
+        def fill(i: int, inputs) -> None:
+            nonlocal perm
+            e, j = divmod(i, n_batches)
+            rows, noise = inputs
+            if j == 0:
+                perm = self.epoch_order() if order is None else torch.as_tensor(order[e])
+            rows.copy_(perm[j])
+            if eps is None:
+                noise.normal_(generator=self.state.rng)  # torch.randn's draw
+            else:
+                noise.copy_(torch.as_tensor(eps[e][j]))
+
+        run_staged(n * n_batches, [((b,), torch.int64), ((b, n_lat), self.data.dtype)], fill,
+                   lambda i, inputs: self._run_step(*inputs, out.view(-1, 4)[i]), self.device)
         return start_host_copy(out)
 
     def _materialize_metrics(self, chunk, n: int) -> List[PretrainMetrics]:
@@ -231,10 +223,7 @@ class VAEPretrainer:
     def fit(self, epochs: int, log_every: int = 1, callback=None, chunk: int = 25):
         """Train ``epochs`` epochs, calling ``callback(trainer, done, last
         metrics)`` after every ``chunk`` epochs."""
-        done = 0
-        while done < epochs:
-            n = min(max(chunk, 1), epochs - done)
-            ms = self.run_epochs(n)
+        def read(done: int, n: int, ms: List[PretrainMetrics]) -> None:
             for i, m in enumerate(ms):
                 epoch = done + i + 1
                 if log_every and epoch % log_every == 0:
@@ -245,7 +234,8 @@ class VAEPretrainer:
                         % (epoch, m.loss, m.kld, m.nll, m.recon),
                         flush=True,
                     )
-            done += n
             if callback is not None:
-                callback(self, done, ms[-1])
+                callback(self, done + n, ms[-1])
+
+        run_chunks(epochs, chunk, self.run_epochs, read, overlap=False)
         return self.history

@@ -15,14 +15,24 @@ The reparameterisation noise of both phases is drawn from a CPU
 ``torch.Generator`` (or injected), so a run on the card and one on the CPU
 consume the same numbers. On the card each phase-1 step runs kernel K1 on
 the cohort's B chain and K2 on K0zz; phase 2 builds its GP operators once.
-On a mesh (``parallel/mesh.ShardedVITrainer`` sets ``view``) a phase-1 step
-decodes the rank's subjects and bounds the rank's latents, and the
-gradients are summed over the ranks before Adam.
+
+Both phases run as epoch programs (the JAX package's ``epochs_fn`` and
+``pred_steps``): a chunk's noise is drawn on the host in the steps' own
+order into one pinned slab, copied to the device once, every step of the
+chunk runs, and the chunk's metrics reach the host once, one chunk late
+unless ``overlap`` is False. A step is one function on fixed buffers that
+updates its tensors in place; on the card it is captured once as a CUDA
+graph (``train/graph.CapturedStep``) and replayed for every later step.
+Assigning ``trainer.state`` drops phase 1's graphs. On a mesh
+(``parallel/mesh.ShardedVITrainer`` sets ``view``) a phase-1 step decodes
+the rank's subjects and bounds the rank's latents, and the gradients are
+summed over the ranks before Adam; there, as on the CPU, every step runs
+eagerly (the view's collectives cannot be captured).
 """
 
 from __future__ import annotations
 
-from typing import List, NamedTuple, Optional
+from typing import Callable, List, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -35,6 +45,9 @@ from lvae_torch.ops import elbo as eb
 from lvae_torch.ops import kernels as kx
 from lvae_torch.ops.shard import LOCAL, Local
 from lvae_torch.train import state as st
+from lvae_torch.train.graph import (
+    StepGraphs, finish_host_copy, run_chunks, run_staged, start_host_copy,
+)
 from lvae_torch.utils.device import resolve_device
 
 
@@ -136,6 +149,19 @@ class VITrainer:
         self.pred_history: List[dict] = []
         self.view: Local = LOCAL  # a rank's shard on a mesh (parallel/mesh.py)
 
+    # ---------------------------------------------------------------- state
+    @property
+    def state(self) -> VIState:
+        return self._state
+
+    @state.setter
+    def state(self, value: VIState) -> None:
+        """A new state drops the captured phase-1 steps: a graph reads and
+        writes the tensors it was captured on, so the next chunk captures
+        again."""
+        self._state = value
+        self._graphs = StepGraphs()
+
     # ------------------------------------------------------------- phase 1
     def loss(self, state: VIState, eps: torch.Tensor):
         """Phase 1's net loss and its terms ``(net, recon, nll, gp)`` for the
@@ -169,42 +195,88 @@ class VITrainer:
             net = nll_loss + gp_loss
         return net, recon_loss, nll_loss, gp_loss
 
-    def train_step(self, eps: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """One Adam step of phase 1; ``eps [N, L]`` is drawn from the state's
-        generator when not given. Returns the device metrics
-        ``[net, recon, nll, gp]`` (on a mesh, summed over the ranks)."""
-        state = self.state
-        if eps is None:
-            eps = torch.randn(state.mu.shape, generator=state.rng, dtype=state.mu.dtype)
+    def _step(self, eps: torch.Tensor) -> torch.Tensor:
+        """The step function on device buffers: one Adam step of phase 1
+        for the noise ``eps [N, L]``, in place; returns the device metrics
+        ``[net, recon, nll, gp]`` (on a mesh, summed over the ranks). Safe
+        to capture (``train/graph.py``): the zero gradients of unreached
+        tensors are made inside it."""
+        state = self._state
         opt = state.opt_state
         opt.zero_grad(set_to_none=True)
         net, recon, nll, gp = self.loss(state, eps)
         net.backward()
-        for group in opt.param_groups:
-            for p in group["params"]:
-                # a tensor the loss does not reach (raw_noise under
-                # constrain_scales) gets a zero gradient, as in optax
-                if p.grad is None:
-                    p.grad = torch.zeros_like(p)
-        self.view.sum_grads([p for group in opt.param_groups for p in group["params"]])
+        params = [p for group in opt.param_groups for p in group["params"]]
+        for p in params:
+            # a tensor the loss does not reach (raw_noise under
+            # constrain_scales) gets a zero gradient, as in optax
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        self.view.sum_grads(params)
         opt.step()
         return self.view.world_metrics(_Phase1(net, recon, nll, gp)).stacked()
 
-    def fit(self, epochs: int, log_every: int = 100, chunk: int = 100) -> List[dict]:
+    def train_step(self, eps: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """One eager Adam step of phase 1; ``eps [N, L]`` is drawn from the
+        state's generator when not given. Returns the device metrics
+        ``[net, recon, nll, gp]`` (on a mesh, summed over the ranks)."""
+        if eps is None:
+            eps = torch.randn(self._state.mu.shape, generator=self._state.rng, dtype=self.dtype)
+        return self._step(eps.to(self.device, self.dtype))
+
+    @property
+    def _eager(self) -> bool:
+        """Whether the steps run eagerly: on the CPU and on a mesh view (the
+        view's collectives cannot be captured); on the card they replay."""
+        return self.device.type != "cuda" or self.view is not LOCAL
+
+    def _run_step(self, eps: torch.Tensor, out: torch.Tensor) -> None:
+        """Step noise ``eps`` into the metrics row ``out [4]``: on the card
+        the captured step (captured at the first step after a new state and
+        at route switches; the capture's warm-up is this step), on the CPU
+        and on a mesh view the eager one."""
+        self._graphs.run((kx.use_b_chain_kernel, kx.use_block_pair_kernel), self._step, (eps,),
+                         out, eager=self._eager)
+
+    def _dispatch(self, n: int, shape, fill: Callable[[int, torch.Tensor], None],
+                  run_step: Callable[[torch.Tensor, torch.Tensor], None], width: int):
+        """Run ``n`` steps without waiting for the device: the noise of step
+        ``i`` is ``fill(i, row)``'s, staged on the host and copied to the
+        device at once (``graph.run_staged``), and ``run_step(noise, out)``
+        writes each step's ``[width]`` metrics. Returns their host copy in
+        flight."""
+        out = torch.empty((n, width), dtype=self.dtype, device=self.device)
+        run_staged(n, [(tuple(shape), self.dtype)], lambda i, rows: fill(i, rows[0]),
+                   lambda i, noise: run_step(noise[0], out[i]), self.device)
+        return start_host_copy(out)
+
+    def _dispatch_epochs(self, n: int):
+        """An ``n``-epoch chunk of phase 1 (one step an epoch), its noise
+        drawn from the state's generator as ``train_step`` draws it."""
+        gen = self._state.rng
+        return self._dispatch(n, self._state.mu.shape,
+                              lambda i, row: row.normal_(generator=gen),  # torch.randn's draw
+                              self._run_step, 4)
+
+    def _materialize_log(self, chunk, n: int, done: int, epochs: int, log_every: int) -> None:
+        """Wait for a dispatched chunk's metrics; append them to ``history``
+        and print every ``log_every``-th epoch."""
+        for i, (net, recon, nll, gp) in enumerate(finish_host_copy(chunk).tolist()):
+            epoch = done + i + 1
+            self.history.append(dict(net=net, recon=recon, nll=nll, gp=gp))
+            if log_every and epoch % log_every == 0:
+                print("Iter %d/%d - Loss: %.3f  - GP loss: %.3f  - NLL Loss: %.3f"
+                      "  - Recon Loss: %.3f" % (epoch, epochs, net, gp, nll, recon), flush=True)
+
+    def fit(self, epochs: int, log_every: int = 100, chunk: int = 100,
+            overlap: Optional[bool] = None) -> List[dict]:
         """``epochs`` steps of phase 1 (one step is an epoch: the whole
-        cohort); metrics reach the host once a chunk."""
-        done = 0
-        while done < epochs:
-            n = min(max(chunk, 1), epochs - done)
-            ms = torch.stack([self.train_step() for _ in range(n)]).tolist()
-            for i, (net, recon, nll, gp) in enumerate(ms):
-                epoch = done + i + 1
-                self.history.append(dict(net=net, recon=recon, nll=nll, gp=gp))
-                if log_every and epoch % log_every == 0:
-                    print("Iter %d/%d - Loss: %.3f  - GP loss: %.3f  - NLL Loss: %.3f"
-                          "  - Recon Loss: %.3f" % (epoch, epochs, net, gp, nll, recon),
-                          flush=True)
-            done += n
+        cohort) in ``chunk``-epoch chunks; unless ``overlap`` is False each
+        chunk's metrics are read after the next chunk is dispatched (the
+        same values, printed in the same order)."""
+        run_chunks(epochs, chunk, self._dispatch_epochs,
+                   lambda done, n, c: self._materialize_log(c, n, done, epochs, log_every),
+                   overlap is not False)
         return self.history
 
     # ------------------------------------------------------------- phase 2
@@ -230,11 +302,12 @@ class VITrainer:
         """Phase 2: ``epochs`` Adam steps on (mu_pred, log_var_pred) of the
         unseen cohort against the joint DUBO; returns them as numpy.
         ``eps [epochs, N_pred, L]`` replaces the noise drawn from a CPU
-        generator seeded from ``seed``. The joint cohort may be ragged: its
-        padded slots gather row 0 and the mask gives them zero value and
-        zero gradient."""
+        generator seeded from ``seed``. The steps run in ``chunk``-step
+        chunks, their metrics read one chunk late (``pred_steps``'
+        schedule). The joint cohort may be ragged: its padded slots gather row 0
+        and the mask gives them zero value and zero gradient."""
         cfg, dtype, dev = self.cfg, self.dtype, self.device
-        vae = self.state.vae
+        vae = self._state.vae
         mu0, lv0 = encode_dataset(vae, prediction_dataset.data, device=dev)
         joint_labels = self._joint_labels(prediction_dataset)
         jblocks = build_subject_blocks(joint_labels, id_covariate=self._id_cov())
@@ -249,19 +322,18 @@ class VITrainer:
         mu_pred = torch.as_tensor(mu0, dtype=dtype, device=dev).requires_grad_(True)
         lv_pred = torch.as_tensor(lv0, dtype=dtype, device=dev).requires_grad_(True)
         opt = st.make_optimizer([mu_pred, lv_pred], learning_rate, kind="adam")
-        gp = self.state.gp
-        mu_train, lv_train = self.state.mu.detach(), self.state.log_var.detach()
+        gp = self._state.gp
+        mu_train, lv_train = self._state.mu.detach(), self._state.log_var.detach()
         raw_log_vy = vae.raw_log_vy.detach()
         vae.eval()
         # the operators depend only on frozen quantities: built once
         with torch.no_grad():
             ops = eb.gp_block_operators(cfg.spec0, cfg.spec1, gp.kp0, gp.kp1, _noise(gp, cfg),
                                         xb, self.z_ind, block_mask, cfg.eps)
-        gen = torch.Generator().manual_seed(seed)
 
         def step(e):
-            opt.zero_grad(set_to_none=True)
-            zs = mu_pred + e.to(dev, dtype) * torch.exp(0.5 * lv_pred)
+            """One Adam step on the noise ``e``, in place; safe to capture."""
+            zs = mu_pred + e * torch.exp(0.5 * lv_pred)
             mse_i, nll_i = mv.vae_loss(raw_log_vy, vae.decode(zs), data_pred, pixmask_pred)
             recon_loss, nll_loss = torch.sum(mse_i), torch.sum(nll_i)
             mu_b = torch.cat([mu_pred, mu_train])[jindex].reshape(p, t, cfg.latent_dim)
@@ -271,25 +343,39 @@ class VITrainer:
                 net = recon_loss + cfg.weight * gp_loss
             else:
                 net = nll_loss + gp_loss
-            net.backward()
+            # the gradients of the two optimised tensors only: the frozen
+            # decoder's weights get none (nor a graph's buffers of phase 1)
+            mu_pred.grad, lv_pred.grad = torch.autograd.grad(net, (mu_pred, lv_pred))
             opt.step()
             return torch.stack([net, recon_loss, gp_loss]).detach()
 
-        done = 0
-        while done < epochs:
-            n = min(max(chunk, 1), epochs - done)
-            ms = []
-            for i in range(n):
-                e = (torch.randn(mu_pred.shape, generator=gen, dtype=dtype) if eps is None
-                     else torch.as_tensor(eps[done + i]))
-                ms.append(step(e))
-            for i, (net, recon, gp_l) in enumerate(torch.stack(ms).tolist()):
+        gen = torch.Generator().manual_seed(seed)
+
+        def fill(i, row):
+            if eps is None:
+                row.normal_(generator=gen)  # torch.randn's draw
+            else:
+                row.copy_(torch.as_tensor(eps[i]))
+
+        graphs = StepGraphs()  # the step, captured at its first call (its warm-up)
+        drawn = 0
+
+        def dispatch(n):
+            nonlocal drawn
+            start, drawn = drawn, drawn + n
+            return self._dispatch(
+                n, mu_pred.shape, lambda i, row: fill(start + i, row),
+                lambda e, out: graphs.run("step", step, (e,), out, eager=self._eager), 3)
+
+        def read(done, n, chunk_):
+            for i, (net, recon, gp_l) in enumerate(finish_host_copy(chunk_).tolist()):
                 epoch = done + i + 1
                 self.pred_history.append(dict(net=net, recon=recon, gp=gp_l))
                 if log_every and epoch % log_every == 0:
                     print("Iter %d/%d - Total Loss: %.3f  - GP Loss: %.3f  - Recon Loss: %.3f"
                           % (epoch, epochs, net, gp_l, recon), flush=True)
-            done += n
+
+        run_chunks(epochs, chunk, dispatch, read, overlap=True)
         return mu_pred.detach().cpu().numpy(), lv_pred.detach().cpu().numpy()
 
     def _id_cov(self) -> int:

@@ -36,9 +36,15 @@ The Hensman step captured as a CUDA graph: it captures on the K1 and the
 K4 route and counts each replay's launches; graph and eager steps, and a
 run resumed through the state setter, give the same bits (cuDNN held to
 its deterministic algorithms); K5 reading its step count from the device
-gives the host-scalar launch's bits over 1,000 steps.
+gives the host-scalar launch's bits over 1,000 steps. The serving bundle's
+captured programs (encode, decode, recon, the trajectory program with K2
+once a replay) and the VI programs (phase 1, K1 and K2 once a replay;
+phase 2) give the eager programs' bits, and assigning a VI state drops
+its graphs. The launches of those replays are counted by kernel name in a
+``torch.profiler`` trace, and the launch counters agree with the trace.
 """
 
+import contextlib
 import math
 
 import pytest
@@ -653,9 +659,9 @@ def test_block_pair_wrapper_rejects_what_the_kernel_does_not_take(gen):
         k4.block_pair(*args[:6], args[6].transpose(0, 1).contiguous().transpose(0, 1), args[7])
 
 
-def vi_trainers(gen, p=6, t=20, n_lat=4, m_ind=8, num_dim=30):
+def vi_trainers(gen, p=6, t=20, n_lat=4, m_ind=8, num_dim=30, devices=("cuda", "cpu")):
     """One VI cohort (f32, every subject t frames) and a trainer for it on
-    the card and on the CPU, from the same weights and GP parameters."""
+    each of ``devices``, from the same weights and GP parameters."""
     import numpy as np
 
     from lvae_torch.data.blocks import build_subject_blocks
@@ -678,7 +684,7 @@ def vi_trainers(gen, p=6, t=20, n_lat=4, m_ind=8, num_dim=30):
     z = labels[rng.choice(p * t, m_ind, replace=False)]
     gp = init_gp_params(spec0, spec1, n_lat, constrain_scales=True)
     return [VITrainer(make_vae("simple", n_lat, num_dim, generator=torch.Generator().manual_seed(1)),
-                      cfg, ds, blocks, z, gp, device=dev) for dev in ("cuda", "cpu")]
+                      cfg, ds, blocks, z, gp, device=dev) for dev in devices]
 
 
 def test_vi_phase1_step_on_the_card_matches_the_cpu(gen):
@@ -886,4 +892,173 @@ def test_state_assignment_drops_the_graphs(gen, tmp_path, monkeypatch):
     resumed.run_epochs(1)
     assert resumed.history[-1] == straight.history[-1]
     for a, b in zip(trainer_arrays(resumed), trainer_arrays(straight)):
+        assert torch.equal(a, b)
+
+
+# ------------------------------------------- captured serving and VI programs
+def card_predictor(p=6, t=5, n_lat=4, m_ind=8):
+    """A ConvVAE predictor on the card (f32, random weights and frames) over
+    a basis of ``p`` subjects × ``t`` frames, and one request of 2 new
+    subjects (3 observed frames, 2 queries each)."""
+    import numpy as np
+
+    from lvae_torch.evaluation.encode import encode_dataset
+    from lvae_torch.inference import LVAEPredictor
+    from lvae_torch.models.vae import make_vae
+    from lvae_torch.train.state import init_gp_params
+
+    rng = np.random.default_rng(0)
+
+    def cohort(ids):
+        labels = np.asarray([[i, (i - 2.0) * (s % 2), s, s % 2, s % 2, (s // 2) % 2]
+                             for s in ids for i in range(t)], np.float32)
+        return rng.uniform(size=(len(labels), 36, 36, 1)).astype(np.float32), labels
+
+    frames, labels = cohort(range(p))
+    spec0, spec1 = kx.split_kernel_spec(
+        id_covariate=2, cat_kernel=[2], sqexp_kernel=[0],
+        cat_int_kernel=[{"cont_covariate": 0, "cat_covariate": 2}])
+    model = make_vae("conv", n_lat, 1296, dropout=0.0, generator=torch.Generator().manual_seed(1))
+    mu, _ = encode_dataset(model, frames, device="cuda")
+    pred = LVAEPredictor(model=model, gp_params=init_gp_params(spec0, spec1, n_lat),
+                         noise=torch.ones(n_lat), spec0=spec0, spec1=spec1,
+                         z=labels[rng.choice(len(labels), m_ind, replace=False)],
+                         id_covariate=2, basis_labels=labels, basis_mu=mu, device="cuda")
+    new_f, new_l = cohort(range(100, 102))
+    req = (new_f.reshape(2, t, 36, 36, 1)[:, :3], new_l.reshape(2, t, -1)[:, :3],
+           new_l.reshape(2, t, -1)[:, 3:])
+    return pred, frames, req, cohort(range(200, 202))
+
+
+def traced_launches(fn):
+    """K1's and K2's launches in one call of ``fn``: counted by kernel name
+    (``b_chain_*``, ``chol_inv_*``) in a ``torch.profiler`` trace of the
+    card, and by the launch counters."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    before = (k1.b_chain.launches, k2.cholesky_inverse.launches)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    traced = tuple(sum(e.count for e in prof.key_averages()
+                       if e.device_type == DeviceType.CUDA and f"{name}_" in e.key)
+                   for name in ("b_chain", "chol_inv"))
+    return traced, (k1.b_chain.launches - before[0], k2.cholesky_inverse.launches - before[1])
+
+
+def serve_all(bundle, sib, frames, req, refresh):
+    """Every answer of a bundle and its K=1 sibling, before and after a
+    refresh of the parent."""
+    one = tuple(x[:1] for x in req)
+    out = [bundle.encode(frames[:11]), bundle.impute(frames[:11]),
+           bundle.predict_trajectories(*req), sib.predict_trajectories(*one)]
+    out.append(bundle.decode(out[0]))
+    bundle.refresh_basis(*refresh)
+    out += [bundle.predict_trajectories(*req), sib.predict_trajectories(*one)]
+    return out
+
+
+def test_replayed_serving_programs_are_bit_equal_to_eager(gen, monkeypatch):
+    """Each request replays a graph captured at construction (the
+    trajectory program launches K2 once a replay: 3 replayed requests show
+    3 in the trace, and the counters agree) and gives the eager programs'
+    bits (cuDNN deterministic); a sibling's answer is unchanged by its
+    parent's refresh."""
+    import numpy as np
+
+    from lvae_torch.train.graph import eager_steps
+
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    pred, frames, req, refresh = card_predictor()
+    answers = []
+    for eager in (False, True):
+        bundle = pred.aot_compile(batch_size=8, t_obs=3, n_query=2, k_subjects=2)
+        sib = bundle.for_k_subjects(1)
+        assert sorted(bundle._graphs) == ["decode", "encode", "recon", "trajectory"]
+        assert sib._graphs["encode"] is bundle._graphs["encode"]
+        assert sib._graphs["trajectory"] is not bundle._graphs["trajectory"]
+        with eager_steps() if eager else contextlib.nullcontext():
+            if not eager:
+                def requests():
+                    for _ in range(3):
+                        bundle.predict_trajectories(*req)
+
+                assert traced_launches(requests) == ((0, 3), (0, 3))
+                assert traced_launches(lambda: bundle.impute(frames[:11])) == ((0, 0), (0, 0))
+            answers.append(serve_all(bundle, sib, frames, req, refresh))
+    replayed, eager = answers
+    for a, b in zip(replayed, eager):
+        np.testing.assert_array_equal(a, b)
+    np.testing.assert_array_equal(replayed[3], replayed[6])  # the sibling after the refresh
+    assert not np.array_equal(replayed[2], replayed[5])  # the parent's answer moved
+
+
+def vi_card_pair(gen):
+    """Two VI trainers on the card from one state; every call of the second
+    (``run``) steps eagerly, in both phases."""
+    from lvae_torch.train.graph import eager_steps
+
+    graph, eager = (vi_trainers(gen, devices=("cuda",))[0] for _ in range(2))
+
+    def run(method, *args, **kwargs):
+        with eager_steps():
+            return getattr(eager, method)(*args, **kwargs)
+
+    return graph, eager, run
+
+
+def vi_arrays(trainer):
+    st = trainer.state
+    return [p.detach() for p in st.opt_state.param_groups[0]["params"]]
+
+
+def test_vi_replayed_chunk_is_bit_equal_to_eager(gen):
+    """Phase 1's replayed steps (K1 and K2 once a step: the capture's
+    warm-up step and 2 replays show 3 of each in the trace, and the counters
+    agree) and phase 2's (K1 and K2 once, in the operators' build) give the
+    eager steps' bits from one state on the same draws."""
+    import numpy as np
+
+    from lvae_torch.data.datasets import ArrayDataset
+
+    graph, eager, eager_run = vi_card_pair(gen)
+    got = traced_launches(lambda: graph.fit(3, log_every=0, chunk=3))
+    assert got == ((3, 3), (3, 3))
+    (captured,) = graph._graphs.values()
+    assert captured.launches[:2] == (1, 1)
+    eager_run("fit", 3, log_every=0, chunk=3)
+    assert not eager._graphs
+    assert graph.history == eager.history
+    for a, b in zip(vi_arrays(graph), vi_arrays(eager)):
+        assert torch.equal(a, b)
+    rng = np.random.default_rng(3)
+    labels = np.asarray([[i, 0.0, 50 + s, s % 2, 0, 1] for s in range(2) for i in range(20)],
+                        np.float32)
+    pred_ds = ArrayDataset(data=rng.uniform(size=(40, 30)).astype(np.float32), labels=labels,
+                           mask=np.ones((40, 30), np.float32))
+    kw = dict(epochs=7, log_every=0, chunk=3)
+    got = []
+    launches = traced_launches(lambda: got.append(graph.optimize_prediction_set(pred_ds, **kw)))
+    assert launches == ((1, 1), (1, 1))
+    got.append(eager_run("optimize_prediction_set", pred_ds, **kw))
+    assert graph.pred_history == eager.pred_history and len(graph.pred_history) == 7
+    for a, b in zip(*got):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_vi_state_assignment_drops_the_graphs(gen):
+    """A state assigned after a chunk drops phase 1's graph; the next chunk
+    captures again on it and steps as the trainer that went on eagerly."""
+    graph, eager, eager_run = vi_card_pair(gen)
+    graph.fit(2, log_every=0, chunk=1)
+    eager_run("fit", 2, log_every=0, chunk=1)
+    assert len(graph._graphs) == 1
+    graph.state = graph.state
+    assert not graph._graphs
+    graph.fit(2, log_every=0, chunk=1)
+    eager_run("fit", 2, log_every=0, chunk=1)
+    assert len(graph._graphs) == 1 and graph.history == eager.history
+    for a, b in zip(vi_arrays(graph), vi_arrays(eager)):
         assert torch.equal(a, b)
