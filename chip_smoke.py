@@ -64,6 +64,17 @@ frames, random frames and weights from ``--seed``):
 * the RNN encoder (``type_nnet=rnn``, hidden 64) with each cell, LSTM and
   GRU: one Hensman epoch (5 steps, launches checked) and one K-subject
   request of whole 20-frame sequences through ``LVAEPredictor``;
+* bf16 VAE compute (``model_dtype=bfloat16``: the layers in bf16, the
+  parameters, losses and GP algebra in f32): 10 replayed Hensman steps
+  (K1 once and K2 three times a replay, counted by kernel name in a trace
+  in the fresh process, whose bf16 convolution kernels are named there),
+  a serving bundle's K=8 request and 256-frame impute, a VI phase-1
+  step, an LSTM epoch and request, each against the CPU in bf16 and
+  timed beside f32, each replay bit-equal to its eager twin (cuDNN
+  deterministic); the bf16 frame table; a replayed epoch at P = 1000, bf16
+  against f32; the CLI with ``--model_dtype=bfloat16`` and a resume; a
+  sharded bf16 run at mesh (2, 1); and the RNN encoder's replayed step,
+  each cell in f32 and bf16, bit-equal to its eager twin;
 * subject- and latent-parallel training and serving (``lvae_torch.parallel``):
   one world of 2 gloo ranks sharing the card runs, at the (data, latent)
   meshes (1, 2) and (2, 1), the Hensman run's 10 steps from H + 0.1·I
@@ -78,6 +89,8 @@ frames, random frames and weights from ``--seed``):
   ``torchrun --nproc_per_node=2 -m lvae_torch.cli ... --data_mesh=2`` runs
   2 epochs with validation and tests on the pipeline's data.
 
+The bf16 phase holds the card against the CPU at 2e-2 (losses, m/H and
+latents, relative) and 1e-2 abs (frames, 2.5 bf16 ulps at 0.5).
 Each path is replayed with ``device="cpu"`` (the plain versions) and the
 card's answers are held against the CPU's; the standard regime at P=26
 subjects (N = 520, still at K3's gate), since an N = 2000 replay is about a
@@ -129,6 +142,8 @@ import statistics
 import subprocess
 import sys
 import time
+import traceback
+import warnings
 
 import numpy as np
 
@@ -154,6 +169,7 @@ from lvae_torch.kernels_cuda import chol_plan as cp  # noqa: E402
 from lvae_torch.kernels_cuda import cholesky as k2  # noqa: E402
 from lvae_torch.kernels_cuda import kernel_matrix as k3  # noqa: E402
 from lvae_torch.kernels_cuda import km_plan  # noqa: E402
+from lvae_torch.models.rnn import cudnn_layout  # noqa: E402
 from lvae_torch.models.vae import make_vae  # noqa: E402
 from lvae_torch.ops import kernels as kx  # noqa: E402
 from lvae_torch.ops import linalg as la  # noqa: E402
@@ -161,6 +177,7 @@ from lvae_torch.parallel import (  # noqa: E402
     ShardedHensmanTrainer, ShardedStandardTrainer, initialize_distributed, make_mesh,
 )
 from lvae_torch.parallel.distributed import free_port, join_ranks, spawn_ranks  # noqa: E402
+from lvae_torch.train import hensman as hensman_mod  # noqa: E402
 from lvae_torch.train.hensman import HensmanConfig, HensmanTrainer  # noqa: E402
 from lvae_torch.train.graph import CapturedStep, eager_steps  # noqa: E402
 from lvae_torch.train.hensman import batch_loss as hensman_batch_loss  # noqa: E402
@@ -219,8 +236,14 @@ K4_RTOL, K4_GRAD_RTOL = 1e-6, 1e-4
 VAL_SUBJECTS = 20  # subjects of the pipeline's validation split
 
 
+# the last line said, named again on the standard error if a phase fails
+last_said = ["(nothing yet)"]
+
+
 def say(phase: str, msg: str) -> None:
-    print(f"[{phase}] {msg}", flush=True)
+    line = f"[{phase}] {msg}"
+    last_said[0] = line[:160]
+    print(line, flush=True)
 
 
 def card_line() -> str:
@@ -284,22 +307,24 @@ class World:
             np.float32)
         self.blocks = build_subject_blocks(self.labels, cfg.id_covariate)
 
-    def model(self, dtype=torch.float32):
-        """A fresh ConvVAE with the seed's random weights, on the CPU."""
+    def model(self, dtype=torch.float32, compute=None):
+        """A fresh ConvVAE with the seed's random weights, on the CPU,
+        computing in ``compute`` (None: its parameters' dtype)."""
         cfg = self.cfg
         return make_vae(
             cfg.type_nnet, cfg.latent_dim, cfg.num_dim, vy_init=cfg.vy_init,
             dropout=cfg.dropout, dropout_input=cfg.dropout_input,
             generator=torch.Generator().manual_seed(self.seed), dtype=dtype,
+            compute_dtype=compute,
         )
 
-    def rnn_model(self, cell: str):
+    def rnn_model(self, cell: str, compute=None):
         """A fresh RNN encoder model (``type_nnet=rnn``, hidden 64, the
         config default) with the seed's random weights, on the CPU."""
         cfg = self.cfg
         return make_vae("rnn", cfg.latent_dim, cfg.num_dim, vy_init=cfg.vy_init, T=cfg.T,
                         hidden_dim=cfg.hidden_dim, type_rnn=cell,
-                        generator=torch.Generator().manual_seed(self.seed))
+                        generator=torch.Generator().manual_seed(self.seed), compute_dtype=compute)
 
     def trainer(self, device: str, model=None, dtype=torch.float32) -> HensmanTrainer:
         """A Hensman trainer at the config file's settings, on ``device``,
@@ -324,9 +349,10 @@ class World:
             seed=self.seed, t_buckets=cfg.T_buckets, dtype=dtype, device=device,
         )
 
-    def vi_trainer(self, device: str) -> VITrainer:
+    def vi_trainer(self, device: str, compute=None) -> VITrainer:
         """A VI trainer at the config file's settings over the whole cohort,
-        on ``device``; every trainer made here starts from the same state."""
+        on ``device`` (the decoder computing in ``compute``); every trainer
+        made here starts from the same state."""
         cfg = self.cfg
         vcfg = VIConfig(spec0=self.spec0, spec1=self.spec1, latent_dim=cfg.latent_dim,
                         weight=cfg.weight, loss_function=cfg.loss_function,
@@ -335,7 +361,7 @@ class World:
         class Cohort:
             data, labels, mask = self.frames, self.labels, self.pixmask
 
-        return VITrainer(self.model(), vcfg, Cohort, self.blocks, self.z, self.gp,
+        return VITrainer(self.model(compute=compute), vcfg, Cohort, self.blocks, self.z, self.gp,
                          learning_rate=cfg.learning_rate, seed=self.seed, device=device)
 
     def standard_trainer(self, device: str, type_kl: str = "closed",
@@ -1234,9 +1260,10 @@ def k5_count_vs_host(n: int, gen: torch.Generator, lr: float, dev: str) -> dict:
 # ---------------------------------------------------------------- training
 def train(world: World, device: str, h_shift: float = 0.0, cell=None,
           epochs: int = TRAIN_EPOCHS, dtype=torch.float32, roll: bool = False,
-          eager: bool = False) -> dict:
+          eager: bool = False, compute=None) -> dict:
     """``epochs`` Hensman epochs on ``device`` through ``run_epochs`` (the
-    ConvVAE in ``dtype``, or the RNN encoder with ``cell``), from the
+    ConvVAE in ``dtype``, or the RNN encoder with ``cell``; either
+    computing in ``compute``), from the
     trainer's initial state with ``h_shift``·I added to H; returns the
     per-epoch and per-step metrics, the final (m_nat, H_nat), the kernels
     launched in each step (K1, K2), whether each step's natural-gradient
@@ -1246,7 +1273,7 @@ def train(world: World, device: str, h_shift: float = 0.0, cell=None,
     on the same draws. ``roll`` takes each batch's subjects, and their
     noise, from the middle of the batch on (eagerly): the same loss, its
     subject sums added in another order."""
-    model = world.rnn_model(cell) if cell else world.model(dtype)
+    model = world.rnn_model(cell, compute) if cell else world.model(dtype, compute)
     trainer = world.trainer(device, model, dtype=dtype)
     if h_shift:
         h = trainer.state.H_nat
@@ -1341,12 +1368,28 @@ def graph_launches(graph: CapturedStep) -> dict:
                     graph.launches))
 
 
+def set_launch_counts(counts: dict) -> None:
+    k1.b_chain.launches = counts["b_chain"]
+    k2.cholesky_inverse.launches = counts["chol_inv"]
+    k3.kernel_matrix_fused.launches = counts["kernel_matrix"]
+    k5.fused_adam_update.launches = counts["adam"]
+    k4.block_pair.launches = counts["block_pair"]
+
+
 def reset_launch_counts() -> None:
-    k1.b_chain.launches = 0
-    k2.cholesky_inverse.launches = 0
-    k3.kernel_matrix_fused.launches = 0
-    k5.fused_adam_update.launches = 0
-    k4.block_pair.launches = 0
+    set_launch_counts(dict.fromkeys(launch_counts(), 0))
+
+
+@contextlib.contextmanager
+def uncounted(on: bool = True):
+    """With ``on``, the block's launches leave the counts as they were: an
+    f32 run that the bf16 path is compared with is not that path's."""
+    saved = launch_counts()
+    try:
+        yield
+    finally:
+        if on:
+            set_launch_counts(saved)
 
 
 def train_standard(world: World, device: str, type_kl: str, epochs: int,
@@ -2271,6 +2314,420 @@ def tf32_gradient_effect(world: World) -> dict:
 
 
 # ------------------------------------------------------------------ export
+# -------------------------------------------------------------------- bf16
+BF16 = torch.bfloat16
+# The bf16 phase: the VAE computes in bf16 over f32 parameters, the GP side
+# stays f32. Card vs CPU, both in bf16: latents max |Δ| over max |CPU|,
+# frames abs (2.5 bf16 ulps at 0.5), losses and the final m/H relative;
+# each conv and GEMM output is rounded to bf16, after sums taken in other
+# orders on the two devices.
+BF16_LATENT_RTOL = 2e-2
+BF16_FRAME_ATOL = 1e-2
+BF16_LOSS_RTOL = 2e-2
+BF16_VARIATIONAL_RTOL = 2e-2
+BF16_PAR_SHAPE = (2, 1)  # the mesh of the sharded bf16 run
+BF16_PAR_EPOCHS = 1  # its epochs (5 steps), against one process
+BF16_CLI_EPOCHS = 2
+BF16_SCALE_P = 1000  # the paper's cohort: a replayed epoch of 50 steps, bf16 against f32
+CONV_MARKERS = ("conv", "fprop", "dgrad", "wgrad")
+BF16_MARKERS = ("bf16", "bfloat16")
+
+
+def flat_errs(errs: dict, prefix: str = ""):
+    for key, value in errs.items():
+        if isinstance(value, dict):
+            yield from flat_errs(value, f"{prefix}{key}.")
+        else:
+            yield f"{prefix}{key}", value
+
+
+def check_below(errs: dict, tol: float, where: str) -> None:
+    """Every number in the nested ``errs`` at most ``tol``."""
+    bad = {k: v for k, v in flat_errs(errs) if not v <= tol}
+    if bad:
+        raise AssertionError(f"{where}: {json.dumps(bad)} > {tol:g}")
+
+
+def held_bit_equal(diff: dict, where: str) -> int:
+    """The entries that differ over a ``compare_runs``/``bit_diff`` table;
+    raises unless 0."""
+    n = sum(v["differ"] for k, v in flat_dicts(diff))
+    if n:
+        raise AssertionError(f"{where}: {n} entries differ: {json.dumps(diff)}")
+    return n
+
+
+def flat_dicts(d: dict):
+    for key, value in d.items():
+        if isinstance(value, dict) and "differ" in value:
+            yield key, value
+        elif isinstance(value, dict):
+            yield from flat_dicts(value)
+
+
+def rel_np(got: np.ndarray, want: np.ndarray) -> float:
+    return float(np.abs(got - want).max() / np.abs(want).max())
+
+
+def bf16_hensman(world: World, card_f32: dict, device: str = "cuda") -> dict:
+    """TRAIN_EPOCHS replayed Hensman epochs (10 steps) with the VAE in bf16
+    from H + H_SHIFT·I on the card, K1 once and K2 three times a step, and
+    the same steps on the CPU in bf16, held against each other; the card's
+    against its f32 run (``card_f32``, printed); then, with cuDNN
+    deterministic, replayed against the same steps run eagerly, held
+    bit-equal."""
+    t0 = time.perf_counter()
+    card = train(world, device, H_SHIFT, compute=BF16)
+    if device == "cuda" and any(step != (1, 3) for step in card["per_step"]):
+        raise AssertionError(f"a bf16 step did not launch K1 once and K2 3 times: "
+                             f"{card['per_step']}")
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cpu = train(world, "cpu", H_SHIFT, compute=BF16)
+    cpu_s = time.perf_counter() - t0
+    for run in (card, cpu):
+        check_training(run)
+    errs = {"steps": compare_losses(card["steps"], cpu["steps"]),
+            "end_state": compare_variational(card, cpu)}
+    check_below(errs["steps"], BF16_LOSS_RTOL, "bf16 Hensman card vs CPU, losses")
+    check_below(errs["end_state"], BF16_VARIATIONAL_RTOL, "bf16 Hensman card vs CPU, m/H")
+    vs_f32 = {"steps": compare_losses(card["steps"], card_f32["steps"]),
+              "end_state": compare_variational(card, card_f32)}
+    with deterministic_cudnn():
+        graph = train(world, device, H_SHIFT, compute=BF16)
+        eager = train(world, device, H_SHIFT, compute=BF16, eager=True)
+    gve = compare_runs(graph, eager)
+    held_bit_equal({k: v for k, v in gve.items() if k != "first_difference"},
+                   "bf16 Hensman graph vs eager")
+    return {"card": card, "errs": errs, "vs_f32": vs_f32, "graph_vs_eager": gve,
+            "seconds": {"card": card_s, "cpu": cpu_s}}
+
+
+def bf16_table(world: World, device: str = "cuda") -> dict:
+    """One epoch with the frame table in bf16 (``use_bf16_table``, as
+    ``LVAE_TABLE_BF16=1`` sets it) against the bf16 model over the f32
+    table, from one state and one set of draws: the first step's net loss
+    and a replayed step's host clock."""
+    res = {}
+    prev = hensman_mod.use_bf16_table
+    try:
+        for name, switch in (("f32_table", False), ("bf16_table", True)):
+            hensman_mod.use_bf16_table = switch
+            run = train(world, device, H_SHIFT, compute=BF16, epochs=1)
+            trainer = run["trainer"]
+            if (trainer.tdata.data.dtype == BF16) != switch or \
+                    trainer.tdata.labels.dtype != torch.float32:
+                raise AssertionError(f"{name}: tables {trainer.tdata.data.dtype}, "
+                                     f"labels {trainer.tdata.labels.dtype}")
+            res[name] = {"net": run["steps"][0]["net"],
+                         "host_ms": replayed_host_ms(trainer)[0] if device == "cuda" else None}
+    finally:
+        hensman_mod.use_bf16_table = prev
+    res["net_rel"] = rel(res["bf16_table"]["net"], res["f32_table"]["net"])
+    check_below({"net": res["net_rel"]}, BF16_LOSS_RTOL, "bf16 table vs f32 table")
+    return res
+
+
+def scale_world(world: World, p: int) -> World:
+    """``world`` with a training cohort of ``p`` subjects (from its seed)."""
+    big = copy.copy(world)
+    cfg = world.cfg
+    rng = np.random.default_rng(world.seed + 1)
+    big.frames, big.labels = make_cohort(rng, range(p), cfg.T, world.hw)
+    big.pixmask = (rng.uniform(size=(big.labels.shape[0], cfg.num_dim)) > 0.1).astype(
+        np.float32)
+    big.blocks = build_subject_blocks(big.labels, cfg.id_covariate)
+    big.z = init_inducing_points(big.labels, cfg.M, seed=world.seed)
+    return big
+
+
+def bf16_scale(world: World, p: int = BF16_SCALE_P) -> dict:
+    """A replayed Hensman epoch at ``p`` subjects (``p / 20`` steps), f32
+    and bf16 trainers from one state, in turns (f32, bf16, bf16, f32, ...):
+    the host clock of each epoch, which ends in the metrics' host copy."""
+    big = scale_world(world, p)
+    trainers = {name: big.trainer("cuda", big.model(compute=compute))
+                for name, compute in (("f32", None), ("bf16", BF16))}
+    ms = {name: [] for name in trainers}
+    for name, tr in trainers.items():
+        with uncounted(name == "f32"):
+            tr.run_epochs(1)  # the capture, then the epoch's replays
+    for name in ("f32", "bf16", "bf16", "f32", "f32", "bf16"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with uncounted(name == "f32"):
+            m = trainers[name].run_epochs(1)[-1]
+        ms[name].append((time.perf_counter() - t0) * 1e3)
+        if not all(math.isfinite(v) for v in m):
+            raise AssertionError(f"P={p} {name} epoch: {m}")
+    steps = trainers["f32"].steps_per_epoch
+    return {"steps": steps, "epoch_ms": {k: statistics.median(v) for k, v in ms.items()},
+            "all_ms": ms}
+
+
+def serve_dtype(world: World, device: str, compute=None) -> dict:
+    """A predictor and bundle of the seed's ConvVAE computing in ``compute``
+    on ``device``, and its answers: the basis, a K-subject request, the
+    256-frame impute and an eager latent trajectory."""
+    model = world.model(compute=compute)
+    mu, _ = encode_dataset(model, world.frames, device=device)
+    pred = LVAEPredictor(model=model, gp_params=world.gp, noise=world.noise, spec0=world.spec0,
+                         spec1=world.spec1, z=world.z, id_covariate=world.cfg.id_covariate,
+                         basis_labels=world.labels, basis_mu=mu, eps=world.cfg.eps, device=device)
+    bundle = pred.aot_compile(batch_size=BATCH, t_obs=T_OBS, n_query=N_QUERY,
+                              k_subjects=K_SUBJECTS)
+    out = {"basis_mu": mu,
+           "trajectories": bundle.predict_trajectories(world.obs_frames, world.obs_labels,
+                                                       world.query_labels),
+           "impute": bundle.impute(world.impute_frames, world.impute_mask),
+           "latent_trajectory": pred.predict_latent_trajectory(
+               world.obs_frames[0], world.obs_labels[0], world.query_labels[0])}
+    for name, got in out.items():
+        if got.dtype != np.float32 or not np.isfinite(got).all():
+            raise AssertionError(f"bf16 serving {name}: {got.dtype}, finite "
+                                 f"{np.isfinite(got).all()}")
+    return {"pred": pred, "bundle": bundle, "out": out}
+
+
+def bf16_serving(world: World, device: str = "cuda") -> dict:
+    """The serving bundle of a bf16 ConvVAE on the card against the CPU's;
+    a replayed K=8 request and the 256-frame impute, host clock, beside an
+    f32 bundle's in turns; the replayed programs held bit-equal to the same
+    programs run eagerly (:func:`serving_graph_vs_eager`)."""
+    card, cpu = serve_dtype(world, device, BF16), serve_dtype(world, "cpu", BF16)
+    if card["pred"].model.compute_dtype != BF16:
+        raise AssertionError("the bf16 predictor lost its compute dtype")
+    errs = {name: rel_np(card["out"][name], cpu["out"][name])
+            for name in ("basis_mu", "latent_trajectory")}
+    check_below(errs, BF16_LATENT_RTOL, "bf16 serving card vs CPU, latents")
+    frames = {name: float(np.abs(card["out"][name] - cpu["out"][name]).max())
+              for name in ("trajectories", "impute")}
+    check_below(frames, BF16_FRAME_ATOL, "bf16 serving card vs CPU, frames")
+    res = {"errs": errs | frames}
+    if device != "cuda":
+        return res
+    with uncounted():
+        bundles = {"f32": serve_dtype(world, device)["bundle"], "bf16": card["bundle"]}
+    times = {name: {"request_ms": [], "impute_ms": []} for name in bundles}
+    for name in ("f32", "bf16", "bf16", "f32"):
+        b = bundles[name]
+        with uncounted(name == "f32"):
+            times[name]["request_ms"].append(host_median_ms(lambda: b.predict_trajectories(
+                world.obs_frames, world.obs_labels, world.query_labels), 10))
+            times[name]["impute_ms"].append(host_median_ms(
+                lambda: b.impute(world.impute_frames, world.impute_mask), 5))
+    res["times"] = {name: {k: statistics.median(v) for k, v in t.items()}
+                    for name, t in times.items()}
+    gve = serving_graph_vs_eager(world, card["pred"])
+    res["graph_vs_eager"] = gve["deterministic"]["graph_vs_eager"]
+    held_bit_equal(res["graph_vs_eager"], "bf16 serving graph vs eager")
+    return res
+
+
+def bf16_vi(world: World, device: str = "cuda") -> dict:
+    """One VI phase-1 step with the decoder in bf16 from the world's state:
+    on the card (the capture's warm-up) against the CPU, each metric and
+    the state after it; the replayed step's host clock beside an f32
+    trainer's; the graph's recorded launches (K1 and K2 once); with cuDNN
+    deterministic, 3 replayed steps against 3 eager ones, bit-equal."""
+    cfg = world.cfg
+    eps = torch.randn((world.labels.shape[0], cfg.latent_dim),
+                      generator=torch.Generator().manual_seed(1))
+    card = world.vi_trainer(device, BF16)
+    row = torch.empty(4, device=device)
+    card._run_step(eps.to(device), row)
+    cpu = world.vi_trainer("cpu", BF16)
+    want = cpu._step(eps)
+    errs = {"metrics": {k: rel(float(a), float(b)) for k, a, b in
+                        zip(("net", "recon", "nll", "gp"), row.cpu(), want)},
+            "state": {name: rel_np(getattr(card.state, name).detach().cpu().numpy(),
+                                   getattr(cpu.state, name).detach().numpy())
+                      for name in ("mu", "log_var")}}
+    check_below(errs, BF16_LOSS_RTOL, "bf16 VI card vs CPU")
+    res = {"errs": errs}
+    if device != "cuda":
+        return res
+    (graph,) = card._graphs.values()
+    res["replay_launches"] = graph_launches(graph)
+    if res["replay_launches"]["b_chain"] != 1 or res["replay_launches"]["chol_inv"] != 1:
+        raise AssertionError(f"the bf16 VI graph records {res['replay_launches']}")
+    e = eps.to(device)
+    with uncounted():
+        f32 = world.vi_trainer(device)
+        f32._run_step(e, row)
+    res["step_ms"] = {}
+    for name, tr in (("f32", f32), ("bf16", card)):
+        with uncounted(name == "f32"):
+            res["step_ms"][name] = host_median_ms(lambda: tr._run_step(e, row), 6)
+    with deterministic_cudnn():
+        runs = []
+        for eager in (False, True):
+            tr = world.vi_trainer(device, BF16)
+            rows = torch.empty((3, 4), device=device)
+            with eager_steps() if eager else contextlib.nullcontext():
+                for i in range(3):
+                    tr._run_step(e, rows[i])
+            runs.append([rows.cpu().numpy()] + vi_state_arrays(tr))
+    res["graph_vs_eager"] = {"metrics": bit_diff(runs[0][0], runs[1][0]),
+                             "params": {"differ": sum(int(np.count_nonzero(a != b))
+                                                      for a, b in zip(runs[0][1:], runs[1][1:]))}}
+    held_bit_equal(res["graph_vs_eager"], "bf16 VI graph vs eager")
+    return res
+
+
+def rnn_compaction_warnings(world: World) -> dict:
+    """For each cell, the warnings cuDNN gives in one bf16 encode with its
+    gradient that the weights are not one contiguous buffer (it then
+    copies them into one at every call), held at 0; then the witness: the
+    LSTM's weights cast one by one and passed to the same call, which must
+    warn. Run before any other recurrence of its process, in case the
+    warning is given once a process."""
+    x = torch.as_tensor(world.frames[:K_SUBJECTS * world.cfg.T], device="cuda")
+    out = {}
+    for cell in (*RNN_CELLS, "witness"):
+        model = world.rnn_model("lstm" if cell == "witness" else cell, BF16).cuda()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            if cell == "witness":
+                h = torch.zeros(K_SUBJECTS, world.cfg.T, world.cfg.hidden_dim, device="cuda",
+                                dtype=BF16)
+                h0 = torch.zeros(2, K_SUBJECTS, world.cfg.hidden_dim, device="cuda", dtype=BF16)
+                torch._VF.lstm(h, (h0, h0), [w.to(BF16) for w in model.rnn._flat_weights],
+                               True, 1, 0.0, True, True, True)
+            else:
+                sum(t.float().sum() for t in model.encode(x)).backward()
+        out[cell] = sum("contiguous chunk of memory" in str(w.message) for w in caught)
+    if out["lstm"] or out["gru"] or not out["witness"]:
+        raise AssertionError(f"cuDNN's weight-compaction warnings in bf16: {out}")
+    out["lstm_layout"] = cudnn_layout("lstm", world.cfg.hidden_dim, BF16, x.device)
+    return out
+
+
+def bf16_rnn(world: World, device: str = "cuda") -> dict:
+    """One bf16 LSTM Hensman epoch (5 steps) on the card and on the CPU from
+    H + H_SHIFT·I, then one K-subject request served from the card-trained
+    model on both."""
+    card, cpu = (train(world, dev, H_SHIFT, cell="lstm", epochs=RNN_EPOCHS, compute=BF16)
+                 for dev in (device, "cpu"))
+    if device == "cuda" and any(n1 != 1 or n2 < 2 for n1, n2 in card["per_step"]):
+        raise AssertionError(f"a bf16 LSTM step launched {card['per_step']}")
+    for r in (card, cpu):
+        check_training(r)
+    errs = {"steps": compare_losses(card["steps"], cpu["steps"]),
+            "end_state": compare_variational(card, cpu)}
+    trained = card["trainer"].model
+    served = {dev: serve_rnn(world, copy.deepcopy(trained), dev) for dev in (device, "cpu")}
+    errs["trajectories"] = float(np.abs(served[device]["out"] - served["cpu"]["out"]).max())
+    check_below({k: errs[k] for k in ("steps", "end_state")}, BF16_LOSS_RTOL,
+                "bf16 LSTM card vs CPU")
+    check_below({"trajectories": errs["trajectories"]}, BF16_FRAME_ATOL,
+                "bf16 LSTM serving card vs CPU")
+    return {"errs": errs, "request_ms": served[device]["request_ms"]}
+
+
+def rnn_replayed_steps(world: World) -> dict:
+    """The RNN encoder's replayed Hensman step with each cell, in f32 and
+    in bf16: its host clock (:func:`replayed_host_ms`, cuDNN's default
+    algorithms) and, with cuDNN deterministic, one epoch replayed against
+    the same steps run eagerly, held bit-equal."""
+    res = {}
+    for cell in RNN_CELLS:
+        for name, compute in (("f32", None), ("bf16", BF16)):
+            with deterministic_cudnn():
+                graph = train(world, "cuda", H_SHIFT, cell=cell, epochs=1, compute=compute)
+                eager = train(world, "cuda", H_SHIFT, cell=cell, epochs=1, compute=compute,
+                              eager=True)
+            gve = compare_runs(graph, eager)
+            differ = held_bit_equal({k: v for k, v in gve.items() if k != "first_difference"},
+                                    f"RNN {cell} {name} graph vs eager")
+            timed = train(world, "cuda", H_SHIFT, cell=cell, epochs=1, compute=compute)
+            res[f"{cell}_{name}"] = {"replayed_ms": replayed_host_ms(timed["trainer"])[0],
+                                     "graph_vs_eager_differ": differ}
+    return res
+
+
+def run_pipeline_bf16(world: World, root: str, run: dict, device: str = "cuda") -> dict:
+    """``lvae_torch.cli.main`` with ``--model_dtype=bfloat16`` on the
+    pipeline's data: BF16_CLI_EPOCHS epochs from the f32 run's pre-trained
+    VAE with validation, tests, generation and checkpoints (the launches of
+    each step and validation checked), then a run resumed from its
+    checkpoint for one epoch."""
+    results = os.path.join(root, "results_bf16")
+    cfg = write_flags(os.path.join(root, "bf16.txt"), pipeline_flags(
+        run["data"], results, "--model_dtype=bfloat16", f"--epochs={BF16_CLI_EPOCHS}",
+        f"--test_freq={BF16_CLI_EPOCHS}", f"--checkpoint_every={BF16_CLI_EPOCHS}",
+        "--run_tests=True", "--run_validation=True", "--generate_images=True",
+        f"--model_params={run['results']}/model_params_vae.ckpt", "--gp_model_folder=",
+        f"--seed={world.seed}"))
+    with PathCounter() as counter:
+        seconds = cli_run([f"--f={cfg}"], device)
+    if counter.pipeline.model.compute_dtype != BF16:
+        raise AssertionError("the CLI run's model does not compute in bf16")
+    if device == "cuda":
+        counter.check("k1", BF16_CLI_EPOCHS * run["steps_per_epoch"], 2, "bf16 pipeline")
+    out = check_pipeline_run(results, BF16_CLI_EPOCHS, world.hw,
+                             artefacts=[a for a in PIPE_ARTEFACTS if "model_params" not in a])
+    final = read_checkpoint(os.path.join(results, "model_final.ckpt"))
+    if any(v.dtype != torch.float32 for v in final["vae"].values()):
+        raise AssertionError("a bf16 run's checkpoint holds parameters other than f32")
+    resumed = os.path.join(root, "resumed_bf16")
+    resume_cfg = write_flags(os.path.join(root, "bf16_resume.txt"), pipeline_flags(
+        run["data"], resumed, "--model_dtype=bfloat16", "--epochs=1", "--test_freq=1",
+        "--checkpoint_every=1", f"--gp_model_folder={results}", f"--seed={world.seed}"))
+    resume_s = cli_run([f"--f={resume_cfg}"], device)
+    step = read_checkpoint(os.path.join(resumed, "model_final.ckpt"))["step"]
+    if step != final["step"] + run["steps_per_epoch"]:
+        raise AssertionError(f"the resumed bf16 run ended at step {step}, not at "
+                             f"{final['step']} + {run['steps_per_epoch']}")
+    return {"seconds": seconds, "resume_seconds": resume_s, "resumed_step": step, **out}
+
+
+def bf16_profiles(world: World) -> dict:
+    """Profiles of a replayed VI phase-1 step and of a replayed K-subject
+    request, each with the VAE in f32 and in bf16 (in the fresh process)."""
+    eps = torch.randn((world.labels.shape[0], world.cfg.latent_dim),
+                      generator=torch.Generator().manual_seed(1)).cuda()
+    row = torch.empty(4, device="cuda")
+    out = {}
+    for name, compute in (("f32", None), ("bf16", BF16)):
+        tr = world.vi_trainer("cuda", compute)
+        tr._run_step(eps, row)  # the capture
+        out[f"vi_{name}"] = profile_window(lambda: tr._run_step(eps, row), 3)
+        bundle = serve_dtype(world, "cuda", compute)["bundle"]
+        out[f"request_{name}"] = profile_window(lambda: bundle.predict_trajectories(
+            world.obs_frames, world.obs_labels, world.query_labels), 5)
+    return out
+
+
+def step_kernel_names(trainer: HensmanTrainer) -> list:
+    """The names of the kernels one replayed step launches, from a trace of
+    the card."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    draws = trainer._draws(1)
+    rows, eps = draws[0][0][0, 0], draws[0][1][0, 0]
+    out = torch.empty(5, dtype=trainer.dtype, device=trainer.device)
+    trainer._run_step(0, rows, eps, out)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        trainer._run_step(0, rows, eps, out)
+        torch.cuda.synchronize()
+    return sorted({e.key for e in prof.key_averages() if e.device_type == DeviceType.CUDA})
+
+
+def conv_kernels(names: dict) -> dict:
+    """The convolution kernels of the f32 and the bf16 step (names with a
+    marker of CONV_MARKERS), and those of the bf16 step that carry a bf16
+    marker; the bf16 step must run its convolutions in bf16: at least one
+    with a bf16 marker, and none of the f32 step's."""
+    conv = {k: [n for n in v if any(m in n.lower() for m in CONV_MARKERS)]
+            for k, v in names.items()}
+    bf16 = [n for n in conv["bf16"] if any(m in n.lower() for m in BF16_MARKERS)]
+    shared = sorted(set(conv["bf16"]) & set(conv["f32"]))
+    return {"f32": conv["f32"], "bf16": conv["bf16"], "bf16_marked": bf16, "shared": shared}
+
+
 GP_FILES = ("gp_model.pth", "zt_list.pth", "m.pth", "H.pth")
 EXPORT_ATOL = 1e-5  # raw GP parameters back from the files: f32 rounding of constrain
 
@@ -2480,13 +2937,11 @@ def hensman_step_times(trainer: HensmanTrainer) -> dict:
             "profile": profile_window(lambda: trainer.train_step(table, rows), 3)}
 
 
-def replayed_step_times(trainer: HensmanTrainer) -> dict:
-    """Warm replayed steps of the epoch program on the card, the batch and
-    noise of its last dispatched epoch's first step again: the host clock
-    of 6 (median of the last 5) ending in a synchronise, a profiler window
-    of 3, the capture's own cost (a fresh capture with its warm-up step,
-    less an eager step) and a replayed epoch's wall time and profile, in
-    which K1's and K2's kernels are counted by name."""
+def replayed_host_ms(trainer: HensmanTrainer):
+    """The host clock of a warm replayed step of the epoch program (the
+    median of the last 5 of 6, each ending in a synchronise), on the batch
+    and noise of a fresh draw's first step; returns it and the step's
+    inputs ``(rows, eps, out)``."""
     draws = trainer._draws(1)
     rows, eps = draws[0][0][0, 0], draws[0][1][0, 0]
     out = torch.empty(5, dtype=trainer.dtype, device=trainer.device)
@@ -2497,7 +2952,18 @@ def replayed_step_times(trainer: HensmanTrainer) -> dict:
         trainer._run_step(0, rows, eps, out)
         torch.cuda.synchronize()
         step_ms.append((time.perf_counter() - t0) * 1e3)
-    res = {"host_ms": statistics.median(step_ms[1:]),
+    return statistics.median(step_ms[1:]), (rows, eps, out)
+
+
+def replayed_step_times(trainer: HensmanTrainer) -> dict:
+    """Warm replayed steps of the epoch program on the card, the batch and
+    noise of its last dispatched epoch's first step again: the host clock
+    of 6 (median of the last 5) ending in a synchronise, a profiler window
+    of 3, the capture's own cost (a fresh capture with its warm-up step,
+    less an eager step) and a replayed epoch's wall time and profile, in
+    which K1's and K2's kernels are counted by name."""
+    host_ms, (rows, eps, out) = replayed_host_ms(trainer)
+    res = {"host_ms": host_ms,
            "profile": profile_window(lambda: trainer._run_step(0, rows, eps, out), 3)}
     table = trainer.tables[0]
     capture_ms, eager_ms = [], []
@@ -2744,15 +3210,24 @@ def replay_profiles(seed: int, data: str, results: str) -> dict:
     cost and a replayed epoch (:func:`replayed_step_times`), the
     pre-training epoch program (:func:`pretrain_times`), the serving
     bundle's replayed and eager requests (:func:`serving_replay_times`),
-    the VI programs (:func:`vi_replay_times`) and one epoch of the CLI
-    run's resumed pipeline (``data`` and ``results`` its folders)."""
+    the VI programs (:func:`vi_replay_times`), the bf16 recurrence's weight
+    layout (:func:`rnn_compaction_warnings`), the bf16 Hensman run's
+    replayed step and epoch, the names of the kernels of an f32 and a bf16
+    replayed step, the f32 and bf16 profiles of a replayed VI step and
+    request (:func:`bf16_profiles`), and one epoch of the CLI run's resumed pipeline
+    (``data`` and ``results`` its folders)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     world = World(seed)
+    compaction = rnn_compaction_warnings(world)
     trainer = train(world, "cuda")["trainer"]
-    out = {"eager": hensman_step_times(trainer), "replay": replayed_step_times(trainer),
-           "pretrain": pretrain_times(world), "serving": serving_replay_times(world),
-           "vi": vi_replay_times(world)}
+    out = {"rnn_compaction_warnings": compaction, "eager": hensman_step_times(trainer),
+           "replay": replayed_step_times(trainer), "pretrain": pretrain_times(world),
+           "serving": serving_replay_times(world), "vi": vi_replay_times(world)}
+    b16 = train(world, "cuda", compute=BF16)["trainer"]
+    out["bf16"] = replayed_step_times(b16)
+    out["kernel_names"] = {"f32": step_kernel_names(trainer), "bf16": step_kernel_names(b16)}
+    out["bf16_profiles"] = bf16_profiles(world)
     pipe = resumed_pipeline(PIPE_DIR, {"data": data, "results": results}, "cuda")
     out["pipeline_epoch"] = profile_window(pipe.trainer.run_epoch, 1)
     return out
@@ -2845,13 +3320,15 @@ def par_step_times(trainer: HensmanTrainer) -> dict:
     return {"host_ms": statistics.median(step_ms[1:]), "profile": window}
 
 
-def sharded_epochs(world: World, mesh, dtype=torch.float32) -> dict:
+def sharded_epochs(world: World, mesh, dtype=torch.float32, compute=None,
+                   epochs: int = TRAIN_EPOCHS) -> dict:
     """The single-process card run's Hensman epochs through
     ``ShardedHensmanTrainer`` on ``mesh`` (from H + H_SHIFT·I; the order and
-    noise come from the same seeded generator on every rank): each step's
+    noise come from the same seeded generator on every rank; ``epochs``
+    of them, the VAE computing in ``compute``): each step's
     metrics and kernel launches, the launch counts (set to 0 just before),
     the shapes launched, the final (m, H) and the trainer."""
-    trainer = world.trainer(str(mesh.device), world.model(dtype), dtype=dtype)
+    trainer = world.trainer(str(mesh.device), world.model(dtype, compute), dtype=dtype)
     h = trainer.state.H_nat
     trainer.state = trainer.state._replace(
         H_nat=h + H_SHIFT * torch.eye(h.shape[-1], dtype=h.dtype, device=h.device))
@@ -2866,7 +3343,7 @@ def sharded_epochs(world: World, mesh, dtype=torch.float32) -> dict:
     trainer._run_step = counted_step
     reset_launch_counts()
     with ShapeLog() as log:
-        sharded.run_epochs(TRAIN_EPOCHS)
+        sharded.run_epochs(epochs)
     trainer._run_step = real_step
     steps = [m._asdict() for m, _ in trainer.last_steps]
     return {"steps": steps, "per_step": per_step, "launches": launch_counts(),
@@ -2895,6 +3372,11 @@ def par_hensman(world: World, shape) -> dict:
     f64 = sharded_epochs(world, mesh, torch.float64)
     out["f64"] = {k: f64[k] for k in ("steps", "m_nat", "H_nat")}
     seconds["f64"] = time.perf_counter() - t0
+    if shape == BF16_PAR_SHAPE:
+        t0 = time.perf_counter()
+        b16 = sharded_epochs(world, mesh, compute=BF16, epochs=BF16_PAR_EPOCHS)
+        out["bf16"] = {k: b16[k] for k in ("steps", "per_step", "m_nat", "H_nat", "launches")}
+        seconds["bf16"] = time.perf_counter() - t0
 
     t0 = time.perf_counter()
     model = world.model()
@@ -3114,6 +3596,7 @@ def main() -> int:
                 say("build", f"{name}: {line.strip()}")
 
     world = World(args.seed)
+    deferred = []  # checks raised at the end, after every phase has printed
 
     # phase 3: each kernel against its plain version, and its times
     entry = check_k2(world)
@@ -3346,6 +3829,40 @@ def main() -> int:
             f"step {[round(t, 3) for t in replay['capture_with_warmup_ms']]} ms); replayed "
             f"epoch ({steps // TRAIN_EPOCHS} steps) {replay['epoch_ms']:.3f} ms "
             f"({time.perf_counter() - t0:.1f} s) | {card}")
+        b16r = prof["bf16"]
+        say("bf16", "in one fresh process, replayed Hensman step f32 vs bf16: host "
+            f"{replay['host_ms']:.3f} vs {b16r['host_ms']:.3f} ms, device "
+            f"{replay['profile']['device_ms']:.3f} vs {b16r['profile']['device_ms']:.3f} ms, "
+            f"host calls {replay['profile']['host_launches_per_call']:g} vs "
+            f"{b16r['profile']['host_launches_per_call']:g}, idle "
+            f"{replay['profile']['idle_share']:.3f} vs {b16r['profile']['idle_share']:.3f}; "
+            f"replayed epoch {replay['epoch_ms']:.3f} vs {b16r['epoch_ms']:.3f} ms; capture "
+            f"{b16r['capture_ms']:.3f} ms beyond an eager step | {card}")
+        say("profile", "replayed_step_bf16 " + json.dumps(b16r["profile"]))
+        say("bf16", "in one fresh process, cuDNN's warnings that the bf16 RNN weights are "
+            "compacted at every call: encode and gradient "
+            f"{json.dumps(prof['rnn_compaction_warnings'])} (the witness casts them one by one)")
+        bp = prof["bf16_profiles"]
+        say("bf16", "in one fresh process, device ms (idle share) f32 vs bf16: a replayed VI "
+            f"phase-1 step {bp['vi_f32']['device_ms']:.3f} ({bp['vi_f32']['idle_share']:.3f}) vs "
+            f"{bp['vi_bf16']['device_ms']:.3f} ({bp['vi_bf16']['idle_share']:.3f}); a replayed "
+            f"K={K_SUBJECTS} request {bp['request_f32']['device_ms']:.3f} "
+            f"({bp['request_f32']['idle_share']:.3f}) vs {bp['request_bf16']['device_ms']:.3f} "
+            f"({bp['request_bf16']['idle_share']:.3f}) | {card}")
+        for name, window in bp.items():
+            say("profile", f"bf16_phase_{name} " + json.dumps(window))
+        say("profile", "replayed_epoch_bf16 " + json.dumps(b16r["epoch_profile"]))
+        convs = conv_kernels(prof["kernel_names"])
+        os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
+        with open(os.path.join(ROOT, "chiprun_out", "bf16_kernel_names.json"), "w") as f:
+            json.dump({"names": prof["kernel_names"], "conv": convs}, f, indent=1)
+        say("bf16", f"convolution kernels of a replayed step (by name in the trace): f32 "
+            f"{len(convs['f32'])}, bf16 {len(convs['bf16'])} of which {len(convs['bf16_marked'])} "
+            f"name bf16, shared with f32 {len(convs['shared'])}; bf16 "
+            f"{json.dumps([n[:90] for n in convs['bf16']])}")
+        if not convs["bf16_marked"] or convs["shared"]:
+            deferred.append(f"the bf16 step's convolution kernels are not bf16 ones: "
+                            f"{json.dumps(convs)}")
         say("profile", "train_step_fresh " + json.dumps(eager["profile"]))
         say("profile", "replayed_step " + json.dumps(replay["profile"]))
         say("profile", "replayed_epoch " + json.dumps(replay["epoch_profile"]))
@@ -3362,7 +3879,9 @@ def main() -> int:
                                        {"b_chain": TRACED_REPLAYS, "chol_inv": TRACED_REPLAYS}),
                   # the run's first step is the capture's warm-up
                   "vi_phase2_run": (VI_PROFILE_PRED_STEPS - 1, prof["vi"]["traced"]["phase2"],
-                                    {"b_chain": 1, "chol_inv": 1})}
+                                    {"b_chain": 1, "chol_inv": 1}),
+                  "bf16_hensman_epoch": (epoch_steps, prof["bf16"]["epoch_kernels_by_name"],
+                                         {"b_chain": epoch_steps, "chol_inv": 3 * epoch_steps})}
         for path, (replays, got, want) in traced.items():
             say("launches", f"{path} ({replays} replayed): K1, K2 by name in the trace "
                 f"{json.dumps(got['traced'])}, on the counters {json.dumps(got['counted'])}")
@@ -3433,6 +3952,16 @@ def main() -> int:
             f"(N={world.cfg.P * world.cfg.T} rows, L={world.cfg.latent_dim}) | {card}")
         say("profile", f"vi_step {json.dumps(vi_warm['profile'])} | {card}")
 
+        # the CLI with bf16 VAE compute; counts from 0 just before it
+        reset_launch_counts()
+        b16_cli = run_pipeline_bf16(world, PIPE_DIR, pipe_run)
+        bf16_counts = launch_counts()
+        say("bf16", f"CLI --model_dtype=bfloat16: {BF16_CLI_EPOCHS} epochs with validation, "
+            f"tests and generation in {b16_cli['seconds']:.3f} s, resumed for 1 epoch "
+            f"{b16_cli['resume_seconds']:.3f} s (to step {b16_cli['resumed_step']}); last epoch "
+            f"{json.dumps(b16_cli['losses'])}; test MSEs {json.dumps(b16_cli['test_mse'])}; "
+            f"launches {json.dumps(bf16_counts)} | {card}")
+
         # the CLI on a mesh of 2 ranks sharing the card, through torchrun
         par_cli = run_parallel_cli(world, pipe_run)
         say("parallel", f"torchrun --nproc_per_node=2 -m lvae_torch.cli --data_mesh=2: "
@@ -3463,7 +3992,91 @@ def main() -> int:
     say("rnn", "cuDNN TF32 switch, encoder gradients rel (the script keeps it off): "
         f"{json.dumps(tf32_gradient_effect(world))} | {card}")
 
-    # phase 10: subject- and latent-parallel training and serving, 2 gloo
+    # phase 10: bf16 VAE compute (model_dtype=bfloat16) through training,
+    # serving, VI and the RNN encoder; counts from 0 just before it, the f32
+    # runs it times or compares against left out (uncounted)
+    reset_launch_counts()
+    t_b16 = time.perf_counter()
+    b16_parts, mark = {"cli": bf16_counts}, launch_counts()
+
+    def part(name: str) -> None:  # the K1 and K2 launches of one bf16 part
+        nonlocal mark
+        now = launch_counts()
+        b16_parts[name] = {k: now[k] - mark[k] for k in now}
+        mark = now
+
+    b16 = {"hensman": bf16_hensman(world, card_c)}
+    part("hensman")
+    h = b16["hensman"]
+    say("bf16", f"Hensman, 10 replayed steps from H+{H_SHIFT}I (K1, K2 a step "
+        f"{h['card']['per_step'][0]}): card {h['seconds']['card']:.1f} s, CPU "
+        f"{h['seconds']['cpu']:.1f} s; card vs CPU {json.dumps(h['errs'])} (losses <= "
+        f"{BF16_LOSS_RTOL}, m/H <= {BF16_VARIATIONAL_RTOL}); card bf16 vs card f32 (not held) "
+        f"{json.dumps(h['vs_f32'])}; replayed vs eager (cuDNN deterministic) entries that differ "
+        f"{sum(v['differ'] for k, v in h['graph_vs_eager'].items() if k != 'first_difference')}")
+    for e, (a, b) in enumerate(zip(h["card"]["epochs"], card_c["epochs"])):
+        say("bf16", f"epoch {e + 1}: bf16 {json.dumps(a)} f32 {json.dumps(b)}")
+    t0 = time.perf_counter()
+    b16["serving"] = sv = bf16_serving(world)
+    part("serving")
+    t = sv["times"]
+    say("bf16", f"serving card vs CPU {json.dumps(sv['errs'])} (latents <= {BF16_LATENT_RTOL} "
+        f"rel, frames <= {BF16_FRAME_ATOL} abs); replayed K={K_SUBJECTS} request f32 "
+        f"{t['f32']['request_ms']:.3f} ms vs bf16 {t['bf16']['request_ms']:.3f} ms; impute "
+        f"{BATCH * 1e3 / t['f32']['impute_ms']:.1f} vs {BATCH * 1e3 / t['bf16']['impute_ms']:.1f} "
+        f"frames/s; replayed vs eager (cuDNN deterministic) entries that differ "
+        f"{sum(d['differ'] for d in sv['graph_vs_eager'].values())} "
+        f"({time.perf_counter() - t0:.1f} s | {card})")
+    t0 = time.perf_counter()
+    b16["vi"] = v = bf16_vi(world)
+    part("vi")
+    say("bf16", f"VI phase-1 step card vs CPU {json.dumps(v['errs'])} (<= {BF16_LOSS_RTOL}); "
+        f"replayed step f32 {v['step_ms']['f32']:.3f} ms vs bf16 {v['step_ms']['bf16']:.3f} ms; "
+        f"the graph records {json.dumps(v['replay_launches'])}; 3 replayed vs 3 eager steps "
+        f"(cuDNN deterministic) {json.dumps(v['graph_vs_eager'])} "
+        f"({time.perf_counter() - t0:.1f} s | {card})")
+    t0 = time.perf_counter()
+    b16["rnn"] = r = bf16_rnn(world)
+    part("rnn")
+    say("bf16", f"LSTM bf16, one Hensman epoch and a K={K_SUBJECTS} request, card vs CPU "
+        f"{json.dumps(r['errs'])} (losses, m/H <= {BF16_LOSS_RTOL}, frames <= "
+        f"{BF16_FRAME_ATOL}); request host ms {[round(x, 3) for x in r['request_ms']]} "
+        f"({time.perf_counter() - t0:.1f} s | {card})")
+    t0 = time.perf_counter()
+    b16["table"] = tb = bf16_table(world)
+    part("table")
+    say("bf16", f"bf16 frame table (LVAE_TABLE_BF16=1) vs f32 table under the bf16 model: first "
+        f"step net {tb['bf16_table']['net']:.6f} vs {tb['f32_table']['net']:.6f} (rel "
+        f"{tb['net_rel']:.3e} <= {BF16_LOSS_RTOL}); replayed step "
+        f"{tb['bf16_table']['host_ms']:.3f} vs {tb['f32_table']['host_ms']:.3f} ms ({time.perf_counter() - t0:.1f} s | {card})")
+    t0 = time.perf_counter()
+    b16["scale"] = sc = bf16_scale(world)
+    part("scale")
+    say("bf16", f"P={BF16_SCALE_P}: a replayed Hensman epoch ({sc['steps']} steps of "
+        f"{world.cfg.subjects_per_batch} subjects) f32 {sc['epoch_ms']['f32']:.3f} ms vs bf16 "
+        f"{sc['epoch_ms']['bf16']:.3f} ms (medians of 3 in turns {json.dumps(sc['all_ms'])}) "
+        f"({time.perf_counter() - t0:.1f} s | {card})")
+    bf16_counts = {k: bf16_counts[k] + v for k, v in launch_counts().items()}
+    say("bf16", f"phase {time.perf_counter() - t_b16:.1f} s; launches of the bf16 runs (with "
+        f"the CLI run; the f32 runs beside them not counted) {json.dumps(bf16_counts)}; K1, K2 "
+        f"by part {json.dumps({k: [v['b_chain'], v['chol_inv']] for k, v in b16_parts.items()})}")
+    for kernel in ("b_chain", "chol_inv"):
+        if bf16_counts[kernel] < 1:
+            raise AssertionError(f"{kernel} was not launched on the bf16 paths")
+
+    # the RNN encoder's replayed step, each cell in f32 and in bf16; counts
+    # from 0 just before it
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    rnn_rep = rnn_replayed_steps(world)
+    rnn_rep_counts = launch_counts()
+    say("rnn", f"replayed Hensman step (host clock, warm, median of 5) "
+        f"{json.dumps({k: round(v['replayed_ms'], 3) for k, v in rnn_rep.items()})} ms; one "
+        f"epoch replayed vs eager (cuDNN deterministic) entries that differ "
+        f"{json.dumps({k: v['graph_vs_eager_differ'] for k, v in rnn_rep.items()})}; launches "
+        f"{json.dumps(rnn_rep_counts)} ({time.perf_counter() - t0:.1f} s | {card})")
+
+    # phase 11: subject- and latent-parallel training and serving, 2 gloo
     # ranks sharing the card at each mesh; each rank sets its counts to 0
     # just before its Hensman epochs and reads them just after. One process
     # on the card first: the f64 pair of the sharded runs, and the f32 run
@@ -3482,6 +4095,7 @@ def main() -> int:
         f"in order (the same loss, its subject sums in another order; not held): "
         f"{json.dumps(roll_errs)}; K0zz's condition number at the start "
         f"{json.dumps(k0zz_condition(world))} ({time.perf_counter() - t0:.1f} s | {card})")
+    b16_single = train(world, "cuda", H_SHIFT, compute=BF16, epochs=BF16_PAR_EPOCHS)
     shutil.rmtree(PAR_DIR, ignore_errors=True)
     par_counts = {k: 0 for k in launch_counts()}
     try:
@@ -3498,6 +4112,7 @@ def main() -> int:
             for r in ranks:  # each count set to 0 just before its run in the rank
                 runs = [r["launches"], r["serve"]["launches"]]
                 runs += [r["closed_launches"]["launches"]] if "closed" in r else []
+                runs += [r["bf16"]["launches"]] if "bf16" in r else []
                 for counts in runs:
                     for k, v in counts.items():
                         par_counts[k] += v
@@ -3511,6 +4126,21 @@ def main() -> int:
             say("compare", f"parallel {shape} vs one process on the card: {json.dumps(errs)} "
                 f"(tolerances {json.dumps(LOSS_TOLS)}, m/H {VARIATIONAL_RTOL}, served latents "
                 f"{LATENT_RTOL}, f64 {PAR_F64_RTOL})")
+            if shape == BF16_PAR_SHAPE:
+                b16_errs = {}
+                for rank, r in enumerate(ranks):
+                    steps_ = r["bf16"]["per_step"]
+                    if any(x["b_chain"] != 1 or x["chol_inv"] != 3 for x in steps_):
+                        raise AssertionError(f"a sharded bf16 step launched {steps_}")
+                    b16_errs[f"rank{rank}"] = {
+                        "steps": compare_losses(r["bf16"]["steps"], b16_single["steps"],
+                                                keys=("net", "kld", "recon")),
+                        "end_state": compare_variational(r["bf16"], b16_single)}
+                check_below(b16_errs, BF16_LOSS_RTOL, f"sharded bf16 {shape} vs one process")
+                say("compare", f"parallel {shape}, bf16 VAE, {len(ranks[0]['bf16']['steps'])} "
+                    f"steps vs one process on the card: {json.dumps(b16_errs)} (<= "
+                    f"{BF16_LOSS_RTOL}); launches a rank "
+                    f"{json.dumps([r['bf16']['launches'] for r in ranks])} | {card}")
             coll = [r["timing"]["profile"]["collectives"] for r in ranks]
             say("parallel", f"mesh {shape}: step host median "
                 f"{[round(r['timing']['host_ms'], 3) for r in ranks]} ms a rank (one process "
@@ -3534,10 +4164,13 @@ def main() -> int:
     finally:
         shutil.rmtree(PAR_DIR, ignore_errors=True)
 
-    # phase 11: the kernels line
+    # phase 12: the kernels line
+    if deferred:
+        raise AssertionError("; ".join(deferred))
     paths = {"serving": serve_counts, "training": train_launches, "standard": std_counts,
              "pipeline": pipe_run["counts"], "pipeline_k4": k4_run["counts"],
-             "vi": vi["counts"], "rnn": rnn_counts, "parallel": par_counts}
+             "vi": vi["counts"], "rnn": rnn_counts, "bf16": bf16_counts,
+             "rnn_replayed": rnn_rep_counts, "parallel": par_counts}
     for e, key in ((entry, "chol_inv"), (k1_entry, "b_chain"), (k3_entry, "kernel_matrix"),
                    (k4_entry, "block_pair"), (k5_entry, "adam")):
         e["launches_by_path"] = {path: counts[key] for path, counts in paths.items()}
@@ -3557,4 +4190,9 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        sys.exit(main())
+    except Exception:
+        traceback.print_exc()
+        print(f"chip_smoke: failed after the line {last_said[0]!r}", file=sys.stderr)
+        sys.exit(1)

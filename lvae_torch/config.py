@@ -108,12 +108,10 @@ class LVAEConfig:
 
     # TPU-native knobs (no reference equivalent)
     dtype: str = "float32"  # compute dtype for GP algebra
-    model_dtype: str = ""  # VAE compute dtype. '' = auto: bf16 above the
-    # measured row threshold on TPU (models/vae.auto_model_dtype — neutral
-    # at the sample-config scale, −16 % at the paper's P=1000), the GP
-    # dtype below it. 'float32'/'bfloat16' pin either way. bfloat16 keeps
-    # params f32 and upcasts losses/moments; GP algebra stays f32-highest
-    # regardless (ops/elbo.py invariant).
+    model_dtype: str = ""  # VAE compute dtype. '' = the GP dtype unless
+    # LVAE_MODEL_BF16=1 forces bf16 (models/vae.auto_model_dtype).
+    # 'float32' pins f32; 'bfloat16' runs the VAE's layers in bf16 with f32
+    # parameters, losses and GP algebra.
     seed: int = 0
     data_mesh: int = 1  # devices on the 'data' (subject) mesh axis
     latent_mesh: int = 1  # devices on the 'latent' mesh axis

@@ -2,8 +2,11 @@
 
 A dataset is cut into fixed-size chunks of row indices, the tail padded with
 row 0 (the JAX package's pad rule), and each chunk goes through the model in
-``eval()`` mode without autograd, in the model's dtype. Results come back
-to the host as numpy; :func:`vae_forward` keeps its tensors on the device.
+``eval()`` mode without autograd; the input is in the parameters' dtype
+and the model casts it to its compute dtype. Results come back to the host
+as numpy in the parameters' dtype (a bf16 model's outputs upcast to f32:
+numpy has no bfloat16); :func:`vae_forward` keeps its tensors on the
+device, in the model's compute dtype.
 """
 
 from __future__ import annotations
@@ -73,8 +76,8 @@ def encode_dataset(
         mu, lv = model.encode(x[chunk])
         mus.append(mu)
         lvs.append(lv)
-    mu = torch.cat(mus)[:n].cpu().numpy()
-    lv = torch.cat(lvs)[:n].cpu().numpy()
+    mu = torch.cat(mus)[:n].to(dtype).cpu().numpy()
+    lv = torch.cat(lvs)[:n].to(dtype).cpu().numpy()
     return mu, lv
 
 
@@ -87,8 +90,8 @@ def decode_latents(model: nn.Module, z, batch_size: int = 1000, device="cuda") -
     n = z.shape[0]
     if n == 0:  # one zero row through the decoder fixes the output shape
         out = model.decode(torch.zeros((1, z.shape[1]), dtype=dtype, device=dev))
-        return out.cpu().numpy()[:0]
+        return out.to(dtype).cpu().numpy()[:0]
     idx = _chunk_indices(n, batch_size)  # the same pad/chunk rule as encode
     zt = torch.as_tensor(z, dtype=dtype, device=dev)
     outs = [model.decode(zt[chunk]) for chunk in torch.from_numpy(idx).to(dev)]
-    return torch.cat(outs)[:n].cpu().numpy()
+    return torch.cat(outs)[:n].to(dtype).cpu().numpy()

@@ -167,6 +167,7 @@ def vae_output(
     lo = min(40, max(0, n - num_sets * seq_length))
     hi = min(n, lo + num_sets * seq_length)
     avail_sets = max(1, (hi - lo) // seq_length)
+    recon = recon.to(data.dtype)  # a bf16 model's frames, upcast for numpy
     grid, filled = recon_grid(data.cpu().numpy()[lo:hi], recon.cpu().numpy()[lo:hi],
                               np.asarray(dataset.labels)[lo:hi], seq_length=seq_length,
                               num_sets=avail_sets)

@@ -58,7 +58,9 @@ class LVAEPredictor:
     inducing points ``[M, Q]``; ``basis_labels [N, Q]`` / ``basis_mu [N, L]``
     the training cohort's covariates and encoded latent means, the GP
     regression basis. On construction the model and the GP tensors move to
-    ``device`` as float32, and the model is put in ``eval()`` mode.
+    ``device`` as float32, and the model is put in ``eval()`` mode; a model
+    with a bf16 ``compute_dtype`` keeps it, and its answers reach the host
+    as float32.
     """
 
     model: nn.Module
@@ -265,7 +267,8 @@ class CompiledServing:
     # -------------------------------------------------------------- programs
     def _program(self, name: str):
         """The program ``name`` as a function of its inputs, which it moves
-        to the device (a no-op on the captured programs' fixed inputs)."""
+        to the device (a no-op on the captured programs' fixed inputs); its
+        answer is f32 whatever the model's compute dtype."""
         model = self.predictor.model
         fn = {
             "encode": lambda x: model.encode(x)[0],
@@ -273,7 +276,7 @@ class CompiledServing:
             "recon": lambda x: model.decode(model.encode(x)[0]),
             "trajectory": self._trajectory,
         }[name]
-        return lambda *inputs: fn(*(x.to(self.device) for x in inputs))
+        return lambda *inputs: fn(*(x.to(self.device) for x in inputs)).float()
 
     def _trajectory(self, obs, obs_mask, obs_lab, query_lab) -> torch.Tensor:
         """Encode the K subjects' observed frames ``obs [K·t_obs, ...]``,
@@ -281,7 +284,7 @@ class CompiledServing:
         queries: frames ``[K·n_query, ...]``."""
         pr = self.predictor
         k, t_obs, n_query = self.k_subjects, self.t_obs, self.n_query
-        mu_obs, _ = pr.model.encode(obs)
+        mu_obs = pr.model.encode(obs)[0].float()  # the GP algebra runs in f32
         ones_q = torch.ones((k, n_query), dtype=torch.float32, device=obs.device)
         z_pred = gp_predict_extend_batch(
             pr.spec0, pr.spec1, pr.gp_params.kp0, pr.gp_params.kp1, pr.noise,

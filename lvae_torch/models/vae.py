@@ -16,11 +16,26 @@ feature map after the conv stack is in C-H-W order (the PyTorch reference
 models' order); ``utils/convert.py`` permutes the JAX weights to it.
 Channel-wise spatial dropout is ``Dropout2d``, off in ``eval()``.
 :func:`vae_loss` is the masked reconstruction loss of training.
+
+Compute dtype: a model's ``compute_dtype`` (a plain attribute, which
+``nn.Module.to`` leaves alone) is the type its layers compute in; None
+means the parameters' own. Under ``torch.bfloat16`` every convolution and
+dense layer casts its input, weight and bias to bf16 at the call, as
+flax's layers with ``dtype=bfloat16`` do (:func:`layer`), so ReLU, pooling,
+dropout and the sigmoid run on bf16 values and ``mu``, ``log_var`` and the
+reconstruction come back in bf16, while the parameters (``raw_log_vy``
+with them) and the optimizer's moments stay f32. The casts are part of
+the autograd graph and, in a captured step, of the graph: a replay after
+an optimizer step reads the new weights. :func:`vae_loss` upcasts to the
+target's dtype, and the callers upcast the moments before the GP algebra,
+which never sees bf16. :func:`auto_model_dtype` resolves the pipeline's
+``model_dtype=''``.
 """
 
 from __future__ import annotations
 
 import math
+import os
 from typing import Optional, Tuple
 
 import torch
@@ -30,6 +45,55 @@ from torch.nn import functional as F
 from lvae_torch.ops.linalg import full_precision
 
 MIN_LOG_VY = -8.0
+
+
+def bf16_switch_from_env(name: str) -> Optional[bool]:
+    """``$name`` → a bf16 switch: ``1/true/on`` True, ``0/false/off``
+    False, unset or empty None (the rule decides); anything else raises
+    ``ValueError``, as the JAX package parses ``LVAE_MODEL_BF16`` and
+    ``LVAE_TABLE_BF16``."""
+    raw = os.environ.get(name, "")
+    v = raw.strip().lower()
+    if v in ("1", "true", "on"):
+        return True
+    if v in ("0", "false", "off"):
+        return False
+    if v:
+        raise ValueError(f"{name}={raw!r}: expected 0/1")
+    return None
+
+
+# bf16 VAE compute for the pipeline's model_dtype='': None lets
+# auto_model_dtype decide, True/False force it. $LVAE_MODEL_BF16 sets it.
+use_bf16_model: Optional[bool] = bf16_switch_from_env("LVAE_MODEL_BF16")
+
+
+def auto_model_dtype(base_dtype: torch.dtype = torch.float32) -> torch.dtype:
+    """The VAE compute dtype when the config names none: bf16 when
+    :data:`use_bf16_model` forces it and the base dtype is f32, else the
+    base dtype. The JAX package's rule also picks bf16 for a cohort of at
+    least 10,000 frames on a TPU backend; that clause never holds on a GPU,
+    and no rule of the card's own has been measured, so without the switch
+    the answer is the base dtype, as the JAX package's off a TPU."""
+    if use_bf16_model and base_dtype == torch.float32:
+        return torch.bfloat16
+    return base_dtype
+
+
+def layer(mod: nn.Module, h: torch.Tensor, dtype: Optional[torch.dtype]) -> torch.Tensor:
+    """``mod(h)`` for an ``nn.Linear``, ``nn.Conv2d`` or
+    ``nn.ConvTranspose2d`` computed in ``dtype``: the input, weight and bias
+    cast at the call (the parameters keep their type; the gradients reach
+    them through the casts). ``dtype`` None runs the module as it is."""
+    if dtype is None:
+        return mod(h)
+    h, w, b = h.to(dtype), mod.weight.to(dtype), mod.bias.to(dtype)
+    if isinstance(mod, nn.Linear):
+        return F.linear(h, w, b)
+    if isinstance(mod, nn.ConvTranspose2d):
+        return F.conv_transpose2d(h, w, b, mod.stride, mod.padding, mod.output_padding,
+                                  mod.groups, mod.dilation)
+    return mod._conv_forward(h, w, b)
 
 
 def _vy_init_raw(vy_init: float, num_dim: int, dtype: torch.dtype) -> torch.Tensor:
@@ -58,6 +122,7 @@ class ConvVAE(nn.Module):
         p: float = 0.5,
         image_hw: int = 36,
         dtype: torch.dtype = torch.float32,
+        compute_dtype: Optional[torch.dtype] = None,
     ):
         super().__init__()
         if image_hw % 4:
@@ -66,6 +131,7 @@ class ConvVAE(nn.Module):
         self.num_dim = num_dim
         self.p_input = p_input  # stored for config parity; unused, as in the reference
         self.image_hw = image_hw
+        self.compute_dtype = compute_dtype
         f = image_hw // 4
         self.feat_hw = f
         kw = {"dtype": dtype}
@@ -86,24 +152,26 @@ class ConvVAE(nn.Module):
 
     def encode(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         """images ``[N, H, W, 1]`` → (mu, log_var), each ``[N, L]``."""
+        cd = self.compute_dtype
         with full_precision():
             h = x.permute(0, 3, 1, 2)
-            h = self.drop2d(F.max_pool2d(F.relu(self.conv1(h)), 2))
-            h = self.drop2d(F.max_pool2d(F.relu(self.conv2(h)), 2))
+            h = self.drop2d(F.max_pool2d(F.relu(layer(self.conv1, h, cd)), 2))
+            h = self.drop2d(F.max_pool2d(F.relu(layer(self.conv2, h, cd)), 2))
             h = h.reshape(h.shape[0], -1)  # C-H-W order
-            h = self.drop(F.relu(self.fc1(h)))
-            h = self.drop(F.relu(self.fc21(h)))
-            return self.fc211(h), self.fc221(h)
+            h = self.drop(F.relu(layer(self.fc1, h, cd)))
+            h = self.drop(F.relu(layer(self.fc21, h, cd)))
+            return layer(self.fc211, h, cd), layer(self.fc221, h, cd)
 
     def decode(self, z: torch.Tensor) -> torch.Tensor:
         """latents ``[N, L]`` → images ``[N, H, W, 1]``."""
+        cd = self.compute_dtype
         with full_precision():
-            h = self.drop(F.relu(self.fc3(z)))
-            h = self.drop(F.relu(self.fc31(h)))
-            h = F.relu(self.fc4(h))
+            h = self.drop(F.relu(layer(self.fc3, z, cd)))
+            h = self.drop(F.relu(layer(self.fc31, h, cd)))
+            h = F.relu(layer(self.fc4, h, cd))
             h = self.drop2d(h.reshape(h.shape[0], 32, self.feat_hw, self.feat_hw))
-            h = self.drop2d(F.relu(self.deconv1(h)))
-            return torch.sigmoid(self.deconv2(h)).permute(0, 2, 3, 1)
+            h = self.drop2d(F.relu(layer(self.deconv1, h, cd)))
+            return torch.sigmoid(layer(self.deconv2, h, cd)).permute(0, 2, 3, 1)
 
     def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None):
         """(reconstruction, mu, log_var); ``z = mu`` unless a generator is
@@ -120,11 +188,12 @@ class SimpleVAE(nn.Module):
 
     def __init__(
         self, latent_dim: int, num_dim: int, vy_init: float = 1.0,
-        dtype: torch.dtype = torch.float32,
+        dtype: torch.dtype = torch.float32, compute_dtype: Optional[torch.dtype] = None,
     ):
         super().__init__()
         self.latent_dim = latent_dim
         self.num_dim = num_dim
+        self.compute_dtype = compute_dtype
         kw = {"dtype": dtype}
         self.fc1 = nn.Linear(num_dim, 300, **kw)
         self.fc21 = nn.Linear(300, 30, **kw)
@@ -136,19 +205,28 @@ class SimpleVAE(nn.Module):
         self.raw_log_vy = nn.Parameter(_vy_init_raw(vy_init, num_dim, dtype))
 
     def encode(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        cd = self.compute_dtype
         with full_precision():
-            h = F.relu(self.fc1(x.reshape(x.shape[0], -1)))
-            h = F.relu(self.fc21(h))
-            return self.fc211(h), self.fc221(h)
+            h = F.relu(layer(self.fc1, x.reshape(x.shape[0], -1), cd))
+            h = F.relu(layer(self.fc21, h, cd))
+            return layer(self.fc211, h, cd), layer(self.fc221, h, cd)
 
     def decode(self, z: torch.Tensor) -> torch.Tensor:
-        with full_precision():
-            return torch.sigmoid(self.fc4(F.relu(self.fc31(F.relu(self.fc3(z))))))
+        return mlp_decode(self, z)
 
     def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None):
         mu, log_var = self.encode(x)
         z = mu if generator is None else sample_latent(mu, log_var, generator)
         return self.decode(z), mu, log_var
+
+
+def mlp_decode(model: nn.Module, z: torch.Tensor) -> torch.Tensor:
+    """The MLP decoder latent → 30 → 300 → num_dim with a sigmoid
+    (``fc3``, ``fc31``, ``fc4`` of ``model``) in its compute dtype."""
+    cd = model.compute_dtype
+    with full_precision():
+        h = F.relu(layer(model.fc31, F.relu(layer(model.fc3, z, cd)), cd))
+        return torch.sigmoid(layer(model.fc4, h, cd))
 
 
 def sample_latent(
@@ -225,10 +303,12 @@ def make_vae(
     T: Optional[int] = None,
     hidden_dim: int = 64,
     type_rnn: str = "lstm",
+    compute_dtype: Optional[torch.dtype] = None,
 ) -> nn.Module:
     """Model selection as the reference's flags name it; with ``generator``
     the weights are drawn from it (see :func:`init_weights`). ``dtype`` is
-    the parameters' type whatever torch's default dtype is. ``T``,
+    the parameters' type whatever torch's default dtype is, and
+    ``compute_dtype`` the layers' (None: the parameters'). ``T``,
     ``hidden_dim`` and ``type_rnn`` shape the RNN encoder, which needs
     ``T``."""
     if type_nnet == "conv":
@@ -238,16 +318,19 @@ def make_vae(
         model = ConvVAE(
             latent_dim=latent_dim, num_dim=num_dim, vy_init=vy_init,
             p=dropout, p_input=dropout_input, image_hw=hw, dtype=dtype,
+            compute_dtype=compute_dtype,
         )
     elif type_nnet == "simple":
-        model = SimpleVAE(latent_dim=latent_dim, num_dim=num_dim, vy_init=vy_init, dtype=dtype)
+        model = SimpleVAE(latent_dim=latent_dim, num_dim=num_dim, vy_init=vy_init, dtype=dtype,
+                          compute_dtype=compute_dtype)
     elif type_nnet == "rnn":
         from lvae_torch.models.rnn import RNNVAE
 
         if not T or T <= 0:
             raise ValueError("type_nnet='rnn' requires T")
         model = RNNVAE(latent_dim=latent_dim, num_dim=num_dim, T=T, hidden_dim=hidden_dim,
-                       type_rnn=type_rnn, vy_init=vy_init, dtype=dtype)
+                       type_rnn=type_rnn, vy_init=vy_init, dtype=dtype,
+                       compute_dtype=compute_dtype)
     else:
         raise ValueError(
             f"Unknown type_nnet {type_nnet!r} (expected 'conv', 'simple' or 'rnn')"

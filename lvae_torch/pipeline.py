@@ -14,8 +14,11 @@ reference's GP resume files (``utils/torch_compat.py``). On a mesh the
 trainers are the sharded ones (GPPVAE stays in one process, with a
 warning), the sparse-GP tests run mesh-parallel, and rank 0 writes every
 file while the other ranks wait; a checkpoint holds the whole state.
-bfloat16 compute and the orbax checkpoint backends raise
-``NotImplementedError`` naming ROADMAP items 13 and 10.
+``model_dtype=bfloat16`` (or ``''`` with ``LVAE_MODEL_BF16=1``) runs the
+VAE's layers in bf16 with f32 parameters, losses and GP algebra
+(``models/vae.py``); ``dtype=bfloat16``, the GP algebra in bf16, and the
+orbax checkpoint backends raise ``NotImplementedError`` naming ROADMAP
+items 13 and 10.
 """
 
 from __future__ import annotations
@@ -38,7 +41,7 @@ from lvae_torch.evaluation.testing import mse_test_exact, mse_test_gp_approx
 from lvae_torch.evaluation.validate import validate
 from lvae_torch.parallel import mesh as pm
 from lvae_torch.parallel.distributed import initialize_distributed
-from lvae_torch.models.vae import make_vae
+from lvae_torch.models.vae import auto_model_dtype, make_vae
 from lvae_torch.ops import kernels as kx
 from lvae_torch.train import state as st
 from lvae_torch.train.hensman import HensmanConfig, HensmanTrainer
@@ -52,14 +55,17 @@ from lvae_torch.utils.metrics import MetricsLogger, device_memory_stats
 from lvae_torch.utils.torch_compat import save_reference_gp_state
 
 DTYPES = {"float32": torch.float32, "float64": torch.float64}
+MODEL_DTYPES = {**DTYPES, "bfloat16": torch.bfloat16}
 
 
 def check_ported(cfg) -> None:
     """Raise ``NotImplementedError`` for a configuration the port does not
     run, naming the ROADMAP item that says why."""
     waiting = []
-    if "bfloat16" in (getattr(cfg, "dtype", ""), getattr(cfg, "model_dtype", "")):
-        waiting.append("bfloat16 compute (ROADMAP queue 1 item 13, the next module slice)")
+    if getattr(cfg, "dtype", "") == "bfloat16":
+        waiting.append("dtype=bfloat16: the GP algebra runs at f32 or wider, as in the JAX "
+                       "package, whose kernels take f32 only (ROADMAP queue 1 item 13); "
+                       "model_dtype=bfloat16 runs the VAE in bf16")
     if getattr(cfg, "checkpoint_backend", "pickle").startswith("orbax"):
         waiting.append("checkpoint_backend=orbax* (a JAX storage layer, ROADMAP queue 1 "
                        "item 10); lvae_torch writes its own torch.save checkpoints")
@@ -127,13 +133,19 @@ class LVAEPipeline:
 
         self.num_dim = cfg.num_dim or self.dataset.num_dim
         self.q = self.dataset.num_covariates
-        # '' = the GP dtype (the JAX package's bf16 auto-switch is a TPU layout)
-        model_dtype = DTYPES[cfg.model_dtype] if cfg.model_dtype else self.dtype
+        # '' = auto (models/vae.auto_model_dtype: the GP dtype unless
+        # LVAE_MODEL_BF16=1); bfloat16 computes in bf16 over parameters in
+        # the GP dtype
+        model_dtype = (MODEL_DTYPES[cfg.model_dtype] if cfg.model_dtype
+                       else auto_model_dtype(self.dtype))
+        bf16 = model_dtype == torch.bfloat16
         self.model = make_vae(
             cfg.type_nnet, cfg.latent_dim, self.num_dim, vy_init=cfg.vy_init,
             dropout=cfg.dropout, dropout_input=cfg.dropout_input,
-            generator=torch.Generator().manual_seed(cfg.seed), dtype=model_dtype,
+            generator=torch.Generator().manual_seed(cfg.seed),
+            dtype=self.dtype if bf16 else model_dtype,
             T=cfg.T or None, hidden_dim=cfg.hidden_dim, type_rnn=cfg.type_rnn,
+            compute_dtype=torch.bfloat16 if bf16 else None,
         )
         self.spec0, self.spec1 = kx.split_kernel_spec(
             id_covariate=cfg.id_covariate, **cfg.kernel_spec_kwargs()

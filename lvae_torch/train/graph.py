@@ -64,6 +64,17 @@ def add_launches(delta: Sequence[int]) -> None:
         getattr(mod, name).launches += d
 
 
+# A capture refuses the calls that would break it (a synchronisation, a
+# query of an event) in the thread that captures. torch's default mode,
+# "global", refuses them in every thread of the process and invalidates the
+# capture when another thread makes one, so that the capture fails or not
+# by when the other thread runs (tools/torch_capture_threads.py shows it
+# with a thread that queries events). "thread_local" leaves the other
+# threads alone; the work the step sends to the captured stream, from
+# whichever thread, is held to the same rules as before.
+CAPTURE_MODE = "thread_local"
+
+
 class CapturedStep:
     """``step(*inputs) -> Tensor`` captured on the card over fixed copies of
     ``inputs``.
@@ -93,7 +104,8 @@ class CapturedStep:
         main.wait_stream(side)
         before = launch_counts()
         self.graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(self.graph, pool=pool, stream=side), mode():
+        with torch.cuda.graph(self.graph, pool=pool, stream=side,
+                              capture_error_mode=CAPTURE_MODE), mode():
             self.out = step(*self.inputs)
         self.launches = tuple(a - b for a, b in zip(launch_counts(), before))
         add_launches([-d for d in self.launches])  # the capture launched nothing

@@ -20,6 +20,10 @@ chunk captures again on the new state's tensors.
 * Fixed-T and ragged cohorts share one path through padded blocks and
   validity masks; ghost subjects pad the final batch, contribute exactly
   zero, and the true subject count drives the ``P_tot / P_batch`` scaling.
+* A model computing in bf16 (``models/vae.py``'s ``compute_dtype``) takes
+  its sample in bf16, as the JAX model draws it; the moments are upcast to
+  the GP dtype before the GP algebra and the loss target with them, and
+  under ``use_bf16_table`` the frame table itself is stored in bf16.
 * Randomness (the subject permutation of each epoch and bucket, and the
   reparameterisation noise of each step) is drawn from a CPU
   ``torch.Generator`` seeded from ``seed`` and moved to the device, so a run
@@ -50,6 +54,23 @@ from lvae_torch.train.graph import (
     StepGraphs, epochs_per_slab, finish_host_copy, run_chunks, start_host_copy,
 )
 from lvae_torch.utils.device import resolve_device
+
+
+# The bf16 frame table: under a bf16 model over an f32 GP dtype the frame
+# and pixel-mask tables may be stored in bf16 (the model casts its input to
+# bf16 anyway; a batch's gather moves half the bytes). The loss target is
+# upcast in batch_loss, so the one change in numbers is the target rounded
+# to bf16; labels and z stay in the GP dtype. True switches it on; None
+# (the JAX package's default is off) and False leave it off.
+# $LVAE_TABLE_BF16 sets it.
+use_bf16_table: Optional[bool] = mv.bf16_switch_from_env("LVAE_TABLE_BF16")
+
+
+def _bf16_table_active(model, dtype) -> bool:
+    """Whether a trainer of ``model`` in the GP ``dtype`` stores its frame
+    table in bf16."""
+    return (bool(use_bf16_table) and dtype == torch.float32
+            and getattr(model, "compute_dtype", None) == torch.bfloat16)
 
 
 class HensmanConfig(NamedTuple):
@@ -145,24 +166,30 @@ def batch_loss(
     flat = idx.reshape(-1)
     x = tdata.data[flat]
     labels = tdata.labels[flat]
-    pixmask = tdata.pixmask[flat]
+    gp_dtype = labels.dtype
+    # a bf16 frame table feeds the model as it is; the loss target and the
+    # mask are upcast to the GP dtype (labels always carry it)
+    pixmask = tdata.pixmask[flat].to(gp_dtype)
     valid = bmask.reshape(-1)
 
     model.train(cfg.dropout)
-    mu, log_var = model.encode(x)
+    mu_m, lv_m = model.encode(x)
     if eps is None:
         if generator is None:
             raise ValueError("batch_loss needs eps or a generator to draw it from")
-        eps = torch.randn(mu.shape, generator=generator, dtype=mu.dtype)
+        eps = torch.randn(mu_m.shape, generator=generator, dtype=gp_dtype)
     if view.weight("data"):
-        z_lat = mu + eps.to(mu.device, mu.dtype) * torch.exp(0.5 * log_var)
+        # the sample in the model's compute dtype, as the JAX model draws it
+        z_lat = mu_m + eps.to(mu_m.device, mu_m.dtype) * torch.exp(0.5 * lv_m)
         recon = model.decode(z_lat)
         raw_log_vy = model.raw_log_vy.detach() if cfg.vy_fixed else model.raw_log_vy
-        mse_i, nll_i = mv.vae_loss(raw_log_vy, recon, x, pixmask)
+        mse_i, nll_i = mv.vae_loss(raw_log_vy, recon, x.to(gp_dtype), pixmask)
         recon_loss = torch.sum(mse_i * valid)
         nll_loss = torch.sum(nll_i * valid)
     else:  # another latent rank of these subjects counts their reconstruction
-        recon_loss = nll_loss = mu.new_zeros(())
+        recon_loss = nll_loss = mu_m.new_zeros((), dtype=gp_dtype)
+    # the GP algebra never sees a bf16 model's moments
+    mu, log_var = mu_m.to(gp_dtype), lv_m.to(gp_dtype)
 
     lat = view.lat
     gp = trainables.gp
@@ -251,12 +278,13 @@ class HensmanTrainer:
             build_block_table(b, subjects_per_batch, dtype, self.device) for b in bucket_blocks
         )
 
-        def dev(a):
-            return torch.as_tensor(np.asarray(a), dtype=dtype, device=self.device)
+        def dev(a, as_dtype=dtype):
+            return torch.as_tensor(np.asarray(a), dtype=as_dtype, device=self.device)
 
+        table = torch.bfloat16 if _bf16_table_active(self.model, dtype) else dtype
         self.tdata = st.TrainData(
-            data=dev(dataset.data), labels=dev(dataset.labels),
-            pixmask=dev(dataset.mask), z=dev(z),
+            data=dev(dataset.data, table), labels=dev(dataset.labels),
+            pixmask=dev(dataset.mask, table), z=dev(z),
         )
 
         gp = st.init_gp_params(

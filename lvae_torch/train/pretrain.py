@@ -64,7 +64,7 @@ def pretrain_loss(model: nn.Module, x, pixmask, eps, loss_function: str,
     recon = model.decode(mu + eps.to(mu.device, mu.dtype) * torch.exp(0.5 * log_var))
     raw_log_vy = model.raw_log_vy.detach() if vy_fixed else model.raw_log_vy
     mse_i, nll_i = mv.vae_loss(raw_log_vy, recon, x, pixmask)
-    kld_i = std_normal_kld(mu, log_var)
+    kld_i = std_normal_kld(mu, log_var)  # in the moments' dtype, as the JAX package's
     rec_i = nll_i if loss_function == "nll" else mse_i
     loss = torch.sum(rec_i + kld_i)
     return loss, torch.stack([loss.detach(), mse_i.sum().detach(), nll_i.sum().detach(),

@@ -120,8 +120,9 @@ def _sparse_gp_loss(cfg: StandardConfig, kp0: kx.KernelParams, kp1: kx.KernelPar
 
 
 def _recon_losses(model, cfg: StandardConfig, x, pixmask, mu, log_var, eps):
-    """Per-frame (mse, nll) of the reconstruction of a sample ``mu + eps·σ``."""
-    recon = model.decode(mu + eps * torch.exp(0.5 * log_var))
+    """Per-frame (mse, nll) of the reconstruction of a sample ``mu + eps·σ``,
+    drawn in the dtype of the model's moments ``mu``/``log_var``."""
+    recon = model.decode(mu + eps.to(mu.dtype) * torch.exp(0.5 * log_var))
     raw_log_vy = model.raw_log_vy.detach() if cfg.vy_fixed else model.raw_log_vy
     return mv.vae_loss(raw_log_vy, recon, x, pixmask)
 
@@ -155,11 +156,13 @@ def full_batch_loss(
     p, t = block_mask.shape
     rows, frames, lat = view.rows, view.frames(t), view.lat
     model.train(cfg.dropout)
-    mu, log_var = model.encode(tdata.data[frames])
+    mu_m, lv_m = model.encode(tdata.data[frames])
+    # the GP algebra never sees a bf16 model's moments
+    mu, log_var = mu_m.to(tdata.labels.dtype), lv_m.to(tdata.labels.dtype)
     eps, gp_eps = _noises(cfg, block_mask, mu, eps, gp_eps, generator)
     if view.weight("data"):
-        mse_i, nll_i = _recon_losses(model, cfg, tdata.data[frames], tdata.pixmask[frames], mu,
-                                     log_var, eps[frames])
+        mse_i, nll_i = _recon_losses(model, cfg, tdata.data[frames], tdata.pixmask[frames], mu_m,
+                                     lv_m, eps[frames])
         # row validity keeps alignment padding out of the sums: the NLL adds
         # its Gaussian constant for every pixel whatever the pixel mask
         row_valid = block_mask[rows].reshape(-1).to(mse_i.dtype)
@@ -232,7 +235,7 @@ def gppvae_grads(
 
     # phase 1
     with torch.no_grad():
-        full_mu, full_lv = model.encode(tdata.data)
+        full_mu, full_lv = (m.to(tdata.labels.dtype) for m in model.encode(tdata.data))
     eps, gp_eps = _noises(cfg, block_mask, full_mu, eps, gp_eps, generator)
 
     # phases 2 and 3
@@ -267,6 +270,8 @@ def gppvae_grads(
         mse_i, nll_i = _recon_losses(model, cfg, data_b[i], pix_b[i], mu_i, lv_i, eps_b[i])
         recon_l, nll_l = torch.sum(mse_i), torch.sum(nll_i)
         primal = recon_l if cfg.loss_function == "mse" else nll_l
+        # the cotangents are in the GP dtype: so are the moments they splice into
+        mu_i, lv_i = mu_i.to(mu_ct_b.dtype), lv_i.to(mu_ct_b.dtype)
         torch.autograd.backward([primal, mu_i, lv_i],
                                 [torch.ones_like(primal), mu_ct_b[i], lv_ct_b[i]])
         recon_sum = recon_sum + recon_l.detach()

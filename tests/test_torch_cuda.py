@@ -42,6 +42,9 @@ once a replay) and the VI programs (phase 1, K1 and K2 once a replay;
 phase 2) give the eager programs' bits, and assigning a VI state drops
 its graphs. The launches of those replays are counted by kernel name in a
 ``torch.profiler`` trace, and the launch counters agree with the trace.
+The Hensman step with the VAE in bf16 replays bit-equal to its eager twin
+too, and the f32 and bf16 steps capture and replay bit-equal while another
+thread of the process queries events.
 """
 
 import contextlib
@@ -761,11 +764,12 @@ def test_sharded_hensman_on_two_ranks_sharing_the_card(gen, shape, tmp_path):
 
 
 # ------------------------------------------------- the captured Hensman step
-def card_trainer(optimizer=None, p=5, t=4, n_lat=3, m_ind=6, s=2):
+def card_trainer(optimizer=None, p=5, t=4, n_lat=3, m_ind=6, s=2, compute=None):
     """A Hensman trainer on the card (f32, ConvVAE, natural gradients) over a
     small HealthMNIST-layout cohort with a ghost in the last batch; every
     call starts from the same state, H + 0.1·I (f32 factors the card's
-    H⁻¹ either way). ``optimizer`` names ``make_optimizer``'s kind."""
+    H⁻¹ either way). ``optimizer`` names ``make_optimizer``'s kind;
+    ``compute`` the VAE's compute dtype (its parameters stay f32)."""
     import numpy as np
 
     from lvae_torch.data.blocks import build_subject_blocks
@@ -788,7 +792,8 @@ def card_trainer(optimizer=None, p=5, t=4, n_lat=3, m_ind=6, s=2):
                            loss_function="mse", natural_gradient=True, natural_gradient_lr=0.01,
                            constrain_scales=True, eps=1e-5, dropout=False)
     trainer = th.HensmanTrainer(
-        make_vae("conv", n_lat, 1296, dropout=0.0, generator=torch.Generator().manual_seed(1)),
+        make_vae("conv", n_lat, 1296, dropout=0.0, generator=torch.Generator().manual_seed(1),
+                 compute_dtype=compute),
         cfg, ds, build_subject_blocks(labels, 2), labels[rng.choice(p * t, m_ind, replace=False)],
         subjects_per_batch=s, seed=0, device="cuda")
     h = trainer.state.H_nat
@@ -853,6 +858,73 @@ def test_graph_and_eager_steps_are_bit_equal(gen, optimizer, monkeypatch):
     assert graph.last_steps == eager.last_steps
     for a, b in zip(trainer_arrays(graph), trainer_arrays(eager)):
         assert torch.equal(a, b)
+
+
+def test_bf16_graph_and_eager_steps_are_bit_equal(gen, monkeypatch):
+    """The Hensman step with the VAE in bf16 captures and replays as in f32
+    (K1 once and K2 three times a replay), its parameters stay f32, and
+    three replayed steps give the bits of the same three steps run eagerly
+    (cuDNN held to its deterministic algorithms)."""
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    graph, eager = card_trainer(compute=torch.bfloat16), card_trainer(compute=torch.bfloat16)
+    order = [[4, 5], [0, 3], [2, 1]]
+    before = (k1.b_chain.launches, k2.cholesky_inverse.launches)
+    graph.run_epoch(order=order)
+    assert (k1.b_chain.launches - before[0], k2.cholesky_inverse.launches - before[1]) == (3, 9)
+
+    def eager_step(b, rows, eps, out):
+        out.copy_(eager._step(eager.tables[b], rows, eps))
+        eager._advance()
+
+    eager._run_step = eager_step
+    eager.run_epoch(order=order)
+    assert len(graph._graphs) == 1 and not eager._graphs
+    assert graph.model.compute_dtype == torch.bfloat16
+    assert graph.history == eager.history and all(math.isfinite(v) for v in graph.history[0])
+    for a, b in zip(trainer_arrays(graph), trainer_arrays(eager)):
+        assert a.dtype == torch.float32 and torch.equal(a, b)
+
+
+def test_capture_holds_while_another_thread_queries_events(gen, monkeypatch):
+    """The Hensman step captures while another thread of the process
+    queries events without pause (as a process group's watchdog does):
+    only the capturing thread is held to the capture's rules, and the
+    replayed steps give the eager steps' bits (cuDNN deterministic)."""
+    import threading
+
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    stop, queries = threading.Event(), [0]
+
+    def poll():
+        stream = torch.cuda.Stream()
+        while not stop.is_set():
+            ev = torch.cuda.Event()
+            ev.record(stream)
+            ev.query()
+            queries[0] += 1
+
+    poller = threading.Thread(target=poll, daemon=True)
+    poller.start()
+    try:
+        graphs = [card_trainer(compute=c) for c in (None, torch.bfloat16)]
+        for trainer in graphs:
+            trainer.run_epoch(order=[[4, 5], [0, 3], [2, 1]])
+    finally:
+        stop.set()
+        poller.join()
+    assert queries[0] > 0 and all(len(g._graphs) == 1 for g in graphs)
+    for graph, compute in zip(graphs, (None, torch.bfloat16)):
+        eager = card_trainer(compute=compute)
+
+        def eager_step(b, rows, eps, out, eager=eager):
+            out.copy_(eager._step(eager.tables[b], rows, eps))
+            eager._advance()
+
+        eager._run_step = eager_step
+        eager.run_epoch(order=[[4, 5], [0, 3], [2, 1]])
+        assert graph.history == eager.history
+        for a, b in zip(trainer_arrays(graph), trainer_arrays(eager)):
+            assert torch.equal(a, b)
 
 
 def test_adam_kernel_count_on_the_device_matches_host_scalars(gen):

@@ -255,7 +255,6 @@ def test_reference_pth_seeds_the_vae(small, tmp_path, capsys):
     ("--dtype=bfloat16", NotImplementedError, "item 13"),
     # a mesh needs as many processes as ranks: one process is a world of 1
     ("--data_mesh=2", ValueError, "world size is 1"),
-    ("--model_dtype=bfloat16", NotImplementedError, "item 13"),
     ("--checkpoint_backend=orbax", NotImplementedError, "item 10"),
 ])
 def test_waiting_configurations_raise(small, tmp_path, flag, error, match):
