@@ -52,6 +52,21 @@ frames, random frames and weights from ``--seed``):
   (``auto_recover``, a poisoned epoch) bit-equal to the same restore done
   by hand; the pre-training epoch program (one captured step) timed and
   held against the CPU;
+* the evaluation programs (``evaluation/programs.py``) from the CLI run's
+  ``model_final.ckpt``: validation of the pipeline's 20-subject cohort and
+  of its 100-subject training cohort (2,000 frames) in GPapprox_closed,
+  GPapprox (3 samples) and on the K4 route, the prediction cohort's and
+  the 2,000-frame cohort's encoding, the 2,000-row decode,
+  ``mse_test_gp_approx`` and generation, each captured once, replayed and
+  held bit-equal to the same programs run eagerly (cuDNN deterministic),
+  each call's K1, K2 and K4 launches checked (``ROUTE_LAUNCHES``);
+  ``mse_test_exact`` (eager by rule) on the card at the reference's
+  6040-row cap on a generated 6,200-row prediction cohort, and against
+  the CPU at 520 rows; in the fresh process each validation's and
+  program's profile replayed and eager (wall, device ms, idle share, host
+  calls, copies: one read to the host, no pageable copy), the exact
+  regression's, and the K1, K2 and K4 kernels of replayed validations and
+  posteriors by name;
 * the VI regime through ``lvae_torch.cli.main`` with
   ``--variational_inference_training=True`` on the same data and
   pre-trained VAE: 3 phase-1 epochs over the whole cohort through
@@ -132,6 +147,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import copy
+import functools
 import itertools
 import json
 import math
@@ -158,8 +174,13 @@ from lvae_torch.config import load_flag_file, parse_flag_lines  # noqa: E402
 from lvae_torch.data.blocks import build_subject_blocks  # noqa: E402
 from lvae_torch.data.datasets import ArrayDataset  # noqa: E402
 from lvae_torch.data.healthmnist import generate_healthmnist  # noqa: E402
-from lvae_torch.evaluation.encode import encode_dataset  # noqa: E402
-from lvae_torch.evaluation.testing import mse_test_gp_approx  # noqa: E402
+from lvae_torch.evaluation import programs as eval_programs  # noqa: E402
+from lvae_torch.evaluation.encode import decode_latents, encode_dataset  # noqa: E402
+from lvae_torch.evaluation.generation import recon_complete_gen  # noqa: E402
+from lvae_torch.evaluation.programs import dataset_tensor, on_device  # noqa: E402
+from lvae_torch.evaluation.testing import (  # noqa: E402
+    cap_prediction_rows, exact_gp_predict_per_dim, mse_test_exact, mse_test_gp_approx, vae_test,
+)
 from lvae_torch.inference import LVAEPredictor  # noqa: E402
 from lvae_torch.kernels_cuda import adam as k5  # noqa: E402
 from lvae_torch.kernels_cuda import b_chain as k1  # noqa: E402
@@ -173,6 +194,7 @@ from lvae_torch.models.rnn import cudnn_layout  # noqa: E402
 from lvae_torch.models.vae import make_vae  # noqa: E402
 from lvae_torch.ops import kernels as kx  # noqa: E402
 from lvae_torch.ops import linalg as la  # noqa: E402
+from lvae_torch.ops.predict import predict_latents  # noqa: E402
 from lvae_torch.parallel import (  # noqa: E402
     ShardedHensmanTrainer, ShardedStandardTrainer, initialize_distributed, make_mesh,
 )
@@ -1785,6 +1807,275 @@ def compare_pipeline(card: dict, cpu: dict) -> dict:
     return errs
 
 
+# ------------------------------------------------------- evaluation programs
+# validation modes of the [eval] phase: (type_KL, kernel route, num_samples)
+EVAL_MODES = (("GPapprox_closed", "k1", 1), ("GPapprox", "k1", 3), ("GPapprox_closed", "k4", 1))
+EXACT_CAP = 6040  # the reference's cap on the exact regression's prediction cohort
+EXACT_SUBJECTS = 310  # a generated prediction cohort of 6,200 rows, cut to the cap
+EXACT_COMPARE_CAP = 520  # rows of the card-vs-CPU exact regression
+
+
+def eval_cohorts(pipe) -> dict:
+    """The validation cohorts of the [eval] phase: the pipeline's own (20
+    subjects, 400 frames) and its training cohort (100 subjects, 2,000)."""
+    return {"val20": pipe.validation_dataset, "val100": pipe.dataset}
+
+
+def eval_validate(pipe, ds, type_kl: str, num_samples: int):
+    """The pipeline's ``validate`` of its state on ``ds``, quietly."""
+    cfg = pipe.cfg
+    model, gp, noise = pipe.current_params()
+    return pipeline_mod.validate(
+        model, gp, noise, pipe.spec0, pipe.spec1, ds, pipe.trainer.tdata.z, cfg.id_covariate,
+        cfg.weight, cfg.loss_function, cfg.latent_dim, cfg.eps, type_kl=type_kl,
+        num_samples=num_samples, verbose=False, device=pipe.device)
+
+
+def eval_answers(pipe, root: str) -> dict:
+    """Every evaluation program's answers from the pipeline's state, as host
+    arrays, and the launches of each call: validation of both cohorts in
+    each of EVAL_MODES, the prediction cohort's encoding, the 2,000-frame
+    training cohort encoded and decoded, ``mse_test_gp_approx`` and the
+    generation grid (of the test cohort, into ``root``)."""
+    cfg, dev = pipe.cfg, pipe.device
+    model, gp, noise = pipe.current_params()
+    out, launches = {}, {}
+
+    def call(name, fn, *args, **kwargs):
+        before = launch_counts()
+        got = fn(*args, **kwargs)
+        launches[name] = {k: v - before[k] for k, v in launch_counts().items() if v - before[k]}
+        return got
+
+    try:
+        for cohort, ds in eval_cohorts(pipe).items():
+            for type_kl, route, samples in EVAL_MODES:
+                use_route(route)
+                name = f"validate_{cohort}_{type_kl}_{route}"
+                out[name] = np.asarray(call(name, eval_validate, pipe, ds, type_kl, samples))
+    finally:
+        use_route("k1")
+    px, pmu = call("encode_prediction_cohort", pipe.encode_prediction_cohort)
+    out["encode_prediction_cohort"] = pmu
+    data = dataset_tensor(pipe.dataset.data, model.raw_log_vy.dtype, dev)
+    out["encode_2000_mu"], out["encode_2000_log_var"] = call(
+        "encode_2000", encode_dataset, model, data, device=dev)
+    out["decode_2000"] = call("decode_2000", decode_latents, model, out["encode_2000_mu"],
+                              device=dev)
+    out["mse_test_gp_approx"] = np.asarray(call(
+        "mse_test_gp_approx", mse_test_gp_approx, model, gp, noise, pipe.spec0, pipe.spec1,
+        pipe.test_dataset, px, pmu, pipe.trainer.tdata.z, cfg.id_covariate, cfg.eps,
+        verbose=False, device=dev))
+    grid = call("generation", recon_complete_gen, pipe.test_dataset, model, gp, noise, pipe.spec0,
+                pipe.spec1, px, pmu, pipe.trainer.tdata.z, cfg.id_covariate, root, eps=cfg.eps,
+                verbose=False, device=dev)
+    out["generation"] = np.load(grid)["grid"]
+    return {"answers": out, "launches": launches}
+
+
+def check_eval_launches(launches: dict, where: str) -> None:
+    """Each validation launched its route's kernels (ROUTE_LAUNCHES), the
+    GP posterior of the test and of the generation K2 once, the encodes
+    and decodes nothing of ours."""
+    for name, got in launches.items():
+        if name.startswith("validate_"):
+            want = {k: v for k, v in ROUTE_LAUNCHES[name.rsplit("_", 1)[1]]["validation"].items()
+                    if v}
+        elif name in ("mse_test_gp_approx", "generation"):
+            want = {"chol_inv": 1}
+        else:
+            want = {}
+        if got != want:
+            raise AssertionError(f"{where}: {name} launched {json.dumps(got)}, expected "
+                                 f"{json.dumps(want)}")
+
+
+def eval_graph_keys(pipe) -> set:
+    """The keys of the evaluation graphs of the pipeline's model and of the
+    GP programs on its card."""
+    model = pipe.current_params()[0]
+    return (set(eval_programs.graphs_of(model, pipe.device))
+            | set(eval_programs.graphs_of(None, pipe.trainer.tdata.z.device)))
+
+
+def eval_graph_vs_eager(pipe, root: str) -> dict:
+    """The [eval] phase's bit-equality: every program once to capture, then
+    replayed (capturing nothing) and eagerly (cuDNN deterministic), the
+    launches of each call checked; entries that differ between the replayed
+    and eager answers."""
+    runs = {}
+    with deterministic_cudnn():
+        for name in ("capture", "replayed", "eager"):
+            keys = eval_graph_keys(pipe)
+            with eager_steps() if name == "eager" else contextlib.nullcontext():
+                runs[name] = eval_answers(pipe, os.path.join(root, name))
+            check_eval_launches(runs[name]["launches"], f"[eval] {name}")
+            if name == "replayed" and eval_graph_keys(pipe) != keys:
+                raise AssertionError(f"[eval] the replayed run captured again: "
+                                     f"{len(eval_graph_keys(pipe) - keys)} new graphs")
+    replayed, eager = runs["replayed"]["answers"], runs["eager"]["answers"]
+    return {"graph_vs_eager": {k: bit_diff(replayed[k], eager[k])["differ"] for k in replayed},
+            "launches": runs["replayed"]["launches"], "graphs": len(eval_graph_keys(pipe)),
+            "mu_2000": replayed["encode_2000_mu"]}
+
+
+def exact_test(pipe, labels: np.ndarray, mu: np.ndarray, cap: int):
+    """``mse_test_exact`` of the pipeline's state on its test cohort (400
+    rows), the prediction cohort ``labels``/``mu`` cut to ``cap`` rows."""
+    model, gp, noise = pipe.current_params()
+    spec_full, kp_full = kx.join_specs(pipe.spec0, pipe.spec1, gp.kp0, gp.kp1)
+    return mse_test_exact(model, kp_full, spec_full, noise, pipe.test_dataset, labels, mu,
+                          pipe.cfg.eps, max_prediction_rows=cap, verbose=False,
+                          device=pipe.device)
+
+
+@torch.no_grad()
+def exact_on(pipe, mu_2000: np.ndarray, cap: int = EXACT_COMPARE_CAP) -> dict:
+    """:func:`exact_test` on the training cohort (encoded on the card:
+    ``mu_2000``) at ``cap`` rows, and its latents and decoded frames, the
+    same regression run step by step."""
+    dev, f32 = pipe.device, torch.float32
+    model, gp, noise = pipe.current_params()
+    spec_full, kp_full = kx.join_specs(pipe.spec0, pipe.spec1, gp.kp0, gp.kp1)
+    labels = np.asarray(pipe.dataset.labels)
+    res = exact_test(pipe, labels, mu_2000, cap)
+    px, pmu = cap_prediction_rows(labels, mu_2000, cap)
+    z = exact_gp_predict_per_dim(
+        spec_full, kp_full.to(device=dev, dtype=f32), on_device(px, f32, dev),
+        on_device(pipe.test_dataset.labels, f32, dev), on_device(noise, f32, dev),
+        on_device(pmu, f32, dev), eps=pipe.cfg.eps)
+    return {**res._asdict(), "latents": z.cpu().numpy(),
+            "frames": decode_latents(model, z, device=dev)}
+
+
+def compare_exact(card: dict, cpu: dict) -> dict:
+    """Card against CPU: latents (max |Δ| over max |CPU|) <= LATENT_RTOL,
+    frames (max |Δ|) <= FRAME_ATOL, the test MSEs <= LOSS_RTOL relative."""
+    errs = {"latents": rel_np(card["latents"], cpu["latents"]),
+            "frames": float(np.abs(card["frames"] - cpu["frames"]).max()),
+            "vae_mse": rel(card["vae_mse"], cpu["vae_mse"]),
+            "gp_mse": rel(card["gp_mse"], cpu["gp_mse"])}
+    tols = {"latents": LATENT_RTOL, "frames": FRAME_ATOL, "vae_mse": LOSS_RTOL,
+            "gp_mse": LOSS_RTOL}
+    bad = [f"{k} {v:.3e} > {tols[k]:g}" for k, v in errs.items() if not v <= tols[k]]
+    if bad:
+        raise AssertionError("mse_test_exact card vs CPU: " + "; ".join(bad))
+    return errs
+
+
+def exact_cohort(world: World, pipe):
+    """A generated prediction cohort of EXACT_SUBJECTS subjects (6,200 rows,
+    over the EXACT_CAP cap), encoded by the pipeline's model on the card:
+    its labels and latent means."""
+    frames, labels = make_cohort(np.random.default_rng(world.seed + 7),
+                                 range(5000, 5000 + EXACT_SUBJECTS), world.cfg.T, world.hw)
+    mu, _ = encode_dataset(pipe.current_params()[0], frames, device=pipe.device)
+    return labels, mu
+
+
+def eval_phase(world: World, card_pipe, cpu_pipe, root: str) -> dict:
+    """The [eval] phase in the main process (its traces are taken in the
+    fresh process): replayed against eager, the launches, host-clock
+    validation times, ``mse_test_exact`` on the card at the cap and against
+    the CPU at EXACT_COMPARE_CAP rows."""
+    out = eval_graph_vs_eager(card_pipe, root)
+    mu_2000 = out.pop("mu_2000")
+    times = {}
+    for cohort, ds in eval_cohorts(card_pipe).items():
+        fn = functools.partial(eval_validate, card_pipe, ds, "GPapprox_closed", 1)
+        times[cohort] = {"replayed_ms": host_ms(fn, 5)}
+        with eager_steps():
+            times[cohort]["eager_ms"] = host_ms(fn, 3)
+    out["validation_host_ms"] = times
+    card = exact_on(card_pipe, mu_2000)
+    cpu = exact_on(cpu_pipe, mu_2000)
+    out["exact_compare"] = {"card": {k: card[k] for k in ("vae_mse", "gp_mse")},
+                            "cpu": {k: cpu[k] for k in ("vae_mse", "gp_mse")},
+                            "errs": compare_exact(card, cpu)}
+    labels, mu = exact_cohort(world, card_pipe)
+    full_ms, results = [], []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        results.append(exact_test(card_pipe, labels, mu, EXACT_CAP))
+        torch.cuda.synchronize()
+        full_ms.append((time.perf_counter() - t0) * 1e3)
+    if not all(math.isfinite(v) for r in results for v in r):
+        raise AssertionError(f"mse_test_exact at the {EXACT_CAP}-row cap: {results}")
+    out["exact_full"] = {"host_ms": full_ms, "results": [r._asdict() for r in results],
+                         "rows": int(labels.shape[0])}
+    return out
+
+
+def eval_profiles(world: World, pipe) -> dict:
+    """The [eval] phase's traces: first the kernels of TRACED_REPLAYS
+    replayed validations on each route and of as many replayed posteriors,
+    by name; then each validation (both cohorts, EVAL_MODES) replayed and
+    eager, the encode and decode of 2,000 rows, ``recon_mse``
+    (``vae_test``) and the GP posterior of the test cohort, replayed and
+    eager; ``mse_test_exact`` at the cap."""
+    cfg, dev = pipe.cfg, pipe.device
+    model, gp, noise = pipe.current_params()
+    px, pmu = pipe.encode_prediction_cohort()
+    data = dataset_tensor(pipe.dataset.data, model.raw_log_vy.dtype, dev)
+    mu, _ = encode_dataset(model, data, device=dev)
+    programs = {
+        "encode_2000": lambda: encode_dataset(model, data, device=dev),
+        "decode_2000": lambda: decode_latents(model, mu, device=dev),
+        "recon_mse": lambda: vae_test(model, pipe.test_dataset, verbose=False, device=dev),
+        "gp_predict": lambda: predict_latents(
+            pipe.spec0, pipe.spec1, gp.kp0, gp.kp1, noise, px, pmu, pipe.test_dataset.labels,
+            pipe.trainer.tdata.z, cfg.id_covariate, cfg.eps)}
+    seconds, t0 = {}, time.perf_counter()
+    traced = {}
+    try:
+        for route in ("k1", "k4"):
+            use_route(route)
+            fn = functools.partial(eval_validate, pipe, pipe.validation_dataset,
+                                   "GPapprox_closed", 1)
+            fn()  # the capture
+            traced[f"validate_{route}"] = traced_launches(
+                lambda: [fn() for _ in range(TRACED_REPLAYS)], ("b_chain", "chol_inv", "block_pair"))
+    finally:
+        use_route("k1")
+    programs["gp_predict"]()
+    traced["gp_predict"] = traced_launches(
+        lambda: [programs["gp_predict"]() for _ in range(TRACED_REPLAYS)])
+    seconds["traced"], t0 = time.perf_counter() - t0, time.perf_counter()
+    out = {}
+    try:
+        for cohort, ds in eval_cohorts(pipe).items():
+            for type_kl, route, samples in EVAL_MODES:
+                use_route(route)
+                fn = functools.partial(eval_validate, pipe, ds, type_kl, samples)
+                name = f"validate_{cohort}_{type_kl}_{route}"
+                out[f"{name}_replayed"] = profile_window(fn, 2)
+                with eager_steps():
+                    out[f"{name}_eager"] = profile_window(fn, 1)
+    finally:
+        use_route("k1")
+    seconds["validation"], t0 = time.perf_counter() - t0, time.perf_counter()
+    for name, fn in programs.items():
+        out[f"{name}_replayed"] = profile_window(fn, 2)
+        with eager_steps():
+            out[f"{name}_eager"] = profile_window(fn, 1)
+    seconds["programs"], t0 = time.perf_counter() - t0, time.perf_counter()
+    labels, emu = exact_cohort(world, pipe)
+    out["exact_full"] = profile_window(lambda: exact_test(pipe, labels, emu, EXACT_CAP), 1)
+    seconds["exact"] = time.perf_counter() - t0
+    return {"profiles": out, "traced": traced, "seconds": seconds}
+
+
+def eval_replay_profiles(seed: int, data: str, results: str) -> dict:
+    """Rank side of a world of one: :func:`eval_profiles` from the CLI run's
+    resumed pipeline (``data`` and ``results`` its folders), in a fresh
+    process of its own, its traced replays before any other trace."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    pipe = resumed_pipeline(PIPE_DIR, {"data": data, "results": results}, "cuda")
+    return eval_profiles(World(seed), pipe)
+
+
 # ---------------------------------------------------------------------- VI
 VI_EPOCHS = 3  # phase-1 steps of the CLI run (one an epoch, the whole cohort)
 VI_RESUME_EPOCHS = 2
@@ -2076,9 +2367,9 @@ def _vi_graph_vs_eager(root: str, run: dict, vi: dict, device: str) -> dict:
     return res
 
 
-def host_median_ms(fn, reps: int) -> float:
-    """Median host clock of ``reps`` calls of ``fn``, each ending in a
-    synchronise (after one warm call)."""
+def host_ms(fn, reps: int) -> list:
+    """The host clock of ``reps`` calls of ``fn``, each ending in a
+    synchronise, after one warm call."""
     fn()
     ms = []
     for _ in range(reps):
@@ -2087,7 +2378,12 @@ def host_median_ms(fn, reps: int) -> float:
         fn()
         torch.cuda.synchronize()
         ms.append((time.perf_counter() - t0) * 1e3)
-    return statistics.median(ms)
+    return ms
+
+
+def host_median_ms(fn, reps: int) -> float:
+    """Median host clock of ``reps`` calls of ``fn`` (:func:`host_ms`)."""
+    return statistics.median(host_ms(fn, reps))
 
 
 def capture_ms(program, inputs, eager_call, inference: bool = False) -> dict:
@@ -2112,12 +2408,13 @@ def capture_ms(program, inputs, eager_call, inference: bool = False) -> dict:
 TRACED_REPLAYS = 5  # replayed requests, VI phase-1 epochs, whose kernels the trace counts
 
 
-def traced_launches(fn) -> dict:
-    """K1's and K2's launches in one call of ``fn``, counted by kernel name
-    in a trace of the card (:func:`epoch_kernel_names`) and by the launch
-    counters (which add a graph's launches after each replay)."""
+def traced_launches(fn, names=("b_chain", "chol_inv")) -> dict:
+    """The launches of the kernels ``names`` (K1's and K2's by default) in
+    one call of ``fn``, counted by kernel name in a trace of the card
+    (:func:`epoch_kernel_names`) and by the launch counters (which add a
+    graph's launches after each replay)."""
     before = launch_counts()
-    traced = epoch_kernel_names(fn)
+    traced = epoch_kernel_names(fn, names)
     after = launch_counts()
     return {"traced": traced, "counted": {k: after[k] - before[k] for k in traced}}
 
@@ -2875,8 +3172,9 @@ def profile_window(fn, reps: int, collectives: bool = False) -> dict:
     ``reps`` warm calls: wall ms (host clock, ending in a synchronise), the
     sum of device-kernel ms, the device's idle share of the wall time, the
     kernels launched per call, the host's launch calls per call (kernel and
-    graph launches, copies and fills; by name), and the five kernels that
-    take most time;
+    graph launches, copies and fills; by name), the device's copies per
+    call by kind (``Memcpy HtoD (Pageable -> Device)``, ...), and the five
+    kernels that take most time;
     with ``collectives``, also the host and device ms per call of the
     collective ops (``all_reduce``/``broadcast`` and what they launch)."""
     from torch.autograd import DeviceType
@@ -2890,14 +3188,15 @@ def profile_window(fn, reps: int, collectives: bool = False) -> dict:
             fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    events = prof.key_averages()
     rows = [
         (e.self_device_time_total, e.count, e.key)
-        for e in prof.key_averages()
+        for e in events
         if e.device_type == DeviceType.CUDA and not e.is_user_annotation
     ]
     busy_us = sum(r[0] for r in rows)
     rows.sort(reverse=True)
-    host_calls = {e.key: e.count / reps for e in prof.key_averages()
+    host_calls = {e.key: e.count / reps for e in events
                   if e.device_type == DeviceType.CPU and e.key.startswith(HOST_LAUNCH_CALLS)}
     out = {
         "wall_ms": wall * 1e3 / reps,
@@ -2906,11 +3205,12 @@ def profile_window(fn, reps: int, collectives: bool = False) -> dict:
         "kernels_per_call": sum(r[1] for r in rows) / reps,
         "host_launches_per_call": sum(host_calls.values()),
         "host_launch_calls": host_calls,
+        "copies": {key: n / reps for _, n, key in rows if key.startswith("Memcpy")},
         "top": [{"kernel": key[:70], "ms": us / 1e3 / reps, "per_call": n / reps}
                 for us, n, key in rows[:5]],
     }
     if collectives:
-        ops = [e for e in prof.key_averages()
+        ops = [e for e in events
                if any(k in e.key.lower() for k in ("all_reduce", "allreduce", "broadcast"))
                and e.count]
         out["collectives"] = {
@@ -2992,9 +3292,10 @@ def replayed_step_times(trainer: HensmanTrainer) -> dict:
     return res
 
 
-def epoch_kernel_names(fn) -> dict:
-    """Launches in one call of ``fn`` of K1's (``b_chain_*``) and K2's
-    (``chol_inv_*``) kernels, counted by kernel name in a profiler trace."""
+def epoch_kernel_names(fn, names=("b_chain", "chol_inv")) -> dict:
+    """Launches in one call of ``fn`` of the kernels ``names`` (K1's
+    ``b_chain_*``, K2's ``chol_inv_*``, K4's ``block_pair_*``), counted by
+    kernel name in a profiler trace."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -3002,7 +3303,7 @@ def epoch_kernel_names(fn) -> dict:
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    counts = {"b_chain": 0, "chol_inv": 0}
+    counts = dict.fromkeys(names, 0)
     for e in prof.key_averages():
         if e.device_type == DeviceType.CUDA:
             for name in counts:
@@ -3796,12 +4097,42 @@ def main() -> int:
 
         t0 = time.perf_counter()
         card_eval = evaluate_pipeline(card_pipe)
-        cpu_eval = evaluate_pipeline(resumed_pipeline(PIPE_DIR, pipe_run, "cpu"))
+        cpu_pipe = resumed_pipeline(PIPE_DIR, pipe_run, "cpu")
+        cpu_eval = evaluate_pipeline(cpu_pipe)
         p_errs = compare_pipeline(card_eval, cpu_eval)
         say("compare", f"pipeline card vs CPU from model_final.ckpt: card {json.dumps(card_eval)} "
             f"CPU {json.dumps(cpu_eval)} rel {json.dumps(p_errs)} (GP term and net <= "
             f"{KL_RTOL}, recon, nll and test MSEs <= {LOSS_RTOL}; "
             f"{time.perf_counter() - t0:.1f} s)")
+
+        # the evaluation programs from model_final.ckpt, replayed against
+        # eager; counts from 0 just before them (their traces are taken in
+        # the fresh process, below)
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        ev = eval_phase(world, card_pipe, cpu_pipe, os.path.join(PIPE_DIR, "eval"))
+        eval_counts = launch_counts()
+        differ = {k: v for k, v in ev["graph_vs_eager"].items() if v}
+        say("eval", f"replayed vs eager (cuDNN deterministic), entries that differ: "
+            f"{json.dumps(ev['graph_vs_eager'])} ({len(ev['graph_vs_eager'])} answers, each "
+            f"held bit-equal); launches of a replayed call {json.dumps(ev['launches'])}; phase "
+            f"launches {json.dumps(eval_counts)} ({time.perf_counter() - t0:.1f} s | {card})")
+        if differ:
+            deferred.append(f"[eval] replayed answers differ from eager: {json.dumps(differ)}")
+        vt = ev["validation_host_ms"]
+        say("eval", "validation GPapprox_closed (host clock, each call) replayed vs eager: "
+            + "; ".join(f"{c} {[round(x, 3) for x in t['replayed_ms']]} vs "
+                        f"{[round(x, 3) for x in t['eager_ms']]} ms" for c, t in vt.items())
+            + f"; {ev['graphs']} evaluation graphs | {card}")
+        ex = ev["exact_compare"]
+        say("compare", f"mse_test_exact card vs CPU at {EXACT_COMPARE_CAP} rows: card "
+            f"{json.dumps(ex['card'])} CPU {json.dumps(ex['cpu'])} errs {json.dumps(ex['errs'])} "
+            f"(latents <= {LATENT_RTOL} rel, frames <= {FRAME_ATOL} abs, MSEs <= {LOSS_RTOL})")
+        ef = ev["exact_full"]
+        say("eval", f"mse_test_exact on the card, eager by rule, at the {EXACT_CAP}-row cap "
+            f"({ef['rows']} generated rows, 400 test rows): host ms "
+            f"{[round(t, 3) for t in ef['host_ms']]}; results {json.dumps(ef['results'])} "
+            f"| {card}")
 
         # the Hensman run's reference GP files, before the profile trains on
         export_errs = check_export(world, PIPE_DIR, pipe_run, card_pipe)
@@ -3820,6 +4151,11 @@ def main() -> int:
         try:
             prof = run_ranks(1, replay_profiles, (args.seed, pipe_run["data"],
                                                   pipe_run["results"]), "replay")[0]
+            t1 = time.perf_counter()
+            # the evaluation programs' traces in a fresh process of their own
+            evprof = run_ranks(1, eval_replay_profiles, (args.seed, pipe_run["data"],
+                                                         pipe_run["results"]), "eval")[0]
+            eval_fresh_s = time.perf_counter() - t1
         finally:
             shutil.rmtree(PAR_DIR, ignore_errors=True)
         replay, eager = prof["replay"], prof["eager"]
@@ -3881,9 +4217,17 @@ def main() -> int:
                   "vi_phase2_run": (VI_PROFILE_PRED_STEPS - 1, prof["vi"]["traced"]["phase2"],
                                     {"b_chain": 1, "chol_inv": 1}),
                   "bf16_hensman_epoch": (epoch_steps, prof["bf16"]["epoch_kernels_by_name"],
-                                         {"b_chain": epoch_steps, "chol_inv": 3 * epoch_steps})}
+                                         {"b_chain": epoch_steps, "chol_inv": 3 * epoch_steps}),
+                  "eval_validate_k1": (TRACED_REPLAYS, evprof["traced"]["validate_k1"],
+                                       {"b_chain": TRACED_REPLAYS, "chol_inv": TRACED_REPLAYS,
+                                        "block_pair": 0}),
+                  "eval_validate_k4": (TRACED_REPLAYS, evprof["traced"]["validate_k4"],
+                                       {"b_chain": 0, "chol_inv": 2 * TRACED_REPLAYS,
+                                        "block_pair": TRACED_REPLAYS}),
+                  "eval_gp_predict": (TRACED_REPLAYS, evprof["traced"]["gp_predict"],
+                                      {"b_chain": 0, "chol_inv": TRACED_REPLAYS})}
         for path, (replays, got, want) in traced.items():
-            say("launches", f"{path} ({replays} replayed): K1, K2 by name in the trace "
+            say("launches", f"{path} ({replays} replayed): by kernel name in the trace "
                 f"{json.dumps(got['traced'])}, on the counters {json.dumps(got['counted'])}")
             check_traced(got, want, path)
         sv = prof["serving"]
@@ -3915,8 +4259,39 @@ def main() -> int:
             f"captured step) warm epoch {pre['epoch_ms']:.3f} ms; card vs CPU first epoch "
             f"{json.dumps(pre['card_vs_cpu'])} | {card}")
         say("profile", "pretrain_epoch " + json.dumps(pre["profile"]))
-        say("profile", "pipeline_validation " + json.dumps(
-            profile_window(lambda: pipe_validate(card_pipe), 2)))
+        with eager_steps():  # the replayed validation's trace is the fresh process's
+            say("profile", "pipeline_validation " + json.dumps(
+                profile_window(lambda: pipe_validate(card_pipe), 2)))
+        evp = evprof["profiles"]
+        say("eval", f"the fresh process of the evaluation traces took {eval_fresh_s:.1f} s, "
+            f"of which {json.dumps({k: round(v, 1) for k, v in evprof['seconds'].items()})}")
+        for name, window in evp.items():
+            say("profile", f"eval_{name} " + json.dumps(window))
+        for cohort in eval_cohorts(card_pipe):
+            for type_kl, route, _ in EVAL_MODES:
+                name = f"validate_{cohort}_{type_kl}_{route}"
+                r, e = evp[f"{name}_replayed"], evp[f"{name}_eager"]
+                say("eval", f"in one fresh process, {name} replayed vs eager: wall "
+                    f"{r['wall_ms']:.3f} vs {e['wall_ms']:.3f} ms, device {r['device_ms']:.3f} vs "
+                    f"{e['device_ms']:.3f} ms, idle {r['idle_share']:.3f} vs "
+                    f"{e['idle_share']:.3f}, host calls {r['host_launches_per_call']:g} vs "
+                    f"{e['host_launches_per_call']:g}, copies {json.dumps(r['copies'])} | {card}")
+                to_host = sum(v for k, v in r["copies"].items() if k.startswith("Memcpy DtoH"))
+                pageable = [k for k in r["copies"] if "Pageable" in k]
+                if to_host != 1 or pageable:
+                    deferred.append(f"{name}: a replayed validation copied {json.dumps(r['copies'])}"
+                                    ", not one read to the host and no pageable copy")
+        for name in ("encode_2000", "decode_2000", "recon_mse", "gp_predict"):
+            r, e = evp[f"{name}_replayed"], evp[f"{name}_eager"]
+            say("eval", f"in one fresh process, {name} replayed vs eager: wall "
+                f"{r['wall_ms']:.3f} vs {e['wall_ms']:.3f} ms, device {r['device_ms']:.3f} vs "
+                f"{e['device_ms']:.3f} ms, idle {r['idle_share']:.3f} vs {e['idle_share']:.3f}, "
+                f"host calls {r['host_launches_per_call']:g} vs "
+                f"{e['host_launches_per_call']:g} | {card}")
+        x = evp["exact_full"]
+        say("eval", f"in one fresh process, mse_test_exact at the {EXACT_CAP}-row cap: wall "
+            f"{x['wall_ms']:.3f} ms, device {x['device_ms']:.3f} ms, idle {x['idle_share']:.3f}, "
+            f"host calls {x['host_launches_per_call']:g} | {card}")
 
         # phase 8: the VI regime through lvae_torch.cli.main; counts from 0 just before it
         vi = run_vi(world, PIPE_DIR, pipe_run)
@@ -4168,7 +4543,7 @@ def main() -> int:
     if deferred:
         raise AssertionError("; ".join(deferred))
     paths = {"serving": serve_counts, "training": train_launches, "standard": std_counts,
-             "pipeline": pipe_run["counts"], "pipeline_k4": k4_run["counts"],
+             "pipeline": pipe_run["counts"], "pipeline_k4": k4_run["counts"], "eval": eval_counts,
              "vi": vi["counts"], "rnn": rnn_counts, "bf16": bf16_counts,
              "rnn_replayed": rnn_rep_counts, "parallel": par_counts}
     for e, key in ((entry, "chol_inv"), (k1_entry, "b_chain"), (k3_entry, "kernel_matrix"),
@@ -4176,9 +4551,10 @@ def main() -> int:
         e["launches_by_path"] = {path: counts[key] for path, counts in paths.items()}
         e["launches"] = sum(e["launches_by_path"].values())
     entry["launches_by_step"] = gpu["launches"]
-    for e, key in ((entry, "chol_inv"), (k1_entry, "b_chain")):
+    for e, key in ((entry, "chol_inv"), (k1_entry, "b_chain"), (k4_entry, "block_pair")):
         e["launches_traced"] = {path: {"replays": replays, "traced": got["traced"][key]}
-                                for path, (replays, got, _) in traced.items()}
+                                for path, (replays, got, _) in traced.items()
+                                if key in got["traced"]}
     print(json.dumps({"kernels": [entry, k1_entry, k3_entry, k4_entry, k5_entry]}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,1 +1,2 @@
-"""Dataset encoding and decoding."""
+"""Validation, tests, generation and dataset encoding; on the card each runs
+as a captured program (``programs.py``)."""

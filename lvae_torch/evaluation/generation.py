@@ -17,9 +17,10 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from lvae_torch.evaluation.encode import decode_latents, vae_forward
-from lvae_torch.evaluation.validate import draw_noise, on_device
-from lvae_torch.ops.predict import predict_latents
+from lvae_torch.evaluation import programs
+from lvae_torch.evaluation.encode import decode_on_device, vae_forward
+from lvae_torch.ops.predict import predict_latent_rows
+from lvae_torch.train.graph import finish_host_copy, start_host_copy
 from lvae_torch.utils.device import resolve_device
 
 COLUMNS = 20
@@ -124,23 +125,26 @@ def recon_complete_gen(
     verbose: bool = True,
     device="cuda",
 ) -> str:
-    """Decode the GP-predicted latents of the generation cohort and save its
-    grid as ``recon_complete.npz`` (``recon_complete_best.npz`` for a
-    best-model snapshot, ``epoch != -1``), with the PDF where matplotlib is
-    installed. Returns the ``.npz`` path."""
+    """Decode the GP-predicted latents of the generation cohort (the
+    posterior program hands its latents to the decode program on the
+    device; one copy to the host) and save its grid as
+    ``recon_complete.npz`` (``recon_complete_best.npz`` for a best-model
+    snapshot, ``epoch != -1``), with the PDF where matplotlib is installed.
+    Returns the ``.npz`` path."""
     if verbose:
         print(f"Generating images - length of dataset:  {len(generation_dataset)}")
     dev = resolve_device(device)
     dtype = np.asarray(prediction_mu).dtype
     tdtype = torch.from_numpy(np.zeros(0, dtype)).dtype
     gp = gp_params.to(device=dev, dtype=tdtype)
-    z_pred = predict_latents(
-        spec0, spec1, gp.kp0, gp.kp1, on_device(noise, tdtype, dev),
+    z_pred = predict_latent_rows(
+        spec0, spec1, gp.kp0, gp.kp1, programs.on_device(noise, tdtype, dev),
         np.asarray(prediction_x, dtype), np.asarray(prediction_mu, dtype),
-        np.asarray(generation_dataset.labels, dtype), on_device(z, tdtype, dev),
+        np.asarray(generation_dataset.labels, dtype), programs.on_device(z, tdtype, dev),
         id_covariate, eps,
     )
-    recon = decode_latents(model, z_pred, device=dev)
+    model.to(dev)
+    recon = finish_host_copy(start_host_copy(decode_on_device(model, z_pred))).numpy()
     filename = "recon_complete.pdf" if epoch == -1 else "recon_complete_best.pdf"
     data = np.asarray(generation_dataset.data)
     labels = np.asarray(generation_dataset.labels)
@@ -161,9 +165,10 @@ def vae_output(
     dev = resolve_device(device)
     model.to(dev)
     n = min(len(dataset), 1000)
-    data = on_device(np.asarray(dataset.data)[:n], model.raw_log_vy.dtype, dev)
-    enc_eps = draw_noise((n, model.latent_dim), enc_eps, generator, data)
-    recon, _, _ = vae_forward(model, data, enc_eps)
+    dtype = model.raw_log_vy.dtype
+    data = programs.staged(np.asarray(dataset.data)[:n], dtype, dev)
+    slab = programs.host_noise([((n, model.latent_dim), dtype, enc_eps)], generator, dev)
+    recon, _, _ = vae_forward(model, data, slab.reshape(n, -1))
     lo = min(40, max(0, n - num_sets * seq_length))
     hi = min(n, lo + num_sets * seq_length)
     avail_sets = max(1, (hi - lo) // seq_length)

@@ -3,9 +3,14 @@
 
 Writes the reference's evaluation artefact ``result_error.csv`` = [mean
 masked VAE-reconstruction MSE, mean masked GP-prediction MSE] with
-``np.savetxt``. The VAE path reconstructs one reparameterised sample; its
-noise ``[N, L]`` is drawn from a CPU generator (seeded 0 unless one is
-given) or injected, as in ``evaluation/validate.py``.
+``np.savetxt``. The VAE path reconstructs one reparameterised sample in one
+program, ``recon_mse`` (forward and masked MSE; on the card a replay of a
+captured CUDA graph, read on the host once); its noise ``[N, L]`` is drawn
+from a CPU generator (seeded 0 unless one is given) or injected, as in
+``evaluation/validate.py``. The GP path predicts the test latents on the
+device (the sparse posterior program of ``ops/predict.py``, or the exact
+per-dim regression, eager) and hands them to the decode program without a
+round trip through the host.
 """
 
 from __future__ import annotations
@@ -16,13 +21,14 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from lvae_torch.evaluation.encode import decode_latents, vae_forward
-from lvae_torch.evaluation.validate import draw_noise, on_device
+from lvae_torch.evaluation import programs
+from lvae_torch.evaluation.encode import decode_on_device, forward
 from lvae_torch.models import vae as mv
 from lvae_torch.ops import kernels as kx
 from lvae_torch.ops import linalg as la
 from lvae_torch.ops.linalg import _full_precision
-from lvae_torch.ops.predict import predict_latents
+from lvae_torch.ops.predict import predict_latent_rows
+from lvae_torch.train.graph import finish_host_copy, start_host_copy
 from lvae_torch.utils.device import resolve_device
 
 
@@ -38,14 +44,41 @@ def _masked_mse_mean(model, recon, data, mask) -> float:
 
 def _recon_mse(model, test_dataset, dev, enc_eps, generator):
     """(data, mask, masked MSE of the sampled reconstruction) on ``dev``, in
-    the model's dtype."""
-    model.to(dev)
+    the model's dtype: the ``recon_mse`` program, one host read."""
+    model.to(dev).eval()
     dtype = model.raw_log_vy.dtype
-    data = on_device(test_dataset.data, dtype, dev)
-    mask = on_device(test_dataset.mask, dtype, dev)
-    enc_eps = draw_noise((data.shape[0], model.latent_dim), enc_eps, generator, data)
-    recon, _, _ = vae_forward(model, data, enc_eps)
-    return data, mask, _masked_mse_mean(model, recon, data, mask)
+    data = programs.dataset_tensor(test_dataset.data, dtype, dev)
+    mask = programs.dataset_tensor(test_dataset.mask, dtype, dev)
+    shape = (data.shape[0], model.latent_dim)
+    slab = programs.host_noise([(shape, dtype, enc_eps)], generator, dev)
+
+    def program(data, mask, slab):
+        (eps,) = programs.split_noise(slab, [(shape, dtype)])
+        recon, _, _ = forward(model, data, eps)
+        mse_i, _ = mv.vae_loss(model.raw_log_vy.detach(), recon, data, mask)
+        return torch.mean(mse_i).reshape(1)
+
+    mse = programs.run("recon_mse", program, [data, mask, slab], (1,), dtype, dev, model)
+    return data, mask, float(finish_host_copy(start_host_copy(mse))[0])
+
+
+def cap_prediction_rows(prediction_x: np.ndarray, prediction_mu: np.ndarray,
+                        max_prediction_rows: int = 6040, seed: int = 0):
+    """The reference's subsample of a prediction cohort larger than
+    ``max_prediction_rows``: its first 40 rows plus ``max_prediction_rows −
+    40`` others drawn with ``numpy.random.default_rng(seed)`` (40 + 6000 =
+    6040 by default); a smaller cohort as it is."""
+    prediction_x = np.asarray(prediction_x)
+    prediction_mu = np.asarray(prediction_mu)
+    if prediction_x.shape[0] > max_prediction_rows:
+        head = min(40, max_prediction_rows)
+        r = np.random.default_rng(seed).choice(
+            prediction_x.shape[0] - head, max_prediction_rows - head, replace=False,
+        ) + head
+        ind = np.concatenate([np.arange(head), r])
+        prediction_x = prediction_x[ind]
+        prediction_mu = prediction_mu[ind]
+    return prediction_x, prediction_mu
 
 
 def _save(result: TestResult, results_path: Optional[str], save_file: str) -> TestResult:
@@ -92,14 +125,13 @@ def mse_test_gp_approx(
         print(f"Decoder loss: {vae_mse}")
     tdtype = torch.from_numpy(np.zeros(0, dtype)).dtype
     gp = gp_params.to(device=dev, dtype=tdtype)
-    z_pred = predict_latents(
-        spec0, spec1, gp.kp0, gp.kp1, on_device(noise, tdtype, dev),
+    z_pred = predict_latent_rows(
+        spec0, spec1, gp.kp0, gp.kp1, programs.on_device(noise, tdtype, dev),
         np.asarray(prediction_x, dtype), np.asarray(prediction_mu, dtype),
-        np.asarray(test_dataset.labels, dtype), on_device(z, tdtype, dev), id_covariate, eps,
-        mesh=mesh,
+        np.asarray(test_dataset.labels, dtype), programs.on_device(z, tdtype, dev),
+        id_covariate, eps, mesh=mesh,
     )
-    recon_gp = decode_latents(model, z_pred, device=dev)
-    gp_mse = _masked_mse_mean(model, on_device(recon_gp, data.dtype, dev), data, mask)
+    gp_mse = _masked_mse_mean(model, decode_on_device(model, z_pred), data, mask)
     if verbose:
         print(f"Decoder loss (GP): {gp_mse}")
     return _save(TestResult(vae_mse=vae_mse, gp_mse=gp_mse), results_path, save_file)
@@ -110,7 +142,15 @@ def exact_gp_predict_per_dim(spec_full, gp_params_full, px, tx, noise, mu, eps: 
     """Exact GP regression one latent dim at a time, so the dense ``[N, N]``
     matrices never stack up over the latents; ``eps`` adds diagonal jitter
     on top of the likelihood noise (duplicate covariate rows make K
-    rank-deficient). Returns ``[N_test, L]``."""
+    rank-deficient). Returns ``[N_test, L]``.
+
+    It runs eagerly on the card too, by rule: one dim at the reference's
+    6040-row cap is a ``[6040, 6040]`` f32 factor (about 146 MB) and
+    milliseconds of device time, so the work is bound by the device, not by
+    the host's launches; JAX's ``lax.map`` over the latents is there to
+    bound memory, not dispatch. ``chip_smoke.py`` measures its idle share.
+    On the card the kernel matrices take the plain path: a dim's parameters
+    are ``[C]``, outside K3's ``[L, C]`` gate (as in the JAX package)."""
     n = px.shape[0]
     eye = torch.eye(n, dtype=px.dtype, device=px.device)
     out = []
@@ -146,35 +186,26 @@ def mse_test_exact(
 ) -> TestResult:
     """Exact N×N GP test evaluation (the ``type_KL='closed'`` regime): a
     dense kernel over the prediction cohort, per-latent-dim GP regression to
-    the test covariates. A prediction cohort larger than
-    ``max_prediction_rows`` is cut to its first 40 rows plus
-    ``max_prediction_rows − 40`` others drawn with
-    ``numpy.random.default_rng(seed)`` (40 + 6000 = 6040 by default)."""
+    the test covariates, eager (:func:`exact_gp_predict_per_dim`), then the
+    decode program. A prediction cohort larger than ``max_prediction_rows``
+    is cut by :func:`cap_prediction_rows`."""
     if verbose:
         print("Running tests with a test set")
     dev = resolve_device(device)
-    prediction_x = np.asarray(prediction_x)
-    prediction_mu = np.asarray(prediction_mu)
-    if prediction_x.shape[0] > max_prediction_rows:
-        head = min(40, max_prediction_rows)
-        r = np.random.default_rng(seed).choice(
-            prediction_x.shape[0] - head, max_prediction_rows - head, replace=False,
-        ) + head
-        ind = np.concatenate([np.arange(head), r])
-        prediction_x = prediction_x[ind]
-        prediction_mu = prediction_mu[ind]
-
+    prediction_x, prediction_mu = cap_prediction_rows(prediction_x, prediction_mu,
+                                                      max_prediction_rows, seed)
     data, mask, vae_mse = _recon_mse(model, test_dataset, dev, enc_eps, generator)
     if verbose:
         print(f"Decoder loss: {vae_mse}")
     tdtype = torch.from_numpy(np.zeros(0, prediction_mu.dtype)).dtype
     z_pred = exact_gp_predict_per_dim(
         spec_full, gp_params_full.to(device=dev, dtype=tdtype),
-        on_device(prediction_x, tdtype, dev), on_device(test_dataset.labels, tdtype, dev),
-        on_device(noise, tdtype, dev), on_device(prediction_mu, tdtype, dev), eps=eps,
+        programs.staged(prediction_x, tdtype, dev),
+        programs.dataset_tensor(test_dataset.labels, tdtype, dev),
+        programs.on_device(noise, tdtype, dev), programs.staged(prediction_mu, tdtype, dev),
+        eps=eps,
     )
-    recon_gp = decode_latents(model, z_pred.cpu().numpy(), device=dev)
-    gp_mse = _masked_mse_mean(model, on_device(recon_gp, data.dtype, dev), data, mask)
+    gp_mse = _masked_mse_mean(model, decode_on_device(model, z_pred), data, mask)
     if verbose:
         print(f"Decoder loss (GP): {gp_mse}")
     return _save(TestResult(vae_mse=vae_mse, gp_mse=gp_mse), results_path, save_file)

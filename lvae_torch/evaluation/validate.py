@@ -7,23 +7,30 @@ per the loss function. The GP term is the deviance upper bound (DUBO) in
 every regime but ``GPapprox``, where it is the mean over ``num_samples``
 latent samples of −Σ ``gp_elbo``. The summary line is the reference's.
 
+The whole computation is one program (``evaluation/programs.py``, the
+counterpart of JAX's ``_validate_jit``): on the card a replay of a CUDA
+graph captured at the cohort's shape, with K1 (or K4 on its route) and K2
+inside, whose three sums come to the host in one read. The cohort's arrays
+and blocks go to the card once per dataset array.
+
 Noise: the encoder's reparameterisation noise ``[N, L]`` and the GPapprox
-samples' noise ``[num_samples, P, T, L]`` are drawn, in that order, from a
-CPU generator (seeded 0 unless one is given) and moved to the device, or
-injected.
+samples' noise ``[num_samples, P, T, L]`` are drawn, in that order, from
+one CPU generator (a fresh one seeded 0 unless one is given), or injected,
+and go to the device in one pinned slab, one copy.
 """
 
 from __future__ import annotations
 
 from typing import NamedTuple, Optional
 
-import numpy as np
 import torch
 
-from lvae_torch.data.blocks import build_subject_blocks
-from lvae_torch.evaluation.encode import vae_forward
+from lvae_torch.evaluation import programs
+from lvae_torch.evaluation.encode import forward
 from lvae_torch.models import vae as mv
 from lvae_torch.ops import elbo as eb
+from lvae_torch.ops import kernels as kx
+from lvae_torch.train.graph import finish_host_copy, start_host_copy
 from lvae_torch.utils.device import resolve_device
 
 
@@ -34,20 +41,33 @@ class ValidationResult(NamedTuple):
     recon: float
 
 
-def on_device(a, dtype, device) -> torch.Tensor:
-    """A numpy array or a tensor as a tensor of ``dtype`` on ``device``."""
-    return torch.as_tensor(a if isinstance(a, torch.Tensor) else np.asarray(a),
-                           dtype=dtype, device=device)
+def _program(model, spec0, spec1, eps: float, type_kl: str, noise_parts):
+    """The validation program: ``[recon_sum, nll_sum, gp_loss]`` of the
+    cohort (frames, pixel mask, labels, block index and mask), the GP
+    tensors and the noise slab."""
+    def program(data, pixmask, labels, idx, block_mask, noise, s0, l0, s1, l1, z, slab):
+        enc_eps, *gp_eps = programs.split_noise(slab, noise_parts)
+        recon, mu, log_var = forward(model, data, enc_eps)
+        mse_i, nll_i = mv.vae_loss(model.raw_log_vy.detach(), recon, data, pixmask)
+        dtype = noise.dtype
+        mu, log_var = mu.to(dtype), log_var.to(dtype)
+        p, t_len = block_mask.shape
+        xb = labels[idx].reshape(p, t_len, -1) * block_mask[..., None]
+        mu_b = mu[idx].reshape(p, t_len, -1)
+        lv_b = log_var[idx].reshape(p, t_len, -1)
+        ops = eb.gp_block_operators(spec0, spec1, kx.KernelParams(s0, l0),
+                                    kx.KernelParams(s1, l1), noise, xb, z, block_mask, eps)
+        if type_kl == "GPapprox":
+            std = torch.exp(0.5 * lv_b)
+            gp_loss = torch.stack([-torch.sum(eb.gp_elbo(ops, mu_b + e * std))
+                                   for e in gp_eps[0]]).mean()
+        else:
+            gp_loss = torch.sum(eb.dubo(ops, mu_b, lv_b))
+        sums = (torch.sum(mse_i), torch.sum(nll_i), gp_loss)
+        out_dtype = torch.promote_types(sums[0].dtype, dtype)
+        return torch.stack([s.to(out_dtype) for s in sums])
 
-
-def draw_noise(shape, eps: Optional[torch.Tensor], generator: Optional[torch.Generator],
-               like: torch.Tensor) -> torch.Tensor:
-    """``eps`` if given, else a standard-normal draw of ``shape`` from the CPU
-    ``generator`` (a fresh one seeded 0 if None), on ``like``'s device."""
-    if eps is None:
-        generator = generator if generator is not None else torch.Generator().manual_seed(0)
-        eps = torch.randn(shape, generator=generator, dtype=like.dtype)
-    return eps.to(like.device, like.dtype)
+    return program
 
 
 @torch.no_grad()
@@ -82,39 +102,27 @@ def validate(
     dev = resolve_device(device)
     noise = torch.as_tensor(noise, device=dev)
     dtype = noise.dtype
-    model.to(dev)
-
-    def t(a):
-        return on_device(a, dtype, dev)
-
-    blocks = build_subject_blocks(dataset.labels, id_covariate)
+    model.to(dev).eval()
     mdtype = model.raw_log_vy.dtype  # the VAE runs in its own dtype
-    data = on_device(dataset.data, mdtype, dev)
-    pixmask = on_device(dataset.mask, mdtype, dev)
-    labels = t(dataset.labels)
+    data = programs.dataset_tensor(dataset.data, mdtype, dev)
+    pixmask = programs.dataset_tensor(dataset.mask, mdtype, dev)
+    labels = programs.dataset_tensor(dataset.labels, dtype, dev)
+    idx, block_mask = programs.dataset_blocks(dataset.labels, id_covariate, dtype, dev)
     latent = latent_dim or gp_params.kp0.raw_scale.shape[0]
-    enc_eps = draw_noise((data.shape[0], model.latent_dim), enc_eps, generator, data)
-    recon, mu, log_var = vae_forward(model, data, enc_eps)
-    mse_i, nll_i = mv.vae_loss(model.raw_log_vy.detach(), recon, data, pixmask)
-    mu, log_var = mu.to(dtype), log_var.to(dtype)
-    recon_sum = float(torch.sum(mse_i))
-    nll_sum = float(torch.sum(nll_i))
-
-    p, t_len = blocks.index.shape
-    idx = torch.as_tensor(blocks.index.reshape(-1), dtype=torch.long, device=dev)
-    block_mask = t(blocks.mask)
-    xb = labels[idx].reshape(p, t_len, -1) * block_mask[..., None]
-    mu_b = mu[idx].reshape(p, t_len, -1)
-    lv_b = log_var[idx].reshape(p, t_len, -1)
-    gp = gp_params.to(device=dev, dtype=dtype)
-    ops = eb.gp_block_operators(spec0, spec1, gp.kp0, gp.kp1, noise, xb, t(z), block_mask, eps)
+    p, t_len = block_mask.shape
+    parts = [((data.shape[0], model.latent_dim), mdtype, enc_eps)]
     if type_kl == "GPapprox":
-        gp_eps = draw_noise((num_samples,) + tuple(mu_b.shape), gp_eps, generator, mu_b)
-        std = torch.exp(0.5 * lv_b)
-        gp_loss = float(torch.stack([-torch.sum(eb.gp_elbo(ops, mu_b + e * std))
-                                     for e in gp_eps]).mean())
-    else:
-        gp_loss = float(torch.sum(eb.dubo(ops, mu_b, lv_b)))
+        parts.append(((num_samples, p, t_len, model.latent_dim), dtype, gp_eps))
+    slab = programs.host_noise(parts, generator, dev)
+    gp = gp_params.to(device=dev, dtype=dtype)
+    noise_parts = [(shape, d) for shape, d, _ in parts]
+    program = _program(model, spec0, spec1, eps, type_kl, noise_parts)
+    inputs = [data, pixmask, labels, idx, block_mask, noise, *gp.kp0, *gp.kp1,
+              programs.on_device(z, dtype, dev), slab]
+    out_dtype = torch.promote_types(mdtype, dtype)
+    sums = programs.run("validate", program, inputs, (3,), out_dtype, dev, model,
+                        (spec0, spec1, eps, type_kl, num_samples))
+    recon_sum, nll_sum, gp_loss = finish_host_copy(start_host_copy(sums)).tolist()
     if loss_function == "mse":
         gp_term = gp_loss / latent
         net = weight * gp_term + recon_sum

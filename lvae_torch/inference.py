@@ -31,6 +31,7 @@ from torch import nn
 
 from lvae_torch.data.blocks import build_subject_blocks
 from lvae_torch.evaluation.encode import decode_latents, encode_dataset
+from lvae_torch.evaluation.programs import dataset_tensor
 from lvae_torch.ops import kernels as kx
 from lvae_torch.ops.predict import (
     PredictBasis,
@@ -85,7 +86,8 @@ class LVAEPredictor:
         encoded as the regression basis, on the pipeline's device."""
         model, gp_params, noise = pipeline.current_params()
         model = copy.deepcopy(model)
-        mu, _ = encode_dataset(model, pipeline.dataset.data, device=pipeline.device)
+        data = dataset_tensor(pipeline.dataset.data, model.raw_log_vy.dtype, pipeline.device)
+        mu, _ = encode_dataset(model, data, device=pipeline.device)
         with torch.no_grad():
             gp = gp_params.to(copy=True)
         return cls(

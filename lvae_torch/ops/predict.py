@@ -183,6 +183,77 @@ def build_predict_inputs(
     return inputs, te.index, te.mask
 
 
+def _row_scatter(te_index: np.ndarray, te_mask: np.ndarray, device):
+    """``(rows, slots)``: the flat test rows and the block slots
+    (``[Pq·Tq]`` order) they come from, as int64 tensors on ``device``;
+    :func:`~lvae_torch.data.blocks.scatter_to_flat` on the device."""
+    slots = np.flatnonzero(te_mask.reshape(-1))
+    rows = te_index.reshape(-1)[slots].astype(np.int64)
+    return (torch.as_tensor(rows, device=device),
+            torch.as_tensor(slots.astype(np.int64), device=device))
+
+
+def _scatter_rows(zb: torch.Tensor, rows: torch.Tensor, slots: torch.Tensor,
+                  n: int) -> torch.Tensor:
+    """Block values ``zb [Pq, Tq, L]`` at the ``n`` flat test rows ``[n, L]``
+    (:func:`_row_scatter`'s ``rows`` and ``slots``)."""
+    flat = zb.reshape(-1, zb.shape[-1])
+    out = torch.zeros((n, flat.shape[1]), dtype=flat.dtype, device=flat.device)
+    return out.index_copy_(0, rows, flat.index_select(0, slots))
+
+
+def _predict_program(spec0, spec1, eps: float, n: int):
+    """The posterior program: :func:`gp_predict` on the block inputs, at the
+    ``n`` flat test rows ``[n, L]``."""
+    def program(s0, l0, s1, l1, noise, xb, mask, mu_b, Xb, Xmask, align, z, rows, slots):
+        zb = gp_predict(spec0, spec1, kx.KernelParams(s0, l0), kx.KernelParams(s1, l1), noise,
+                        PredictInputs(xb, mask, mu_b, Xb, Xmask, align), z, eps)
+        return _scatter_rows(zb, rows, slots, n)
+
+    return program
+
+
+def predict_latent_rows(
+    spec0,
+    spec1,
+    kp0,
+    kp1,
+    noise,
+    train_labels: np.ndarray,
+    train_mu: np.ndarray,
+    test_labels: np.ndarray,
+    z,
+    id_covariate: int,
+    eps: float = 1e-6,
+    mesh=None,
+) -> torch.Tensor:
+    """``Z_pred [N_test, L]`` on the device of ``z`` (the flat arrays are
+    host numpy, packed by :func:`build_predict_inputs`): one program
+    (``evaluation/programs.py``), on the card a replay of the posterior
+    captured at the blocks' shapes, with K2 inside at the fold. With
+    ``mesh`` the posterior runs mesh-parallel and eagerly
+    (:func:`lvae_torch.parallel.mesh.sharded_gp_predict`), and every rank
+    gets the whole result."""
+    from lvae_torch.evaluation import programs
+
+    train_mu = np.asarray(train_mu)
+    test_labels = np.asarray(test_labels)
+    inputs, te_index, te_mask = build_predict_inputs(
+        train_labels, train_mu, test_labels, id_covariate,
+        dtype=train_mu.dtype, device=z.device,
+    )
+    n = test_labels.shape[0]
+    rows, slots = _row_scatter(te_index, te_mask, z.device)
+    if mesh is not None:
+        from lvae_torch.parallel.mesh import sharded_gp_predict
+
+        zb = sharded_gp_predict(spec0, spec1, kp0, kp1, noise, inputs, z, mesh, eps=eps)
+        return _scatter_rows(zb, rows, slots, n)
+    return programs.run("gp_predict", _predict_program(spec0, spec1, eps, n),
+                        [*kp0, *kp1, noise, *inputs, z, rows, slots], (n, noise.shape[0]),
+                        inputs.xb.dtype, z.device, static=(spec0, spec1, eps, n))
+
+
 def predict_latents(
     spec0,
     spec1,
@@ -197,26 +268,13 @@ def predict_latents(
     eps: float = 1e-6,
     mesh=None,
 ) -> np.ndarray:
-    """Flat-array convenience wrapper: returns ``Z_pred [N_test, L]``.
+    """Flat-array convenience wrapper: :func:`predict_latent_rows` on the
+    host, ``Z_pred [N_test, L]`` (one copy)."""
+    from lvae_torch.train.graph import finish_host_copy, start_host_copy
 
-    Runs on the device of ``z``; the flat arrays are host numpy. With
-    ``mesh`` the posterior runs mesh-parallel
-    (:func:`lvae_torch.parallel.mesh.sharded_gp_predict`) and every rank
-    returns the whole result."""
-    from lvae_torch.data.blocks import scatter_to_flat
-
-    train_mu = np.asarray(train_mu)
-    inputs, te_index, te_mask = build_predict_inputs(
-        train_labels, train_mu, test_labels, id_covariate,
-        dtype=train_mu.dtype, device=z.device,
-    )
-    if mesh is not None:
-        from lvae_torch.parallel.mesh import sharded_gp_predict
-
-        zb = sharded_gp_predict(spec0, spec1, kp0, kp1, noise, inputs, z, mesh, eps=eps)
-    else:
-        zb = gp_predict(spec0, spec1, kp0, kp1, noise, inputs, z, eps)
-    return scatter_to_flat(zb.cpu().numpy(), te_index, te_mask, test_labels.shape[0])
+    zp = predict_latent_rows(spec0, spec1, kp0, kp1, noise, train_labels, train_mu,
+                             test_labels, z, id_covariate, eps, mesh)
+    return finish_host_copy(start_host_copy(zp)).numpy()
 
 
 # ---------------------------------------------------------------------------

@@ -37,6 +37,7 @@ from lvae_torch.data.blocks import build_subject_blocks
 from lvae_torch.data.datasets import load_dataset
 from lvae_torch.evaluation.encode import encode_dataset
 from lvae_torch.evaluation.generation import recon_complete_gen
+from lvae_torch.evaluation.programs import dataset_tensor
 from lvae_torch.evaluation.testing import mse_test_exact, mse_test_gp_approx
 from lvae_torch.evaluation.validate import validate
 from lvae_torch.parallel import mesh as pm
@@ -397,8 +398,11 @@ class LVAEPipeline:
         return tr.vae, tr.gp, noise
 
     def encode_prediction_cohort(self):
+        """The prediction cohort's labels and latent means: its frames move
+        to the device once, then the encode program runs on them."""
         ds = self.prediction_dataset
-        mu, _ = encode_dataset(self.model, ds.data, device=self.device)
+        data = dataset_tensor(ds.data, self.model.raw_log_vy.dtype, self.device)
+        mu, _ = encode_dataset(self.model, data, device=self.device)
         return ds.labels, mu
 
     # ------------------------------------------------------------ evaluation

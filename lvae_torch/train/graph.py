@@ -37,6 +37,7 @@ with the one-chunk lag of the JAX package's ``fit``.
 from __future__ import annotations
 
 import contextlib
+import gc
 import math
 from typing import Callable, Iterator, List, Optional, Sequence, Tuple
 
@@ -75,6 +76,24 @@ def add_launches(delta: Sequence[int]) -> None:
 CAPTURE_MODE = "thread_local"
 
 
+@contextlib.contextmanager
+def collector_off() -> Iterator[None]:
+    """Python's cyclic garbage collector off inside the block. A CUDA graph
+    that the collector frees during another graph's capture (one held in a
+    dead reference cycle: a trainer's, a model's evaluation programs)
+    resets inside that capture, which CUDA refuses, and the capture fails
+    with "operation failed due to a previous error during capture"
+    (``tools/torch_capture_gc.py`` shows it); a collection deferred past
+    the capture frees it safely."""
+    was_on = gc.isenabled()
+    gc.disable()
+    try:
+        yield
+    finally:
+        if was_on:
+            gc.enable()
+
+
 class CapturedStep:
     """``step(*inputs) -> Tensor`` captured on the card over fixed copies of
     ``inputs``.
@@ -82,7 +101,8 @@ class CapturedStep:
     Construction runs ``step`` on ``inputs`` once, eagerly on a side stream,
     and writes its result into ``out`` where one is given (a training
     step's warm-up is this step of training), then captures ``step`` on the
-    same stream, in the memory pool ``pool`` (a
+    same stream, with the garbage collector off (:func:`collector_off`), in
+    the memory pool ``pool`` (a
     ``torch.cuda.graph_pool_handle()`` that several graphs share, or a pool
     of its own) and, with ``inference``, under ``torch.inference_mode()``.
     :meth:`replay` copies new inputs into the fixed ones, replays the
@@ -104,8 +124,8 @@ class CapturedStep:
         main.wait_stream(side)
         before = launch_counts()
         self.graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(self.graph, pool=pool, stream=side,
-                              capture_error_mode=CAPTURE_MODE), mode():
+        with collector_off(), torch.cuda.graph(self.graph, pool=pool, stream=side,
+                                               capture_error_mode=CAPTURE_MODE), mode():
             self.out = step(*self.inputs)
         self.launches = tuple(a - b for a, b in zip(launch_counts(), before))
         add_launches([-d for d in self.launches])  # the capture launched nothing

@@ -44,7 +44,11 @@ its graphs. The launches of those replays are counted by kernel name in a
 ``torch.profiler`` trace, and the launch counters agree with the trace.
 The Hensman step with the VAE in bf16 replays bit-equal to its eager twin
 too, and the f32 and bf16 steps capture and replay bit-equal while another
-thread of the process queries events.
+thread of the process queries events. The evaluation programs (validation
+in GPapprox_closed and GPapprox on the K1 and the K4 route, encode,
+decode, the VAE forward, the test MSEs, the GP posterior) replay with the
+eager programs' bits, read parameters updated in place, and capture again
+on new storages; a dataset's arrays go to the card once.
 """
 
 import contextlib
@@ -1134,3 +1138,215 @@ def test_vi_state_assignment_drops_the_graphs(gen):
     assert len(graph._graphs) == 1 and graph.history == eager.history
     for a, b in zip(vi_arrays(graph), vi_arrays(eager)):
         assert torch.equal(a, b)
+
+
+# ------------------------------------------------ captured evaluation programs
+def card_eval_world(n_lat=4, m_ind=8):
+    """A ConvVAE on the card (f32, random weights), GP parameters, inducing
+    points and three cohorts: a ragged validation cohort of 3 subjects, a
+    test cohort of 2 and a prediction cohort of 4 (5 frames a subject)."""
+    import numpy as np
+
+    from lvae_torch.data.datasets import ArrayDataset
+    from lvae_torch.models.vae import make_vae
+    from lvae_torch.train.state import init_gp_params
+
+    rng = np.random.default_rng(0)
+
+    def cohort(ids, ragged=False):
+        labels = np.asarray([[i, (i - 2.0) * (s % 2), s, s % 2, s % 2, (s // 2) % 2]
+                             for s in ids for i in range(5 - (s % 2 if ragged else 0))],
+                            np.float32)
+        n = len(labels)
+        return ArrayDataset(data=rng.uniform(size=(n, 36, 36, 1)).astype(np.float32),
+                            labels=labels,
+                            mask=(rng.uniform(size=(n, 1296)) > 0.2).astype(np.float32))
+
+    spec0, spec1 = kx.split_kernel_spec(
+        id_covariate=2, cat_kernel=[2], sqexp_kernel=[0],
+        cat_int_kernel=[{"cont_covariate": 0, "cat_covariate": 2}])
+    model = make_vae("conv", n_lat, 1296, dropout=0.0,
+                     generator=torch.Generator().manual_seed(1)).cuda()
+    pred = cohort(range(4))
+    return dict(model=model, gp=init_gp_params(spec0, spec1, n_lat).to(device="cuda"),
+                noise=torch.ones(n_lat, device="cuda"), specs=(spec0, spec1),
+                z=torch.as_tensor(pred.labels[rng.choice(len(pred.labels), m_ind, replace=False)],
+                                  device="cuda"),
+                valid=cohort(range(10, 13), ragged=True), test=cohort([0, 1]), pred=pred,
+                pred_mu=rng.normal(size=(len(pred.labels), n_lat)).astype(np.float32))
+
+
+def evaluate_all(w, type_kl="GPapprox_closed"):
+    """Every evaluation program's answer on ``w``, as host arrays."""
+    import numpy as np
+
+    from lvae_torch.evaluation import encode as enc
+    from lvae_torch.evaluation import testing
+    from lvae_torch.evaluation.validate import validate
+    from lvae_torch.ops.predict import predict_latents
+
+    model, (spec0, spec1) = w["model"], w["specs"]
+    val = validate(model, w["gp"], w["noise"], spec0, spec1, w["valid"], w["z"], 2, 0.15,
+                   type_kl=type_kl, num_samples=3, verbose=False)
+    mu, lv = enc.encode_dataset(model, w["valid"].data, batch_size=4)
+    frames = enc.decode_latents(model, mu, batch_size=4)
+    recon, fmu, flv = enc.vae_forward(model, torch.as_tensor(w["test"].data, device="cuda"))
+    zp = predict_latents(spec0, spec1, w["gp"].kp0, w["gp"].kp1, w["noise"], w["pred"].labels,
+                         w["pred_mu"], w["test"].labels, w["z"], 2)
+    gp_test = testing.mse_test_gp_approx(model, w["gp"], w["noise"], spec0, spec1, w["test"],
+                                         w["pred"].labels, w["pred_mu"], w["z"], 2,
+                                         verbose=False)
+    spec_full, kp_full = kx.join_specs(spec0, spec1, w["gp"].kp0, w["gp"].kp1)
+    exact = testing.mse_test_exact(model, kp_full, spec_full, w["noise"], w["test"],
+                                   w["pred"].labels, w["pred_mu"], verbose=False)
+    return [np.asarray(val), mu, lv, frames, *(t.cpu().numpy() for t in (recon, fmu, flv)), zp,
+            np.asarray(gp_test), np.asarray(exact)]
+
+
+@pytest.mark.parametrize("route", ["k1", "k4"])
+def test_evaluation_programs_replay_bit_equal_to_eager(gen, route, monkeypatch):
+    """The second call of each evaluation program replays the graph its
+    first call captured (a replayed validation launches K1 and K2 once, on
+    the K4 route K4 once and K2 twice, as the trace shows and the counters
+    say) and gives the bits of the programs run eagerly (cuDNN
+    deterministic), in GPapprox_closed and GPapprox with 3 samples."""
+    import numpy as np
+
+    from lvae_torch.evaluation import programs
+    from lvae_torch.evaluation.validate import validate
+    from lvae_torch.train.graph import eager_steps
+
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    monkeypatch.setattr(kx, "use_b_chain_kernel", None if route == "k1" else False)
+    monkeypatch.setattr(kx, "use_block_pair_kernel", route == "k4")
+    w = card_eval_world()
+    dev = torch.device("cuda", 0)
+
+    def keys():
+        return set(programs.graphs_of(w["model"], dev)) | set(programs.graphs_of(None, dev))
+
+    for type_kl in ("GPapprox_closed", "GPapprox"):
+        evaluate_all(w, type_kl)  # the captures
+        captured = keys()
+        replayed = evaluate_all(w, type_kl)
+        assert keys() == captured  # replays only
+        with eager_steps():
+            eager = evaluate_all(w, type_kl)
+        for a, b in zip(replayed, eager):
+            np.testing.assert_array_equal(a, b)
+    names = {k[0] for k in programs.graphs_of(w["model"], dev)}
+    assert names == {"validate", "encode", "decode", "vae_forward", "recon_mse"}
+    assert any(k[0] == "gp_predict" for k in programs.graphs_of(None, dev))
+
+    def validation():  # a replay: the key of evaluate_all's GPapprox_closed validation
+        validate(w["model"], w["gp"], w["noise"], *w["specs"], w["valid"], w["z"], 2, 0.15,
+                 num_samples=3, verbose=False)
+
+    block_pair_before = k4.block_pair.launches
+    traced = traced_launches(validation)
+    k4_launches = k4.block_pair.launches - block_pair_before
+    want = (1, 1) if route == "k1" else (0, 2)
+    assert traced == (want, want) and k4_launches == (route == "k4")
+
+
+def test_evaluation_replay_reads_parameters_updated_in_place(gen, monkeypatch):
+    """An update in place (an optimizer step) is read by the next replay:
+    it equals the eager programs on the updated model."""
+    import numpy as np
+
+    from lvae_torch.train.graph import eager_steps
+
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    w = card_eval_world()
+    before = evaluate_all(w)
+    with torch.no_grad():
+        for p in w["model"].parameters():
+            p.mul_(1.01)
+    replayed = evaluate_all(w)
+    with eager_steps():
+        eager = evaluate_all(w)
+    for a, b in zip(replayed, eager):
+        np.testing.assert_array_equal(a, b)
+    assert not np.array_equal(before[0], replayed[0])
+
+
+def test_evaluation_programs_capture_again_on_new_storages(gen, monkeypatch):
+    """After ``load_state_dict(..., assign=True)`` (new storages, the old
+    ones freed and overwritten) each program captures again, its old graph
+    dropped, and gives the eager programs' bits on the new weights."""
+    import numpy as np
+
+    from lvae_torch.evaluation import programs
+    from lvae_torch.train.graph import eager_steps
+
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    w = card_eval_world()
+    evaluate_all(w)
+    graphs = programs.graphs_of(w["model"], torch.device("cuda", 0))
+    old = set(graphs)
+    w["model"].load_state_dict({k: v.clone() * 1.01 for k, v in w["model"].state_dict().items()},
+                               assign=True)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    junk = torch.full((1 << 26,), float("nan"), device="cuda")  # over the freed storages
+    replayed = evaluate_all(w)
+    del junk
+    assert not (set(graphs) & old) and len(graphs) == len(old)
+    with eager_steps():
+        eager = evaluate_all(w)
+    for a, b in zip(replayed, eager):
+        np.testing.assert_array_equal(a, b)
+    assert all(np.isfinite(a).all() for a in replayed)
+
+
+def test_dataset_arrays_move_to_the_card_once(gen):
+    """A dataset's arrays and blocks go to the card once per array object."""
+    from lvae_torch.evaluation import programs
+
+    w = card_eval_world()
+    dev = torch.device("cuda", 0)
+    ds = w["valid"]
+    a = programs.dataset_tensor(ds.data, torch.float32, dev)
+    assert programs.dataset_tensor(ds.data, torch.float32, dev) is a
+    assert programs.dataset_tensor(ds.data.copy(), torch.float32, dev) is not a
+    blocks = programs.dataset_blocks(ds.labels, 2, torch.float32, dev)
+    assert programs.dataset_blocks(ds.labels, 2, torch.float32, dev) is blocks
+    assert blocks[1].shape == (3, 5) and int(blocks[1].sum()) == len(ds.labels)
+
+
+def test_capture_holds_while_the_collector_frees_a_graph(gen):
+    """A captured graph that becomes a dead reference cycle once the next
+    capture has begun, which the collector (threshold 1) would free at the
+    step's next allocations: a graph freed inside a capture breaks it
+    (``tools/torch_capture_gc.py``); ``CapturedStep`` turns the collector
+    off during its capture, captures and replays right, and the cycle goes
+    at the next collection."""
+    import gc
+    import weakref
+
+    from lvae_torch.train import graph
+
+    x = torch.randn(1 << 16, device="cuda", generator=gen)
+    holder = [graph.CapturedStep(lambda a: a * 2, [x])]
+    gone = weakref.ref(holder[0])
+
+    def step(a):
+        y = a + 1
+        if holder and torch.cuda.is_current_stream_capturing():
+            cycle = {"held": holder.pop()}  # a young dead cycle, the graph's only holder
+            cycle["self"] = cycle
+            del cycle
+            _ = [[] for _ in range(64)]  # allocations: the collector's turn
+        return y * 3
+
+    prev = gc.get_threshold()
+    gc.set_threshold(1, 1, 1)
+    try:
+        captured = graph.CapturedStep(step, [x])
+    finally:
+        gc.set_threshold(*prev)
+    assert not holder  # the cycle became garbage inside the capture
+    gc.collect()
+    assert gone() is None
+    x1 = x + 1
+    torch.testing.assert_close(captured.replay(x1), (x1 + 1) * 3, rtol=0, atol=0)

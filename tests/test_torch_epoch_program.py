@@ -222,3 +222,26 @@ def test_pretrain_epoch_program_equals_the_eager_loop(parts, monkeypatch):
     assert got == want and prog.state.step == 2 * (len(ds) // 8)
     for a, b in zip(prog.model.parameters(), loop.model.parameters()):
         assert torch.equal(a, b)
+
+
+def test_collector_is_off_only_inside_a_capture():
+    """``train/graph.collector_off``: the garbage collector is off inside the
+    block (a graph it freed there would break the capture) and as it was
+    after it, an exception included."""
+    import gc
+
+    from lvae_torch.train.graph import collector_off
+
+    assert gc.isenabled()
+    with pytest.raises(ValueError):
+        with collector_off():
+            assert not gc.isenabled()
+            raise ValueError
+    assert gc.isenabled()
+    gc.disable()
+    try:
+        with collector_off():
+            pass
+        assert not gc.isenabled()
+    finally:
+        gc.enable()
