@@ -21,9 +21,12 @@ frames, random frames and weights from ``--seed``):
   ``predict_latent_trajectory`` and ``refresh_basis``: the bundle's
   encode, decode, recon and trajectory programs captured as CUDA graphs
   at construction and replayed per request (K2 once inside each
-  trajectory replay), held bit-equal to the same programs run eagerly
-  (cuDNN deterministic) over the K=8 request, encode, decode, the
-  256-frame impute and a request after ``refresh_basis``, a sibling from
+  trajectory replay), the basis fold and its extension as GP programs
+  (K2 once inside the fold's graph at ``[32,100,20,20]``; a second
+  ``aot_compile`` replays the fold and captures nothing), held bit-equal
+  to the same programs run eagerly (cuDNN deterministic) over the K=8
+  request, encode, decode, the 256-frame impute, the folded and the
+  refreshed basis and a request after ``refresh_basis``, a sibling from
   ``for_k_subjects`` unchanged by its parent's refresh;
 * Hensman training with natural gradients, through ``HensmanTrainer``'s
   epoch program: two epochs of 5 steps (20 subjects, 400 frames a step),
@@ -37,11 +40,19 @@ frames, random frames and weights from ``--seed``):
   device time and host launch calls, the capture's cost and a replayed
   epoch; K5 with its step count on the device bit-equal to the host-scalar
   launch over 1,000 steps;
-* standard full-batch training, through ``StandardTrainer`` with
-  ``hensman=False``: 5 epochs of ``type_KL=closed`` (one step each over all
+* standard full-batch training, through ``StandardTrainer``'s epoch
+  program with ``hensman=False``, each epoch a replay of the step captured
+  as a CUDA graph: 5 epochs of ``type_KL=closed`` (one step each over all
   N = 2000 frames, K3 building the ``[32, 2000, 2000]`` prior once a step),
   2 each of ``GPapprox_closed``, ``GPapprox`` and the five-phase GPPVAE
-  regime, and 2 closed epochs with the fused optimizer (K5 once a step);
+  regime (its per-subject replay loop inside one graph), and 2 closed
+  epochs with the fused optimizer (K5 once a step); each run, and a bf16
+  GPapprox_closed run, replayed against the same epochs run eagerly from
+  one state (cuDNN deterministic, held bit-equal; the host clock of each;
+  the closed step's device memory replayed and eager), a ``fit`` over 2
+  chunks rolled back once through the state setter against an eager fit
+  straight through, and two replays from one state that draw fresh
+  dropout masks;
 * the reference-format CLI, through ``lvae_torch.cli.main`` on data from
   the port's generator: 2 pre-training epochs, 4 epochs with validation,
   tests, generation and checkpoints, a resumed run, and 2 epochs on the K4
@@ -116,13 +127,15 @@ from H + 0.1·I with cuDNN's TF32 off. One ``batch_loss`` from the CLI
 run's final checkpoint is held on the K4 route against the K1 route.
 
 The profiler traces of graph replays (the Hensman step and epoch, the
-pre-training epoch, a serving request and impute, a VI phase-1 step and a
-phase-2 run, each beside its eager twin, and each capture's cost) are
-taken in a fresh process, a world of one rank: a traced replay crashed
-the long main process. There K1's and K2's kernels are counted by name in
-the traces of a replayed Hensman epoch, 5 replayed requests, a replayed
-impute, 5 replayed VI phase-1 epochs and a replayed phase 2, and each
-count is held to what the path must launch and to the launch counters,
+pre-training epoch, a serving request, impute and basis fold, a VI
+phase-1 step and a phase-2 run, each standard run's step, each beside its
+eager twin, and each capture's cost) are taken in a fresh process, a
+world of one rank: a traced replay crashed the long main process. There
+K1's and K2's kernels are counted by name in the traces of a replayed
+Hensman epoch, 5 replayed requests, a replayed impute and fold, 5
+replayed VI phase-1 epochs and a replayed phase 2, and K1's, K2's, K3's
+and K5's in 2 replayed epochs of each standard run, and each count is
+held to what the path must launch and to the launch counters,
 which add a graph's recorded launches after each replay (the kernels
 line's ``launches_traced``).
 
@@ -329,13 +342,14 @@ class World:
             np.float32)
         self.blocks = build_subject_blocks(self.labels, cfg.id_covariate)
 
-    def model(self, dtype=torch.float32, compute=None):
+    def model(self, dtype=torch.float32, compute=None, dropout=None):
         """A fresh ConvVAE with the seed's random weights, on the CPU,
-        computing in ``compute`` (None: its parameters' dtype)."""
+        computing in ``compute`` (None: its parameters' dtype), with the
+        config's dropout unless ``dropout`` names another."""
         cfg = self.cfg
         return make_vae(
             cfg.type_nnet, cfg.latent_dim, cfg.num_dim, vy_init=cfg.vy_init,
-            dropout=cfg.dropout, dropout_input=cfg.dropout_input,
+            dropout=cfg.dropout if dropout is None else dropout, dropout_input=cfg.dropout_input,
             generator=torch.Generator().manual_seed(self.seed), dtype=dtype,
             compute_dtype=compute,
         )
@@ -388,25 +402,29 @@ class World:
 
     def standard_trainer(self, device: str, type_kl: str = "closed",
                          pseudo_minibatch: bool = False, optimizer: str = "adam",
-                         subjects=None) -> StandardTrainer:
+                         subjects=None, compute=None, dropout=None) -> StandardTrainer:
         """A full-batch trainer (``hensman=False``) at the config file's
         settings on the first ``subjects`` subjects (all by default), on
-        ``device``; every trainer made here starts from the same state."""
+        ``device``, the VAE computing in ``compute``, with the config's
+        dropout unless ``dropout`` names another; every trainer made here
+        for one compute dtype and dropout starts from the same state."""
         cfg = self.cfg
         p = subjects or cfg.P
         n = p * cfg.T
+        dropout = cfg.dropout if dropout is None else dropout
         scfg = StandardConfig(
             spec0=self.spec0, spec1=self.spec1, latent_dim=cfg.latent_dim, P_tot=p, T=cfg.T,
             weight=cfg.weight, loss_function=cfg.loss_function, type_KL=type_kl,
             num_samples=cfg.num_samples, constrain_scales=cfg.constrain_scales, eps=cfg.eps,
-            dropout=cfg.dropout > 0, vy_fixed=cfg.vy_fixed,
+            dropout=dropout > 0, vy_fixed=cfg.vy_fixed,
         )
 
         class Cohort:
             data, labels, mask = self.frames[:n], self.labels[:n], self.pixmask[:n]
 
         trainer = StandardTrainer(
-            self.model(), scfg, Cohort, build_subject_blocks(Cohort.labels, cfg.id_covariate),
+            self.model(compute=compute, dropout=dropout), scfg, Cohort,
+            build_subject_blocks(Cohort.labels, cfg.id_covariate),
             self.z, learning_rate=cfg.learning_rate, seed=self.seed,
             pseudo_minibatch=pseudo_minibatch, device=device,
         )
@@ -1460,7 +1478,9 @@ STANDARD_RUNS = {
 
 
 def standard_path(world: World) -> dict:
-    """Every standard run of STANDARD_RUNS at full width on the card."""
+    """Every standard run of STANDARD_RUNS at full width on the card, each
+    epoch a replay of its captured step (the first epoch the capture's
+    warm-up)."""
     runs = {}
     for name, (type_kl, pseudo, opt, epochs, want) in STANDARD_RUNS.items():
         run = train_standard(world, "cuda", type_kl, epochs, pseudo, opt)
@@ -1497,6 +1517,201 @@ def compare_standard(world: World) -> dict:
         say("standard", f"P={STD_COMPARE_P} {name}: card {json.dumps(card['epochs'][-1])} "
             f"CPU {json.dumps(cpu['epochs'][-1])} ({cpu['seconds']:.1f} s on the CPU)")
     return errs
+
+
+# epochs of each standard run replayed (the first the capture's warm-up) and eager
+STD_GVE_EPOCHS = 3
+STD_TIMED = 2  # warm steps of each standard run on the host clock, replayed and eager
+STD_CHUNK = 2  # epochs a chunk of the standard fit that rolls back
+STD_DROPOUT = 0.25  # the dropout of the run whose replays must draw fresh masks
+STD_TRACED = 2  # replayed epochs of each standard run traced in the fresh process
+STD_DIR = os.path.join(ROOT, "build", "chip_smoke_standard")  # git-ignored
+
+
+def std_params(trainer: StandardTrainer) -> list:
+    """Every trained tensor of a standard trainer, as numpy (f64)."""
+    return [p.detach().cpu().double().numpy() for p in trainer.state.trainables.parameters()]
+
+
+def compare_std_runs(a: StandardTrainer, b: StandardTrainer) -> dict:
+    """Two standard runs: per metric the epochs that differ and the largest
+    relative difference, and the same over every trained tensor."""
+    out = {key: bit_diff(np.asarray([getattr(m, key) for m in a.history]),
+                         np.asarray([getattr(m, key) for m in b.history]))
+           for key in STD_LOSS_KEYS}
+    diffs = [bit_diff(x, y) for x, y in zip(std_params(a), std_params(b))]
+    out["params"] = {"differ": sum(d["differ"] for d in diffs),
+                     "rel": max(d["rel"] for d in diffs)}
+    out["epochs"] = [len(a.history), len(b.history)]
+    return out
+
+
+def check_std_steps(per_step: list, want: dict, where: str) -> None:
+    for got in per_step:
+        for kernel, n in want.items():
+            if (got[kernel] < 1) if n is None else (got[kernel] != n):
+                raise AssertionError(f"{where}: a step launched {json.dumps(got)}, expected "
+                                     f"{json.dumps(want)} (None: at least 1)")
+
+
+def std_graph_vs_eager(world: World, type_kl: str, pseudo: bool, opt: str, want: dict,
+                       name: str, compute=None, memory: bool = False) -> dict:
+    """One standard run at full width, from one state on one noise:
+    STD_GVE_EPOCHS epochs and STD_TIMED + 1 more through the captured step
+    (each step's launches on the counters), and the same epochs run eagerly
+    (``eager_steps``); the host clock of the STD_TIMED warm steps of each;
+    with ``memory`` the peak device memory each run allocates above its
+    trainer's state (the replayed run's with its capture) and the memory
+    the graph keeps after ``empty_cache``. The caller holds the cuDNN mode."""
+    trainers, per_step, times, mem = {}, [], {}, {}
+    for mode in ("eager", "replayed"):
+        tr = trainers[mode] = world.standard_trainer("cuda", type_kl, pseudo, opt,
+                                                     compute=compute)
+        if mode == "replayed":
+            tr._run_step = counted(tr._run_step, per_step)
+        with eager_steps() if mode == "eager" else contextlib.nullcontext():
+            if memory:
+                torch.cuda.synchronize()
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats()
+                base, reserved = torch.cuda.memory_allocated(), torch.cuda.memory_reserved()
+            tr.run_epochs(STD_GVE_EPOCHS)
+            if memory:
+                torch.cuda.synchronize()
+                mem[f"{mode}_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+                mem[f"{mode}_peak_above_state_gib"] = (torch.cuda.max_memory_allocated()
+                                                       - base) / 2**30
+                torch.cuda.empty_cache()
+                mem[f"{mode}_kept_gib"] = (torch.cuda.memory_reserved() - reserved) / 2**30
+            times[f"{mode}_ms"] = host_ms(tr.run_epoch, STD_TIMED)
+        if mode == "replayed":
+            del tr._run_step
+    replayed, eager = trainers["replayed"], trainers["eager"]
+    if len(replayed._graphs) != 1 or eager._graphs:
+        raise AssertionError(f"standard {name}: {len(replayed._graphs)} graphs replayed, "
+                             f"{len(eager._graphs)} eager")
+    check_std_steps(per_step, want, f"standard {name} replayed")
+    res = {"graph_vs_eager": compare_std_runs(replayed, eager), "per_step": per_step[-1],
+           "per_replay": graph_launches(next(iter(replayed._graphs.values()))),
+           "times": times, "memory": mem}
+    return res
+
+
+def standard_graph_vs_eager(world: World) -> dict:
+    """Every run of STANDARD_RUNS and a bf16 GPapprox_closed run
+    (``model_dtype=bfloat16``) replayed against eager, with cuDNN's
+    deterministic algorithms (:func:`std_graph_vs_eager`), each held
+    bit-equal; the closed run's memory. Their launches are not the
+    standard path's (uncounted)."""
+    res = {}
+    with deterministic_cudnn(), uncounted():
+        for name, (type_kl, pseudo, opt, _, want) in STANDARD_RUNS.items():
+            res[name] = std_graph_vs_eager(world, type_kl, pseudo, opt, want, name,
+                                           memory=name == "closed")
+        res["GPapprox_closed bf16"] = std_graph_vs_eager(
+            world, "GPapprox_closed", False, "adam", STANDARD_RUNS["GPapprox_closed"][4],
+            "GPapprox_closed bf16", compute=BF16)
+    differ = {k: v["graph_vs_eager"] for k, v in res.items()
+              if any(d["differ"] for key, d in v["graph_vs_eager"].items() if key != "epochs")}
+    if differ:
+        raise AssertionError(f"standard graph vs eager on the card: {json.dumps(differ)}")
+    return res
+
+
+def standard_rollback(world: World, root: str) -> dict:
+    """GPapprox_closed at full width (cuDNN deterministic): ``fit`` over 2
+    chunks of STD_CHUNK epochs through the captured step, with a callback
+    that saves the state after chunk 1 and, the first time chunk 2 ends,
+    loads it back through the state setter (the graph goes; the chunk runs
+    again and captures anew) and rolls back; against an eager ``fit``
+    straight through. Held bit-equal."""
+    with deterministic_cudnn(), uncounted():
+        tr = world.standard_trainer("cuda", "GPapprox_closed")
+        path, calls, graphs = os.path.join(root, "std_chunk1.ckpt"), [], []
+
+        def callback(t, done, last):
+            calls.append(done)
+            graphs.append(len(t._graphs))
+            if done == STD_CHUNK:
+                save_checkpoint(path, t.state)
+            elif calls == [STD_CHUNK, 2 * STD_CHUNK]:
+                t.state = load_checkpoint(path, like=t.state)
+                if t._graphs:
+                    raise AssertionError("the standard state setter kept the graph")
+                del t.history[STD_CHUNK:]
+                return "rollback"
+            return None
+
+        tr.fit(2 * STD_CHUNK, log_every=0, callback=callback, chunk=STD_CHUNK)
+        eager = world.standard_trainer("cuda", "GPapprox_closed")
+        with eager_steps():
+            eager.fit(2 * STD_CHUNK, log_every=0, chunk=STD_CHUNK)
+    res = compare_std_runs(tr, eager) | {"calls": calls, "graphs_at_callbacks": graphs}
+    if calls != [STD_CHUNK, 2 * STD_CHUNK, 2 * STD_CHUNK] or any(
+            d["differ"] for k, d in res.items() if k in STD_LOSS_KEYS + ("params",)):
+        raise AssertionError(f"standard fit with a rollback vs eager: {json.dumps(res)}")
+    return res
+
+
+def standard_dropout_replays(world: World) -> dict:
+    """GPapprox_closed at full width with dropout STD_DROPOUT and without
+    (cuDNN deterministic): the captured step replayed twice from one state
+    (its tensors and Adam's written back in place between the replays) on
+    one noise. With dropout each replay draws its masks anew, so the two
+    differ; without, they are the same bits."""
+    out = {}
+    with deterministic_cudnn(), uncounted():
+        for p in (STD_DROPOUT, 0.0):
+            tr = world.standard_trainer("cuda", "GPapprox_closed", dropout=p)
+            gen = torch.Generator().manual_seed(world.seed + 3)
+            noise = [torch.randn(shape, generator=gen, dtype=dtype).to(tr.device)
+                     for shape, dtype in tr._noise_specs()]
+            row = torch.empty(4, dtype=tr.dtype, device=tr.device)
+            tr._run_step(noise, row)  # the capture, its warm-up this step
+            opt = tr.state.opt_state
+            held = [*tr.state.trainables.parameters(),
+                    *(v for st in opt.state.values() for v in st.values() if torch.is_tensor(v))]
+            saved = [t.detach().clone() for t in held]
+            rows = []
+            for _ in range(2):
+                with torch.no_grad():
+                    for t, v in zip(held, saved):
+                        t.copy_(v)
+                tr._run_step(noise, row)
+                rows.append(row.cpu().numpy().copy())
+            if len(tr._graphs) != 1:
+                raise AssertionError(f"dropout {p}: {len(tr._graphs)} graphs")
+            out[f"dropout_{p:g}"] = bit_diff(rows[0], rows[1])
+    if not out[f"dropout_{STD_DROPOUT:g}"]["differ"] or out["dropout_0"]["differ"]:
+        raise AssertionError(f"two replays with and without dropout: {json.dumps(out)}")
+    return out
+
+
+def standard_replay_times(world: World) -> dict:
+    """Every run of STANDARD_RUNS at full width in the fresh process: the
+    host clock and the profile of a replayed and of an eager step, and the
+    K1, K2, K3 and K5 launches of STD_TRACED replayed epochs by name in a
+    trace, held to what the graph records."""
+    names = ("b_chain", "chol_inv", "kernel_matrix", "adam")
+    out = {}
+    for name, (type_kl, pseudo, opt, _, want) in STANDARD_RUNS.items():
+        tr = world.standard_trainer("cuda", type_kl, pseudo, opt)
+        tr.run_epoch()  # the capture
+        graph = next(iter(tr._graphs.values()))
+        res = {"replay_launches": graph_launches(graph),
+               "replayed": {"step_ms": host_median_ms(tr.run_epoch, 3),
+                            "profile": profile_window(tr.run_epoch, 2)}}
+        with eager_steps():
+            res["eager"] = {"step_ms": host_median_ms(tr.run_epoch, 2),
+                            "profile": profile_window(tr.run_epoch, 1)}
+        res["traced"] = traced_launches(lambda: tr.run_epochs(STD_TRACED), names)
+        if len(tr._graphs) != 1:
+            raise AssertionError(f"standard {name}: the traced epochs captured again")
+        check_std_steps([res["replay_launches"]], want, f"standard {name} graph")
+        res["want"] = {k: STD_TRACED * res["replay_launches"][k] for k in names}
+        out[name] = res
+        del tr, graph
+    return out
 
 
 # ---------------------------------------------------------------- pipeline
@@ -2247,30 +2462,39 @@ def serving_answers(world: World, bundle, sib) -> dict:
                world.obs_frames, world.obs_labels, world.query_labels),
            "sibling": sib.predict_trajectories(*one)}
     out["decode"] = bundle.decode(out["encode"])
+    out["basis"] = basis_array(bundle)
     bundle.refresh_basis(world.new_frames, world.new_labels)
+    out["basis_after_refresh"] = basis_array(bundle)
+    out["sibling_basis_after_refresh"] = basis_array(sib)
     out["trajectories_after_refresh"] = bundle.predict_trajectories(
         world.obs_frames, world.obs_labels, world.query_labels)
     out["sibling_after_refresh"] = sib.predict_trajectories(*one)
     return out
 
 
+def basis_array(bundle) -> np.ndarray:
+    """A bundle's folded basis ``(H, c)``, flat, on the host."""
+    return np.concatenate([t.cpu().numpy().ravel() for t in bundle._basis])
+
+
 def serving_graph_vs_eager(world: World, pred: LVAEPredictor) -> dict:
-    """The bundle's replayed programs against the same programs run eagerly
-    (under ``graph.eager_steps``), each on a bundle of its own from
-    ``pred``, with cuDNN's default algorithms (reported: the decoder's
-    transposed convolutions may add with atomics, so two eager calls can
-    differ) and its deterministic ones (held bit-equal, and the sibling's
-    answer the same bits before and after its parent's refresh, replayed
-    and eager)."""
+    """The bundle's replayed programs, its basis fold and refresh among
+    them, against the same programs run eagerly (under
+    ``graph.eager_steps``), each on a bundle of its own from ``pred``, with
+    cuDNN's default algorithms (reported: the decoder's transposed
+    convolutions may add with atomics, so two eager calls can differ) and
+    its deterministic ones (held bit-equal, and the sibling's answer the
+    same bits before and after its parent's refresh, replayed and
+    eager)."""
     res = {}
     for mode in ("default", "deterministic"):
         with (deterministic_cudnn() if mode == "deterministic" else contextlib.nullcontext()):
             runs = []
             for eager in (False, True):
-                bundle = pred.aot_compile(batch_size=BATCH, t_obs=T_OBS, n_query=N_QUERY,
-                                          k_subjects=K_SUBJECTS)
-                sib = bundle.for_k_subjects(1)
                 with eager_steps() if eager else contextlib.nullcontext():
+                    bundle = pred.aot_compile(batch_size=BATCH, t_obs=T_OBS, n_query=N_QUERY,
+                                              k_subjects=K_SUBJECTS)
+                    sib = bundle.for_k_subjects(1)
                     runs.append(serving_answers(world, bundle, sib))
         res[mode] = {"graph_vs_eager": {k: bit_diff(runs[0][k], runs[1][k]) for k in runs[0]},
                      "sibling_across_refresh": [
@@ -2428,10 +2652,11 @@ def check_traced(got: dict, want: dict, where: str) -> None:
 
 def serving_replay_times(world: World) -> dict:
     """The serving bundle in a fresh process: the host clock and the
-    profile of a replayed and of an eager K-subject request and 256-frame
-    impute, the fold's profile, each program's capture cost, the launches
-    the trajectory graph records and the kernels of TRACED_REPLAYS
-    replayed requests and of a replayed impute, by name in a trace."""
+    profile of a replayed and of an eager K-subject request, 256-frame
+    impute and basis fold, each program's capture cost, the launches the
+    trajectory graph records and the kernels of TRACED_REPLAYS replayed
+    requests, of a replayed impute and of a replayed fold, by name in a
+    trace."""
     model = world.model()
     mu, _ = encode_dataset(model, world.frames, device="cuda")
     pred = LVAEPredictor(model=model, gp_params=world.gp, noise=world.noise, spec0=world.spec0,
@@ -2455,16 +2680,17 @@ def serving_replay_times(world: World) -> dict:
         for _ in range(TRACED_REPLAYS):
             request()
 
-    out["traced"] = {"requests": traced_launches(requests), "impute": traced_launches(impute)}
+    fold = copy.copy(bundle)  # its own basis, so the bundle's buffers stay
+    out["traced"] = {"requests": traced_launches(requests), "impute": traced_launches(impute),
+                     "fold": traced_launches(fold._fold_basis)}
     for name in ("replayed", "eager"):
         with eager_steps() if name == "eager" else contextlib.nullcontext():
             out[name] = {"request_ms": host_median_ms(request, 10),
                          "impute_ms": host_median_ms(impute, 5),
+                         "fold_ms": host_median_ms(fold._fold_basis, 3),
                          "request_profile": profile_window(request, 5),
-                         "impute_profile": profile_window(impute, 3)}
-    fold = copy.copy(bundle)  # its own basis, so the bundle's buffers stay
-    out["fold_ms"] = host_median_ms(fold._fold_basis, 3)
-    out["fold_profile"] = profile_window(fold._fold_basis, 3)
+                         "impute_profile": profile_window(impute, 3),
+                         "fold_profile": profile_window(fold._fold_basis, 3)}
     captures = {}
     with torch.inference_mode():
         for name, g in bundle._graphs.items():
@@ -3101,9 +3327,11 @@ def serve(world: World, device: str) -> dict:
     def reps(n):
         return range(n if cuda else 1)
 
+    fold_graphs = []  # the basis programs' graphs after each aot_compile
     for _ in reps(N_FOLDS):
         bundle = step("fold", lambda: pred.aot_compile(
             batch_size=BATCH, t_obs=T_OBS, n_query=N_QUERY, k_subjects=K_SUBJECTS))
+        fold_graphs.append(basis_graphs(pred))
     # a copy: refresh_basis overwrites the bundle's basis buffers in place
     out["basis_c"] = bundle._basis.c.cpu().numpy().copy()
     for _ in range(3):
@@ -3121,7 +3349,16 @@ def serve(world: World, device: str) -> dict:
     out["refreshed_c"] = bundle._basis.c.cpu().numpy()
     out["trajectories_after_refresh"] = step("predict_trajectories_after_refresh", lambda: (
         bundle.predict_trajectories(world.obs_frames, world.obs_labels, world.query_labels)))
-    return {"out": out, "launches": launches, "times": times, "pred": pred, "bundle": bundle}
+    return {"out": out, "launches": launches, "times": times, "pred": pred, "bundle": bundle,
+            "fold_graphs": fold_graphs}
+
+
+def basis_graphs(pred: LVAEPredictor) -> dict:
+    """The captured graphs of the basis fold and extension programs on
+    ``pred``'s device, by key (the GP programs of ``evaluation/programs``):
+    each entry the graph object's id."""
+    return {repr(k[:2]): id(g) for k, g in eval_programs.graphs_of(None, pred.z.device).items()
+            if k[0] in ("fold_basis", "extend_basis")}
 
 
 def check_outputs(out: dict, world: World) -> None:
@@ -3515,8 +3752,9 @@ def replay_profiles(seed: int, data: str, results: str) -> dict:
     layout (:func:`rnn_compaction_warnings`), the bf16 Hensman run's
     replayed step and epoch, the names of the kernels of an f32 and a bf16
     replayed step, the f32 and bf16 profiles of a replayed VI step and
-    request (:func:`bf16_profiles`), and one epoch of the CLI run's resumed pipeline
-    (``data`` and ``results`` its folders)."""
+    request (:func:`bf16_profiles`), the standard runs' replayed and eager
+    steps (:func:`standard_replay_times`), and one epoch of the CLI run's
+    resumed pipeline (``data`` and ``results`` its folders)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     world = World(seed)
@@ -3529,6 +3767,9 @@ def replay_profiles(seed: int, data: str, results: str) -> dict:
     out["bf16"] = replayed_step_times(b16)
     out["kernel_names"] = {"f32": step_kernel_names(trainer), "bf16": step_kernel_names(b16)}
     out["bf16_profiles"] = bf16_profiles(world)
+    t0 = time.perf_counter()
+    out["standard"] = standard_replay_times(world)
+    out["standard_seconds"] = time.perf_counter() - t0
     pipe = resumed_pipeline(PIPE_DIR, {"data": data, "results": results}, "cuda")
     out["pipeline_epoch"] = profile_window(pipe.trainer.run_epoch, 1)
     return out
@@ -3876,6 +4117,7 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
 
+    started = time.perf_counter()
     # phase 1: device
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs only on a GPU",
@@ -3929,6 +4171,11 @@ def main() -> int:
         f"refresh_basis {t['refresh_basis'][0]:.3f} ms")
     say("serving", f"impute {BATCH * 1e3 / statistics.median(t['impute']):.1f} frames/s "
         f"(median of {len(t['impute'])})")
+    fg = gpu["fold_graphs"]
+    say("serving", f"basis programs' graphs after each of {N_FOLDS} aot_compile calls "
+        f"{json.dumps(fg)}: the first captured the fold, the later ones replayed it")
+    if len(fg[0]) != 1 or any(g != fg[0] for g in fg[1:]):
+        raise AssertionError(f"a second aot_compile captured the basis fold again: {fg}")
 
     # the same calls on the CPU, through the plain versions
     before = k2.cholesky_inverse.launches
@@ -4033,7 +4280,9 @@ def main() -> int:
         f"L={world.cfg.latent_dim} M={world.cfg.M}) | {card}")
     say("profile", "train_step " + json.dumps(warm["profile"]))
 
-    # phase 6: the standard training path on the card; counts from 0 just before it
+    # phase 6: the standard training path on the card, each epoch a replay
+    # of its captured step (the first the capture's warm-up); counts from 0
+    # just before it
     reset_launch_counts()
     t0 = time.perf_counter()
     std_runs = standard_path(world)
@@ -4044,12 +4293,47 @@ def main() -> int:
         if std_counts[kernel] < 1:
             raise AssertionError(f"{kernel} was not launched on the standard path")
 
+    # each run's captured step against the same steps run eagerly, from one
+    # state on one noise (cuDNN deterministic); a fit that rolls back; fresh
+    # dropout masks each replay (their traces are taken in a fresh process)
+    t0 = time.perf_counter()
+    std_gve = standard_graph_vs_eager(world)
+    for name, r in std_gve.items():
+        tm = r["times"]
+        say("compare", f"standard {name} graph vs eager on the card "
+            f"({STD_GVE_EPOCHS + STD_TIMED + 1} epochs from one state, cuDNN deterministic, "
+            f"held bit-equal): {json.dumps(r['graph_vs_eager'])}")
+        say("standard", f"{name}: a replayed step launched {json.dumps(r['per_step'])} (the "
+            f"graph records {json.dumps(r['per_replay'])}); host clock a warm step replayed "
+            f"{[round(x, 3) for x in tm['replayed_ms']]} ms, eager "
+            f"{[round(x, 3) for x in tm['eager_ms']]} ms | {card}")
+    mem = std_gve["closed"]["memory"]
+    say("standard", f"closed step device memory (N={world.labels.shape[0]}): eager peak "
+        f"{mem['eager_peak_gib']:.3f} GiB ({mem['eager_peak_above_state_gib']:.3f} above the "
+        f"trainer's state), replayed with its capture peak {mem['replayed_peak_gib']:.3f} GiB "
+        f"({mem['replayed_peak_above_state_gib']:.3f} above), kept after empty_cache: eager "
+        f"{mem['eager_kept_gib']:.3f} GiB, replayed (the graph's pool) "
+        f"{mem['replayed_kept_gib']:.3f} GiB | {card}")
+    os.makedirs(STD_DIR, exist_ok=True)
+    try:
+        std_rb = standard_rollback(world, STD_DIR)
+    finally:
+        shutil.rmtree(STD_DIR, ignore_errors=True)
+    say("compare", f"standard fit over 2 chunks of {STD_CHUNK} epochs, replayed, chunk 2 "
+        f"rolled back once through the state setter, vs eager straight through (held "
+        f"bit-equal): {json.dumps(std_rb)}")
+    std_drop = standard_dropout_replays(world)
+    say("standard", f"two replays from one state on one noise (GPapprox_closed), entries "
+        f"that differ: {json.dumps(std_drop)} (dropout {STD_DROPOUT}: fresh masks each replay; "
+        f"none: the same bits) ({time.perf_counter() - t0:.1f} s | {card})")
+
     s_errs = compare_standard(world)
     say("compare", f"standard card vs CPU {json.dumps(s_errs)} (tolerances "
         f"{json.dumps({k: LOSS_TOLS[k] for k in STD_LOSS_KEYS})})")
     check_within(s_errs)
 
-    # warm closed-KL steps on the card: host clock per step, then a profiler window
+    # warm replayed closed-KL steps on the card: host clock per step, then
+    # an eager profiler window (the replayed step's is the fresh process's)
     trainer = std_runs["closed"]["trainer"]
     step_ms = []
     for _ in range(4):
@@ -4058,10 +4342,15 @@ def main() -> int:
         trainer.run_epoch()
         torch.cuda.synchronize()
         step_ms.append((time.perf_counter() - t0) * 1e3)
-    say("standard", f"closed step (host clock, warm) median {statistics.median(step_ms):.3f} "
-        f"ms over {len(step_ms)} (N={world.labels.shape[0]} L={world.cfg.latent_dim}), "
-        f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    say("profile", "standard_step " + json.dumps(profile_window(trainer.run_epoch, 3)))
+    say("standard", f"closed step (host clock, warm, replayed) median "
+        f"{statistics.median(step_ms):.3f} ms over {len(step_ms)} (N={world.labels.shape[0]} "
+        f"L={world.cfg.latent_dim}), peak device memory of the process so far "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    with eager_steps():
+        say("profile", "standard_step " + json.dumps(profile_window(trainer.run_epoch, 3)))
+    for run in std_runs.values():  # their graphs' pools go
+        del run["trainer"]
+    del trainer
 
     # phase 7: the reference-format CLI pipeline at full width through
     # lvae_torch.cli.main; counts from 0 just before the main run
@@ -4225,7 +4514,12 @@ def main() -> int:
                                        {"b_chain": 0, "chol_inv": 2 * TRACED_REPLAYS,
                                         "block_pair": TRACED_REPLAYS}),
                   "eval_gp_predict": (TRACED_REPLAYS, evprof["traced"]["gp_predict"],
-                                      {"b_chain": 0, "chol_inv": TRACED_REPLAYS})}
+                                      {"b_chain": 0, "chol_inv": TRACED_REPLAYS}),
+                  "serving_fold": (1, prof["serving"]["traced"]["fold"],
+                                   {"b_chain": 0, "chol_inv": 1})}
+        for name, r in prof["standard"].items():
+            traced[f"standard_{name.replace(', ', '_').replace(' ', '_')}"] = (
+                STD_TRACED, r["traced"], r["want"])
         for path, (replays, got, want) in traced.items():
             say("launches", f"{path} ({replays} replayed): by kernel name in the trace "
                 f"{json.dumps(got['traced'])}, on the counters {json.dumps(got['counted'])}")
@@ -4236,12 +4530,31 @@ def main() -> int:
             f"{sv['replayed']['request_ms']:.3f} ms, eager {sv['eager']['request_ms']:.3f} ms "
             f"(host clock, median of 10); impute {BATCH * 1e3 / sv['replayed']['impute_ms']:.1f} "
             f"frames/s replayed, {BATCH * 1e3 / sv['eager']['impute_ms']:.1f} eager; fold "
-            f"{sv['fold_ms']:.3f} ms; captures {json.dumps(sv['captures'])}; the trajectory "
-            f"graph records {json.dumps(sv['trajectory_replay_launches'])} | {card}")
+            f"{sv['replayed']['fold_ms']:.3f} ms; captures {json.dumps(sv['captures'])}; the "
+            f"trajectory graph records {json.dumps(sv['trajectory_replay_launches'])} | {card}")
         for name in ("replayed", "eager"):
-            for what in ("request", "impute"):
+            for what in ("request", "impute", "fold"):
                 say("profile", f"serving_{what}_{name} " + json.dumps(sv[name][f"{what}_profile"]))
-        say("profile", "serving_fold " + json.dumps(sv["fold_profile"]))
+        fr, fe = sv["replayed"]["fold_profile"], sv["eager"]["fold_profile"]
+        say("serving", f"in one fresh process, the basis fold (P={world.cfg.P} T={world.cfg.T}) "
+            f"replayed vs eager: host clock {sv['replayed']['fold_ms']:.3f} vs "
+            f"{sv['eager']['fold_ms']:.3f} ms, device {fr['device_ms']:.3f} vs "
+            f"{fe['device_ms']:.3f} ms, idle {fr['idle_share']:.3f} vs {fe['idle_share']:.3f}, "
+            f"host calls {fr['host_launches_per_call']:g} vs {fe['host_launches_per_call']:g} "
+            f"| {card}")
+        say("standard", f"the fresh process's standard runs took "
+            f"{prof['standard_seconds']:.1f} s")
+        for name, r in prof["standard"].items():
+            rp, ep = r["replayed"]["profile"], r["eager"]["profile"]
+            say("standard", f"in one fresh process, {name} step replayed vs eager: host clock "
+                f"{r['replayed']['step_ms']:.3f} vs {r['eager']['step_ms']:.3f} ms, device "
+                f"{rp['device_ms']:.3f} vs {ep['device_ms']:.3f} ms, idle "
+                f"{rp['idle_share']:.3f} vs {ep['idle_share']:.3f}, host calls "
+                f"{rp['host_launches_per_call']:g} vs {ep['host_launches_per_call']:g}; the "
+                f"graph records {json.dumps(r['replay_launches'])} | {card}")
+            slug = name.replace(", ", "_").replace(" ", "_")
+            say("profile", f"standard_{slug}_replayed " + json.dumps(rp))
+            say("profile", f"standard_{slug}_eager " + json.dumps(ep))
         vr = prof["vi"]
         say("vi", f"in one fresh process: phase-1 step replayed {vr['replayed']['step_ms']:.3f} "
             f"ms, eager {vr['eager']['step_ms']:.3f} ms (host clock); capture "
@@ -4540,6 +4853,7 @@ def main() -> int:
         shutil.rmtree(PAR_DIR, ignore_errors=True)
 
     # phase 12: the kernels line
+    say("done", f"every phase in {time.perf_counter() - started:.1f} s | {card}")
     if deferred:
         raise AssertionError("; ".join(deferred))
     paths = {"serving": serve_counts, "training": train_launches, "standard": std_counts,
@@ -4551,7 +4865,8 @@ def main() -> int:
         e["launches_by_path"] = {path: counts[key] for path, counts in paths.items()}
         e["launches"] = sum(e["launches_by_path"].values())
     entry["launches_by_step"] = gpu["launches"]
-    for e, key in ((entry, "chol_inv"), (k1_entry, "b_chain"), (k4_entry, "block_pair")):
+    for e, key in ((entry, "chol_inv"), (k1_entry, "b_chain"), (k3_entry, "kernel_matrix"),
+                   (k4_entry, "block_pair"), (k5_entry, "adam")):
         e["launches_traced"] = {path: {"replays": replays, "traced": got["traced"][key]}
                                 for path, (replays, got, _) in traced.items()
                                 if key in got["traced"]}

@@ -49,8 +49,7 @@ import torch
 from torch import nn
 
 from lvae_torch.data.blocks import build_subject_blocks
-from lvae_torch.ops import kernels as kx
-from lvae_torch.train.graph import StepGraphs
+from lvae_torch.train.graph import StepGraphs, route_key
 
 # graphs kept per program name: the keys one run meets (two validation
 # cohorts in three modes, the test and generation cohorts) without holding
@@ -80,9 +79,7 @@ def program_key(name: str, inputs: Sequence[torch.Tensor], model: Optional[nn.Mo
     docstring); its first two entries, the name and the inputs' shapes and
     dtypes, say which graph a new capture replaces."""
     sig = tuple((tuple(x.shape), x.dtype) for x in inputs)
-    # the kernel route and the backend switches whose algorithms a capture keeps
-    route = (kx.use_b_chain_kernel, kx.use_block_pair_kernel, torch.backends.cudnn.deterministic,
-             torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    route = route_key()
     if model is None:
         return (name, sig, None, route, static, ())
     ptrs = tuple(t.data_ptr() for t in (*model.parameters(), *model.buffers()))

@@ -13,7 +13,10 @@ Packages a trained L-VAE into a predictor for three capabilities:
 with a fixed batch shape and a pre-folded GP basis: the counterpart of the
 JAX package's ahead-of-time compiled executables are, on the card, its
 programs captured once as CUDA graphs at their fixed shapes and replayed
-per request (``train/graph.StepGraphs``); on the CPU they run eagerly.
+per request (``train/graph.StepGraphs``), and the basis fold and its
+extension run as GP programs keyed on the specs and the cohort's shape
+(``ops/predict.fold_basis``, ``extend_basis``), which a later bundle of the
+same shapes replays; on the CPU they run eagerly.
 Everything runs on ``device``, ``cuda`` unless the caller passes ``"cpu"``;
 arrays cross the API as host numpy.
 """
@@ -35,9 +38,9 @@ from lvae_torch.evaluation.programs import dataset_tensor
 from lvae_torch.ops import kernels as kx
 from lvae_torch.ops.predict import (
     PredictBasis,
-    extend_predict_basis,
+    extend_basis,
+    fold_basis,
     gp_predict_extend_batch,
-    precompute_predict_basis,
     predict_latents,
 )
 from lvae_torch.train.graph import StepGraphs
@@ -345,28 +348,29 @@ class CompiledServing:
         dev = self.device
         return _f32(xb, dev), _f32(blocks.mask, dev), _f32(mu_b, dev)
 
-    @torch.inference_mode()
     def _fold_basis(self) -> None:
         """Fold the whole basis cohort's block solves into ``(H, c)``, the
-        bundle's basis buffers."""
+        bundle's basis buffers: the fold program (``ops/predict.fold_basis``),
+        on the card a replay of its graph at the cohort's ``[P, T]``, which
+        a later ``aot_compile`` of the same shapes replays again."""
         pr = self.predictor
         xb, mask, mu_b = self._blocks_on_device(pr.basis_labels, pr.basis_mu)
-        self._basis = precompute_predict_basis(
-            pr.spec0, pr.spec1, pr.gp_params.kp0, pr.gp_params.kp1, pr.noise,
-            xb, mask, mu_b, pr.z, eps=pr.eps,
-        )
+        self._basis = fold_basis(pr.spec0, pr.spec1, pr.gp_params.kp0, pr.gp_params.kp1,
+                                 pr.noise, xb, mask, mu_b, pr.z, eps=pr.eps)
 
     @torch.inference_mode()
     def refresh_basis(self, new_data, new_labels) -> None:
         """Fold new TRAINING subjects into the serving basis, in place.
 
         ``(H, c)`` are sums over subject blocks, so the new subjects' blocks
-        are encoded and added incrementally (equal to a full refold), and
-        the sums are copied into this bundle's basis buffers, which its
-        captured trajectory program reads. ``new_labels`` must carry subject
-        ids not already in the basis; once folded, a subject is a training
-        subject — do not send it as new in a request. Sibling bundles hold
-        their own basis.
+        are encoded and added incrementally (equal to a full refold) by the
+        extension program (``ops/predict.extend_basis``, on the card a
+        replay at the new subjects' ``[K, T]``, which takes the basis as an
+        input), and the sums are copied into this bundle's basis buffers,
+        which its captured trajectory program reads. ``new_labels`` must
+        carry subject ids not already in the basis; once folded, a subject
+        is a training subject — do not send it as new in a request. Sibling
+        bundles hold their own basis.
         """
         pr = self.predictor
         new_labels = np.asarray(new_labels, np.float32)
@@ -379,10 +383,8 @@ class CompiledServing:
             )
         mu_new = self.encode(new_data)[: new_labels.shape[0]]
         xb, mask, mu_b = self._blocks_on_device(new_labels, mu_new)
-        grown = extend_predict_basis(
-            pr.spec0, pr.spec1, pr.gp_params.kp0, pr.gp_params.kp1, pr.noise,
-            self._basis, xb, mask, mu_b, pr.z,
-        )
+        grown = extend_basis(pr.spec0, pr.spec1, pr.gp_params.kp0, pr.gp_params.kp1, pr.noise,
+                             self._basis, xb, mask, mu_b, pr.z)
         for fixed, value in zip(self._basis, grown):
             fixed.copy_(value)
         # keep this bundle's predictor view consistent with the grown basis

@@ -377,6 +377,74 @@ def extend_predict_basis(
     )
 
 
+def _pack_basis(basis: PredictBasis) -> torch.Tensor:
+    """``(h_nojit [L,M,M], c [L,M])`` as one tensor ``[L, M, M+1]``, ``c``
+    its last column: the fold's and the extension's one output."""
+    return torch.cat([basis.h_nojit, basis.c[..., None]], dim=-1)
+
+
+def _basis_views(packed: torch.Tensor) -> PredictBasis:
+    m = packed.shape[-2]
+    return PredictBasis(h_nojit=packed[..., :m], c=packed[..., m])
+
+
+def _unpack_basis(packed: torch.Tensor) -> PredictBasis:
+    """The basis of a :func:`_pack_basis` tensor, as contiguous copies."""
+    return PredictBasis(*(t.contiguous() for t in _basis_views(packed)))
+
+
+def _fold_program(spec0, spec1, eps: float):
+    """The basis fold as a program of its tensors: :func:`precompute_predict_basis`,
+    packed."""
+    def program(s0, l0, s1, l1, noise, xb, mask, mu_b, z):
+        return _pack_basis(precompute_predict_basis(
+            spec0, spec1, kx.KernelParams(s0, l0), kx.KernelParams(s1, l1), noise, xb, mask,
+            mu_b, z, eps=eps))
+
+    return program
+
+
+def _extend_program(spec0, spec1):
+    """The basis extension as a program of its tensors (the basis packed):
+    :func:`extend_predict_basis`, packed."""
+    def program(s0, l0, s1, l1, noise, packed, xb, mask, mu_b, z):
+        return _pack_basis(extend_predict_basis(
+            spec0, spec1, kx.KernelParams(s0, l0), kx.KernelParams(s1, l1), noise,
+            _basis_views(packed), xb, mask, mu_b, z))
+
+    return program
+
+
+def fold_basis(spec0, spec1, kp0, kp1, noise, xb, mask, mu_b, z, eps: float = 1e-6
+               ) -> PredictBasis:
+    """:func:`precompute_predict_basis` as one program
+    (``evaluation/programs.py``, a model-free GP program keyed on the
+    specs, ``eps`` and the blocks' shapes): on the card a replay of the
+    fold captured at its first call, K2 inside it; the JAX package's
+    ``_fold_basis_jit``. Returns fresh tensors."""
+    from lvae_torch.evaluation import programs
+
+    lat, m = kp0.raw_scale.shape[0], z.shape[0]
+    return _unpack_basis(programs.run(
+        "fold_basis", _fold_program(spec0, spec1, eps), [*kp0, *kp1, noise, xb, mask, mu_b, z],
+        (lat, m, m + 1), xb.dtype, z.device, static=(spec0, spec1, eps)))
+
+
+def extend_basis(spec0, spec1, kp0, kp1, noise, basis: PredictBasis, xb, mask, mu_b, z
+                 ) -> PredictBasis:
+    """:func:`extend_predict_basis` as one program (as :func:`fold_basis`;
+    the basis is an input, copied in, so the program reads no caller's
+    buffers): the JAX package's ``_extend_basis_jit``. Returns fresh
+    tensors."""
+    from lvae_torch.evaluation import programs
+
+    packed = _pack_basis(basis)
+    return _unpack_basis(programs.run(
+        "extend_basis", _extend_program(spec0, spec1),
+        [*kp0, *kp1, noise, packed, xb, mask, mu_b, z], tuple(packed.shape), packed.dtype,
+        z.device, static=(spec0, spec1)))
+
+
 @_full_precision
 def gp_predict_extend_batch(
     spec0: kx.KernelSpec,

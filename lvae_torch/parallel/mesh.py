@@ -302,10 +302,10 @@ class _ShardedTrainer:
     def run_epochs(self, n: int):
         return self.inner.run_epochs(n)
 
-    def fit(self, epochs: int, log_every: int = 1, callback=None, chunk=None):
+    def fit(self, epochs: int, log_every: int = 1, callback=None, chunk=None, overlap=None):
         cb = None if callback is None else (lambda _inner, epoch, m: callback(self, epoch, m))
         kwargs = {} if chunk is None else {"chunk": chunk}
-        return self.inner.fit(epochs, log_every, cb, **kwargs)
+        return self.inner.fit(epochs, log_every, cb, overlap=overlap, **kwargs)
 
 
 class ShardedHensmanTrainer(_ShardedTrainer):
@@ -352,7 +352,8 @@ class ShardedStandardTrainer(_ShardedTrainer):
     their subject terms over 'data'; the closed mode gathers the whole
     cohort's moments over 'data' and builds the rank's ``[L/l, N, N]``
     prior (kernel K3). The GPPVAE pseudo-minibatch regime is refused: its
-    per-subject replay exists to bound memory.
+    per-subject replay exists to bound memory. The inner trainer's epoch
+    program runs its steps eagerly here, as ``ShardedHensmanTrainer``'s.
     """
 
     def __init__(self, trainer, mesh: Mesh):

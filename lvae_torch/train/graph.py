@@ -48,6 +48,7 @@ from lvae_torch.kernels_cuda import b_chain as k1
 from lvae_torch.kernels_cuda import block_pair as k4
 from lvae_torch.kernels_cuda import cholesky as k2
 from lvae_torch.kernels_cuda import kernel_matrix as k3
+from lvae_torch.ops import kernels as kx
 
 # (module, wrapper name) of every kernel wrapper with a ``launches`` count,
 # read by name at each use so that a replaced wrapper is the one counted
@@ -63,6 +64,15 @@ def launch_counts() -> Tuple[int, ...]:
 def add_launches(delta: Sequence[int]) -> None:
     for (mod, name), d in zip(COUNTERS, delta):
         getattr(mod, name).launches += d
+
+
+def route_key() -> tuple:
+    """The switches a capture bakes in, for an owner's key: the kernel route
+    (``ops.kernels.use_b_chain_kernel`` and ``use_block_pair_kernel``) and
+    the backend switches whose algorithms a graph keeps from its warm-up
+    (cuDNN's ``deterministic``, TF32 in cuDNN and in matmuls)."""
+    return (kx.use_b_chain_kernel, kx.use_block_pair_kernel, torch.backends.cudnn.deterministic,
+            torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
 
 
 # A capture refuses the calls that would break it (a synchronisation, a

@@ -19,22 +19,33 @@ parameters, a per-subject encoder replay that splices those cotangents in,
 and the optimizer step. With a deterministic encoder it equals the
 full-batch gradient.
 
-The reparameterisation noise and the GP bound's latent samples are drawn
-from a CPU ``torch.Generator`` seeded from ``seed`` and moved to the device,
-so a run on the card and one on the CPU consume the same numbers; both
-loss functions also take them as tensors.
+The trainer runs the epoch program (the JAX package's ``epochs_fn``): a
+chunk's reparameterisation noise and GP-sample noise are drawn from a CPU
+``torch.Generator`` seeded from ``seed``, on the host, in the steps' own
+order, into one pinned slab copied to the device once (so a run on the card
+and one on the CPU consume the same numbers); every epoch of the chunk
+runs, and the chunk's metrics reach the host once, one chunk late unless
+``fit`` has a callback or ``overlap`` is False. The step is one function on
+fixed buffers that updates its tensors in place. On the card it is captured
+once as a CUDA graph (``train/graph.CapturedStep``) and replayed every
+epoch: the closed step with K3, its backward and the N×N factorisation
+(K5 under the fused optimizer), the sparse and GPPVAE steps with K1 and K2,
+the GPPVAE step whole, its per-subject replay loop included. Assigning
+``trainer.state`` drops the graph. Both loss functions take the noise as
+tensors.
 
 On a mesh (``parallel/mesh.ShardedStandardTrainer`` sets ``view``) a rank
 encodes its subjects' frames and computes the GP bound of its latents: the
 sparse bounds sum their subject terms over the data axis first, and the
 closed KL gathers the whole cohort's moments (kernel K3 then builds the
 rank's ``[L', N, N]`` prior). The gradients are summed over the ranks
-before the optimizer step.
+before the optimizer step; there, as on the CPU, every step runs eagerly
+(the view's collectives cannot be captured).
 """
 
 from __future__ import annotations
 
-from typing import List, NamedTuple, Optional
+from typing import Callable, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -44,6 +55,9 @@ from lvae_torch.ops import elbo as eb
 from lvae_torch.ops import kernels as kx
 from lvae_torch.ops.shard import LOCAL, Local
 from lvae_torch.train import state as st
+from lvae_torch.train.graph import (
+    StepGraphs, finish_host_copy, route_key, run_chunks, run_staged, start_host_copy,
+)
 from lvae_torch.utils.device import resolve_device
 
 SPARSE_KL = ("GPapprox", "GPapprox_closed")
@@ -79,21 +93,12 @@ class StandardMetrics(NamedTuple):
     gp: torch.Tensor
 
 
-def _draw(shape, generator: Optional[torch.Generator], like: torch.Tensor) -> torch.Tensor:
-    if generator is None:
-        raise ValueError("the noise must be given or drawn from a generator")
-    return torch.randn(shape, generator=generator, dtype=like.dtype).to(like.device)
-
-
-def _noises(cfg: StandardConfig, block_mask: torch.Tensor, like: torch.Tensor, eps,
-            gp_eps, generator):
-    """(encoder noise ``[P·T, L]``, GP samples ``[num_samples, P, T, L]`` or
-    None): the given tensors, else drawn in that order."""
-    p, t = block_mask.shape
-    if eps is None:
-        eps = _draw((p * t, cfg.latent_dim), generator, like)
-    if cfg.type_KL == "GPapprox" and gp_eps is None:
-        gp_eps = _draw((cfg.num_samples, p, t, cfg.latent_dim), generator, like)
+def _noises(cfg: StandardConfig, like: torch.Tensor, eps, gp_eps):
+    """(encoder noise ``[P·T, L]`` in ``like``'s dtype and device, GP
+    samples ``[num_samples, P, T, L]`` or None): the noise is given, never
+    drawn here."""
+    if eps is None or (cfg.type_KL == "GPapprox" and gp_eps is None):
+        raise ValueError("the noise must be given: eps, and gp_eps under GPapprox")
     return eps.to(like.device, like.dtype), gp_eps
 
 
@@ -143,23 +148,21 @@ def full_batch_loss(
     block_mask: torch.Tensor,  # [P, T]
     eps: Optional[torch.Tensor] = None,
     gp_eps: Optional[torch.Tensor] = None,
-    generator: Optional[torch.Generator] = None,
     view: Local = LOCAL,
 ):
     """One full-batch loss, differentiable in the trainables; returns
     ``(net, StandardMetrics)``. ``eps [N, L]`` is the encoder's
     reparameterisation noise and ``gp_eps [num_samples, P, T, L]`` the
-    GPapprox samples' noise; each is drawn from ``generator`` (a CPU
-    generator) when not given. On a rank's shard (``view``) every argument
-    is whole, the rank computes with its subjects and latents, and the loss
-    and metrics are the rank's shares."""
+    GPapprox samples' noise (read only under GPapprox). On a rank's shard
+    (``view``) every argument is whole, the rank computes with its subjects
+    and latents, and the loss and metrics are the rank's shares."""
     p, t = block_mask.shape
     rows, frames, lat = view.rows, view.frames(t), view.lat
     model.train(cfg.dropout)
     mu_m, lv_m = model.encode(tdata.data[frames])
     # the GP algebra never sees a bf16 model's moments
     mu, log_var = mu_m.to(tdata.labels.dtype), lv_m.to(tdata.labels.dtype)
-    eps, gp_eps = _noises(cfg, block_mask, mu, eps, gp_eps, generator)
+    eps, gp_eps = _noises(cfg, mu, eps, gp_eps)
     if view.weight("data"):
         mse_i, nll_i = _recon_losses(model, cfg, tdata.data[frames], tdata.pixmask[frames], mu_m,
                                      lv_m, eps[frames])
@@ -211,7 +214,6 @@ def gppvae_grads(
     block_mask: torch.Tensor,
     eps: Optional[torch.Tensor] = None,
     gp_eps: Optional[torch.Tensor] = None,
-    generator: Optional[torch.Generator] = None,
 ) -> StandardMetrics:
     """The five-phase GPPVAE pseudo-minibatch gradient, added into the
     trainables' ``.grad`` as ``backward`` would; returns the metrics.
@@ -225,8 +227,8 @@ def gppvae_grads(
        reconstruction gradient and the spliced GP cotangents;
     5. the optimizer step, which is the caller's.
 
-    ``eps [N, L]`` (the replay's reparameterisation noise) and ``gp_eps``
-    are drawn from ``generator`` when not given, in that order."""
+    ``eps [N, L]`` is the replay's reparameterisation noise and ``gp_eps``
+    the GPapprox samples' noise."""
     if cfg.type_KL not in SPARSE_KL:
         raise ValueError(f"mini_batch supports GPapprox(_closed), got {cfg.type_KL!r}")
     p, t = block_mask.shape
@@ -236,7 +238,7 @@ def gppvae_grads(
     # phase 1
     with torch.no_grad():
         full_mu, full_lv = (m.to(tdata.labels.dtype) for m in model.encode(tdata.data))
-    eps, gp_eps = _noises(cfg, block_mask, full_mu, eps, gp_eps, generator)
+    eps, gp_eps = _noises(cfg, full_mu, eps, gp_eps)
 
     # phases 2 and 3
     gp = trainables.gp
@@ -288,51 +290,6 @@ def _zero_missing_grads(trainables: st.Trainables) -> None:
     for p in trainables.parameters():
         if p.grad is None:
             p.grad = torch.zeros_like(p)
-
-
-def make_standard_step(model, cfg: StandardConfig):
-    """One full-batch epoch: ``step_fn(state, tdata, block_mask, eps=None,
-    gp_eps=None, view=LOCAL) -> (state, metrics)``. Under
-    ``constrain_scales`` the likelihood noise is pinned back to 1 after the
-    optimizer step. On a rank's shard the gradients and the metrics are
-    summed over the ranks."""
-
-    def step_fn(state: StandardState, tdata, block_mask, eps=None, gp_eps=None,
-                view: Local = LOCAL):
-        opt = state.opt_state
-        opt.zero_grad(set_to_none=True)
-        net, metrics = full_batch_loss(model, cfg, state.trainables, tdata, block_mask,
-                                       eps=eps, gp_eps=gp_eps, generator=state.rng, view=view)
-        net.backward()
-        _zero_missing_grads(state.trainables)
-        view.sum_grads(list(state.trainables.parameters()))
-        opt.step()
-        if cfg.constrain_scales:
-            with torch.no_grad():
-                state.trainables.gp.raw_noise.fill_(float(kx.unconstrain(1.0)))
-        return state._replace(step=state.step + 1), view.world_metrics(metrics)
-
-    return step_fn
-
-
-def make_gppvae_step(model, cfg: StandardConfig):
-    """One pseudo-minibatch epoch: the five phases and one optimizer step.
-    The likelihood noise gets no gradient and is not re-pinned, so it stays
-    at its initial value."""
-
-    def step_fn(state: StandardState, tdata, block_mask, eps=None, gp_eps=None,
-                view: Local = LOCAL):
-        if view is not LOCAL:
-            raise ValueError("the GPPVAE regime runs in one process")
-        opt = state.opt_state
-        opt.zero_grad(set_to_none=True)
-        metrics = gppvae_grads(model, cfg, state.trainables, tdata, block_mask,
-                               eps=eps, gp_eps=gp_eps, generator=state.rng)
-        _zero_missing_grads(state.trainables)
-        opt.step()
-        return state._replace(step=state.step + 1), metrics
-
-    return step_fn
 
 
 class StandardTrainer:
@@ -399,23 +356,121 @@ class StandardTrainer:
             rng=torch.Generator().manual_seed(seed),
             step=0,
         )
-        make = make_gppvae_step if pseudo_minibatch else make_standard_step
-        self.step_fn = make(self.model, cfg)
         self.view: Local = LOCAL  # a rank's shard on a mesh (parallel/mesh.py)
         self.history: list = []
 
-    def run_epoch(self, eps: Optional[torch.Tensor] = None,
-                  gp_eps: Optional[torch.Tensor] = None) -> StandardMetrics:
-        """One epoch (one step); returns its metrics as host floats. ``eps``
-        and ``gp_eps`` replace the drawn noise."""
-        self.state, metrics = self.step_fn(self.state, self.tdata, self.block_mask,
-                                           eps=eps, gp_eps=gp_eps, view=self.view)
-        m = StandardMetrics(*torch.stack(list(metrics)).tolist())
-        self.history.append(m)
-        return m
+    # ---------------------------------------------------------------- state
+    @property
+    def state(self) -> StandardState:
+        return self._state
+
+    @state.setter
+    def state(self, value: StandardState) -> None:
+        """A new state drops the captured step: a graph reads and writes the
+        tensors it was captured on, so the next chunk captures again."""
+        self._state = value
+        self._graphs = StepGraphs()
+
+    # ------------------------------------------------------------- one step
+    def _step(self, eps: torch.Tensor, gp_eps: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """The step function on device buffers: one full-batch epoch (or the
+        five GPPVAE phases) and one optimizer step for the encoder noise
+        ``eps [N, L]`` and, under GPapprox, the samples' noise ``gp_eps
+        [num_samples, P, T, L]``, in place; under ``constrain_scales`` the
+        likelihood noise is pinned back to 1 after the full-batch step
+        (the GPPVAE regime gives it no gradient and leaves it). Returns the
+        device metrics ``[net, recon, nll, gp]`` (on a mesh, summed over the
+        ranks). Safe to capture (``train/graph.py``): it draws nothing."""
+        cfg, view, state = self.cfg, self.view, self._state
+        trainables, opt = state.trainables, state.opt_state
+        opt.zero_grad(set_to_none=True)
+        if self.pseudo_minibatch:
+            if view is not LOCAL:
+                raise ValueError("the GPPVAE regime runs in one process")
+            metrics = gppvae_grads(self.model, cfg, trainables, self.tdata, self.block_mask,
+                                   eps=eps, gp_eps=gp_eps)
+        else:
+            net, metrics = full_batch_loss(self.model, cfg, trainables, self.tdata,
+                                           self.block_mask, eps=eps, gp_eps=gp_eps, view=view)
+            net.backward()
+        _zero_missing_grads(trainables)
+        view.sum_grads(list(trainables.parameters()))
+        opt.step()
+        if cfg.constrain_scales and not self.pseudo_minibatch:
+            with torch.no_grad():
+                trainables.gp.raw_noise.fill_(float(kx.unconstrain(1.0)))
+        return torch.stack(list(view.world_metrics(metrics)))
+
+    def _run_step(self, noise: Sequence[torch.Tensor], out: torch.Tensor) -> None:
+        """Step the noise ``noise`` (``eps``, and ``gp_eps`` under GPapprox)
+        into the metrics row ``out [4]``: on the card the captured step
+        (captured at the first step after a new state and at route or
+        backend switches; the capture's warm-up is this step), on the CPU
+        and on a mesh view (whose collectives cannot be captured) the eager
+        one."""
+        self._graphs.run(route_key(), self._step, noise, out,
+                         eager=self.device.type != "cuda" or self.view is not LOCAL)
+        self._state = self._state._replace(step=self._state.step + 1)
+
+    # --------------------------------------------------------------- epochs
+    def _noise_specs(self) -> List[Tuple[tuple, torch.dtype]]:
+        """An epoch's noise, in the order a step draws it: the encoder's
+        ``[N, L]``, then under GPapprox the samples' ``[num_samples, P, T, L]``."""
+        p, t = self.block_mask.shape
+        lat = self.cfg.latent_dim
+        specs = [((p * t, lat), self.dtype)]
+        if self.cfg.type_KL == "GPapprox":
+            specs.append(((self.cfg.num_samples, p, t, lat), self.dtype))
+        return specs
+
+    def _dispatch(self, n: int, fill: Callable[[int, List[torch.Tensor]], None]):
+        """Run ``n`` epochs without waiting for the device: ``fill(i,
+        rows)`` writes epoch ``i``'s noise into its host rows
+        (:meth:`_noise_specs`), staged and copied to the device at once
+        (``graph.run_staged``). Returns the ``[n, 4]`` metrics' host copy
+        in flight."""
+        out = torch.empty((n, 4), dtype=self.dtype, device=self.device)
+        run_staged(n, self._noise_specs(), fill, lambda i, noise: self._run_step(noise, out[i]),
+                   self.device)
+        return start_host_copy(out)
+
+    def _dispatch_epochs(self, n: int):
+        """An ``n``-epoch chunk, its noise drawn from the state's generator
+        in the steps' order."""
+        gen = self._state.rng
+
+        def fill(i, rows):
+            for row in rows:
+                row.normal_(generator=gen)  # torch.randn's draw
+
+        return self._dispatch(n, fill)
+
+    def _materialize_metrics(self, chunk, n: int) -> List[StandardMetrics]:
+        """Wait for a dispatched chunk's metrics; returns them as host floats
+        (appended to ``history``)."""
+        out = [StandardMetrics(*row) for row in finish_host_copy(chunk).tolist()]
+        self.history.extend(out)
+        return out
 
     def run_epochs(self, n: int) -> List[StandardMetrics]:
-        return [self.run_epoch() for _ in range(n)]
+        """Run ``n`` epochs as one chunk; returns their metrics."""
+        return self._materialize_metrics(self._dispatch_epochs(n), n)
+
+    def run_epoch(self, eps: Optional[torch.Tensor] = None,
+                  gp_eps: Optional[torch.Tensor] = None) -> StandardMetrics:
+        """One epoch (one step), a chunk of one; returns its metrics as host
+        floats. ``eps`` and ``gp_eps`` replace the drawn noise (the other,
+        where one is not given, is drawn)."""
+        gen = self._state.rng
+
+        def fill(i, rows):
+            for row, given in zip(rows, (eps, gp_eps)):
+                if given is None:
+                    row.normal_(generator=gen)  # torch.randn's draw
+                else:
+                    row.copy_(torch.as_tensor(given))
+
+        return self._materialize_metrics(self._dispatch(1, fill), 1)[0]
 
     def _log_chunk(self, ms, done: int, epochs: int, log_every: int):
         for i, m in enumerate(ms):
@@ -428,17 +483,22 @@ class StandardTrainer:
                     flush=True,
                 )
 
-    def fit(self, epochs: int, log_every: int = 1, callback=None, chunk: int = 25):
-        """Train ``epochs`` epochs, calling ``callback(trainer, done, last
-        metrics)`` after every ``chunk`` epochs. A callback that returns
-        ``"rollback"`` has restored an earlier state: the chunk's epochs are
-        then run again, so the run trains as many epochs as it reports."""
-        done = 0
-        while done < epochs:
-            n = min(max(chunk, 1), epochs - done)
-            ms = self.run_epochs(n)
+    def fit(self, epochs: int, log_every: int = 1, callback=None, chunk: int = 25,
+            overlap: Optional[bool] = None):
+        """Train ``epochs`` epochs in ``chunk``-epoch chunks, calling
+        ``callback(trainer, done, last metrics)`` after every chunk. A
+        callback that returns ``"rollback"`` has restored an earlier state:
+        the chunk's epochs are then run again, so the run trains as many
+        epochs as it reports. Without a callback (and unless ``overlap`` is
+        False) chunk k+1 is dispatched before chunk k's metrics are read:
+        the same values, printed in the same order."""
+        lag = callback is None and overlap is not False
+
+        def read(done: int, n: int, chunk_):
+            ms = self._materialize_metrics(chunk_, n) if lag else chunk_
             self._log_chunk(ms, done, epochs, log_every)
-            done += n
-            if callback is not None and callback(self, done, ms[-1]) == "rollback":
-                done -= n
+            return None if callback is None else callback(self, done + n, ms[-1])
+
+        # without the lag each chunk runs through run_epochs and is read at once
+        run_chunks(epochs, chunk, self._dispatch_epochs if lag else self.run_epochs, read, lag)
         return self.history

@@ -10,7 +10,12 @@ subjects then agrees within 1e-5 of the largest latent). A sibling made by
 subjects, give JAX's answers at the serving tests' tolerances (frames at
 atol 1e-6, the basis at 2e-5 of its largest entry), and a refresh of one
 bundle leaves the other's answers unchanged, bit for bit, in both packages.
-The world (P=6 subjects × T=5 frames, L=4, M=8, ConvVAE) is
+The basis fold and its extension run as programs (``ops/predict.fold_basis``,
+``extend_basis``; on the card replays of captured graphs): on the CPU they
+equal ``precompute_predict_basis`` and ``extend_predict_basis`` bit for
+bit and JAX's ``_fold_basis_jit``/``_extend_basis_jit`` at the basis bound
+above, and a bundle's fold and each refresh of a parent and its sibling go
+through them. The world (P=6 subjects × T=5 frames, L=4, M=8, ConvVAE) is
 ``tests/test_torch_serving.py``'s.
 """
 
@@ -25,6 +30,8 @@ from lvae_tpu.models import rnn as jrnn
 from lvae_tpu.ops import kernels as jkx
 from lvae_tpu.train import state as jst
 from lvae_torch import inference as tinf
+from lvae_torch.evaluation import programs as tprog
+from lvae_torch.ops import predict as tpr
 from lvae_torch.models import vae as tv
 from lvae_torch.ops import kernels as tkx
 from lvae_torch.utils.convert import gp_params_from_jax, vae_state_dict_from_jax
@@ -144,3 +151,71 @@ def test_bundle_programs_on_the_cpu_are_the_eager_programs(world):
     got = tb.encode(world.frames[:11])  # a full chunk and a padded one
     np.testing.assert_array_equal(got[:8], tb.encode(world.frames[:8]))
     np.testing.assert_array_equal(tb.decode(got)[8:], tb.decode(got[8:]))
+
+
+def blocks_of(bundle, labels, mu):
+    """The bundle's device blocks of ``labels``/``mu`` and their numpy."""
+    xb, mask, mu_b = bundle._blocks_on_device(labels, mu)
+    return (xb, mask, mu_b), [np.asarray(t) for t in (xb, mask, mu_b)]
+
+
+def test_fold_and_extension_programs_equal_the_eager_functions_and_jax(world):
+    """The programs against the eager functions (the same bits) and against
+    the JAX package's jitted fold and extension."""
+    tp, jp = world.torch_predictor(), world.jax_predictor()
+    tb = tp.aot_compile(batch_size=8)
+    gp = tp.gp_params
+    args = (tp.spec0, tp.spec1, gp.kp0, gp.kp1, tp.noise)
+    jargs = (jp.gp_params.kp0, jp.gp_params.kp1, jp.noise)
+    fold_in, fold_np = blocks_of(tb, tp.basis_labels, tp.basis_mu)
+    got = tpr.fold_basis(*args, *fold_in, tp.z, eps=tp.eps)
+    want = tpr.precompute_predict_basis(*args, *fold_in, tp.z, eps=tp.eps)
+    jwant = jinf._fold_basis_jit(jp.spec0, jp.spec1, jp.eps)(*jargs, *fold_np, jp.z)
+    mu_new = tb.encode(world.refresh_frames)
+    new_in, new_np = blocks_of(tb, world.refresh_labels, mu_new)
+    grown = tpr.extend_basis(*args, got, *new_in, tp.z)
+    grown_want = tpr.extend_predict_basis(*args, want, *new_in, tp.z)
+    jgrown = jinf._extend_basis_jit(jp.spec0, jp.spec1)(*jargs, jwant, *new_np, jp.z)
+    for a, b, j in ((got, want, jwant), (grown, grown_want, jgrown)):
+        for x, y, z in zip(a, b, j):
+            assert x.is_contiguous() and x.shape == y.shape
+            torch.testing.assert_close(x, y, rtol=0, atol=0)
+            assert rel(x, z) <= LATENT_RTOL
+
+
+def test_bundle_fold_and_refreshes_run_the_programs(world, monkeypatch):
+    """``aot_compile`` folds through the fold program and each refresh, of
+    the parent and then of its sibling, through the extension program, each
+    on its own bundle's basis: every refreshed basis has the bits of the
+    eager extension of that bundle's basis before it."""
+    names = []
+    real = tprog.run
+
+    def recorded(name, *args, **kwargs):
+        if name.endswith("_basis"):
+            names.append(name)
+        return real(name, *args, **kwargs)
+
+    monkeypatch.setattr(tprog, "run", recorded)
+    tp = world.torch_predictor()
+    tb = tp.aot_compile(batch_size=8, t_obs=T_OBS, n_query=N_QUERY, k_subjects=K)
+    sib = tb.for_k_subjects(1)
+    assert names == ["fold_basis"]
+    more_frames, more_labels = cohort(np.random.default_rng(5), range(300, 302))
+    for bundle, frames, labels in ((tb, world.refresh_frames, world.refresh_labels),
+                                   (sib, more_frames, more_labels)):
+        other = sib if bundle is tb else tb
+        other_before = [t.clone() for t in other._basis]
+        before = tpr.PredictBasis(*(t.clone() for t in bundle._basis))
+        buffers = [t.data_ptr() for t in bundle._basis]
+        bundle.refresh_basis(frames, labels)
+        new_in, _ = blocks_of(bundle, labels, bundle.encode(frames))
+        pr = bundle.predictor
+        want = tpr.extend_predict_basis(pr.spec0, pr.spec1, pr.gp_params.kp0, pr.gp_params.kp1,
+                                        pr.noise, before, *new_in, pr.z)
+        for got, w in zip(bundle._basis, want):
+            torch.testing.assert_close(got, w, rtol=0, atol=0)
+        assert [t.data_ptr() for t in bundle._basis] == buffers  # copied into its buffers
+        for got, w in zip(other._basis, other_before):
+            assert torch.equal(got, w)
+    assert names == ["fold_basis", "extend_basis", "extend_basis"]

@@ -48,7 +48,14 @@ thread of the process queries events. The evaluation programs (validation
 in GPapprox_closed and GPapprox on the K1 and the K4 route, encode,
 decode, the VAE forward, the test MSEs, the GP posterior) replay with the
 eager programs' bits, read parameters updated in place, and capture again
-on new storages; a dataset's arrays go to the card once.
+on new storages; a dataset's arrays go to the card once. The standard
+epoch program replays each mode's step (closed with K3, fused Adam's K5,
+the sparse and GPPVAE steps with K1 and K2, by name in a trace and on the
+counters) with the eager epochs' bits at N = 520, captures again after a
+state is assigned, and draws fresh dropout masks each replay; the serving
+bundle's basis fold (K2 inside it) and refresh replay with the eager
+programs' bits, a second ``aot_compile`` captures nothing, and a predictor
+on new GP storages folds through the same graph with its own values.
 """
 
 import contextlib
@@ -1350,3 +1357,198 @@ def test_capture_holds_while_the_collector_frees_a_graph(gen):
     assert gone() is None
     x1 = x + 1
     torch.testing.assert_close(captured.replay(x1), (x1 + 1) * 3, rtol=0, atol=0)
+
+
+# --------------------------------------------- captured standard epoch program
+# (type_KL, pseudo_minibatch, optimizer): the launches of one step, by wrapper
+STD_RUNS = {
+    ("closed", False, "adam"): {"kernel_matrix": 1, "adam": 0, "b_chain": 0, "chol_inv": 0},
+    ("closed", False, "fused"): {"kernel_matrix": 1, "adam": 1, "b_chain": 0, "chol_inv": 0},
+    ("GPapprox", False, "adam"): {"kernel_matrix": 0, "adam": 0, "b_chain": 1},
+    ("GPapprox_closed", False, "adam"): {"kernel_matrix": 0, "adam": 0, "b_chain": 1},
+    ("GPapprox_closed", True, "adam"): {"kernel_matrix": 0, "adam": 0, "b_chain": 1},
+}
+STD_WRAPPERS = {"b_chain": (k1, "b_chain"), "chol_inv": (k2, "cholesky_inverse"),
+                "kernel_matrix": (k3, "kernel_matrix_fused"), "adam": (k5, "fused_adam_update")}
+
+
+def card_standard_trainer(type_kl="closed", pseudo=False, optimizer="adam", dropout=0.0,
+                          p=26, t=20, n_lat=4, m_ind=8):
+    """A standard trainer on the card (f32, ConvVAE, random weights and
+    frames) over ``p`` subjects × ``t`` frames: N = 520, inside K3's gate.
+    Every call starts from the same state."""
+    import numpy as np
+
+    from lvae_torch.data.blocks import build_subject_blocks
+    from lvae_torch.data.datasets import ArrayDataset
+    from lvae_torch.models.vae import make_vae
+    from lvae_torch.train.standard import StandardConfig, StandardTrainer
+    from lvae_torch.train.state import init_inducing_points, make_optimizer
+
+    rng = np.random.default_rng(0)
+    labels = np.asarray([[i, (i - 2.0) * (k % 2), k, k % 2, k % 2, (k // 2) % 2]
+                         for k in range(p) for i in range(t)], np.float32)
+    ds = ArrayDataset(data=rng.uniform(size=(p * t, 36, 36, 1)).astype(np.float32),
+                      labels=labels,
+                      mask=(rng.uniform(size=(p * t, 1296)) > 0.2).astype(np.float32))
+    spec0, spec1 = kx.split_kernel_spec(
+        id_covariate=2, cat_kernel=[2], sqexp_kernel=[0],
+        cat_int_kernel=[{"cont_covariate": 0, "cat_covariate": 2}])
+    cfg = StandardConfig(spec0, spec1, latent_dim=n_lat, P_tot=p, T=t, weight=0.15,
+                         loss_function="mse", type_KL=type_kl, num_samples=2,
+                         constrain_scales=True, eps=1e-5, dropout=dropout > 0)
+    model = make_vae("conv", n_lat, 1296, dropout=dropout,
+                     generator=torch.Generator().manual_seed(1))
+    trainer = StandardTrainer(model, cfg, ds, build_subject_blocks(labels, 2),
+                              init_inducing_points(labels, m_ind, seed=0), seed=0,
+                              pseudo_minibatch=pseudo, device="cuda")
+    trainer.state = trainer.state._replace(opt_state=make_optimizer(
+        trainer.state.trainables.parameters(), 1e-3, optimizer))
+    return trainer
+
+
+def traced_by_name(fn, names):
+    """The launches of the kernels ``names`` (keys of STD_WRAPPERS) in one
+    call of ``fn``: by kernel name in a trace of the card, and by the
+    counters."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    def counts():
+        return {n: getattr(*STD_WRAPPERS[n]).launches for n in names}
+
+    before = counts()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    traced = {n: sum(e.count for e in prof.key_averages()
+                     if e.device_type == DeviceType.CUDA and f"{n}_" in e.key) for n in names}
+    return traced, {n: v - before[n] for n, v in counts().items()}
+
+
+def std_arrays(trainer):
+    return [p.detach() for p in trainer.state.trainables.parameters()]
+
+
+@pytest.mark.parametrize("run", list(STD_RUNS), ids=lambda r: "-".join(map(str, r)))
+def test_standard_replayed_epochs_are_bit_equal_to_eager(gen, run, monkeypatch):
+    """Three epochs through the captured step (its warm-up and 2 replays)
+    give the bits of the same epochs run eagerly from one state (cuDNN
+    deterministic); each step launches its kernels (the closed step K3 once
+    and, under the fused optimizer, K5 once; the sparse and GPPVAE steps K1
+    once and K2), by name in the trace and on the counters alike."""
+    from lvae_torch.train.graph import eager_steps
+
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    graph, eager = card_standard_trainer(*run), card_standard_trainer(*run)
+    traced, counted = traced_by_name(lambda: graph.fit(3, log_every=0, chunk=3), list(STD_WRAPPERS))
+    assert traced == counted and len(graph._graphs) == 1
+    for name, n in STD_RUNS[run].items():
+        assert traced[name] == 3 * n, (name, traced)
+    assert traced["chol_inv"] >= 3 * STD_RUNS[run].get("chol_inv", 1)
+    with eager_steps():
+        eager.fit(3, log_every=0, chunk=3)
+    assert not eager._graphs
+    assert graph.history == eager.history and all(math.isfinite(v) for v in graph.history[-1])
+    for a, b in zip(std_arrays(graph), std_arrays(eager)):
+        assert torch.equal(a, b)
+
+
+def test_standard_state_assignment_captures_again(gen, monkeypatch):
+    """A state assigned between chunks drops the graph; the next chunk
+    captures again on it and trains as the eager run straight through."""
+    from lvae_torch.train.graph import eager_steps
+
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    graph, eager = (card_standard_trainer("GPapprox_closed") for _ in range(2))
+    graph.fit(2, log_every=0, chunk=1)
+    first = next(iter(graph._graphs.values()))
+    graph.state = graph.state
+    assert not graph._graphs
+    graph.fit(2, log_every=0, chunk=1)
+    assert len(graph._graphs) == 1 and next(iter(graph._graphs.values())) is not first
+    with eager_steps():
+        eager.fit(4, log_every=0, chunk=1)
+    assert graph.history == eager.history
+    for a, b in zip(std_arrays(graph), std_arrays(eager)):
+        assert torch.equal(a, b)
+
+
+def test_standard_replays_draw_fresh_dropout_masks(gen, monkeypatch):
+    """Two replays from one state (its tensors and Adam's written back in
+    place between them) on one noise: with dropout their metrics differ
+    (each replay draws its masks anew), without it they are the same bits
+    (cuDNN deterministic)."""
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    for p, differ in ((0.25, True), (0.0, False)):
+        trainer = card_standard_trainer("GPapprox_closed", dropout=p)
+        noise = [torch.randn(shape, dtype=dtype, generator=gen, device="cuda")
+                 for shape, dtype in trainer._noise_specs()]
+        row = torch.empty(4, device="cuda")
+        trainer._run_step(noise, row)  # the capture, its warm-up this step
+        opt = trainer.state.opt_state
+        held = [*trainer.state.trainables.parameters(),
+                *(v for s in opt.state.values() for v in s.values() if torch.is_tensor(v))]
+        saved = [t.detach().clone() for t in held]
+        rows = []
+        for _ in range(2):
+            with torch.no_grad():
+                for t, s in zip(held, saved):
+                    t.copy_(s)
+            trainer._run_step(noise, row)
+            rows.append(row.clone())
+        assert len(trainer._graphs) == 1
+        assert (not torch.equal(rows[0], rows[1])) == differ, (p, rows)
+
+
+def test_replayed_basis_fold_and_refresh_are_bit_equal_to_eager(gen, monkeypatch):
+    """The bundle's basis fold (K2 once inside its graph) and a refresh give
+    the eager programs' bits; a second ``aot_compile`` of the same shapes
+    replays the fold and captures nothing; a predictor on new GP storages
+    (other values) folds through the same graph and serves its own
+    values."""
+    import dataclasses
+
+    import numpy as np
+
+    from lvae_torch.evaluation import programs
+    from lvae_torch.train.graph import eager_steps
+
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    pred, frames, req, refresh = card_predictor()
+    kw = dict(batch_size=8, t_obs=3, n_query=2, k_subjects=2)
+
+    def basis_graphs():
+        return {k: g for k, g in programs.graphs_of(None, pred.z.device).items()
+                if k[0] in ("fold_basis", "extend_basis")}
+
+    def answers(p):
+        bundle = p.aot_compile(**kw)
+        out = [t.cpu().numpy().copy() for t in bundle._basis]
+        bundle.refresh_basis(*refresh)
+        out += [t.cpu().numpy().copy() for t in bundle._basis]
+        return out + [bundle.predict_trajectories(*req)]
+
+    replayed = answers(pred)
+    graphs = basis_graphs()
+    assert sorted(k[0] for k in graphs) == ["extend_basis", "fold_basis"]
+    second = pred.aot_compile(**kw)
+    assert basis_graphs() == graphs  # the same graph objects: nothing captured
+    assert traced_launches(second._fold_basis) == ((0, 1), (0, 1))
+    with eager_steps():
+        eager = answers(pred)
+    for a, b in zip(replayed, eager):
+        np.testing.assert_array_equal(a, b)
+    gp = pred.gp_params.to(copy=True)
+    with torch.no_grad():
+        for t in gp.tensors():
+            t.mul_(1.1)
+    other = dataclasses.replace(pred, gp_params=gp)
+    got = answers(other)
+    assert basis_graphs() == graphs
+    with eager_steps():
+        want = answers(other)
+    for a, b, c in zip(got, want, replayed):
+        np.testing.assert_array_equal(a, b)
+        assert not np.array_equal(a, c)
