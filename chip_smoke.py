@@ -185,7 +185,7 @@ from lvae_torch import cli  # noqa: E402
 from lvae_torch import pipeline as pipeline_mod  # noqa: E402
 from lvae_torch.config import load_flag_file, parse_flag_lines  # noqa: E402
 from lvae_torch.data.blocks import build_subject_blocks  # noqa: E402
-from lvae_torch.data.datasets import ArrayDataset  # noqa: E402
+from lvae_torch.data.datasets import ArrayDataset, read_csv, read_csv_plain  # noqa: E402
 from lvae_torch.data.healthmnist import generate_healthmnist  # noqa: E402
 from lvae_torch.evaluation import programs as eval_programs  # noqa: E402
 from lvae_torch.evaluation.encode import decode_latents, encode_dataset  # noqa: E402
@@ -222,8 +222,10 @@ from lvae_torch.train.state import (  # noqa: E402
     init_gp_params, init_inducing_points, make_optimizer,
 )
 from lvae_torch.train.vi import VIConfig, VITrainer  # noqa: E402
+from lvae_torch.utils import checkpoint as checkpoint_mod  # noqa: E402
 from lvae_torch.utils.checkpoint import (  # noqa: E402
-    load_checkpoint, read_checkpoint, save_checkpoint,
+    load_checkpoint, read_checkpoint, save_checkpoint, save_checkpoint_async, save_checkpoint_dir,
+    state_payload, wait_for_async_saves,
 )
 from lvae_torch.utils.torch_compat import (  # noqa: E402
     load_reference_gp_state, save_reference_gp_state,
@@ -3707,6 +3709,254 @@ def _rollback_vs_replay(root: str, run: dict) -> dict:
     return res
 
 
+STORE_EPOCHS = 6  # epochs of each CLI run of the storage phase, one chunk each
+STORE_RESUME_EPOCH = 3  # the resumed run starts from orbax_async's snapshot of this epoch
+STORE_SAVES = 5  # timed saves of the full-width state through each backend
+STORE_BACKENDS = ("pickle", "orbax", "orbax_async")
+STORE_SAVERS = {"pickle": save_checkpoint, "orbax": save_checkpoint_dir,
+                "orbax_async": save_checkpoint_async}
+COHORT_COPIES = 10  # the pipeline's 100-subject CSVs 10 times: P = 1000 subjects × T = 20 rows
+HEAD_KEYS = ("format", "version", "metadata")
+
+
+def payload_copy(state) -> dict:
+    """A checkpoint payload of ``state`` whose tensors are copies on the
+    state's device, queued on the current stream: the state at this point,
+    without waiting for the device."""
+    return checkpoint_mod._map_tensors(lambda t: t.detach().clone(),
+                                       checkpoint_mod._payload_refs(state))
+
+
+def payload_differences(got, want, where: str = "") -> list:
+    """The entries of two checkpoint payloads that differ: tensors bit for
+    bit (on the host), other values by equality; the head (format, version,
+    metadata) left out."""
+    if isinstance(want, torch.Tensor):
+        want = want.cpu()
+        same = (isinstance(got, torch.Tensor) and got.dtype == want.dtype
+                and got.shape == want.shape and torch.equal(got, want))
+        return [] if same else [where]
+    if isinstance(want, dict):
+        keys = [k for k in want if not (where == "" and k in HEAD_KEYS)]
+        if not isinstance(got, dict) or sorted(k for k in got if not (
+                where == "" and k in HEAD_KEYS)) != sorted(keys):
+            return [where or "keys"]
+        return [d for k in keys for d in payload_differences(got[k], want[k], f"{where}.{k}")]
+    if isinstance(want, (list, tuple)):
+        if len(got) != len(want):
+            return [where]
+        return [d for i, (g, w) in enumerate(zip(got, want))
+                for d in payload_differences(g, w, f"{where}[{i}]")]
+    return [] if got == want else [where]
+
+
+class SaveLog:
+    """While active: every routed save of ``model_last.ckpt``
+    (``LVAEPipeline._save_ckpt``) with the epoch and a copy on the card of
+    the state it saves (:func:`payload_copy`, its host time kept apart),
+    the host clock at each epoch callback, and a hard link under ``keep``
+    to the files of every committed ``model_last.ckpt`` (each commit, in
+    the writer's thread for ``orbax_async``), so that every snapshot can
+    be read after the run."""
+
+    def __init__(self, keep: str):
+        self.keep, self.states, self.kept, self.ticks, self.copy_s = keep, [], [], [], 0.0
+
+    def __enter__(self):
+        Pipe = pipeline_mod.LVAEPipeline
+        self._saved = (Pipe._save_ckpt, Pipe._epoch_callback, checkpoint_mod._commit)
+        save, callback, commit = self._saved
+        log = self
+
+        def logged_save(pipe, path, state, metadata=None):
+            if os.path.basename(path) == "model_last.ckpt":
+                t0 = time.perf_counter()
+                log.states.append((metadata["epoch"], payload_copy(state)))
+                log.copy_s += time.perf_counter() - t0
+            return save(pipe, path, state, metadata=metadata)
+
+        def timed_callback(pipe, trainer, epoch, metrics):
+            log.ticks.append((time.perf_counter(), log.copy_s))
+            return callback(pipe, trainer, epoch, metrics)
+
+        def kept_commit(tmp, path):
+            commit(tmp, path)
+            if os.path.basename(path) == "model_last.ckpt":
+                kept = os.path.join(log.keep, str(len(log.kept)))
+                if os.path.isdir(path):
+                    os.makedirs(kept)
+                    for name in os.listdir(path):
+                        os.link(os.path.join(path, name), os.path.join(kept, name))
+                else:
+                    os.link(path, kept)
+                log.kept.append(kept)
+
+        Pipe._save_ckpt, Pipe._epoch_callback = logged_save, timed_callback
+        checkpoint_mod._commit = kept_commit
+        return self
+
+    def __exit__(self, *exc):
+        Pipe = pipeline_mod.LVAEPipeline
+        Pipe._save_ckpt, Pipe._epoch_callback, checkpoint_mod._commit = self._saved
+        return False
+
+    def epoch_seconds(self) -> list:
+        """Host seconds between consecutive epoch callbacks: a chunk's
+        snapshot, the next epoch's dispatch and the wait for its metrics
+        (the copies of :func:`payload_copy` taken out)."""
+        return [(t1 - t0) - (c1 - c0) for (t0, c0), (t1, c1) in zip(self.ticks, self.ticks[1:])]
+
+
+def storage_run(world: World, run: dict, root: str, name: str, backend, device: str = "cuda",
+                epochs: int = STORE_EPOCHS, resume: str = "") -> dict:
+    """One CLI run of ``epochs`` Hensman epochs on the pipeline's data from
+    its pre-trained VAE (cuDNN deterministic; no validation, tests or
+    generation), under ``backend`` with ``auto_recover`` (a snapshot after
+    every chunk of one epoch) or, with ``backend`` None, with no snapshot;
+    ``resume``: the folder it resumes from."""
+    results = os.path.join(root, name)
+    extra = [f"--epochs={epochs}", "--test_freq=0", "--run_tests=False",
+             "--run_validation=False", "--generate_images=False",
+             f"--model_params={run['results']}/model_params_vae.ckpt",
+             f"--gp_model_folder={resume}", f"--seed={world.seed}"]
+    if backend is None:
+        extra += ["--auto_recover=False", "--checkpoint_every=0"]
+    else:
+        extra += ["--auto_recover=True", "--checkpoint_every=1",
+                  f"--checkpoint_backend={backend}"]
+    flags = write_flags(os.path.join(root, f"{name}.txt"),
+                        pipeline_flags(run["data"], results, *extra))
+    keep = os.path.join(root, f"{name}_kept")
+    os.makedirs(keep)
+    with deterministic_cudnn(), PathCounter() as counter, SaveLog(keep) as log:
+        seconds = cli_run([f"--f={flags}"], device)
+    if getattr(counter.pipeline, "recoveries", 0):
+        raise AssertionError(f"storage run {name} rolled back")
+    leftovers = checkpoint_mod.leftovers(results)
+    if leftovers:
+        raise AssertionError(f"storage run {name} left temporaries behind: {leftovers}")
+    return {"seconds": seconds, "log": log, "counter": counter, "pipe": counter.pipeline,
+            "final": read_checkpoint(os.path.join(results, "model_final.ckpt"))}
+
+
+def check_snapshots(name: str, log: SaveLog) -> int:
+    """Every committed ``model_last.ckpt`` of a run against the copy of the
+    state taken when its save was called: the same epoch, bit-equal."""
+    if len(log.kept) != len(log.states) or not log.states:
+        raise AssertionError(f"storage {name}: {len(log.states)} saves, {len(log.kept)} commits")
+    for kept, (epoch, want) in zip(log.kept, log.states):
+        got = read_checkpoint(kept)
+        differ = payload_differences(got, want)
+        if got["metadata"] != {"epoch": epoch} or differ:
+            raise AssertionError(f"storage {name}: the snapshot of epoch {epoch} "
+                                 f"({got['metadata']}) differs in {differ[:5]}")
+    return len(log.kept)
+
+
+def save_times(state, root: str, device: str) -> dict:
+    """Host ms of STORE_SAVES saves of ``state`` through each backend: how
+    long the call holds the training thread and, for ``orbax_async``, how
+    long its writer takes after it (the wait that follows; the first save
+    allocates the pinned buffers). The file and directory backends write
+    on the calling thread."""
+    out = {}
+    for backend, save in STORE_SAVERS.items():
+        path = os.path.join(root, f"timed_{backend}.ckpt")
+        block, writer = [], []
+        for i in range(STORE_SAVES):
+            if device == "cuda":
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            save(path, state, metadata={"epoch": i})
+            t1 = time.perf_counter()
+            wait_for_async_saves()
+            t2 = time.perf_counter()
+            block.append((t1 - t0) * 1e3)
+            writer.append((t2 - t1) * 1e3)
+        out[backend] = {"block_ms": statistics.median(block), "block_ms_each": block}
+        if backend == "orbax_async":
+            out[backend].update(writer_ms=statistics.median(writer), writer_ms_each=writer)
+    return out
+
+
+def state_bytes(state) -> int:
+    sizes = []
+    checkpoint_mod._map_tensors(lambda t: sizes.append(t.numel() * t.element_size()),
+                                state_payload(state))
+    return sum(sizes)
+
+
+def csv_times(run: dict, root: str) -> dict:
+    """Seconds of the native reader and of ``read_csv_plain`` on the
+    pipeline's CSVs and on a cohort of P = 1000 × T = 20 rows (its CSVs 10
+    times over), each pair of arrays bit-equal."""
+    data = run["data"]
+    files = {name: (os.path.join(data, name), header) for name, header in (
+        ("health_MNIST_data_masked.csv", False), ("health_MNIST_label.csv", True),
+        ("mask.csv", False))}
+    for name, header in (("health_MNIST_data_masked.csv", False),
+                         ("health_MNIST_label.csv", True)):
+        with open(os.path.join(data, name), "rb") as f:
+            head = f.readline() if header else b""
+            body = f.read()
+        if not body.endswith(b"\n"):
+            body += b"\n"
+        cohort = os.path.join(root, f"cohort_{name}")
+        with open(cohort, "wb") as f:
+            f.write(head + body * COHORT_COPIES)
+        files[f"cohort_{name}"] = (cohort, header)
+    out = {}
+    for name, (path, header) in files.items():
+        t0 = time.perf_counter()
+        native = read_csv(path, header=header)
+        t1 = time.perf_counter()
+        plain = read_csv_plain(path, header=header)
+        t2 = time.perf_counter()
+        if native.shape != plain.shape or not np.array_equal(native.view(np.uint64),
+                                                             plain.view(np.uint64)):
+            raise AssertionError(f"CSV reader: {name} differs from read_csv_plain")
+        out[name] = {"shape": list(native.shape), "native_s": t1 - t0, "plain_s": t2 - t1}
+    return out
+
+
+def storage_phase(world: World, run: dict, root: str, device: str = "cuda") -> dict:
+    """The storage and I/O layer at the config file's width: CLI runs under
+    each checkpoint backend and with no snapshot, a run resumed from
+    ``orbax_async``'s snapshot of STORE_RESUME_EPOCH, each run's final
+    state and every snapshot checked bit for bit, then the save and CSV
+    timings."""
+    os.makedirs(root)
+    runs = {b: storage_run(world, run, root, b, b, device) for b in STORE_BACKENDS}
+    runs["none"] = storage_run(world, run, root, "none", None, device)
+    ref = runs["pickle"]["final"]
+    for name, r in runs.items():
+        differ = payload_differences(r["final"], ref)
+        if differ:
+            raise AssertionError(f"storage: the {name} run's final state differs from the "
+                                 f"pickle run's in {differ[:5]}")
+    snapshots = {b: check_snapshots(b, runs[b]["log"]) for b in STORE_BACKENDS}
+    start = os.path.join(root, "resume_from")
+    os.makedirs(start)
+    shutil.copytree(runs["orbax_async"]["log"].kept[STORE_RESUME_EPOCH - 1],
+                    os.path.join(start, "model_final.ckpt"))
+    runs["resumed"] = storage_run(world, run, root, "resumed", "orbax_async", device,
+                                  epochs=STORE_EPOCHS - STORE_RESUME_EPOCH, resume=start)
+    differ = payload_differences(runs["resumed"]["final"], runs["orbax_async"]["final"])
+    if differ:
+        raise AssertionError(f"storage: the run resumed from epoch {STORE_RESUME_EPOCH} "
+                             f"differs from the uninterrupted run in {differ[:5]}")
+    state = runs["orbax_async"]["pipe"].trainer.state
+    out = {"counters": {name: r["counter"] for name, r in runs.items()},
+           "snapshots": snapshots, "state_bytes": state_bytes(state),
+           "saves": save_times(state, root, device),
+           "epoch_s": {name: statistics.median(runs[name]["log"].epoch_seconds())
+                       for name in (*STORE_BACKENDS, "none")},
+           "run_s": {name: r["seconds"] for name, r in runs.items()}}
+    del runs, state  # the runs' pipelines and state copies leave the card
+    out["csv"] = csv_times(run, root)
+    return out
+
+
 def pretrain_times(world: World) -> dict:
     """The pre-training epoch program on the card at the cohort's 2000
     frames (7 batches of 256): a warm epoch's wall time and profile, and
@@ -4131,7 +4381,7 @@ def main() -> int:
 
     # phase 2: build every kernel of the path from the checkout's sources
     t0 = time.perf_counter()
-    logs = build.build_all()
+    logs = build.build_all((*build.SOURCES, *build.HOST_SOURCES))
     say("build", f"{sorted(logs)} built in {time.perf_counter() - t0:.2f} s")
     for name, log in logs.items():
         for line in log.splitlines():
@@ -4434,6 +4684,39 @@ def main() -> int:
         say("compare", f"pipeline rollback (auto_recover, epoch 2 poisoned once) vs the same "
             f"restore by hand, 2 epochs after it on the card: {json.dumps(rb)} "
             f"({time.perf_counter() - t0:.1f} s)")
+
+        # the storage and I/O layer: CLI runs under each checkpoint backend
+        # (orbax_async: a background snapshot beside the next chunk's
+        # replays) on the pipeline's data; counts from 0 just before it
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        store = storage_phase(world, pipe_run, os.path.join(PIPE_DIR, "storage"))
+        storage_counts = launch_counts()
+        for name, counter in store["counters"].items():
+            epochs = STORE_EPOCHS - STORE_RESUME_EPOCH if name == "resumed" else STORE_EPOCHS
+            counter.check("k1", epochs * per_epoch, 0, f"storage {name}")
+        say("storage", f"CLI runs of {STORE_EPOCHS} epochs ({per_epoch} replayed steps each) "
+            f"under pickle, orbax, orbax_async (auto_recover: a snapshot every chunk of one "
+            f"epoch) and with no snapshot: final states bit-equal; every model_last.ckpt "
+            f"bit-equal to the state at its epoch {json.dumps(store['snapshots'])}; resumed "
+            f"from orbax_async's snapshot of epoch {STORE_RESUME_EPOCH} for "
+            f"{STORE_EPOCHS - STORE_RESUME_EPOCH} epochs: bit-equal to the uninterrupted run; "
+            f"no temporary left; launches {json.dumps(storage_counts)}")
+        say("storage", f"host s an epoch (median of {STORE_EPOCHS - 1} callback intervals: the "
+            f"snapshot, the next epoch's replays and the read of its metrics) "
+            f"{json.dumps(store['epoch_s'])}; whole CLI runs s {json.dumps(store['run_s'])} "
+            f"| {card}")
+        sv = store["saves"]
+        say("storage", f"one save of the full-width Hensman state ({store['state_bytes']} "
+            f"bytes), host ms holding the training thread, median of {STORE_SAVES}: "
+            + "; ".join(f"{b} {sv[b]['block_ms']:.3f} {[round(x, 3) for x in sv[b]['block_ms_each']]}"
+                        for b in STORE_BACKENDS)
+            + f"; the orbax_async writer after it {sv['orbax_async']['writer_ms']:.3f} "
+            f"{[round(x, 3) for x in sv['orbax_async']['writer_ms_each']]} ms | {card}")
+        say("storage", "CSV reader, native vs read_csv_plain (arrays bit-equal), s: " + "; ".join(
+            f"{name} {c['shape']} {c['native_s']:.4f} vs {c['plain_s']:.4f}"
+            for name, c in store["csv"].items())
+            + f" ({time.perf_counter() - t0:.1f} s the phase) | {card}")
 
         # the profiler traces of graph replays, in a fresh process
         t0 = time.perf_counter()
@@ -4858,6 +5141,7 @@ def main() -> int:
         raise AssertionError("; ".join(deferred))
     paths = {"serving": serve_counts, "training": train_launches, "standard": std_counts,
              "pipeline": pipe_run["counts"], "pipeline_k4": k4_run["counts"], "eval": eval_counts,
+             "storage": storage_counts,
              "vi": vi["counts"], "rnn": rnn_counts, "bf16": bf16_counts,
              "rnn_replayed": rnn_rep_counts, "parallel": par_counts}
     for e, key in ((entry, "chol_inv"), (k1_entry, "b_chain"), (k3_entry, "kernel_matrix"),

@@ -1,8 +1,10 @@
 """Array-backed datasets (port of lvae_tpu.data.datasets).
 
 Each dataset is loaded once into contiguous numpy arrays; the trainers move
-them to the device whole. CSV files are read with numpy alone (no pandas,
-no native reader). The label semantics are the reference's:
+them to the device whole. CSV files are read by the port's native reader
+(``utils/native_io.py``, C++ built with g++ at first use; no pandas);
+:func:`read_csv_plain`, numpy's reader, is its oracle in the tests. The
+label semantics are the reference's:
 
 * Health MNIST label columns are reordered to
   ``[time_age, disease_time, subject, gender, disease, location]``
@@ -19,6 +21,8 @@ import os
 from typing import NamedTuple, Optional
 
 import numpy as np
+
+from lvae_torch.utils.native_io import read_csv_native
 
 HEALTH_LABEL_ORDER = [6, 4, 0, 5, 3, 7]
 
@@ -57,9 +61,15 @@ def _field(s: str) -> float:
 
 
 def read_csv(path: str, header: bool = False) -> np.ndarray:
-    """A numeric CSV as float64 ``[rows, cols]``; with ``header`` the first
-    line is skipped. Empty fields read as NaN (they take the slower
-    per-field path; an all-numeric file is parsed by numpy's C reader)."""
+    """A numeric CSV as float64 ``[rows, cols]``, through the native reader;
+    with ``header`` the first line is skipped. ``nan``/``NaN`` and empty
+    fields read as NaN."""
+    return read_csv_native(path, skip_header=1 if header else 0)
+
+
+def read_csv_plain(path: str, header: bool = False) -> np.ndarray:
+    """:func:`read_csv` through numpy's reader: the oracle the native
+    reader is held to. Empty fields take a per-field Python converter."""
     skip = 1 if header else 0
     try:
         return np.loadtxt(path, delimiter=",", dtype=np.float64, skiprows=skip, ndmin=2)

@@ -16,9 +16,11 @@ warning), the sparse-GP tests run mesh-parallel, and rank 0 writes every
 file while the other ranks wait; a checkpoint holds the whole state.
 ``model_dtype=bfloat16`` (or ``''`` with ``LVAE_MODEL_BF16=1``) runs the
 VAE's layers in bf16 with f32 parameters, losses and GP algebra
-(``models/vae.py``); ``dtype=bfloat16``, the GP algebra in bf16, and the
-orbax checkpoint backends raise ``NotImplementedError`` naming ROADMAP
-items 13 and 10.
+(``models/vae.py``); ``dtype=bfloat16``, the GP algebra in bf16, raises
+``NotImplementedError`` naming ROADMAP item 13. Every checkpoint goes
+through the configured ``checkpoint_backend`` (``utils/checkpoint.py``: a
+file, a directory, or a directory written in the background while
+training goes on); a resume reads either form.
 """
 
 from __future__ import annotations
@@ -49,7 +51,8 @@ from lvae_torch.train.hensman import HensmanConfig, HensmanTrainer
 from lvae_torch.train.standard import StandardConfig, StandardTrainer
 from lvae_torch.train.vi import VIConfig, VITrainer
 from lvae_torch.utils.checkpoint import (
-    read_checkpoint, save_checkpoint, try_load_checkpoint, vae_state_dict,
+    read_checkpoint, save_checkpoint, save_checkpoint_async, save_checkpoint_dir,
+    try_load_checkpoint, vae_state_dict, wait_for_async_saves,
 )
 from lvae_torch.utils.device import resolve_device
 from lvae_torch.utils.metrics import MetricsLogger, device_memory_stats
@@ -67,9 +70,6 @@ def check_ported(cfg) -> None:
         waiting.append("dtype=bfloat16: the GP algebra runs at f32 or wider, as in the JAX "
                        "package, whose kernels take f32 only (ROADMAP queue 1 item 13); "
                        "model_dtype=bfloat16 runs the VAE in bf16")
-    if getattr(cfg, "checkpoint_backend", "pickle").startswith("orbax"):
-        waiting.append("checkpoint_backend=orbax* (a JAX storage layer, ROADMAP queue 1 "
-                       "item 10); lvae_torch writes its own torch.save checkpoints")
     if waiting:
         raise NotImplementedError("not ported to lvae_torch: " + "; ".join(waiting))
 
@@ -167,9 +167,28 @@ class LVAEPipeline:
 
     def _save(self, path: str, state, metadata=None) -> None:
         """A checkpoint of the whole state, written by rank 0 while the
-        other ranks wait."""
+        other ranks wait (with ``orbax_async``, until rank 0 has started
+        the write: :meth:`_settle` waits for its commit)."""
         if self.writer:
+            self._save_ckpt(path, state, metadata=metadata)
+        self._barrier()
+
+    def _save_ckpt(self, path: str, state, metadata=None) -> None:
+        """Write through the configured backend: a file (``pickle``), a
+        directory (``orbax``), or a directory written in the background
+        (``orbax_async``)."""
+        backend = self.cfg.checkpoint_backend
+        if backend == "orbax_async":
+            save_checkpoint_async(path, state, metadata=metadata)
+        elif backend == "orbax":
+            save_checkpoint_dir(path, state, metadata=metadata)
+        else:
             save_checkpoint(path, state, metadata=metadata)
+
+    def _settle(self) -> None:
+        """Wait for rank 0's background save in flight, then for every rank:
+        after it, every rank reads committed checkpoints."""
+        wait_for_async_saves()
         self._barrier()
 
     def _barrier(self) -> None:
@@ -342,6 +361,7 @@ class LVAEPipeline:
                 f"state non-finite at epoch {epoch}; giving up after "
                 f"{self.recoveries - 1} recoveries"
             )
+        self._settle()  # the rolling snapshot may still be in flight
         state = try_load_checkpoint(last_path, like=trainer.state)
         if state is None:
             raise FloatingPointError(
@@ -439,10 +459,11 @@ class LVAEPipeline:
         per-epoch metrics as a list of dicts), ``plot_values.pkl``
         (``[labels, mu, log_var, z sample, row index]`` of the final model
         on the training cohort) and ``model_final.ckpt``; on a mesh, rank 0
-        writes them while the other ranks wait."""
+        writes them while the other ranks wait. Every checkpoint is
+        committed when it returns."""
         if self.writer:
             self._write_artifacts()
-        self._barrier()
+        self._settle()
 
     def _write_artifacts(self) -> None:
         cfg = self.cfg
@@ -459,7 +480,7 @@ class LVAEPipeline:
         with open(os.path.join(out, "plot_values.pkl"), "wb") as f:
             pickle.dump([np.asarray(self.dataset.labels), mu, log_var, z_sample,
                          np.arange(len(self.dataset))], f)
-        save_checkpoint(os.path.join(out, "model_final.ckpt"), self.trainer.state)
+        self._save_ckpt(os.path.join(out, "model_final.ckpt"), self.trainer.state)
         if cfg.hensman:
             # the reference's GP resume files (gp_model.pth, zt_list.pth,
             # m.pth, H.pth), so that the GP resumes in the reference
@@ -536,6 +557,7 @@ class LVAEPipeline:
                     self.out_dir, epoch=cfg.epochs, eps=cfg.eps, device=self.device,
                 )
         self.metrics.flush()
+        self._settle()
         return None
 
     def run(self):
@@ -562,5 +584,5 @@ class LVAEPipeline:
             result = self._run_tests(pred=pred)
         if gen and self.writer:
             self._generate(pred, epoch=-1)
-        self._barrier()
+        self._settle()
         return result

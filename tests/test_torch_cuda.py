@@ -55,11 +55,15 @@ counters) with the eager epochs' bits at N = 520, captures again after a
 state is assigned, and draws fresh dropout masks each replay; the serving
 bundle's basis fold (K2 inside it) and refresh replay with the eager
 programs' bits, a second ``aot_compile`` captures nothing, and a predictor
-on new GP storages folds through the same graph with its own values.
+on new GP storages folds through the same graph with its own values. A
+background checkpoint save (``orbax_async``) snapshots on the stream: it
+holds the state between the replayed epochs queued before and after it,
+and a new graph captures while its writer waits and writes.
 """
 
 import contextlib
 import math
+import time
 
 import pytest
 import torch
@@ -976,6 +980,84 @@ def test_state_assignment_drops_the_graphs(gen, tmp_path, monkeypatch):
     assert resumed.history[-1] == straight.history[-1]
     for a, b in zip(trainer_arrays(resumed), trainer_arrays(straight)):
         assert torch.equal(a, b)
+
+
+# ----------------------------------------------- background checkpoint saves
+def held_payload(trainer):
+    """Device copies, queued on the current stream, of what a checkpoint of
+    the trainer's state holds on the card: the VAE, GP, m_nat, H_nat."""
+    st = trainer.state
+    gp = st.trainables.gp
+    return {"vae": {k: v.clone() for k, v in st.trainables.vae.state_dict().items()},
+            "gp": [t.detach().clone() for t in (gp.kp0.raw_scale, gp.kp0.raw_lengthscale,
+                                                gp.kp1.raw_scale, gp.kp1.raw_lengthscale,
+                                                gp.raw_noise)],
+            "m_nat": st.m_nat.clone(), "H_nat": st.H_nat.clone()}
+
+
+def assert_snapshot(got, want):
+    gp = [got["gp"][k] for k in ("kp0.raw_scale", "kp0.raw_lengthscale", "kp1.raw_scale",
+                                 "kp1.raw_lengthscale", "raw_noise")]
+    for g, w in [(got["m_nat"], want["m_nat"]), (got["H_nat"], want["H_nat"]),
+                 *zip(gp, want["gp"]), *((got["vae"][k], v) for k, v in want["vae"].items())]:
+        assert torch.equal(g, w.cpu())
+
+
+def test_background_save_holds_against_the_replays_that_follow(gen, tmp_path, monkeypatch):
+    """A background save enqueued behind a replayed epoch still in flight
+    and followed at once by another (each replay updates the state in
+    place) writes the state between the two: bit-equal to device copies
+    taken there, though the state has moved on."""
+    from lvae_torch.utils import checkpoint as ck
+
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    trainer = card_trainer()
+    trainer.run_epochs(1)  # captures
+    second = trainer._dispatch_epochs(1)  # not waited for
+    want = held_payload(trainer)
+    step = trainer.state.step
+    ck.save_checkpoint_async(str(tmp_path / "snap"), trainer.state, {"epoch": 2})
+    third = trainer._dispatch_epochs(1)  # queued behind the snapshot's copies
+    ck.wait_for_async_saves()
+    trainer._materialize_metrics(second, 1)
+    trainer._materialize_metrics(third, 1)
+    got = ck.read_checkpoint(str(tmp_path / "snap"))
+    assert got["step"] == step and got["metadata"] == {"epoch": 2}
+    assert_snapshot(got, want)
+    assert not torch.equal(got["H_nat"], trainer.state.H_nat.cpu())
+
+
+def test_capture_holds_while_a_background_save_is_in_flight(gen, tmp_path, monkeypatch):
+    """A background save waits on its event and writes while the trainer,
+    given a new state (a checkpoint restored into the live tensors, queued
+    behind the snapshot's copies), captures a new graph: the capture
+    succeeds, the replayed epoch is finite and the snapshot holds the state
+    before the restore."""
+    from lvae_torch.utils import checkpoint as ck
+
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    real, writing = ck._write_dir, []
+
+    def slow(*args):
+        writing.append(True)
+        time.sleep(0.5)  # still writing while the capture runs
+        real(*args)
+
+    monkeypatch.setattr(ck, "_write_dir", slow)
+    trainer = card_trainer()
+    trainer.run_epochs(1)
+    first = ck.save_checkpoint(str(tmp_path / "first.ckpt"), trainer.state)
+    trainer.run_epochs(1)
+    want = held_payload(trainer)
+    torch.cuda._sleep(int(2e8))  # device work ahead of the copies: the writer waits
+    ck.save_checkpoint_async(str(tmp_path / "snap"), trainer.state)
+    trainer.state = ck.load_checkpoint(first, like=trainer.state)
+    assert not trainer._graphs
+    ms = trainer.run_epochs(1)
+    assert len(trainer._graphs) == 1 and all(math.isfinite(v) for m in ms for v in m)
+    ck.wait_for_async_saves()
+    assert writing
+    assert_snapshot(ck.read_checkpoint(str(tmp_path / "snap")), want)
 
 
 # ------------------------------------------- captured serving and VI programs

@@ -130,7 +130,7 @@ def test_load_dataset_dispatch(tmp_path):
 
 def test_full_size_csv_reads_in_seconds(tmp_path):
     """A 2000 × 1296 integer CSV (the config file's cohort) loads in a few
-    seconds through numpy's reader."""
+    seconds through the native reader."""
     data = np.random.default_rng(3).integers(0, 256, size=(2000, 1296))
     np.savetxt(tmp_path / "big.csv", data, fmt="%d", delimiter=",")
     t0 = time.perf_counter()

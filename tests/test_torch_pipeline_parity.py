@@ -11,7 +11,16 @@ What does not depend on randomness is compared:
 * best-model tracking from one stubbed sequence of validation losses, fed
   to both packages;
 * the auto-recover rollback: a state poisoned once after epoch 2 is rolled
-  back in both, with the same saves, records and replayed epochs;
+  back in both, with the same saves, records and replayed epochs, under
+  each checkpoint backend (``pickle``; ``orbax`` and ``orbax_async``, whose
+  snapshots are directories, the rollback reading the background save
+  after waiting for it). The saves are recorded at each package's routed
+  ``_save_ckpt``, which every backend goes through;
+* JAX's orbax snapshot of epoch 1, restored by JAX's
+  ``load_checkpoint_orbax`` and carried over by ``utils/convert.py``: the
+  same layout as the port's directory snapshot of that epoch, and, written
+  as a port directory checkpoint and resumed by the port's pipeline, the
+  GP operators' ``gp_health`` of JAX's snapshot (float64, 1e-8);
 * the records: ``metrics.jsonl`` steps and keys, ``diagnostics.pkl``
   entries and keys, the ``plot_values.pkl`` layout, the ``result_error*.csv``
   shapes and the artefact names (the port saves each PDF's grid also as
@@ -26,6 +35,7 @@ import io
 import json
 import os
 import pickle
+import shutil
 import types
 
 import jax
@@ -38,16 +48,20 @@ import lvae_tpu.cli as jcli
 import lvae_tpu.ops.kernels as jkx
 import lvae_tpu.pipeline as jpipe
 import lvae_tpu.train.hensman as jhen
+import lvae_tpu.utils.checkpoint as jck
 import lvae_torch.cli as tcli
 import lvae_torch.ops.kernels as tkx
 import lvae_torch.pipeline as tpipe
 import lvae_torch.train.hensman as then
 from lvae_tpu.config import parse_flag_lines as jparse
+from lvae_torch.config import parse_flag_lines as tparse
 from lvae_tpu.ops import elbo as jeb
 from lvae_tpu.utils.debug import gp_health as jax_gp_health
 from lvae_torch.data import healthmnist as thm
+from lvae_torch.models.vae import make_vae
 from lvae_torch.ops import elbo as teb
-from lvae_torch.utils.convert import gp_params_from_jax
+from lvae_torch.utils import checkpoint as tck
+from lvae_torch.utils.convert import gp_params_from_jax, hensman_state_from_jax
 from lvae_torch.utils.debug import gp_health
 
 SPLITS = ("test", "prediction", "validation", "generation")
@@ -78,19 +92,27 @@ def flag_file(root, results, extra):
     return str(path)
 
 
-def instrument(mp, pipe_mod, trainer_cls, events, nets=None, poison=None):
+def instrument(mp, pipe_mod, trainer_cls, events, nets=None, poison=None, keep=None,
+               wait=None):
     """Record the pipeline's schedule in ``events``: each ``fit`` with its
-    chunk, each save with its file, epoch and step, each validation, test
-    and generation. ``nets``: the validation losses to hand out instead of
-    validating. ``poison(trainer)``: called once, after the second epoch."""
-    real_save, real_test, real_gen = (pipe_mod.save_checkpoint, pipe_mod.mse_test_gp_approx,
-                                      pipe_mod.recon_complete_gen)
+    chunk, each save (at the routed ``_save_ckpt``, whatever the backend)
+    with its file, epoch and step, each validation, test and generation.
+    ``nets``: the validation losses to hand out instead of validating.
+    ``poison(trainer)``: called once, after the second epoch. ``keep``: a
+    path where a copy of epoch 1's ``model_last.ckpt`` goes, once ``wait()``
+    has waited for it."""
+    real_save, real_test, real_gen = (pipe_mod.LVAEPipeline._save_ckpt,
+                                      pipe_mod.mse_test_gp_approx, pipe_mod.recon_complete_gen)
     real_fit, real_run = trainer_cls.fit, trainer_cls.run_epochs
 
-    def save_checkpoint(path, state, metadata=None):
-        events.append(("save", os.path.basename(path), (metadata or {}).get("epoch"),
-                       int(state.step)))
-        return real_save(path, state, metadata=metadata)
+    def save_ckpt(self, path, state, metadata=None):
+        epoch = (metadata or {}).get("epoch")
+        events.append(("save", os.path.basename(path), epoch, int(state.step)))
+        out = real_save(self, path, state, metadata=metadata)
+        if keep is not None and epoch == 1 and not os.path.exists(keep):
+            wait()
+            (shutil.copytree if os.path.isdir(path) else shutil.copy)(path, keep)
+        return out
 
     def validate(*args, **kwargs):
         events.append(("validate",))
@@ -115,7 +137,7 @@ def instrument(mp, pipe_mod, trainer_cls, events, nets=None, poison=None):
             poison(self)
         return out
 
-    mp.setattr(pipe_mod, "save_checkpoint", save_checkpoint)
+    mp.setattr(pipe_mod.LVAEPipeline, "_save_ckpt", save_ckpt)
     mp.setattr(pipe_mod, "mse_test_gp_approx", mse_test_gp_approx)
     mp.setattr(pipe_mod, "recon_complete_gen", recon_complete_gen)
     if nets is not None:
@@ -137,20 +159,24 @@ def poison_torch(trainer):
 
 def run_both(root, name, extra, nets=None, poison=False):
     """Run the same flag file through both CLIs; returns per package its
-    events, standard output and results folder."""
+    events, standard output, results folder and the copy of epoch 1's
+    snapshot (``kept``, where one was saved)."""
     out = {}
-    for pkg, cli, pipe_mod, cls, poisoner, argv in (
-        ("jax", jcli, jpipe, jhen.HensmanTrainer, poison_jax, []),
-        ("torch", tcli, tpipe, then.HensmanTrainer, poison_torch, ["--device=cpu"]),
+    for pkg, cli, pipe_mod, cls, poisoner, wait, argv in (
+        ("jax", jcli, jpipe, jhen.HensmanTrainer, poison_jax, jck.wait_for_async_saves, []),
+        ("torch", tcli, tpipe, then.HensmanTrainer, poison_torch, tck.wait_for_async_saves,
+         ["--device=cpu"]),
     ):
         results = root / f"{name}_{pkg}"
+        kept = root / f"{name}_{pkg}_epoch1.ckpt"
         cfg = flag_file(root, results, extra)
         events, stdout = [], io.StringIO()
         with pytest.MonkeyPatch.context() as mp, contextlib.redirect_stdout(stdout):
             instrument(mp, pipe_mod, cls, events, nets=iter(nets) if nets else None,
-                       poison=poisoner if poison else None)
+                       poison=poisoner if poison else None, keep=kept, wait=wait)
             assert cli.main(argv + [f"--f={cfg}"]) == 0
-        out[pkg] = dict(events=events, stdout=stdout.getvalue(), results=results, cfg=cfg)
+        out[pkg] = dict(events=events, stdout=stdout.getvalue(), results=results, cfg=cfg,
+                        kept=kept)
     return out["jax"], out["torch"]
 
 
@@ -190,7 +216,10 @@ def test_records_match_jax(scheduled):
 
 
 def compare_records(jres, tres, epochs):
-    jnames, tnames = set(os.listdir(jres)), set(os.listdir(tres))
+    jnames = set(os.listdir(jres))
+    # a directory checkpoint's snapshot sits beside its link, hidden
+    assert tck.leftovers(str(tres)) == []
+    tnames = {n for n in os.listdir(tres) if not n.startswith(".")}
     grids = {n for n in tnames if n.endswith(".npz")}
     assert tnames - grids == jnames
     for name in GP_FILES:  # both write the same tensors (their values follow each run)
@@ -222,11 +251,10 @@ def compare_records(jres, tres, epochs):
         assert t_arr.shape == np.asarray(j_arr).shape and t_arr.dtype == np.asarray(j_arr).dtype
 
 
-def test_auto_recover_rollback_matches_jax(root):
-    jax_run, torch_run = run_both(
-        root, "recover",
-        ["--auto_recover=True", "--epochs=3", "--checkpoint_every=1", "--test_freq=0"],
-        poison=True)
+RECOVER_FLAGS = ["--auto_recover=True", "--epochs=3", "--checkpoint_every=1", "--test_freq=0"]
+
+
+def check_rollback(jax_run, torch_run):
     assert torch_run["events"] == jax_run["events"]
     saves = [e for e in jax_run["events"] if e[0] == "save"]
     # epoch 2 is rolled back to epoch 1's snapshot and replayed
@@ -236,6 +264,88 @@ def test_auto_recover_rollback_matches_jax(root):
     for run in (jax_run, torch_run):
         assert "Recovered from non-finite state at epoch 2 (attempt 1" in run["stdout"]
     compare_records(jax_run["results"], torch_run["results"], epochs=3)
+
+
+def test_auto_recover_rollback_matches_jax(root):
+    check_rollback(*run_both(root, "recover", RECOVER_FLAGS, poison=True))
+
+
+@pytest.fixture(scope="module", params=["orbax", "orbax_async"])
+def recovered(root, request):
+    """The rollback run under a directory backend."""
+    backend = request.param
+    return backend, run_both(root, f"recover_{backend}",
+                             RECOVER_FLAGS + [f"--checkpoint_backend={backend}"], poison=True)
+
+
+def test_auto_recover_rollback_matches_jax_under_each_directory_backend(recovered):
+    _, (jax_run, torch_run) = recovered
+    check_rollback(jax_run, torch_run)
+    for run in (jax_run, torch_run):
+        for name in ("model_last.ckpt", "model_final.ckpt"):
+            assert os.path.isdir(run["results"] / name), name
+    final = tck.read_checkpoint(str(torch_run["results"] / "model_final.ckpt"))
+    assert final["step"] == 6 and final["metadata"] == {}
+    assert tck.leftovers(str(torch_run["results"])) == []
+
+
+def test_jax_orbax_snapshot_carries_over_to_the_port(recovered):
+    """JAX's orbax snapshot of epoch 1 → ``load_checkpoint_orbax`` →
+    ``hensman_state_from_jax``: the layout of the port's own snapshot of
+    epoch 1 (every entry's shape and dtype, the step); the inducing points
+    equal;
+    written by the port as a directory checkpoint and resumed by the port's
+    pipeline, its GP operators' ``gp_health`` matches JAX's on the snapshot
+    (float64, 1e-8)."""
+    _, (jax_run, torch_run) = recovered
+    jcfg, _ = jparse([f"--f={jax_run['cfg']}"])
+    jpipeline = jpipe.LVAEPipeline(jcfg)
+    jtrainer = jpipeline.build_trainer()
+    jstate = jck.load_checkpoint_orbax(str(jax_run["kept"]), jtrainer.state)
+    assert int(jstate.step) == 2
+    model = make_vae("conv", 2, 1296, dropout=0.0, generator=torch.Generator().manual_seed(0))
+    carried = tck.state_payload(hensman_state_from_jax(jstate, model))
+    port = tck.read_checkpoint(str(torch_run["kept"]))
+    assert port["metadata"] == {"epoch": 1} and port["step"] == carried["step"] == 2
+
+    def layout(x):
+        if isinstance(x, torch.Tensor):
+            return (tuple(x.shape), x.dtype)
+        if isinstance(x, dict):
+            return {k: layout(v) for k, v in x.items() if k not in ("format", "version",
+                                                                     "metadata")}
+        if isinstance(x, (list, tuple)):
+            return [layout(v) for v in x]
+        return type(x)
+
+    assert layout(carried) == layout(port)
+
+    folder = jax_run["kept"].parent / f"{jax_run['kept'].name}_carried"
+    path = tck.save_checkpoint_dir(str(folder / "model_final.ckpt"),
+                                   hensman_state_from_jax(jstate, model))
+    tcfg, _ = tparse([f"--f={torch_run['cfg']}", f"--gp_model_folder={folder}"])
+    tpipeline = tpipe.LVAEPipeline(tcfg, device="cpu")
+    ttrainer = tpipeline.build_trainer()
+    resumed = ttrainer.state
+    assert resumed.step == 2 and os.path.isdir(path)
+    xb = np.asarray(tpipeline.dataset.labels, np.float64).reshape(2, 5, -1)
+    z = np.asarray(jtrainer.tdata.z, np.float64)
+    np.testing.assert_array_equal(ttrainer.tdata.z.numpy(), np.asarray(jtrainer.tdata.z))
+    noise = np.ones(2)
+    jgp = jax.tree.map(lambda a: jnp.asarray(a, np.float64), jstate.trainables.gp)
+    jops = jeb.gp_block_operators(jpipeline.spec0, jpipeline.spec1, jgp.kp0, jgp.kp1,
+                                  jnp.asarray(noise), jnp.asarray(xb), jnp.asarray(z),
+                                  eps=jcfg.eps)
+    tgp = resumed.trainables.gp.to(dtype=torch.float64)
+    with torch.no_grad():
+        tops = teb.gp_block_operators(tpipeline.spec0, tpipeline.spec1, tgp.kp0, tgp.kp1,
+                                      torch.tensor(noise), torch.tensor(xb), torch.tensor(z),
+                                      eps=tcfg.eps)
+    want = {k: np.asarray(v) for k, v in jax_gp_health(jops).items()}
+    got = {k: v.numpy() for k, v in gp_health(tops).items()}
+    assert set(got) == set(want)
+    for k in want:
+        np.testing.assert_allclose(got[k], want[k], rtol=1e-8, err_msg=k)
 
 
 @pytest.mark.parametrize("route", ["plain", "k1"])

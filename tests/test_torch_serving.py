@@ -199,7 +199,7 @@ def test_package_imports_no_jax():
         "assert len(names) >= 15, names\n"
         "for name in ('train.standard', 'kernels_cuda.adam', 'kernels_cuda.kernel_matrix',\n"
         "             'train.vi', 'models.rnn', 'utils.torch_compat', 'parallel.mesh',\n"
-        "             'parallel.distributed'):\n"
+        "             'parallel.distributed', 'utils.checkpoint', 'utils.native_io'):\n"
         "    assert 'lvae_torch.' + name in names, name\n"
         "assert not bad, bad\n"
         "print(len(names))\n"
