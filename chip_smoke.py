@@ -63,6 +63,18 @@ frames, random frames and weights from ``--seed``):
   (``auto_recover``, a poisoned epoch) bit-equal to the same restore done
   by hand; the pre-training epoch program (one captured step) timed and
   held against the CPU;
+* the real-image cohort: the 140 JPEG and PNG digit files of
+  ``tests/fixtures/torch_source_digits`` read by the port's decoder
+  (``data/image_io.py``, no image library) and held bit-equal to the
+  committed read of the JAX package (matplotlib's ``imread``); the
+  training split generated by ``python -m lvae_torch.cli generate
+  --source`` and, beside it, the validation and test splits by
+  ``generate_healthmnist(source=, source_offset=)``, each from files the
+  others do not read; 25 pre-training epochs with its test and grid, then the main
+  run (validation, best model, tests, generation) through
+  ``lvae_torch.cli.main`` at full width, its K1 and K2 launches checked a
+  step and a validation; each figure PDF's images held to its ``.npz``
+  grid;
 * the evaluation programs (``evaluation/programs.py``) from the CLI run's
   ``model_final.ckpt``: validation of the pipeline's 20-subject cohort and
   of its 100-subject training cohort (2,000 frames) in GPapprox_closed,
@@ -186,6 +198,7 @@ from lvae_torch import pipeline as pipeline_mod  # noqa: E402
 from lvae_torch.config import load_flag_file, parse_flag_lines  # noqa: E402
 from lvae_torch.data.blocks import build_subject_blocks  # noqa: E402
 from lvae_torch.data.datasets import ArrayDataset, read_csv, read_csv_plain  # noqa: E402
+from lvae_torch.data.healthmnist import _load_source_images as load_source_images  # noqa: E402
 from lvae_torch.data.healthmnist import generate_healthmnist  # noqa: E402
 from lvae_torch.evaluation import programs as eval_programs  # noqa: E402
 from lvae_torch.evaluation.encode import decode_latents, encode_dataset  # noqa: E402
@@ -227,6 +240,7 @@ from lvae_torch.utils.checkpoint import (  # noqa: E402
     load_checkpoint, read_checkpoint, save_checkpoint, save_checkpoint_async, save_checkpoint_dir,
     state_payload, wait_for_async_saves,
 )
+from lvae_torch.utils.pdf import normalise_panel, read_grid_pdf  # noqa: E402
 from lvae_torch.utils.torch_compat import (  # noqa: E402
     load_reference_gp_state, save_reference_gp_state,
 )
@@ -1735,8 +1749,8 @@ ROUTE_LAUNCHES = {
 }
 PIPE_ARTEFACTS = ("model_params_vae.ckpt", "model_best.ckpt", "model_final.ckpt",
                   "model_last.ckpt", "result_error.csv", "result_error_best.csv",
-                  "recon_complete.npz", "recon_complete_best.npz", "plot_values.pkl",
-                  "diagnostics.pkl", "metrics.jsonl")
+                  "recon_complete.npz", "recon_complete_best.npz", "recon_complete.pdf",
+                  "recon_complete_best.pdf", "plot_values.pkl", "diagnostics.pkl", "metrics.jsonl")
 
 
 def write_flags(path: str, lines) -> str:
@@ -1768,6 +1782,27 @@ def pipeline_flags(data: str, results: str, *extra) -> list:
                   f"--csv_file_{split}_label=health_MNIST_label{suffix}.csv",
                   f"--{split}_mask_file=mask{suffix}.csv"]
     return lines + list(extra)
+
+
+def pretrain_flags(world: World, data: str, results: str, epochs: int, *extra) -> list:
+    """The pre-training CLI's flags at the config file's width."""
+    cfg = world.cfg
+    return [
+        f"--data_source_path={data}", f"--save_path={results}", "--dataset_type=HealthMNIST",
+        "--csv_file_data=health_MNIST_data_masked.csv", "--csv_file_label=health_MNIST_label.csv",
+        "--mask_file=mask.csv", f"--type_nnet={cfg.type_nnet}", f"--latent_dim={cfg.latent_dim}",
+        f"--num_dim={cfg.num_dim}", f"--epochs={epochs}", "--loss_function=nll",
+        f"--dropout={cfg.dropout}", f"--seed={world.seed}", *extra]
+
+
+def main_run_flags(world: World, data: str, results: str) -> list:
+    """The main CLI run: PIPE_EPOCHS epochs from the pre-trained VAE with
+    validation, tests, generation and a checkpoint every PIPE_TEST_FREQ."""
+    return pipeline_flags(
+        data, results, f"--epochs={PIPE_EPOCHS}", f"--test_freq={PIPE_TEST_FREQ}",
+        f"--checkpoint_every={PIPE_TEST_FREQ}", "--run_tests=True", "--run_validation=True",
+        "--generate_images=True", f"--model_params={results}/model_params_vae.ckpt",
+        "--gp_model_folder=", f"--seed={world.seed}")
 
 
 def counted(fn, into: list):
@@ -1864,19 +1899,11 @@ def run_pipeline(world: World, root: str, device: str = "cuda") -> dict:
     data = make_pipeline_data(root, world.seed)
     times["generate"] = time.perf_counter() - t0
     results = os.path.join(root, "results")
-    vae_cfg = write_flags(os.path.join(root, "vae.txt"), [
-        f"--data_source_path={data}", f"--save_path={results}", "--dataset_type=HealthMNIST",
-        "--csv_file_data=health_MNIST_data_masked.csv", "--csv_file_label=health_MNIST_label.csv",
-        "--mask_file=mask.csv", f"--type_nnet={cfg.type_nnet}", f"--latent_dim={cfg.latent_dim}",
-        f"--num_dim={cfg.num_dim}", f"--epochs={PRETRAIN_EPOCHS}", "--loss_function=nll",
-        f"--dropout={cfg.dropout}", f"--seed={world.seed}"])
+    vae_cfg = write_flags(os.path.join(root, "vae.txt"),
+                          pretrain_flags(world, data, results, PRETRAIN_EPOCHS))
     times["pretrain"] = cli_run(["pretrain", f"--f={vae_cfg}"], device)
 
-    main_cfg = write_flags(os.path.join(root, "main.txt"), pipeline_flags(
-        data, results, f"--epochs={PIPE_EPOCHS}", f"--test_freq={PIPE_TEST_FREQ}",
-        f"--checkpoint_every={PIPE_TEST_FREQ}", "--run_tests=True", "--run_validation=True",
-        "--generate_images=True", f"--model_params={results}/model_params_vae.ckpt",
-        "--gp_model_folder=", f"--seed={world.seed}"))
+    main_cfg = write_flags(os.path.join(root, "main.txt"), main_run_flags(world, data, results))
     reset_launch_counts()
     with PathCounter() as main_run:
         times["train"] = cli_run([f"--f={main_cfg}"], device)
@@ -3957,6 +3984,143 @@ def storage_phase(world: World, run: dict, root: str, device: str = "cuda") -> d
     return out
 
 
+SOURCE_DIR = os.path.join(ROOT, "tests", "fixtures", "torch_source_digits")  # 70 files a digit
+SOURCE_ROOT = os.path.join(ROOT, "build", "chip_smoke_source")  # git-ignored
+# the real-image cohort's splits: (file suffix, subjects a digit, first file);
+# generate_split's offsets for fractions 1, 0.2, 0.2 of 50, so no split reads
+# another's images
+SOURCE_SPLITS = (("", PIPE_PER_DIGIT, 0),
+                 ("_validation", PIPE_EVAL_PER_DIGIT, PIPE_PER_DIGIT),
+                 ("_test", PIPE_EVAL_PER_DIGIT, PIPE_PER_DIGIT + PIPE_EVAL_PER_DIGIT))
+SOURCE_PRETRAIN_EPOCHS = 25  # the pre-training CLI tests and draws recon_VAE_<e> every 25 epochs
+SOURCE_TIMEOUT = 300  # seconds a generating process may take
+SOURCE_FIGURES = ("recon_complete.pdf", "recon_complete_best.pdf",
+                  f"recon_VAE_{SOURCE_PRETRAIN_EPOCHS}.pdf")
+JPEG_SAMPLING = {0x11: "4:4:4", 0x21: "4:2:2", 0x22: "4:2:0", 0x12: "4:4:0"}
+PNG_COLOUR = {0: "grey", 2: "RGB", 3: "palette", 4: "grey+alpha", 6: "RGBA"}
+
+
+def image_kind(path: str) -> str:
+    """A fixture's format and mode from its header: a JPEG's components and
+    luma sampling (and a restart interval), a PNG's colour type and depth."""
+    with open(path, "rb") as f:
+        data = f.read()
+    if data.startswith(b"\x89PNG"):
+        return f"png {PNG_COLOUR[data[25]]} {data[24]}-bit"
+    sof = data.find(b"\xff\xc0")  # the fixtures are baseline JPEGs
+    kind = "jpeg grey" if data[sof + 9] == 1 else f"jpeg YCbCr {JPEG_SAMPLING[data[sof + 11]]}"
+    return kind + (" restarts" if b"\xff\xdd" in data[:data.find(b"\xff\xda")] else "")
+
+
+def source_decode() -> dict:
+    """Every fixture through the port's reader (``_load_source_images``,
+    the generator's entry) held bit-equal to the committed read of the JAX
+    package (matplotlib's ``imread``), with the count by format and mode."""
+    ref = np.load(SOURCE_DIR + ".npz")
+    want = {str(p): img for p, img in zip(ref["paths"], ref["images"])}
+    got = {}
+    t0 = time.perf_counter()
+    for digit in ("3", "6"):
+        names = sorted(os.listdir(os.path.join(SOURCE_DIR, digit)))
+        for name, img in zip(names, load_source_images(SOURCE_DIR, digit, len(names))):
+            got[f"{digit}/{name}"] = img
+    seconds = time.perf_counter() - t0
+    if sorted(got) != sorted(want):
+        raise AssertionError(f"fixture files {sorted(got)} vs the reference's {sorted(want)}")
+    differ = {p: int((got[p] != want[p]).sum()) for p in want
+              if got[p].dtype != want[p].dtype or not np.array_equal(got[p], want[p])}
+    if differ:
+        raise AssertionError(f"reads differ from the committed reference (entries): {differ}")
+    kinds = {}
+    for p in want:
+        kind = image_kind(os.path.join(SOURCE_DIR, p))
+        kinds[kind] = kinds.get(kind, 0) + 1
+    return {"files": len(want), "seconds": seconds, "kinds": dict(sorted(kinds.items()))}
+
+
+def source_generate(data: str, seed: int) -> float:
+    """The training split through ``python -m lvae_torch.cli generate
+    --source`` in a process of its own and, meanwhile in this one, the
+    validation and test splits through ``generate_healthmnist(source=,
+    source_offset=)``, each split from the files after the earlier ones'
+    (SOURCE_SPLITS); returns seconds."""
+    (_, n_train, _), *evals = SOURCE_SPLITS
+    cmd = [sys.executable, "-m", "lvae_torch.cli", "generate", f"--source={SOURCE_DIR}",
+           f"--destination={data}", f"--num_3={n_train}", f"--num_6={n_train}", f"--seed={seed}"]
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True)
+    try:
+        for i, (suffix, n, first) in enumerate(evals, start=1):
+            generate_healthmnist(n, n, seed=seed + i, destination=data, source=SOURCE_DIR,
+                                 source_offset=first,
+                                 data_file_name=f"health_MNIST_data{suffix}.csv",
+                                 data_masked_file_name=f"health_MNIST_data_masked{suffix}.csv",
+                                 labels_file_name=f"health_MNIST_label{suffix}.csv",
+                                 mask_file_name=f"mask{suffix}.csv")
+        out, err = proc.communicate(timeout=SOURCE_TIMEOUT)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    if proc.returncode != 0 or f"Saved! Number of samples: {2 * n_train * 20}" not in out:
+        raise AssertionError(f"{' '.join(cmd)} exited {proc.returncode}: {out[-500:]} "
+                             f"{err[-2000:]}")
+    return time.perf_counter() - t0
+
+
+def check_pdf_grid(pdf: str, npz: str) -> int:
+    """The PDF's images, in drawing order, equal the ``.npz`` grid's filled
+    cells in row-major order, each as ``normalise_panel`` scales it (the
+    8-bit grey of matplotlib's ``imshow(cmap="gray", interpolation="none")``,
+    held to matplotlib by the CPU tests). Returns the count."""
+    with np.load(npz) as z:
+        grid, filled = z["grid"], z["filled"]  # each read of a key decompresses it again
+    cells = [grid[r, c] for r, c in zip(*np.nonzero(filled))]
+    images = read_grid_pdf(pdf)
+    if len(images) != len(cells) or not cells:
+        raise AssertionError(f"{pdf}: {len(images)} images for {len(cells)} filled cells")
+    for k, (img, cell) in enumerate(zip(images, cells)):
+        want = normalise_panel(cell)
+        if img.shape != want.shape or not np.array_equal(img, want):
+            raise AssertionError(f"{pdf}: image {k} differs from its grid cell")
+    return len(images)
+
+
+def source_phase(world: World, root: str, device: str = "cuda") -> dict:
+    """The real-image cohort: every fixture decoded and held to the
+    committed reference, the three splits generated from the fixtures
+    through the CLI, pre-training (SOURCE_PRETRAIN_EPOCHS, its test and
+    grid) and the main run (validation, best model, tests, generation)
+    through ``lvae_torch.cli.main``, each figure's pixels held to its grid.
+    Counts from 0 just before the main run."""
+    times = {}
+    dec = source_decode()
+    times["decode"] = dec["seconds"]
+    data = os.path.join(root, "data")
+    times["generate"] = source_generate(data, world.seed)
+    results = os.path.join(root, "results")
+    vae_cfg = write_flags(os.path.join(root, "vae.txt"), pretrain_flags(
+        world, data, results, SOURCE_PRETRAIN_EPOCHS, "--run_tests=True",
+        "--csv_file_test_data=health_MNIST_data_masked_test.csv",
+        "--csv_file_test_label=health_MNIST_label_test.csv", "--test_mask_file=mask_test.csv"))
+    times["pretrain"] = cli_run(["pretrain", f"--f={vae_cfg}"], device)
+    main_cfg = write_flags(os.path.join(root, "main.txt"), main_run_flags(world, data, results))
+    reset_launch_counts()
+    with PathCounter() as counter:
+        times["train"] = cli_run([f"--f={main_cfg}"], device)
+    counts = launch_counts()
+    out = check_pipeline_run(results, PIPE_EPOCHS, world.hw)
+    t0 = time.perf_counter()
+    panels = {name: check_pdf_grid(os.path.join(results, name),
+                                   os.path.join(results, name[:-4] + ".npz"))
+              for name in SOURCE_FIGURES}
+    times["figures"] = time.perf_counter() - t0
+    per_epoch = counter.pipeline.trainer.tables[0].index.shape[0] // world.cfg.subjects_per_batch
+    return {"times": times, "decode": dec, "counts": counts, "counter": counter,
+            "steps_per_epoch": per_epoch, "panels": panels, **out}
+
+
 def pretrain_times(world: World) -> dict:
     """The pre-training epoch program on the card at the cohort's 2000
     frames (7 batches of 256): a warm epoch's wall time and profile, and
@@ -4944,6 +5108,35 @@ def main() -> int:
     finally:
         shutil.rmtree(PIPE_DIR, ignore_errors=True)
 
+    # the real-image cohort: the fixtures' JPEG and PNG digits decoded and
+    # generated through the CLI, pre-training and the main run at full width,
+    # the figures' pixels checked; counts from 0 just before the main run
+    shutil.rmtree(SOURCE_ROOT, ignore_errors=True)
+    os.makedirs(SOURCE_ROOT)
+    t0 = time.perf_counter()
+    try:
+        src = source_phase(world, SOURCE_ROOT)
+    finally:
+        shutil.rmtree(SOURCE_ROOT, ignore_errors=True)
+    source_counts = src["counts"]
+    src_run = src["counter"]
+    src_run.check("k1", PIPE_EPOCHS * src["steps_per_epoch"], PIPE_EPOCHS // PIPE_TEST_FREQ + 1,
+                  "source")
+    dec = src["decode"]
+    say("source", f"{dec['files']} fixture files (tests/fixtures/torch_source_digits) decoded "
+        f"bit-equal to the committed JAX read in {dec['seconds']:.3f} s: {json.dumps(dec['kinds'])}")
+    say("source", f"CLI on the real-image cohort ({2 * PIPE_PER_DIGIT} + {2 * PIPE_EVAL_PER_DIGIT} "
+        f"+ {2 * PIPE_EVAL_PER_DIGIT} subjects from files 0, {SOURCE_SPLITS[1][2]}, "
+        f"{SOURCE_SPLITS[2][2]} of each digit; {SOURCE_PRETRAIN_EPOCHS} pre-training epochs; "
+        f"{PIPE_EPOCHS} epochs of {src['steps_per_epoch']} steps, validation every "
+        f"{PIPE_TEST_FREQ}): launches {json.dumps(source_counts)}; a step "
+        f"{json.dumps(src_run.steps[0])}, a validation {json.dumps(src_run.validations[0])}; "
+        f"last epoch {json.dumps(src['losses'])}; test MSEs (VAE, GP) "
+        f"{json.dumps(src['test_mse'])}")
+    say("source", f"figures: PDF images equal to their .npz grids (panels) {json.dumps(src['panels'])}")
+    say("source", f"stage seconds {json.dumps(src['times'])} ({time.perf_counter() - t0:.1f} s the "
+        f"phase) | {card}")
+
     # phase 9: the RNN encoder, Hensman steps and serving; counts from 0 just before it
     reset_launch_counts()
     rnn = {cell: run_rnn(world, cell) for cell in RNN_CELLS}
@@ -5141,7 +5334,7 @@ def main() -> int:
         raise AssertionError("; ".join(deferred))
     paths = {"serving": serve_counts, "training": train_launches, "standard": std_counts,
              "pipeline": pipe_run["counts"], "pipeline_k4": k4_run["counts"], "eval": eval_counts,
-             "storage": storage_counts,
+             "storage": storage_counts, "source": source_counts,
              "vi": vi["counts"], "rnn": rnn_counts, "bf16": bf16_counts,
              "rnn_replayed": rnn_rep_counts, "parallel": par_counts}
     for e, key in ((entry, "chol_inv"), (k1_entry, "b_chain"), (k3_entry, "kernel_matrix"),

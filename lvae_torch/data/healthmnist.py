@@ -12,7 +12,10 @@ for healthy subjects.
 The digit instances come from one glyph raster per digit (``GLYPHS``, the
 28×28 bold glyph the JAX package renders with matplotlib, stored here so
 that no plotting library is needed) with a per-instance elastic, affine,
-stroke and intensity draw. The numpy draws and scipy ``ndimage`` calls are
+stroke and intensity draw, or, with ``source``, from real digit images in
+the reference's layout ``source/<digit>/*.jpg|*.jpeg|*.png``, read by
+``data/image_io.imread`` (numpy and the standard library, bit-equal to
+matplotlib's ``imread``). The numpy draws and scipy ``ndimage`` calls are
 the JAX package's, in its order, so one seed gives the same cohort from
 both packages. Files are written with numpy and the ``csv`` module.
 """
@@ -21,10 +24,13 @@ from __future__ import annotations
 
 import argparse
 import csv
+import glob
 import os
 from typing import Optional
 
 import numpy as np
+
+from lvae_torch.data.image_io import imread
 
 # the uint8 red channel of matplotlib's Agg rendering of each digit
 # (28×28 canvas at dpi 28, white 52 pt bold text on black), row-major hex
@@ -132,6 +138,37 @@ def _instance_image(digit: str, rng: np.random.Generator) -> np.ndarray:
     return np.clip(img, 0, 255)
 
 
+def _load_source_images(source: str, digit: str, count: int, offset: int = 0):
+    """Read ``count`` real digit instances from ``source/<digit>/*.jpg|png``,
+    from the ``offset``-th file in sorted order: 28×28 float64 on the 0..255
+    scale (RGB(A) averaged to grey; an image whose maximum is at most 1,
+    a PNG's floats or a dark JPEG, is scaled by 255, as in the JAX
+    package)."""
+    data_path = os.path.join(source, digit)
+    files = sorted(
+        glob.glob(os.path.join(data_path, "*.jpg"))
+        + glob.glob(os.path.join(data_path, "*.jpeg"))
+        + glob.glob(os.path.join(data_path, "*.png"))
+    )
+    if len(files) < offset + count:
+        raise FileNotFoundError(
+            f"--source needs >= {offset + count} images under {data_path!r} "
+            f"(found {len(files)}); expected the reference layout "
+            "source/<digit>/*.jpg"
+        )
+    out = []
+    for f in files[offset : offset + count]:
+        img = np.asarray(imread(f), dtype=np.float64)
+        if img.ndim == 3:  # RGB(A) → grayscale
+            img = img[..., :3].mean(axis=-1)
+        if img.max() <= 1.0:  # png floats → the reference's 0..255 scale
+            img = img * 255.0
+        if img.shape != (28, 28):
+            raise ValueError(f"{f}: expected a 28x28 digit image, got {img.shape}")
+        out.append(img)
+    return out
+
+
 LABEL_COLUMNS = ("subject", "digit", "angle", "disease", "disease_time", "gender",
                  "time_age", "location")
 
@@ -159,12 +196,17 @@ def generate_healthmnist(
     num_timepoints: int = 20,
     seed: int = 0,
     destination: Optional[str] = None,
+    source: Optional[str] = None,
+    source_offset: int = 0,
     data_file_name: str = "health_MNIST_data.csv",
     data_masked_file_name: str = "health_MNIST_data_masked.csv",
     labels_file_name: str = "health_MNIST_label.csv",
     mask_file_name: str = "mask.csv",
 ):
-    """Generate the cohort; with ``destination`` write the four CSVs.
+    """Generate the cohort; with ``destination`` write the four CSVs. With
+    ``source``, subject ``i`` of a digit is the real image
+    ``source_offset + i`` of that digit (``_load_source_images``) and no
+    instance is drawn.
 
     Returns ``(data [N,1296] int64, masked_data, mask, labels [N, 8]
     float64)`` with ``N = (num_3 + num_6) * num_timepoints``; the labels'
@@ -181,8 +223,11 @@ def generate_healthmnist(
     subject_index = 0
     for digit, count in (("3", num_3), ("6", num_6)):
         gender = 0 if digit == "3" else 1
-        for _ in range(count):
-            img_pad = np.pad(_instance_image(digit, rng), ((4, 4), (4, 4)), "constant")
+        real_imgs = (_load_source_images(source, digit, count, source_offset)
+                     if source else None)
+        for inst in range(count):
+            img28 = real_imgs[inst] if real_imgs is not None else _instance_image(digit, rng)
+            img_pad = np.pad(img28, ((4, 4), (4, 4)), "constant")
             sick = int(rng.binomial(1, 0.5))
             loc = int(rng.binomial(1, 0.5))
             rotations = rng.normal(0, 2, num_timepoints)
@@ -222,30 +267,37 @@ def generate_split(
     missing: float = 25.0,
     seed: int = 0,
     splits=(("", 1.0),),
+    source: Optional[str] = None,
 ):
     """One cohort per named split (e.g. train, validation, test,
     prediction), split ``i`` from seed ``seed + i``, each written as
-    ``health_MNIST_data_<name>.csv`` and so on."""
+    ``health_MNIST_data_<name>.csv`` and so on. With ``source`` each split
+    reads disjoint real images: the file offset advances past every earlier
+    split's draw."""
     out = {}
+    offset = 0
     for i, (name, frac) in enumerate(splits):
         n3 = max(1, int(round(num_3 * frac)))
         n6 = max(1, int(round(num_6 * frac)))
         suffix = f"_{name}" if name else ""
         out[name] = generate_healthmnist(
             n3, n6, missing, seed=seed + i, destination=destination,
+            source=source, source_offset=offset,
             data_file_name=f"health_MNIST_data{suffix}.csv",
             data_masked_file_name=f"health_MNIST_data_masked{suffix}.csv",
             labels_file_name=f"health_MNIST_label{suffix}.csv",
             mask_file_name=f"mask{suffix}.csv",
         )
+        offset += max(n3, n6)
     return out
 
 
 def main(argv=None):
     p = argparse.ArgumentParser(description="Generate Health MNIST data")
     p.add_argument("--source", type=str, default=None,
-                   help="real digit images (source/<digit>/*.jpg): not ported; "
-                        "the glyph instances are used")
+                   help="Directory of real digit images in the reference "
+                        "layout source/<digit>/*.jpg (Health_MNIST_generate"
+                        ".py:104-115); omitted = procedural glyph instances")
     p.add_argument("--destination", type=str, default="./data")
     p.add_argument("--num_3", type=int, default=50)
     p.add_argument("--num_6", type=int, default=50)
@@ -256,13 +308,9 @@ def main(argv=None):
     p.add_argument("--labels_file_name", type=str, default="health_MNIST_label.csv")
     p.add_argument("--mask_file_name", type=str, default="mask.csv")
     a = p.parse_args(argv)
-    if a.source:
-        raise NotImplementedError(
-            "--source (real digit images) is not ported to lvae_torch: reading "
-            "JPG/PNG files needs an image library; use lvae_tpu's generator"
-        )
     data, _, _, _ = generate_healthmnist(
         a.num_3, a.num_6, a.missing, seed=a.seed, destination=a.destination,
+        source=a.source,
         data_file_name=a.data_file_name,
         data_masked_file_name=a.data_masked_file_name,
         labels_file_name=a.labels_file_name,

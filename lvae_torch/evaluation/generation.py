@@ -4,9 +4,9 @@ lvae_tpu.evaluation.generation).
 ``recon_complete_gen`` decodes GP-predicted latents of the generation
 cohort; ``vae_output`` reconstructs pre-training frames. Each lays its
 frames out in the reference's grid, one column per timepoint covariate, and
-always saves the grid as ``.npz`` beside the PDF's name (``grid [rows, 20,
-H, W]`` with ``filled [rows, 20]``, empty cells 0). The PDF is drawn only
-where matplotlib imports; otherwise one line says it was skipped.
+saves the grid as ``.npz`` (``grid [rows, 20, H, W]`` with ``filled [rows,
+20]``, empty cells 0) and as the PDF beside it (``utils/pdf.py``, no
+plotting library).
 """
 
 from __future__ import annotations
@@ -22,6 +22,7 @@ from lvae_torch.evaluation.encode import decode_on_device, vae_forward
 from lvae_torch.ops.predict import predict_latent_rows
 from lvae_torch.train.graph import finish_host_copy, start_host_copy
 from lvae_torch.utils.device import resolve_device
+from lvae_torch.utils.pdf import write_image_grid_pdf
 
 COLUMNS = 20
 
@@ -78,32 +79,13 @@ def seqrecon_grid(x, recon_x, labels_train, image_hw=(36, 36), num_sets: int = 8
 
 def save_grid(pdf_path: str, grid: np.ndarray, filled: np.ndarray,
               figsize=(12, 20)) -> str:
-    """Write ``grid``/``filled`` to the ``.npz`` beside ``pdf_path``, and the
-    PDF itself where matplotlib imports. Returns the ``.npz`` path."""
+    """Write ``grid``/``filled`` to the ``.npz`` beside ``pdf_path`` and the
+    grid to ``pdf_path`` as a page of ``figsize`` inches. Returns the
+    ``.npz`` path."""
     npz = os.path.splitext(pdf_path)[0] + ".npz"
     os.makedirs(os.path.dirname(os.path.abspath(npz)), exist_ok=True)
     np.savez(npz, grid=grid, filled=filled)
-    try:
-        import matplotlib
-    except ImportError:
-        print(f"matplotlib is not installed: {os.path.basename(pdf_path)} not drawn "
-              f"(grid saved to {npz})")
-        return npz
-    matplotlib.use("Agg")
-    import matplotlib.pyplot as plt
-
-    fig, ax = plt.subplots(grid.shape[0], grid.shape[1], squeeze=False)
-    for r in range(grid.shape[0]):
-        for c in range(grid.shape[1]):
-            a = ax[r, c]
-            a.set_xticks([])
-            a.set_yticks([])
-            a.axis("off")
-            if filled[r, c]:
-                a.imshow(grid[r, c], cmap="gray")
-    fig.set_size_inches(*figsize)
-    plt.savefig(pdf_path, bbox_inches="tight")
-    plt.close("all")
+    write_image_grid_pdf(pdf_path, grid, filled, figsize)
     return npz
 
 
@@ -129,7 +111,7 @@ def recon_complete_gen(
     posterior program hands its latents to the decode program on the
     device; one copy to the host) and save its grid as
     ``recon_complete.npz`` (``recon_complete_best.npz`` for a best-model
-    snapshot, ``epoch != -1``), with the PDF where matplotlib is installed.
+    snapshot, ``epoch != -1``) and as the PDF of that name.
     Returns the ``.npz`` path."""
     if verbose:
         print(f"Generating images - length of dataset:  {len(generation_dataset)}")

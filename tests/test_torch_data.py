@@ -9,10 +9,11 @@ against lvae_tpu's, on the CPU.
   pixel values outside 0..255 (the ``uint8`` wrap) and empty label fields
   (NaN → 0), Rotated MNIST ``.npy`` (integer and float data) and a Physionet
   ``.npz``, each loaded by both packages: equal arrays.
-* No pandas and no matplotlib on the port's path: a fresh interpreter with
-  both blocked generates, loads and saves a generation grid; another, with
-  JAX blocked too, imports every lvae_torch module and runs
-  ``python -m lvae_torch.cli generate``.
+* No pandas, no matplotlib and no PIL on the port's path: a fresh
+  interpreter with all three blocked generates (procedural and from the
+  committed real-image fixtures, ``--source``), loads and saves a
+  generation grid with its PDF; another, with JAX blocked too, imports
+  every lvae_torch module and runs ``python -m lvae_torch.cli generate``.
 """
 
 import os
@@ -141,10 +142,11 @@ def test_full_size_csv_reads_in_seconds(tmp_path):
 
 
 def test_port_data_path_needs_no_pandas_or_matplotlib(tmp_path):
+    source = os.path.join(ROOT, "tests", "fixtures", "torch_source_digits")
     code = f"""
 import sys
-sys.modules["pandas"] = None
-sys.modules["matplotlib"] = None
+for blocked in ("pandas", "matplotlib", "PIL"):
+    sys.modules[blocked] = None
 import numpy as np
 from lvae_torch.data import datasets, healthmnist
 from lvae_torch.evaluation.generation import save_grid
@@ -152,6 +154,11 @@ healthmnist.main(["--destination", {str(tmp_path)!r}, "--num_3", "1", "--num_6",
 ds = datasets.load_healthmnist("health_MNIST_data_masked.csv", "health_MNIST_label.csv",
                                "mask.csv", {str(tmp_path)!r})
 assert ds.data.shape == (40, 36, 36, 1), ds.data.shape
+healthmnist.main(["--destination", {str(tmp_path / "real")!r}, "--num_3", "2", "--num_6", "1",
+                  "--source", {source!r}])
+real = datasets.load_healthmnist("health_MNIST_data_masked.csv", "health_MNIST_label.csv",
+                                 "mask.csv", {str(tmp_path / "real")!r})
+assert real.data.shape == (60, 36, 36, 1), real.data.shape
 path = save_grid({str(tmp_path / "grid.pdf")!r}, np.zeros((3, 20, 36, 36)), np.zeros((3, 20), bool))
 assert "pandas" not in sys.modules or sys.modules["pandas"] is None
 print("OK", path)
@@ -159,22 +166,24 @@ print("OK", path)
     out = subprocess.run([sys.executable, "-c", code], env={**os.environ, "PYTHONPATH": ROOT},
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
-    assert "OK" in out.stdout and "matplotlib is not installed" in out.stdout
-    assert (tmp_path / "grid.npz").exists() and not (tmp_path / "grid.pdf").exists()
+    assert "OK" in out.stdout
+    assert (tmp_path / "grid.npz").exists() and (tmp_path / "grid.pdf").exists()
+    assert (tmp_path / "grid.pdf").read_bytes().startswith(b"%PDF-")
 
 
 def test_every_module_imports_without_pandas_or_matplotlib(tmp_path):
-    """Every lvae_torch module imports with pandas, matplotlib and JAX
+    """Every lvae_torch module imports with pandas, matplotlib, PIL and JAX
     blocked, and ``python -m lvae_torch.cli generate`` runs so."""
     code = f"""
 import importlib, pkgutil, runpy, sys
-for blocked in ("pandas", "matplotlib", "jax", "flax", "optax", "lvae_tpu"):
+for blocked in ("pandas", "matplotlib", "PIL", "jax", "flax", "optax", "lvae_tpu"):
     sys.modules[blocked] = None
 import lvae_torch
 names = [m.name for m in pkgutil.walk_packages(lvae_torch.__path__, "lvae_torch.")]
 for name in names:
     importlib.import_module(name)
-for name in ("cli", "pipeline", "data.datasets", "data.healthmnist", "train.pretrain",
+for name in ("cli", "pipeline", "data.datasets", "data.healthmnist", "data.image_io", "utils.pdf",
+             "train.pretrain",
              "evaluation.validate", "evaluation.testing", "evaluation.generation",
              "utils.checkpoint", "utils.metrics", "utils.debug", "kernels_cuda.block_pair"):
     assert "lvae_torch." + name in names, name
