@@ -200,6 +200,7 @@ from lvae_torch.data.blocks import build_subject_blocks  # noqa: E402
 from lvae_torch.data.datasets import ArrayDataset, read_csv, read_csv_plain  # noqa: E402
 from lvae_torch.data.healthmnist import _load_source_images as load_source_images  # noqa: E402
 from lvae_torch.data.healthmnist import generate_healthmnist  # noqa: E402
+from lvae_torch.data.image_io import imread  # noqa: E402
 from lvae_torch.evaluation import programs as eval_programs  # noqa: E402
 from lvae_torch.evaluation.encode import decode_latents, encode_dataset  # noqa: E402
 from lvae_torch.evaluation.generation import recon_complete_gen  # noqa: E402
@@ -807,6 +808,9 @@ def check_k1_partial_block(world: World, gen: torch.Generator) -> None:
         "beside them the identity")
 
 
+K1_LONG_T = (64, 128)  # the long-T rows of K1's times, at the cohort's L and P
+
+
 def check_k1(world: World) -> dict:
     """K1 against its plain version on the card, forward and gradient;
     returns the kernels-line entry (without the main path's launches)."""
@@ -862,6 +866,18 @@ def check_k1(world: World) -> dict:
         row = timing_row([args[2].shape[0], *args[7].shape[:2]], args, lambda a: k1.b_chain(*a),
                          lambda a: k1.b_chain_reference(*a), None, b_chain_bound(args))
         say("kernel", f"K1 times {json.dumps(row)} | {card_line()}")
+        per_shape.append(row)
+    for t in K1_LONG_T:  # the 32 < T <= 128 plan at the cohort's width, timed
+        args = chain_inputs(gen, world.spec0, world.spec1, world.cfg.latent_dim, world.cfg.P, t)
+        got, want = k1.b_chain(*args), k1.b_chain_reference(*args)
+        errs = (rel_err(got[0], want[0]), rel_err_scalar(got[1], want[1]),
+                rel_err_scalar(got[2], want[2]))
+        if not max(errs) <= 1e-3:
+            raise AssertionError(f"K1 disagrees with its plain version at T={t}: {errs}")
+        row = timing_row([args[2].shape[0], *args[7].shape[:2]], args, lambda a: k1.b_chain(*a),
+                         lambda a: k1.b_chain_reference(*a), None, b_chain_bound(args))
+        say("kernel", f"K1 times {json.dumps(row)} (long T; rel err iB, log|B|, tr "
+            f"{', '.join(f'{e:.3e}' for e in errs)}, tol 1e-3) | {card_line()}")
         per_shape.append(row)
     row = per_shape[0]
     return {
@@ -3996,20 +4012,90 @@ SOURCE_PRETRAIN_EPOCHS = 25  # the pre-training CLI tests and draws recon_VAE_<e
 SOURCE_TIMEOUT = 300  # seconds a generating process may take
 SOURCE_FIGURES = ("recon_complete.pdf", "recon_complete_best.pdf",
                   f"recon_VAE_{SOURCE_PRETRAIN_EPOCHS}.pdf")
-JPEG_SAMPLING = {0x11: "4:4:4", 0x21: "4:2:2", 0x22: "4:2:0", 0x12: "4:4:0"}
+JPEG_SAMPLING = {0x11: "4:4:4", 0x21: "4:2:2", 0x22: "4:2:0", 0x12: "4:4:0", 0x41: "4:1:1"}
+JPEG_CODING = {0xC0: "baseline", 0xC1: "extended", 0xC2: "progressive", 0xC3: "lossless"}
 PNG_COLOUR = {0: "grey", 2: "RGB", 3: "palette", 4: "grey+alpha", 6: "RGBA"}
+FORMS_DIR = os.path.join(ROOT, "tests", "fixtures", "torch_jpeg_forms")  # one file a form
+# the forms' families, by the start of the file's name (the longest first)
+FORM_FAMILIES = ("progressive_dropped", "progressive_dc_only", "progressive_cmyk", "progressive",
+                 "cmyk", "ycck", "dhtless", "lossless", "sampling")
+
+
+def jpeg_segments(data: bytes):
+    """A JPEG's marker segments up to its first scan: ``(marker, body)``."""
+    pos = 2
+    while pos + 4 <= len(data) and data[pos] == 0xFF:
+        marker, length = data[pos + 1], int.from_bytes(data[pos + 2:pos + 4], "big")
+        yield marker, data[pos + 4:pos + 2 + length]
+        if marker == 0xDA:
+            return
+        pos += 2 + length
 
 
 def image_kind(path: str) -> str:
-    """A fixture's format and mode from its header: a JPEG's components and
-    luma sampling (and a restart interval), a PNG's colour type and depth."""
+    """A fixture's format and mode from its header: a JPEG's coding (its
+    SOF marker), colour (components and Adobe transform), sampling, and
+    restart interval, Huffman tables left out and scan count; a PNG's
+    colour type and depth."""
     with open(path, "rb") as f:
         data = f.read()
     if data.startswith(b"\x89PNG"):
         return f"png {PNG_COLOUR[data[25]]} {data[24]}-bit"
-    sof = data.find(b"\xff\xc0")  # the fixtures are baseline JPEGs
-    kind = "jpeg grey" if data[sof + 9] == 1 else f"jpeg YCbCr {JPEG_SAMPLING[data[sof + 11]]}"
-    return kind + (" restarts" if b"\xff\xdd" in data[:data.find(b"\xff\xda")] else "")
+    segs = list(jpeg_segments(data))
+    sof, frame = next((m, b) for m, b in segs if m in JPEG_CODING)
+    n = frame[5]
+    adobe = next((b[11] for m, b in segs if m == 0xEE and b[:5] == b"Adobe"), None)
+    sampling = [frame[7 + 3 * c] for c in range(n)]
+    if n == 1:
+        colour = "grey"
+    elif n == 4:
+        colour = "YCCK" if adobe else "CMYK" + ("" if adobe == 0 else " no APP14")
+    else:
+        colour = "RGB" if adobe == 0 or (sof == 0xC3 and adobe is None) else "YCbCr"
+    kind = f"jpeg {JPEG_CODING[sof]} {colour}"
+    if n > 1:
+        luma = sampling[0]
+        kind += " " + (JPEG_SAMPLING.get(luma, f"{luma >> 4}x{luma & 15}")
+                       if all(x == 0x11 for x in sampling[1:])
+                       else ",".join(f"{x >> 4}x{x & 15}" for x in sampling))
+    if any(m == 0xDD and int.from_bytes(b[:2], "big") for m, b in segs):
+        kind += " restarts"
+    if not any(m == 0xC4 for m, b in segs):
+        kind += " no DHT"
+    if sof == 0xC2:
+        kind += f" {data.count(b'\xff\xda')} scans"
+    return kind
+
+
+def forms_decode() -> dict:
+    """Every file of ``tests/fixtures/torch_jpeg_forms`` through the
+    port's ``imread``, held bit-equal (dtype, shape, every entry) to the
+    committed read of matplotlib (the JAX package's reader); the count and
+    decode seconds by form family and the count by header."""
+    ref = np.load(FORMS_DIR + ".npz")
+    names = sorted(os.listdir(FORMS_DIR))
+    if names != sorted(ref.files):
+        raise AssertionError(f"form files {names} vs the reference's {sorted(ref.files)}")
+    families, kinds, differ = {}, {}, {}
+    for name in names:
+        t0 = time.perf_counter()
+        got = imread(os.path.join(FORMS_DIR, name))
+        seconds = time.perf_counter() - t0
+        want = ref[name]
+        if got.dtype != want.dtype or got.shape != want.shape or not np.array_equal(got, want):
+            differ[name] = (f"{got.dtype}{list(got.shape)} vs {want.dtype}{list(want.shape)}"
+                            if got.shape != want.shape else int((got != want).sum()))
+        family = next(f for f in FORM_FAMILIES if name.startswith(f))
+        n, s = families.get(family, (0, 0.0))
+        families[family] = (n + 1, s + seconds)
+        kind = image_kind(os.path.join(FORMS_DIR, name))
+        kinds[kind] = kinds.get(kind, 0) + 1
+    if differ:
+        raise AssertionError(f"form reads differ from the committed reference: {differ}")
+    return {"files": len(names), "seconds": sum(s for _, s in families.values()),
+            "families": {f: {"files": n, "seconds": s, "ms_a_file": s / n * 1e3}
+                         for f, (n, s) in sorted(families.items())},
+            "kinds": dict(sorted(kinds.items()))}
 
 
 def source_decode() -> dict:
@@ -4097,6 +4183,8 @@ def source_phase(world: World, root: str, device: str = "cuda") -> dict:
     times = {}
     dec = source_decode()
     times["decode"] = dec["seconds"]
+    forms = forms_decode()
+    times["decode_forms"] = forms["seconds"]
     data = os.path.join(root, "data")
     times["generate"] = source_generate(data, world.seed)
     results = os.path.join(root, "results")
@@ -4117,7 +4205,7 @@ def source_phase(world: World, root: str, device: str = "cuda") -> dict:
               for name in SOURCE_FIGURES}
     times["figures"] = time.perf_counter() - t0
     per_epoch = counter.pipeline.trainer.tables[0].index.shape[0] // world.cfg.subjects_per_batch
-    return {"times": times, "decode": dec, "counts": counts, "counter": counter,
+    return {"times": times, "decode": dec, "forms": forms, "counts": counts, "counter": counter,
             "steps_per_epoch": per_epoch, "panels": panels, **out}
 
 
@@ -5125,6 +5213,10 @@ def main() -> int:
     dec = src["decode"]
     say("source", f"{dec['files']} fixture files (tests/fixtures/torch_source_digits) decoded "
         f"bit-equal to the committed JAX read in {dec['seconds']:.3f} s: {json.dumps(dec['kinds'])}")
+    forms = src["forms"]
+    say("source", f"{forms['files']} JPEG form files (tests/fixtures/torch_jpeg_forms) decoded by "
+        f"imread bit-equal to the committed matplotlib read in {forms['seconds']:.3f} s; by "
+        f"family {json.dumps(forms['families'])}; by header {json.dumps(forms['kinds'])}")
     say("source", f"CLI on the real-image cohort ({2 * PIPE_PER_DIGIT} + {2 * PIPE_EVAL_PER_DIGIT} "
         f"+ {2 * PIPE_EVAL_PER_DIGIT} subjects from files 0, {SOURCE_SPLITS[1][2]}, "
         f"{SOURCE_SPLITS[2][2]} of each digit; {SOURCE_PRETRAIN_EPOCHS} pre-training epochs; "

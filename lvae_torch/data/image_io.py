@@ -4,17 +4,30 @@
 same file (matplotlib over Pillow and libjpeg-turbo), with no image library
 on any machine:
 
-* JPEG, baseline (SOF0) or extended sequential Huffman (SOF1), 8-bit, 1 or
-  3 components, any Huffman tables, 8- or 16-bit quantisation tables,
-  restart intervals, sampling 4:4:4, 4:2:2, 4:2:0, 4:4:0 and 4:1:1 (other
-  integral factors are replicated as libjpeg's ``int_upsample`` does, not
-  checked against it): ``uint8`` ``[H, W]`` or ``[H, W, 3]``, the bits of
-  libjpeg's default decode, which takes three integer routines: the "islow"
-  IDCT (``jidctint.c``), the "fancy" triangle upsampling (``jdsample.c``,
-  h2v1, h1v2, h2v2) and the YCbCr→RGB tables (``jdcolor.c``).
-  Progressive, lossless, arithmetic-coded, 12-bit and 2- or 4-component
-  (CMYK, YCCK) files raise ``NotImplementedError`` naming the file and the
-  SOF marker.
+* JPEG, 8-bit, as libjpeg-turbo decodes it by default, which takes its
+  integer routines: the "islow" IDCT (``jidctint.c``), the "fancy" triangle
+  upsampling (``jdsample.c``: h2v1, h1v2, h2v2; other whole factors
+  replicated, as ``int_upsample`` does) and the YCbCr→RGB tables
+  (``jdcolor.c``). The codings: baseline (SOF0), extended sequential
+  (SOF1) and progressive (SOF2) Huffman, the last with libjpeg-turbo's
+  block smoothing (``jdcoefct.c``) where the scans leave coefficient bits
+  unknown; lossless (SOF3, predictors 1–7, a point transform, 16-bit
+  differences, restarts at MCU rows, components upsampled by replication).
+  Any Huffman tables (Annex K's where a scan names one the file never
+  defines, as Motion-JPEG frames do), 8- or 16-bit quantisation tables,
+  restart intervals, any whole sampling factors, one scan or many. 1
+  component: ``uint8 [H, W]``; 3: ``[H, W, 3]``, YCbCr or RGB as libjpeg
+  tells them (JFIF, Adobe transform, component ids; a lossless frame is
+  never converted); 4: ``[H, W, 4]``, CMYK (YCCK where the Adobe transform
+  is not 0) as Pillow reads it, inverted, then converted to RGBA (alpha
+  255) by Pillow's integer ``cmyk2rgb``, as matplotlib asks.
+  Forms the reference's reader refuses raise ``ValueError`` naming the file:
+  a precision other than 8 or 2 components (Pillow refuses them at open),
+  hierarchical frames (SOF5–7, SOF13–15), fractional sampling factors, more
+  than 10 blocks in an MCU, lossless YCbCr or YCCK, a lossless restart
+  interval that is not whole MCU rows. Arithmetic coding (SOF9–11), which
+  the reference reads, is not ported yet: ``NotImplementedError`` naming
+  the file and the SOF marker.
 * PNG, every bit depth and colour type, the five filters and Adam7
   interlacing: ``float32`` in matplotlib's scaling
   (``matplotlib.image._pil_png_to_float_array``): 1-bit grey 0/1; 2- and
@@ -80,6 +93,8 @@ SOF_NAMES = {
     0xCE: "SOF14 (arithmetic differential progressive)",
     0xCF: "SOF15 (arithmetic differential lossless)",
 }
+HIERARCHICAL = (0xC5, 0xC6, 0xC7, 0xCD, 0xCE, 0xCF)
+ARITHMETIC = (0xC9, 0xCA, 0xCB)
 
 # jidctint.c's constants, CONST_BITS = 13, PASS1_BITS = 2
 _F0298, _F0390, _F0541, _F0765 = 2446, 3196, 4433, 6270
@@ -172,8 +187,9 @@ def upsample(x: np.ndarray, fh: int, fv: int) -> np.ndarray:
     return np.repeat(np.repeat(x, fv, axis=0), fh, axis=1)
 
 
-def ycc_to_rgb(y: np.ndarray, cb: np.ndarray, cr: np.ndarray) -> np.ndarray:
-    """jdcolor.c's integer YCbCr → RGB (16-bit fixed-point tables)."""
+def _ycc_to_rgb_unclamped(y: np.ndarray, cb: np.ndarray, cr: np.ndarray) -> np.ndarray:
+    """jdcolor.c's integer YCbCr → RGB (16-bit fixed-point tables), before
+    the range limit: ``int64 [..., 3]``."""
     x = np.arange(256, dtype=np.int64) - 128
 
     def fix(v: float) -> int:
@@ -185,70 +201,262 @@ def ycc_to_rgb(y: np.ndarray, cb: np.ndarray, cr: np.ndarray) -> np.ndarray:
     cr_g = -fix(0.71414) * x
     cb_g = -fix(0.34414) * x + half
     y = y.astype(np.int64)
-    rgb = np.stack([y + cr_r[cr], y + ((cb_g[cb] + cr_g[cr]) >> 16), y + cb_b[cb]], axis=-1)
-    return np.clip(rgb, 0, 255).astype(np.uint8)
+    return np.stack([y + cr_r[cr], y + ((cb_g[cb] + cr_g[cr]) >> 16), y + cb_b[cb]], axis=-1)
 
 
-def _huffman_lut(path: str, counts: bytes, symbols: bytes, dc: bool) -> tuple:
-    """A 65,536-entry table from the next 16 bits to ``length << 8 |
-    symbol`` (0: no code), checked as jdhuff.c checks a table; one build
-    for each distinct table, as files written by one encoder share theirs."""
-    try:
-        return _huffman_table(bytes(counts), bytes(symbols), dc)
-    except ValueError as e:
-        raise ValueError(f"{path}: corrupt JPEG: {e}") from None
+def ycc_to_rgb(y: np.ndarray, cb: np.ndarray, cr: np.ndarray) -> np.ndarray:
+    """jdcolor.c's integer YCbCr → RGB."""
+    return np.clip(_ycc_to_rgb_unclamped(y, cb, cr), 0, 255).astype(np.uint8)
+
+
+def ycck_to_cmyk(y, cb, cr, k) -> list:
+    """jdcolor.c's YCCK → CMYK: the YCbCr → RGB tables on the first three
+    planes, each result inverted and range-limited, K passed through."""
+    rgb = _ycc_to_rgb_unclamped(y, cb, cr)
+    return [np.clip(255 - rgb[..., i], 0, 255) for i in range(3)] + [k]
+
+
+def inverted_cmyk_to_rgba(cmyk: np.ndarray) -> np.ndarray:
+    """libjpeg's CMYK samples ``[..., 4]`` as matplotlib gets them: Pillow
+    reads a 4-component JPEG as inverted CMYK (Adobe's convention, raw mode
+    ``CMYK;I``) and ``pil_to_array`` converts it to RGBA with Pillow's
+    integer ``cmyk2rgb`` (Convert.c): ``uint8 [..., 4]``, alpha 255."""
+    inv = 255 - cmyk.astype(np.int64)
+    nk = 255 - inv[..., 3:]
+    t = inv[..., :3] * nk + 128
+    rgb = np.clip(nk - (((t >> 8) + t) >> 8), 0, 255)
+    return np.concatenate([rgb, np.full_like(nk, 255)], axis=-1).astype(np.uint8)
 
 
 @functools.lru_cache(maxsize=64)
-def _huffman_table(counts: bytes, symbols: bytes, dc: bool) -> tuple:
-    lut = np.zeros(1 << 16, np.int32)
+def _huffman_table(counts: bytes, symbols: bytes, max_dc: int) -> tuple:
+    """A 65,536-entry table from the next 16 bits to ``length << 8 |
+    symbol`` (0: no code), checked as jdhuff.c checks a table (DC symbols
+    at most ``max_dc``, or any symbol where it is 255); one build for each
+    distinct table, as files written by one encoder share theirs."""
+    lut = [0] * (1 << 16)
     code, k = 0, 0
     for length in range(1, 17):
+        span = 1 << (16 - length)
         for _ in range(counts[length - 1]):
-            span = 1 << (16 - length)
-            lut[code * span:(code + 1) * span] = (length << 8) | symbols[k]
+            lut[code * span:(code + 1) * span] = [(length << 8) | symbols[k]] * span
             code, k = code + 1, k + 1
         if code >= 1 << length:
             raise ValueError("a bad Huffman table")
         code <<= 1
-    if dc and any(s > 15 for s in symbols):
+    if any(s > max_dc for s in symbols):
         raise ValueError("a bad DC Huffman table")
-    return tuple(lut.tolist())
+    return tuple(lut)
 
+
+# Annex K.3's tables (16 counts of each code length, then the symbols) by
+# (class, id): libjpeg decodes with them a scan that names a table the file
+# never defines (jstdhuff.c), as Motion-JPEG frames do
+STD_HUFFMAN = {
+    (0, 0): bytes.fromhex("00010501010101010100000000000000000102030405060708090a0b"),
+    (0, 1): bytes.fromhex("00030101010101010101010000000000000102030405060708090a0b"),
+    (1, 0): bytes.fromhex(
+        "0002010303020403050504040000017d01020300041105122131410613516107227114328191a1"
+        "082342b1c11552d1f02433627282090a161718191a25262728292a3435363738393a4344454647"
+        "48494a535455565758595a636465666768696a737475767778797a838485868788898a92939495"
+        "969798999aa2a3a4a5a6a7a8a9aab2b3b4b5b6b7b8b9bac2c3c4c5c6c7c8c9cad2d3d4d5d6d7d8"
+        "d9dae1e2e3e4e5e6e7e8e9eaf1f2f3f4f5f6f7f8f9fa"),
+    (1, 1): bytes.fromhex(
+        "00020102040403040705040400010277000102031104052131061241510761711322328108144291"
+        "a1b1c109233352f0156272d10a162434e125f11718191a262728292a35363738393a434445464748"
+        "494a535455565758595a636465666768696a737475767778797a82838485868788898a9293949596"
+        "9798999aa2a3a4a5a6a7a8a9aab2b3b4b5b6b7b8b9bac2c3c4c5c6c7c8c9cad2d3d4d5d6d7d8d9da"
+        "e2e3e4e5e6e7e8e9eaf2f3f4f5f6f7f8f9fa"),
+}
 
 _ENTROPY_END = re.compile(rb"\xff+(?=[^\x00\xd0-\xd7\xff])")
 _RESTART = re.compile(rb"\xff[\xd0-\xd7]")
+
+
+class _Bits:
+    """The bits of one restart interval's entropy-coded data in the file
+    ``path`` (stuffed zero bytes removed, zeros past its end)."""
+
+    __slots__ = ("path", "buf", "p", "nbits")
+
+    def __init__(self, path: str, piece: bytes):
+        buf = piece.rstrip(b"\xff").replace(b"\xff\x00", b"\xff")
+        self.path, self.nbits = path, len(buf) * 8
+        self.buf, self.p = buf + bytes(8), 0
+
+    def huff(self, lut: tuple) -> int:
+        q, p = self.p >> 3, self.p
+        e = lut[(int.from_bytes(self.buf[q:q + 3], "big") >> (8 - (p & 7))) & 0xFFFF]
+        if not e:
+            raise ValueError(f"{self.path}: corrupt JPEG: a bad Huffman code")
+        self.p = p + (e >> 8)
+        return e & 0xFF
+
+    def get(self, n: int) -> int:
+        q, p = self.p >> 3, self.p
+        self.p = p + n
+        return (int.from_bytes(self.buf[q:q + 4], "big") >> (32 - (p & 7) - n)) & ((1 << n) - 1)
+
+    def extend(self, s: int) -> int:
+        """The ``s``-bit signed value that follows (F.2.2.1's EXTEND)."""
+        v = self.get(s)
+        return v - (1 << s) + 1 if v < 1 << (s - 1) else v
+
+    def check(self) -> None:
+        if self.p > self.nbits:
+            raise ValueError(f"{self.path}: truncated or corrupt JPEG entropy-coded data")
+
+
+def _intervals(path: str, segment: bytes, n_mcus: int, restart: int):
+    """A scan's entropy-coded ``segment`` of ``n_mcus`` MCUs split at its
+    restart markers: ``(first MCU, MCU count, bits)`` for each interval."""
+    pieces = _RESTART.split(segment)
+    per_piece = restart or n_mcus
+    n = _ceil_div(n_mcus, per_piece) if n_mcus else 0
+    if len(pieces) < n or (not restart and len(pieces) > 1):
+        raise ValueError(f"{path}: corrupt JPEG: restart markers do not match the interval")
+    return [(i * per_piece, min(per_piece, n_mcus - i * per_piece), _Bits(path, pieces[i]))
+            for i in range(n)]
 
 
 class _Component:
     def __init__(self, cid: int, h: int, v: int, tq: int):
         self.cid, self.h, self.v, self.tq = cid, h, v, tq
         self.quant = None  # latched at the component's first scan, as libjpeg does
-        self.coefs = None
+        self.coefs = None  # DCT blocks (lists of 64, natural order), row-major
+        self.samples = None  # lossless: sample rows of differences, then of samples
+        self.bits = [-1] * 64  # the lowest known bit of each coefficient (libjpeg's coef_bits)
+        self.restarts = set()  # lossless: the sample rows that start a restart interval
+        self.pt = 0  # lossless: the point transform
 
 
-def _decode_scan(path: str, segment: bytes, blocks_of_mcu, n_mcus: int, restart: int,
-                 tables) -> None:
-    """Huffman-decode ``n_mcus`` MCUs of one scan into the components'
-    coefficient arrays; ``blocks_of_mcu(m)`` lists ``(scan component,
-    block row, block column)`` of MCU ``m``, ``tables`` each scan
-    component's ``(component, DC table, AC table)``."""
-    pieces = _RESTART.split(segment)
-    per_piece = restart or n_mcus
-    if len(pieces) < _ceil_div(n_mcus, per_piece) or (not restart and len(pieces) > 1):
-        raise ValueError(f"{path}: corrupt JPEG: restart markers do not match the interval")
-    m = 0
-    for piece in pieces:
-        if m >= n_mcus:
-            break
-        buf = piece.rstrip(b"\xff").replace(b"\xff\x00", b"\xff")
-        nbits = len(buf) * 8
-        buf += bytes(8)
-        p = 0
-        pred = [0] * len(tables)
-        for _ in range(min(per_piece, n_mcus - m)):
-            for sc, by, bx in blocks_of_mcu(m):
-                comp, dc_lut, ac_lut = tables[sc]
+class _Frame:
+    """The frame header (SOF) and each component's geometry: its size in
+    samples (``sw``, ``sh``) and in blocks (``bw``, ``bh``), and the
+    MCU-padded grid its blocks or samples are stored in (``rows``, ``cols``)."""
+
+    def __init__(self, path: str, marker: int, seg: bytes):
+        name = SOF_NAMES[marker]
+        precision, height, width, n = struct.unpack_from(">BHHB", seg)
+        # Pillow's JPEG plugin refuses these at open, libjpeg the hierarchical
+        # frames: matplotlib's imread cannot read such a file either
+        if precision != 8:
+            raise ValueError(f"{path}: a {name} JPEG of {precision}-bit samples, which the "
+                             "reference's reader refuses (Pillow reads 8-bit JPEGs only)")
+        if n not in (1, 3, 4):
+            raise ValueError(f"{path}: a {name} JPEG of {n} components, which the reference's "
+                             "reader refuses (Pillow reads 1, 3 or 4)")
+        if marker in HIERARCHICAL:
+            raise ValueError(f"{path}: a {name} JPEG, which the reference's reader refuses "
+                             "(libjpeg decodes no hierarchical frame)")
+        if marker in ARITHMETIC:
+            raise NotImplementedError(f"{path}: a {name} JPEG is not read yet (arithmetic "
+                                      "coding is not ported)")
+        if height == 0 or width == 0 or len(seg) < 6 + 3 * n:
+            raise ValueError(f"{path}: corrupt JPEG: a bad frame header")
+        self.width, self.height = width, height
+        self.progressive, self.lossless = marker == 0xC2, marker == 0xC3
+        self.comps = []
+        for c in range(n):
+            cid, hv, tq = seg[6 + 3 * c:9 + 3 * c]
+            if not (1 <= hv >> 4 <= 4 and 1 <= hv & 15 <= 4) or tq > 3:
+                raise ValueError(f"{path}: corrupt JPEG: bad sampling factors")
+            self.comps.append(_Component(cid, hv >> 4, hv & 15, tq))
+        self.hmax, self.vmax = max(c.h for c in self.comps), max(c.v for c in self.comps)
+        unit = 1 if self.lossless else 8  # the samples a block spans, each way
+        self.mcux = _ceil_div(width, unit * self.hmax)
+        self.mcuy = _ceil_div(height, unit * self.vmax)  # libjpeg's total_iMCU_rows
+        for c in self.comps:
+            c.sw = _ceil_div(width * c.h, self.hmax)
+            c.sh = _ceil_div(height * c.v, self.vmax)
+            c.bw, c.bh = _ceil_div(c.sw, unit), _ceil_div(c.sh, unit)
+            c.rows, c.cols = self.mcuy * c.v, self.mcux * c.h
+            if self.lossless:
+                c.samples = [[0] * c.cols for _ in range(c.rows)]
+            else:
+                c.coefs = [[0] * 64 for _ in range(c.rows * c.cols)]
+
+
+class _Scan:
+    """A scan header (SOS): its components with their Huffman tables, the
+    spectral selection ``ss..se`` (a lossless scan's predictor in ``ss``)
+    and the successive approximation bits ``ah``, ``al``."""
+
+    def __init__(self, path: str, seg: bytes, frame: _Frame, quant: dict, huff: dict):
+        ns = seg[0]
+        if not 1 <= ns <= len(frame.comps) or len(seg) < 4 + 2 * ns:
+            raise ValueError(f"{path}: corrupt JPEG: a bad scan header")
+        self.ss, self.se = seg[1 + 2 * ns], seg[2 + 2 * ns]
+        self.ah, self.al = seg[3 + 2 * ns] >> 4, seg[3 + 2 * ns] & 15
+        if frame.lossless:
+            if not 1 <= self.ss <= 7 or self.se or self.ah or self.al >= 8:
+                raise ValueError(f"{path}: corrupt JPEG: a bad lossless scan header")
+        elif frame.progressive and (
+                (self.se if self.ss == 0 else self.ss > self.se or self.se > 63 or ns != 1)
+                or (self.ah and self.al != self.ah - 1) or self.al > 13):
+            raise ValueError(f"{path}: corrupt JPEG: a bad progressive scan header")
+        refine_dc = frame.progressive and self.ss == 0 and self.ah
+        self.comps, self.dc, self.ac = [], [], []
+        for s in range(ns):
+            cid, tdta = seg[1 + 2 * s:3 + 2 * s]
+            comp = next((c for c in frame.comps if c.cid == cid), None)
+            if comp is None:
+                raise ValueError(f"{path}: corrupt JPEG: a scan of an unknown component")
+            if comp.quant is None and not frame.lossless:
+                if comp.tq not in quant:
+                    raise ValueError(f"{path}: corrupt JPEG: a quantisation table is not defined")
+                comp.quant = quant[comp.tq]
+            self.comps.append(comp)
+            # the tables the scan decodes with, as jdhuff.c and jdphuff.c build them
+            need_dc = not frame.progressive or (self.ss == 0 and not refine_dc)
+            need_ac = not frame.lossless and (not frame.progressive or self.ss > 0)
+            self.dc.append(_table(path, huff, 0, tdta >> 4, frame.lossless) if need_dc else None)
+            self.ac.append(_table(path, huff, 1, tdta & 15, False) if need_ac else None)
+
+    def units(self, frame: _Frame):
+        """Each MCU's blocks (samples, in a lossless scan) as ``(scan
+        component, row, column)``: the MCU grid's where the scan is
+        interleaved, else the component's own grid, one an MCU."""
+        if len(self.comps) == 1:
+            c = self.comps[0]
+            w = c.sw if frame.lossless else c.bw
+            h = c.sh if frame.lossless else c.bh
+            return [((0, y, x),) for y in range(h) for x in range(w)], w
+        layout = [(s, dy, dx) for s, c in enumerate(self.comps)
+                  for dy in range(c.v) for dx in range(c.h)]
+        if len(layout) > 10:  # D_MAX_BLOCKS_IN_MCU
+            raise ValueError("corrupt JPEG: too many blocks in an MCU")
+        return [[(s, my * self.comps[s].v + dy, mx * self.comps[s].h + dx)
+                 for s, dy, dx in layout]
+                for my in range(frame.mcuy) for mx in range(frame.mcux)], frame.mcux
+
+
+def _table(path: str, huff: dict, tc: int, th: int, lossless: bool) -> tuple:
+    """The Huffman table ``(tc, th)`` built for a scan: the file's, else
+    Annex K.3's for ids 0 and 1, as libjpeg takes them."""
+    raw = huff.get((tc, th))
+    if raw is None:
+        raw = STD_HUFFMAN.get((tc, th))
+        if raw is None:
+            raise ValueError(f"{path}: corrupt JPEG: Huffman table {th} is not defined")
+    counts, symbols = raw[:16], raw[16:16 + sum(raw[:16])]
+    max_dc = 255 if tc else (16 if lossless else 15)
+    try:
+        return _huffman_table(bytes(counts), bytes(symbols), max_dc)
+    except ValueError as e:
+        raise ValueError(f"{path}: corrupt JPEG: {e}") from None
+
+
+def _decode_sequential(path: str, bits_of, units, scan: _Scan) -> None:
+    """Huffman-decode the MCUs of one sequential scan (F.2.2) into its
+    components' blocks."""
+    cols = [c.cols for c in scan.comps]
+    for first, count, bits in bits_of:
+        buf, p = bits.buf, 0
+        pred = [0] * len(scan.comps)
+        for m in range(first, first + count):
+            for sc, by, bx in units[m]:
+                dc_lut, ac_lut = scan.dc[sc], scan.ac[sc]
                 blk = [0] * 64
                 q = p >> 3
                 e = dc_lut[(int.from_bytes(buf[q:q + 3], "big") >> (8 - (p & 7))) & 0xFFFF]
@@ -288,10 +496,135 @@ def _decode_scan(path: str, segment: bytes, blocks_of_mcu, n_mcus: int, restart:
                         k += 16
                     else:
                         break
-                comp.coefs[by, bx] = blk
-            m += 1
-        if p > nbits:
-            raise ValueError(f"{path}: truncated or corrupt JPEG entropy-coded data")
+                scan.comps[sc].coefs[by * cols[sc] + bx] = blk
+        bits.p = p
+        bits.check()
+
+
+def _decode_progressive(path: str, bits_of, units, scan: _Scan) -> None:
+    """One progressive scan (G.1.2) over its components' blocks: DC first
+    (point transform ``al``), DC refinement, AC first over ``ss..se`` with
+    end-of-band runs, or AC refinement with correction bits (jdphuff.c)."""
+    ss, se, ah, al = scan.ss, scan.se, scan.ah, scan.al
+    p1, m1 = 1 << al, -1 << al
+    cols = [c.cols for c in scan.comps]
+    for first, count, bits in bits_of:
+        pred = [0] * len(scan.comps)  # a restart resets the predictions and the band run
+        eobrun = 0
+        for m in range(first, first + count):
+            for sc, by, bx in units[m]:
+                blk = scan.comps[sc].coefs[by * cols[sc] + bx]
+                if ss == 0:
+                    if ah == 0:
+                        s = bits.huff(scan.dc[sc])
+                        if s:
+                            pred[sc] += bits.extend(s)
+                        blk[0] = pred[sc] << al
+                    elif bits.get(1):
+                        blk[0] |= p1
+                    continue
+                if eobrun and not ah:
+                    eobrun -= 1
+                    continue
+                lut, k = scan.ac[sc], ss
+                if not ah:  # AC first
+                    while k <= se:
+                        rs = bits.huff(lut)
+                        r, s = rs >> 4, rs & 15
+                        if s:
+                            k += r
+                            if k > 63:
+                                raise ValueError(f"{path}: corrupt JPEG: a run past the band's end")
+                            blk[_NATURAL[k]] = bits.extend(s) << al
+                        elif r == 15:
+                            k += 15
+                        else:
+                            eobrun = (1 << r) + (bits.get(r) if r else 0) - 1
+                            break
+                        k += 1
+                    continue
+                if not eobrun:  # AC refinement: the band up to its end of band
+                    while k <= se:
+                        rs = bits.huff(lut)
+                        r, s = rs >> 4, rs & 15
+                        if s:  # a newly nonzero coefficient of size 1, its sign next
+                            s = p1 if bits.get(1) else m1
+                        elif r != 15:
+                            eobrun = (1 << r) + (bits.get(r) if r else 0)
+                            break
+                        # pass the nonzero coefficients (a correction bit each) and r zeros
+                        while k <= se:
+                            pos = _NATURAL[k]
+                            if blk[pos]:
+                                if bits.get(1) and not blk[pos] & p1:
+                                    blk[pos] += p1 if blk[pos] >= 0 else m1
+                            else:
+                                r -= 1
+                                if r < 0:
+                                    break
+                            k += 1
+                        if s:
+                            blk[_NATURAL[min(k, 63)]] = s
+                        k += 1
+                if eobrun:  # in a band run: a correction bit for each nonzero coefficient
+                    while k <= se:
+                        pos = _NATURAL[k]
+                        if blk[pos] and bits.get(1) and not blk[pos] & p1:
+                            blk[pos] += p1 if blk[pos] >= 0 else m1
+                        k += 1
+                    eobrun -= 1
+        bits.check()
+
+
+def _decode_lossless(path: str, bits_of, units, scan: _Scan) -> None:
+    """Huffman-decode one lossless scan's differences (H.2.2; SSSS = 16
+    means 32768 and no further bits) into its components' sample grids."""
+    for first, count, bits in bits_of:
+        for m in range(first, first + count):
+            for sc, y, x in units[m]:
+                s = bits.huff(scan.dc[sc])
+                scan.comps[sc].samples[y][x] = 32768 if s == 16 else (bits.extend(s) if s else 0)
+        bits.check()
+
+
+def _undifference(comp: _Component, predictor: int, pt: int) -> None:
+    """Turn a lossless component's differences into samples as libjpeg's
+    jdpred.c does, modulo 2**16: the first row of the scan and of each
+    restart interval predicted from the left (its first sample from
+    2**(7 - pt)), every other row's first sample from above, the rest by
+    the scan's predictor (H.1.2.1)."""
+    rows, prev = comp.samples, None
+    for y in range(comp.sh):
+        row = rows[y]
+        if prev is None or y in comp.restarts:
+            ra = (row[0] + (1 << (7 - pt))) & 0xFFFF
+            row[0] = ra
+            for x in range(1, comp.sw):
+                ra = (row[x] + ra) & 0xFFFF
+                row[x] = ra
+        else:
+            rb = prev[0]
+            ra = (row[0] + rb) & 0xFFFF
+            row[0] = ra
+            for x in range(1, comp.sw):
+                rc, rb = rb, prev[x]
+                if predictor == 1:
+                    px = ra
+                elif predictor == 2:
+                    px = rb
+                elif predictor == 3:
+                    px = rc
+                elif predictor == 4:
+                    px = ra + rb - rc
+                elif predictor == 5:
+                    px = ra + ((rb - rc) >> 1)
+                elif predictor == 6:
+                    px = rb + ((ra - rc) >> 1)
+                else:
+                    px = (ra + rb) >> 1
+                ra = (row[x] + px) & 0xFFFF
+                row[x] = ra
+        prev = row
 
 
 def _next_marker(data: bytes, pos: int):
@@ -311,16 +644,18 @@ def _next_marker(data: bytes, pos: int):
 
 
 def read_jpeg(path: str, data: bytes) -> np.ndarray:
-    """Decode a sequential Huffman JPEG as libjpeg-turbo does by default."""
+    """Decode a JPEG as libjpeg-turbo does by default and Pillow and
+    matplotlib hand it on: the marker walk, then each scan into the
+    frame's blocks or samples, then the output stage."""
     quant, huff = {}, {}
-    comps, width, height = None, 0, 0
+    frame = None
     restart, jfif, adobe = 0, False, None
     scanned = set()
     pos = 2
     while True:
         marker, pos = _next_marker(data, pos)
         if marker is None:
-            if comps is None or len(scanned) < len(comps):
+            if frame is None or len(scanned) < len(frame.comps):
                 raise ValueError(f"{path}: truncated JPEG")
             break
         if marker == 0xD9:  # EOI
@@ -346,44 +681,19 @@ def read_jpeg(path: str, data: bytes) -> np.ndarray:
                     table[ZIGZAG] = np.frombuffer(seg, ">u2" if pq else np.uint8, 64, i + 1)
                     quant[tq] = table
                     i += 1 + size
-            elif marker == 0xC4:  # DHT
+            elif marker == 0xC4:  # DHT, built when a scan names it
                 i = 0
                 while i < len(seg):
                     tc, th = seg[i] >> 4, seg[i] & 15
-                    counts = seg[i + 1:i + 17]
-                    total = sum(counts)
-                    symbols = seg[i + 17:i + 17 + total]
-                    if tc > 1 or th > 3 or len(counts) < 16 or len(symbols) < total:
+                    total = sum(seg[i + 1:i + 17])
+                    if tc > 1 or th > 3 or len(seg) < i + 17 + total:
                         raise ValueError(f"{path}: corrupt JPEG: a bad Huffman table")
-                    huff[tc, th] = _huffman_lut(path, counts, symbols, tc == 0)
+                    huff[tc, th] = seg[i + 1:i + 17 + total]
                     i += 17 + total
             elif marker in SOF_NAMES:
-                name = SOF_NAMES[marker]
-                if marker not in (0xC0, 0xC1):
-                    raise NotImplementedError(
-                        f"{path}: a {name} JPEG is not read (only baseline SOF0 and extended "
-                        "sequential Huffman SOF1)")
-                if comps is not None:
+                if frame is not None:
                     raise ValueError(f"{path}: corrupt JPEG: a second frame header")
-                precision, height, width, n = struct.unpack_from(">BHHB", seg)
-                if precision != 8:
-                    raise NotImplementedError(f"{path}: a {name} JPEG of {precision}-bit "
-                                              "samples is not read (8-bit only)")
-                if n not in (1, 3):
-                    raise NotImplementedError(f"{path}: a {name} JPEG of {n} components is not "
-                                              "read (1: grey, 3: YCbCr or RGB)")
-                if height == 0 or width == 0 or len(seg) < 6 + 3 * n:
-                    raise ValueError(f"{path}: corrupt JPEG: a bad frame header")
-                comps = []
-                for c in range(n):
-                    cid, hv, tq = seg[6 + 3 * c:9 + 3 * c]
-                    if not (1 <= hv >> 4 <= 4 and 1 <= hv & 15 <= 4) or tq > 3:
-                        raise ValueError(f"{path}: corrupt JPEG: bad sampling factors")
-                    comps.append(_Component(cid, hv >> 4, hv & 15, tq))
-                hmax, vmax = max(c.h for c in comps), max(c.v for c in comps)
-                mcux, mcuy = _ceil_div(width, 8 * hmax), _ceil_div(height, 8 * vmax)
-                for c in comps:
-                    c.coefs = np.zeros((mcuy * c.v, mcux * c.h, 64), np.int64)
+                frame = _Frame(path, marker, seg)
             elif marker == 0xDD:  # DRI
                 restart = struct.unpack_from(">H", seg)[0]
             elif marker == 0xE0 and seg[:5] == b"JFIF\0" and len(seg) >= 14:
@@ -391,77 +701,199 @@ def read_jpeg(path: str, data: bytes) -> np.ndarray:
             elif marker == 0xEE and seg[:5] == b"Adobe" and len(seg) >= 12:
                 adobe = seg[11]
             elif marker == 0xDA:  # SOS
-                if comps is None:
+                if frame is None:
                     raise ValueError(f"{path}: corrupt JPEG: a scan before the frame header")
-                ns = seg[0]
-                if not 1 <= ns <= len(comps) or len(seg) < 4 + 2 * ns:
-                    raise ValueError(f"{path}: corrupt JPEG: a bad scan header")
-                tables = []
-                for s in range(ns):
-                    cid, tdta = seg[1 + 2 * s:3 + 2 * s]
-                    comp = next((c for c in comps if c.cid == cid), None)
-                    if comp is None:
-                        raise ValueError(f"{path}: corrupt JPEG: a scan of an unknown component")
-                    if (0, tdta >> 4) not in huff or (1, tdta & 15) not in huff:
-                        raise NotImplementedError(
-                            f"{path}: a scan whose Huffman table is not defined in the file "
-                            "(Motion-JPEG frames) is not read")
-                    if comp.quant is None:
-                        if comp.tq not in quant:
-                            raise ValueError(f"{path}: corrupt JPEG: a quantisation table is "
-                                             "not defined")
-                        comp.quant = quant[comp.tq]
-                    tables.append((comp, huff[0, tdta >> 4], huff[1, tdta & 15]))
-                    scanned.add(cid)
+                scan = _Scan(path, seg, frame, quant, huff)
+                scanned.update(c.cid for c in scan.comps)
                 end = _ENTROPY_END.search(data, pos)
                 end = end.start() if end else len(data)
-                if ns == 1:  # non-interleaved: the component's own blocks, one an MCU
-                    comp = tables[0][0]
-                    bw = _ceil_div(_ceil_div(width * comp.h, hmax), 8)
-                    bh = _ceil_div(_ceil_div(height * comp.v, vmax), 8)
-
-                    def blocks_of_mcu(m, bw=bw):
-                        return ((0, m // bw, m % bw),)
-
-                    n_mcus = bw * bh
+                try:
+                    units, per_row = scan.units(frame)
+                except ValueError as e:
+                    raise ValueError(f"{path}: {e}") from None
+                if frame.lossless and restart % per_row:  # jddiffct.c restarts at MCU rows
+                    raise ValueError(f"{path}: a lossless JPEG whose restart interval ({restart} "
+                                     f"MCUs) is not a whole number of MCU rows ({per_row}), "
+                                     "which the reference's reader refuses")
+                bits_of = _intervals(path, data[pos:end], len(units), restart)
+                if frame.lossless:
+                    for c in scan.comps:
+                        step = restart // per_row * (c.v if len(scan.comps) > 1 else 1)
+                        c.restarts = set(range(step, c.sh, step)) if step else set()
+                    _decode_lossless(path, bits_of, units, scan)
+                    for c in scan.comps:
+                        _undifference(c, scan.ss, scan.al)
+                        c.pt = scan.al
+                elif frame.progressive:
+                    for c in scan.comps:
+                        c.bits[scan.ss:scan.se + 1] = [scan.al] * (scan.se + 1 - scan.ss)
+                    _decode_progressive(path, bits_of, units, scan)
                 else:
-                    layout = [(s, dy, dx) for s, (c, _, _) in enumerate(tables)
-                              for dy in range(c.v) for dx in range(c.h)]
-
-                    def blocks_of_mcu(m, layout=layout):
-                        my, mx = divmod(m, mcux)
-                        return [(s, my * tables[s][0].v + dy, mx * tables[s][0].h + dx)
-                                for s, dy, dx in layout]
-
-                    n_mcus = mcux * mcuy
-                _decode_scan(path, data[pos:end], blocks_of_mcu, n_mcus, restart, tables)
+                    _decode_sequential(path, bits_of, units, scan)
                 pos = end
         except (struct.error, IndexError) as e:
             raise ValueError(f"{path}: corrupt JPEG ({e})") from None
+    return _output(path, frame, jfif, adobe)
 
+
+def _output(path: str, frame: _Frame, jfif: bool, adobe) -> np.ndarray:
+    """The decoded frame as matplotlib's imread returns it: each component
+    through the IDCT (block smoothing first, where libjpeg smooths) or, in a
+    lossless frame, scaled by its point transform; upsampled; and brought to
+    grey, RGB or RGBA."""
+    comps = frame.comps
+    smooth = _smoothing_ok(frame)
     planes = []
     for c in comps:
+        if frame.hmax % c.h or frame.vmax % c.v:
+            raise ValueError(f"{path}: a JPEG of fractional sampling factors, which the "
+                             "reference's reader refuses (libjpeg upsamples by whole factors)")
+        if frame.lossless:
+            plane = np.array(c.samples, np.int64)[:c.sh, :c.sw]
+            x = (plane << c.pt) & 255
+            # libjpeg's upsampling is fancy only for DCT blocks wider than one sample
+            planes.append(np.repeat(np.repeat(x, frame.vmax // c.v, axis=0),
+                                    frame.hmax // c.h, axis=1)[:frame.height, :frame.width])
+            continue
+        coefs = _smoothed(frame, c) if smooth else c.coefs
         quantised = c.quant if c.quant is not None else np.zeros(64, np.int64)
-        blocks = idct_islow(c.coefs.reshape(-1, 64) * quantised)
-        bh, bw = c.coefs.shape[:2]
-        plane = blocks.reshape(bh, bw, 8, 8).transpose(0, 2, 1, 3).reshape(bh * 8, bw * 8)
-        ds_w, ds_h = _ceil_div(width * c.h, hmax), _ceil_div(height * c.v, vmax)
-        if hmax % c.h or vmax % c.v:
-            raise NotImplementedError(f"{path}: fractional subsampling is not read")
-        x = plane[:ds_h, :ds_w].astype(np.int64)
-        planes.append(upsample(x, hmax // c.h, vmax // c.v)[:height, :width])
+        blocks = idct_islow(np.array(coefs, np.int64).reshape(-1, 64) * quantised)
+        plane = blocks.reshape(c.rows, c.cols, 8, 8).transpose(0, 2, 1, 3)
+        x = plane.reshape(c.rows * 8, c.cols * 8)[:c.sh, :c.sw].astype(np.int64)
+        planes.append(upsample(x, frame.hmax // c.h, frame.vmax // c.v)
+                      [:frame.height, :frame.width])
     if len(comps) == 1:
         return planes[0].astype(np.uint8)
+    if len(comps) == 4:  # jdapimin.c: Adobe transform 0 or no Adobe marker CMYK, else YCCK
+        if adobe:
+            if frame.lossless:
+                raise ValueError(f"{path}: a lossless YCCK JPEG, which the reference's reader "
+                                 "refuses (libjpeg converts no colours in lossless mode)")
+            planes = ycck_to_cmyk(*planes)
+        return inverted_cmyk_to_rgba(np.stack(planes, axis=-1))
     ids = tuple(c.cid for c in comps)
     if jfif:
         is_rgb = False
     elif adobe is not None:
         is_rgb = adobe == 0
+    elif ids == (1, 2, 3):  # jdapimin.c: JFIF's ids, but RGB in a lossless frame
+        is_rgb = frame.lossless
     else:
         is_rgb = ids == (82, 71, 66)  # 'R', 'G', 'B'
     if is_rgb:
         return np.stack(planes, axis=-1).astype(np.uint8)
+    if frame.lossless:
+        raise ValueError(f"{path}: a lossless YCbCr JPEG, which the reference's reader refuses "
+                         "(libjpeg converts no colours in lossless mode)")
     return ycc_to_rgb(*planes)
+
+
+# ------------------------------------------------------ block smoothing
+def _smoothing_ok(frame: _Frame) -> bool:
+    """jdcoefct.c's ``smoothing_ok`` once the whole file is read: a
+    progressive frame whose components all have their quantisation tables
+    (the first ten entries nonzero) and some DC bits, and some of whose
+    first nine AC coefficients' low bits the scans left unknown."""
+    if not frame.progressive:
+        return False
+    useful = False
+    for c in frame.comps:
+        if c.quant is None or not all(c.quant[:10]) or c.bits[0] < 0:
+            return False
+        useful = useful or any(c.bits[1:10])
+    return useful
+
+
+def _estimate(num: int, q: int, al: int) -> int:
+    """A coefficient's estimate from ``num`` = Q00 · (a sum of DC values):
+    rounded, divided by the coefficient's quantiser ``q``, capped below
+    2**al where ``al`` bits are unknown."""
+    pred = ((q << 7) + abs(num)) // (q << 8)
+    if al > 0 and pred >= 1 << al:
+        pred = (1 << al) - 1
+    return pred if num >= 0 else -pred
+
+
+def _smoothed(frame: _Frame, c: _Component) -> list:
+    """The component's blocks after libjpeg-turbo's block smoothing
+    (jdcoefct.c, ``decompress_smooth_data``): each of the first nine AC
+    coefficients (zigzag 1..9) that is still zero and not known to be
+    exact is estimated from the DC values of the 5×5 blocks around it, and
+    where no AC coefficient was coded at all (``change_dc``) the DC too.
+    The window's columns stop at the row's ends; its rows follow libjpeg's
+    own choice, which counts the last iMCU row's block rows (``ib``) from a
+    shorter stride where a component's block rows do not fill it."""
+    bits, q = c.bits, [int(v) for v in c.quant]
+    change_dc = all(b == -1 for b in bits[1:10])
+    q00, q01, q10, q20, q11, q02 = q[0], q[1], q[8], q[16], q[9], q[2]
+    q03, q12, q21, q30 = q[3], q[10], q[17], q[24]
+    coefs, cols = c.coefs, c.cols
+    out = [blk[:] for blk in coefs]
+    total = frame.mcuy
+    for row in range(total):
+        block_rows = c.v if row < total - 1 else (c.bh % c.v or c.v)
+        image_rows = block_rows * total
+        for br in range(block_rows):
+            ib = row * block_rows + br  # libjpeg's image_block_row
+            a = row * c.v + br
+            prev = a - 1 if ib > 0 else a
+            nxt = a + 1 if ib < image_rows - 1 else a
+            lines = (a - 2 if ib > 1 else prev, prev, a, nxt, a + 2 if ib < image_rows - 2 else nxt)
+            last = c.bw - 1
+            for b in range(c.bw):
+                window = [min(max(b + j, 0), last) for j in range(-2, 3)]
+                dcs = [[coefs[r * cols + x][0] for x in window] for r in lines]
+                (d01, d02, d03, d04, d05), (d06, d07, d08, d09, d10), \
+                    (d11, d12, d13, d14, d15), (d16, d17, d18, d19, d20), \
+                    (d21, d22, d23, d24, d25) = dcs
+                ws = out[a * cols + b]
+                if bits[1] and not ws[1]:  # AC01
+                    ws[1] = _estimate(q00 * (
+                        -d01 - d02 + d04 + d05 - 3 * d06 + 13 * d07 - 13 * d09 + 3 * d10
+                        - 3 * d11 + 38 * d12 - 38 * d14 + 3 * d15 - 3 * d16 + 13 * d17
+                        - 13 * d19 + 3 * d20 - d21 - d22 + d24 + d25 if change_dc else
+                        -7 * d11 + 50 * d12 - 50 * d14 + 7 * d15), q01, bits[1])
+                if bits[2] and not ws[8]:  # AC10
+                    ws[8] = _estimate(q00 * (
+                        -d01 - 3 * d02 - 3 * d03 - 3 * d04 - d05 - d06 + 13 * d07 + 38 * d08
+                        + 13 * d09 - d10 + d16 - 13 * d17 - 38 * d18 - 13 * d19 + d20 + d21
+                        + 3 * d22 + 3 * d23 + 3 * d24 + d25 if change_dc else
+                        -7 * d03 + 50 * d08 - 50 * d18 + 7 * d23), q10, bits[2])
+                if bits[3] and not ws[16]:  # AC20
+                    ws[16] = _estimate(q00 * (
+                        d03 + 2 * d07 + 7 * d08 + 2 * d09 - 5 * d12 - 14 * d13 - 5 * d14
+                        + 2 * d17 + 7 * d18 + 2 * d19 + d23 if change_dc else
+                        -d03 + 13 * d08 - 24 * d13 + 13 * d18 - d23), q20, bits[3])
+                if bits[4] and not ws[9]:  # AC11
+                    ws[9] = _estimate(q00 * (
+                        -d01 + d05 + 9 * d07 - 9 * d09 - 9 * d17 + 9 * d19 + d21 - d25
+                        if change_dc else
+                        d10 + d16 - 10 * d17 + 10 * d19 - d02 - d20 + d22 - d24 + d04 - d06
+                        + 10 * d07 - 10 * d09), q11, bits[4])
+                if bits[5] and not ws[2]:  # AC02
+                    ws[2] = _estimate(q00 * (
+                        2 * d07 - 5 * d08 + 2 * d09 + d11 + 7 * d12 - 14 * d13 + 7 * d14
+                        + d15 + 2 * d17 - 5 * d18 + 2 * d19 if change_dc else
+                        -d11 + 13 * d12 - 24 * d13 + 13 * d14 - d15), q02, bits[5])
+                if change_dc:
+                    if bits[6] and not ws[3]:  # AC03
+                        ws[3] = _estimate(q00 * (d07 - d09 + 2 * d12 - 2 * d14 + d17 - d19),
+                                          q03, bits[6])
+                    if bits[7] and not ws[10]:  # AC12
+                        ws[10] = _estimate(q00 * (d07 - 3 * d08 + d09 - d17 + 3 * d18 - d19),
+                                           q12, bits[7])
+                    if bits[8] and not ws[17]:  # AC21
+                        ws[17] = _estimate(q00 * (d07 - d09 - 3 * d12 + 3 * d14 + d17 - d19),
+                                           q21, bits[8])
+                    if bits[9] and not ws[24]:  # AC30
+                        ws[24] = _estimate(q00 * (d07 + 2 * d08 + d09 - d17 - 2 * d18 - d19),
+                                           q30, bits[9])
+                    ws[0] = _estimate(q00 * (
+                        -2 * d01 - 6 * d02 - 8 * d03 - 6 * d04 - 2 * d05 - 6 * d06 + 6 * d07
+                        + 42 * d08 + 6 * d09 - 6 * d10 - 8 * d11 + 42 * d12 + 152 * d13
+                        + 42 * d14 - 8 * d15 - 6 * d16 + 6 * d17 + 42 * d18 + 6 * d19
+                        - 6 * d20 - 2 * d21 - 6 * d22 - 8 * d23 - 6 * d24 - 2 * d25), q00, 0)
+    return out
 
 
 # ----------------------------------------------------------------- PNG

@@ -51,7 +51,7 @@ from lvae_torch.ops import kernels as kx
 from lvae_torch.ops.shard import LOCAL, Local
 from lvae_torch.train import state as st
 from lvae_torch.train.graph import (
-    StepGraphs, epochs_per_slab, finish_host_copy, run_chunks, start_host_copy,
+    StepGraphs, epochs_per_slab, finish_host_copy, route_key, run_chunks, start_host_copy,
 )
 from lvae_torch.utils.device import resolve_device
 
@@ -406,7 +406,7 @@ class HensmanTrainer:
         batch of its shape and route switches, which runs as the warm-up),
         on the CPU and on a mesh view the eager one."""
         table = self.tables[b]
-        self._graphs.run((b, kx.use_b_chain_kernel, kx.use_block_pair_kernel),
+        self._graphs.run((b, *route_key()),
                          lambda r, e: self._step(table, r, e), (rows, eps), out,
                          eager=self.device.type != "cuda" or self.view is not LOCAL)
         self._advance()

@@ -30,7 +30,7 @@ from torch import nn
 
 from lvae_torch.models import vae as mv
 from lvae_torch.train.graph import (
-    StepGraphs, finish_host_copy, run_chunks, run_staged, start_host_copy,
+    StepGraphs, finish_host_copy, route_key, run_chunks, run_staged, start_host_copy,
 )
 from lvae_torch.train.state import make_optimizer
 from lvae_torch.utils.device import resolve_device
@@ -161,8 +161,9 @@ class VAEPretrainer:
         return metrics
 
     def _run_step(self, rows: torch.Tensor, eps: torch.Tensor, out: torch.Tensor) -> None:
-        # captured at the first batch, which runs as the warm-up
-        self._graphs.run(None, self._step, (rows, eps), out, eager=self.device.type != "cuda")
+        # captured at the first batch of a shape and of the switches, which runs as the warm-up
+        self._graphs.run((tuple(rows.shape), *route_key()), self._step, (rows, eps), out,
+                         eager=self.device.type != "cuda")
         self._state = self._state._replace(step=self._state.step + 1)
 
     def _dispatch_epochs(self, n: int, order=None, eps=None):

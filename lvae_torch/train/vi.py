@@ -46,7 +46,7 @@ from lvae_torch.ops import kernels as kx
 from lvae_torch.ops.shard import LOCAL, Local
 from lvae_torch.train import state as st
 from lvae_torch.train.graph import (
-    StepGraphs, finish_host_copy, run_chunks, run_staged, start_host_copy,
+    StepGraphs, finish_host_copy, route_key, run_chunks, run_staged, start_host_copy,
 )
 from lvae_torch.utils.device import resolve_device
 
@@ -235,8 +235,8 @@ class VITrainer:
         the captured step (captured at the first step after a new state and
         at route switches; the capture's warm-up is this step), on the CPU
         and on a mesh view the eager one."""
-        self._graphs.run((kx.use_b_chain_kernel, kx.use_block_pair_kernel), self._step, (eps,),
-                         out, eager=self._eager)
+        self._graphs.run((tuple(eps.shape), *route_key()), self._step, (eps,), out,
+                         eager=self._eager)
 
     def _dispatch(self, n: int, shape, fill: Callable[[int, torch.Tensor], None],
                   run_step: Callable[[torch.Tensor, torch.Tensor], None], width: int):

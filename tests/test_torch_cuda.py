@@ -847,6 +847,46 @@ def test_hensman_step_captures_and_replays_on_each_route(gen, route, monkeypatch
     assert len(trainer._graphs) == 2
 
 
+@pytest.mark.parametrize("owner", ["hensman", "vi_phase1", "pretrain"])
+def test_cudnn_switch_flip_captures_again(gen, owner, monkeypatch):
+    """Each trainer keys its captured step on ``train/graph.route_key()``:
+    an epoch after ``cudnn.deterministic`` flips captures a second graph
+    (its warm-up picks the algorithms again), and flipping back replays
+    the first one."""
+    import numpy as np
+
+    from lvae_torch.data.datasets import ArrayDataset
+    from lvae_torch.models.vae import make_vae
+    from lvae_torch.train.pretrain import VAEPretrainer
+
+    if owner == "hensman":
+        trainer = card_trainer()
+        epoch = lambda: trainer.run_epochs(1)  # noqa: E731
+    elif owner == "vi_phase1":
+        (trainer,) = vi_trainers(gen, devices=("cuda",))
+        epoch = lambda: trainer.fit(1, log_every=0, chunk=1)  # noqa: E731
+    else:
+        rng = np.random.default_rng(0)
+        ds = ArrayDataset(data=rng.uniform(size=(24, 36, 36, 1)).astype(np.float32),
+                          labels=np.zeros((24, 6), np.float32),
+                          mask=(rng.uniform(size=(24, 1296)) > 0.2).astype(np.float32))
+        model = make_vae("conv", 3, 1296, dropout=0.0, generator=torch.Generator().manual_seed(1))
+        trainer = VAEPretrainer(model, ds, loss_function="nll", dropout=False, seed=0,
+                                batch_size=8, device="cuda")
+        epoch = lambda: trainer.run_epochs(1)  # noqa: E731
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", False)
+    epoch()
+    first = dict(trainer._graphs)
+    assert len(first) == 1
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    epoch()
+    (key,) = set(trainer._graphs) - set(first)
+    assert len(trainer._graphs) == 2 and key[-3] is True
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", False)
+    epoch()
+    assert len(trainer._graphs) == 2 and all(trainer._graphs[k] is g for k, g in first.items())
+
+
 @pytest.mark.parametrize("optimizer", ["adam", "fused"])
 def test_graph_and_eager_steps_are_bit_equal(gen, optimizer, monkeypatch):
     """Three steps replayed from the captured graph and the same three steps

@@ -8,21 +8,31 @@ and its ``generate --source`` path against lvae_tpu's, on the CPU.
   at 4:4:4, 4:2:2 and 4:2:0, 4:4:0 and 4:1:1 JPEGs (a 4:2:2 or 4:2:0
   file's sampling byte relabelled, which keeps its MCU count), extended
   sequential (SOF1) JPEGs, one with 16-bit quantisation tables, an RGB
-  JPEG (Adobe transform 0),
+  JPEG (Adobe transform 0), every form of
+  ``tools/make_torch_source_fixtures.FORMS`` (progressive grey and colour,
+  with restarts, with its refinement scans or its AC scans dropped, which
+  libjpeg smooths; CMYK with and without its Adobe segment, YCCK,
+  progressive CMYK; without Huffman tables; lossless with each predictor,
+  a point transform, restarts, three components in one scan or three,
+  4:2:0, 16-bit differences; 3×1 sampling),
   PNGs in modes 1, L, I;16, RGB, RGBA, P with and without ``tRNS`` and LA,
   and PNGs that Pillow cannot write, encoded here with zlib (2- and 4-bit
   grey, 16-bit RGB, RGBA and grey+alpha, every filter type, Adam7), and a
   ``.jpg`` file that holds a PNG; ``imread`` also against matplotlib at odd
   sizes, where the upsampling's edges fall inside a block.
-* The refusals: progressive, CMYK, lossless, arithmetic-coded and 12-bit
-  JPEGs raise ``NotImplementedError`` naming the file and the SOF marker;
-  a missing file, a non-28×28 image and truncated files raise as JAX's do.
+* The refusals: where matplotlib's read raises (12-bit and 2-component
+  files, hierarchical frames, fractional sampling, too many blocks in an
+  MCU, a lossless YCbCr file, a lossless restart interval inside a row),
+  the port raises ``ValueError`` naming the file; arithmetic-coded JPEGs
+  raise ``NotImplementedError`` naming the file and the SOF marker; a
+  missing file, a non-28×28 image and truncated files raise as JAX's do;
+  the reader imports neither Pillow nor matplotlib.
 * ``generate_healthmnist(source=...)``, ``generate_split(source=...)`` and
   ``cli generate --source`` against JAX's: arrays and CSV bytes equal; the
   splits read disjoint files.
-* The committed fixtures: ``tests/fixtures/torch_source_digits.npz`` equals
-  JAX's read of every committed file, so the card's reference cannot
-  drift.
+* The committed fixtures: ``tests/fixtures/torch_source_digits.npz`` and
+  ``torch_jpeg_forms.npz`` equal JAX's read of every committed file, so
+  the card's reference cannot drift.
 * The PDF writer: image streams inflate to the normalised panels, the
   ``xref`` offsets are right (a broken one is refused), two writes give
   the same bytes; each panel equals, entry for entry, the image
@@ -34,6 +44,8 @@ import io
 import os
 import re
 import struct
+import subprocess
+import sys
 import zlib
 
 import numpy as np
@@ -49,6 +61,8 @@ from lvae_torch.utils.pdf import normalise_panel, read_grid_pdf, write_image_gri
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FIXTURES = os.path.join(ROOT, "tests", "fixtures", "torch_source_digits")
+sys.path.insert(0, os.path.join(ROOT, "tools"))
+import make_torch_source_fixtures as forms  # noqa: E402  (the JPEG forms' writers)
 
 
 # ------------------------------------------------------------- writers
@@ -193,6 +207,7 @@ CASES = {
     "png_adam7": lambda g: encode_png(g[..., None], 8, 0, interlace=True),
     "png_adam7_grey4": lambda g: encode_png((g >> 4)[..., None], 4, 0, interlace=True),
     "jpg_holding_png": lambda g: pil_bytes(tinted(g), "PNG"),
+    **{f"jpeg_{name}": write for name, write in forms.FORMS.items()},
 }
 
 
@@ -236,12 +251,15 @@ def test_reads_bit_equal_to_jax(tmp_path, case):
 
 
 @pytest.mark.parametrize("case", ["jpeg_q75", "jpeg_422", "jpeg_420", "jpeg_440", "png_P_trns",
-                                  "png_adam7_grey4"])
+                                  "png_adam7_grey4", "jpeg_progressive_420",
+                                  "jpeg_progressive_dropped_420", "jpeg_progressive_dc_only",
+                                  "jpeg_cmyk", "jpeg_ycck", "jpeg_lossless_420",
+                                  "jpeg_lossless_rgb_scans", "jpeg_sampling_31"])
 def test_imread_equals_matplotlib_at_odd_sizes(tmp_path, case):
     import matplotlib.pyplot as plt
 
     rng = np.random.default_rng(11)
-    for h, w in ((1, 1), (2, 3), (9, 17), (23, 23), (41, 30)):
+    for h, w in ((1, 1), (2, 3), (9, 17), (17, 23), (23, 23), (33, 9), (41, 30)):
         if case == "jpeg_440":
             h = w  # the relabelled file keeps its MCU count only when square
         grey = np.clip(rng.normal(120, 70, (h, w)), 0, 255).astype(np.uint8)
@@ -254,35 +272,83 @@ def test_imread_equals_matplotlib_at_odd_sizes(tmp_path, case):
 
 
 def sof_patched(marker: int = None, precision: int = None) -> bytes:
-    b = bytearray(pil_bytes(digits(0)[0], "JPEG"))
-    sof = b.find(b"\xff\xc0")
-    if marker is not None:
-        b[sof + 1] = marker
-    if precision is not None:
-        b[sof + 4] = precision
+    return forms.relabel_sof(pil_bytes(digits(0)[0], "JPEG"), marker, precision)
+
+
+def colour_planes():
+    return forms.ycbcr(tinted(digits(0)[0]))
+
+
+def lossless_restart_mid_row() -> bytes:
+    """A lossless file whose restart interval (42 MCUs) is 1.5 rows."""
+    b = bytearray(forms.lossless_jpeg(digits(0)[0][..., None], restart_rows=2))
+    at = b.find(b"\xff\xdd")
+    b[at + 4:at + 6] = struct.pack(">H", 42)
     return bytes(b)
 
 
-REFUSED = {
-    "progressive": (lambda: pil_bytes(digits(0)[0], "JPEG", progressive=True), "SOF2"),
-    "cmyk": (lambda: pil_bytes(Image.fromarray(tinted(digits(0)[0])).convert("CMYK"), "JPEG"),
-             "SOF0"),
-    "lossless": (lambda: sof_patched(marker=0xC3), "SOF3"),
-    "arithmetic": (lambda: sof_patched(marker=0xC9), "SOF9"),
+# forms that matplotlib's read refuses, and a word of the port's message
+REFUSED_BY_REFERENCE = {
     "12_bit": (lambda: sof_patched(precision=12), "12-bit"),
+    "lossless_16_bit": (lambda: forms.relabel_sof(
+        forms.lossless_jpeg(digits(0)[0][..., None]), precision=16), "16-bit"),
+    "2_components": (lambda: forms.baseline_jpeg(colour_planes()[:2], [(1, 1)] * 2),
+                     "2 components"),
+    **{f"sof{m - 0xC0}": ((lambda m=m: sof_patched(marker=m)), f"SOF{m - 0xC0} ")
+       for m in (0xC5, 0xC6, 0xC7, 0xCD, 0xCE, 0xCF)},
+    "fractional_sampling": (lambda: forms.baseline_jpeg(colour_planes(), [(3, 1), (2, 1), (1, 1)]),
+                            "fractional"),
+    "too_many_blocks": (lambda: forms.baseline_jpeg(colour_planes(), [(3, 3), (1, 1), (1, 1)]),
+                        "too many blocks"),
+    "lossless_ycbcr": (lambda: forms.lossless_jpeg(tinted(digits(0)[0]), jfif=True),
+                       "lossless YCbCr"),
+    "lossless_restart_mid_row": (lossless_restart_mid_row, "restart interval"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(REFUSED_BY_REFERENCE))
+def test_forms_the_reference_refuses_raise_value_error(tmp_path, case):
+    make, words = REFUSED_BY_REFERENCE[case]
+    os.makedirs(tmp_path / "3")
+    path = tmp_path / "3" / "000.jpg"
+    path.write_bytes(make())
+    with pytest.raises(Exception):
+        jhm._load_source_images(str(tmp_path), "3", 1)
+    with pytest.raises(ValueError) as e:
+        thm._load_source_images(str(tmp_path), "3", 1)
+    assert str(path) in str(e.value) and words in str(e.value)
+
+
+REFUSED = {
+    "arithmetic": (lambda: sof_patched(marker=0xC9), "SOF9"),
+    "arithmetic_progressive": (lambda: sof_patched(marker=0xCA), "SOF10"),
+    "arithmetic_lossless": (lambda: forms.relabel_sof(
+        forms.lossless_jpeg(digits(0)[0][..., None]), marker=0xCB), "SOF11"),
 }
 
 
 @pytest.mark.parametrize("case", sorted(REFUSED))
 def test_refused_jpeg_forms_name_file_and_marker(tmp_path, case):
+    """The forms the reference reads and the port does not yet."""
     make, marker = REFUSED[case]
     path = tmp_path / "digit.jpg"
     path.write_bytes(make())
     with pytest.raises(NotImplementedError) as e:
         imread(str(path))
     assert str(path) in str(e.value) and marker in str(e.value)
-    if case == "cmyk":
-        assert "4 components" in str(e.value)
+    assert "arithmetic" in str(e.value)
+
+
+def test_reader_imports_no_image_library(tmp_path):
+    path = tmp_path / "digit.jpg"
+    path.write_bytes(forms.FORMS["progressive_cmyk"](digits(2)[0]))
+    code = ("import sys; from lvae_torch.data.image_io import imread; "
+            f"assert imread({str(path)!r}).shape == (28, 28, 4); "
+            "print(sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('PIL', 'matplotlib', 'jax', 'lvae_tpu')))")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
+                         check=True)
+    assert out.stdout.strip() == "[]"
 
 
 def test_missing_wrong_size_and_truncated_files_raise(tmp_path):
@@ -394,6 +460,23 @@ def test_committed_reference_equals_jax_read():
         for name, w, g in zip(names, want, got):
             stored = images[paths.index(f"{digit}/{name}")]
             assert np.array_equal(stored, w) and np.array_equal(g, w), name
+
+
+def test_committed_jpeg_forms_equal_jax_read():
+    import matplotlib.pyplot as plt
+
+    root = forms.FORMS_DIR
+    names = sorted(os.listdir(root))
+    assert names == sorted(f"{name}.jpg" for name in forms.FORMS)
+    with np.load(forms.FORMS_REFERENCE) as ref:
+        assert sorted(ref.files) == names
+        for name in names:
+            stored, want = ref[name], plt.imread(os.path.join(root, name))
+            got = imread(os.path.join(root, name))
+            for a in (stored, got):
+                assert a.dtype == want.dtype == np.uint8 and a.shape == want.shape, name
+                assert np.array_equal(a, want), name
+    assert sum(os.path.getsize(os.path.join(root, n)) for n in names) < 100_000
 
 
 # ----------------------------------------------------------------- PDF

@@ -15,17 +15,30 @@ fixture directory in ``paths`` (one stacked array compresses to about half
 of 140 keyed ones): the reference the port's reader is held to, on the
 CPU and on the card.
 
+``tests/fixtures/torch_jpeg_forms/`` gets one 28×28 digit file for each
+JPEG form of :data:`FORMS` (progressive, progressive with its refinement
+scans dropped, CMYK, YCCK, without Huffman tables, lossless, 3×1 sampling),
+and ``tests/fixtures/torch_jpeg_forms.npz`` matplotlib's ``imread`` of
+each, under the file's name (``uint8`` ``[28, 28]``, ``[28, 28, 3]`` or
+``[28, 28, 4]``). Pillow writes the progressive and CMYK files, byte
+patches make the others from Pillow's, and the small numpy encoders here
+write the lossless files and those of sampling factors Pillow does not
+write; the CPU tests build the same forms from other digits.
+
 Needs Pillow, matplotlib and the JAX package; neither the port nor
 ``chip_smoke.py`` imports this script. Run from the repository's root:
 
-    python tools/make_torch_source_fixtures.py [--seed 0]
+    python tools/make_torch_source_fixtures.py [--seed 0] [--only digits|forms]
 """
 
 from __future__ import annotations
 
 import argparse
+import io
 import os
+import re
 import shutil
+import struct
 import sys
 
 import numpy as np
@@ -35,6 +48,8 @@ sys.path.insert(0, ROOT)
 
 FIXTURES = os.path.join(ROOT, "tests", "fixtures", "torch_source_digits")
 REFERENCE = FIXTURES + ".npz"
+FORMS_DIR = os.path.join(ROOT, "tests", "fixtures", "torch_jpeg_forms")
+FORMS_REFERENCE = FORMS_DIR + ".npz"
 PER_DIGIT = 70
 QUALITIES = (60, 75, 85, 90, 95)
 PNG_MODES = ("L", "RGB", "RGBA", "P", "LA", "I;16")
@@ -75,16 +90,396 @@ def write_image(path_stem: str, grey: np.ndarray, i: int) -> None:
         Image.fromarray(grey).save(name, quality=quality)
 
 
+# ------------------------------------------------------- JPEG byte patches
+def pillow_jpeg(image, **kw) -> bytes:
+    """``image`` (an array, or a Pillow image as it is) saved by Pillow as a JPEG."""
+    from PIL import Image
+
+    out = io.BytesIO()
+    (image if isinstance(image, Image.Image) else Image.fromarray(image)).save(out, "JPEG", **kw)
+    return out.getvalue()
+
+
+def cmyk_image(grey: np.ndarray):
+    """A Pillow CMYK image of a digit whose four planes all carry data."""
+    from PIL import Image
+
+    g = grey.astype(np.int64)
+    planes = np.stack([255 - g, (g * 3) // 4, 200 - (g * 3) // 5, g // 3], -1)
+    return Image.frombytes("CMYK", grey.shape[::-1], planes.astype(np.uint8).tobytes())
+
+
+def segments(jpeg: bytes) -> list:
+    """A JPEG's ``(marker, bytes)`` from SOI to EOI, each marker's bytes
+    from its 0xFF on; a scan's include its entropy-coded data."""
+    out, pos = [(0xD8, jpeg[:2])], 2
+    while pos < len(jpeg):
+        marker = jpeg[pos + 1]
+        if marker == 0xD9:
+            out.append((marker, jpeg[pos:pos + 2]))
+            break
+        end = pos + 2 + struct.unpack_from(">H", jpeg, pos + 2)[0]
+        if marker == 0xDA:
+            while not (jpeg[end] == 0xFF and jpeg[end + 1] not in (0, *range(0xD0, 0xD8))):
+                end += 1
+        out.append((marker, jpeg[pos:end]))
+        pos = end
+    return out
+
+
+def scan_fields(scan: bytes) -> tuple:
+    """A scan's ``(Ss, Se, Ah, Al)``."""
+    n = scan[4]
+    return scan[5 + 2 * n], scan[6 + 2 * n], scan[7 + 2 * n] >> 4, scan[7 + 2 * n] & 15
+
+
+def keep_segments(jpeg: bytes, keep) -> bytes:
+    return b"".join(b for m, b in segments(jpeg) if keep(m, b))
+
+
+def drop_refinements(jpeg: bytes) -> bytes:
+    """A progressive JPEG without its successive approximation refinement
+    scans (Ah > 0): a valid file whose coefficients keep their low bits
+    unknown, which libjpeg smooths."""
+    return keep_segments(jpeg, lambda m, b: m != 0xDA or scan_fields(b)[2] == 0)
+
+
+def dc_scans_only(jpeg: bytes) -> bytes:
+    """A progressive JPEG with its DC scans alone: no AC coefficient is
+    known, so libjpeg estimates the DC values too."""
+    return keep_segments(jpeg, lambda m, b: m != 0xDA or scan_fields(b)[0] == 0)
+
+
+def without_dht(jpeg: bytes) -> bytes:
+    """A JPEG without its Huffman tables (as a Motion-JPEG frame is): the
+    decoder takes Annex K's, which Pillow's unoptimised files use."""
+    return keep_segments(jpeg, lambda m, b: m != 0xC4)
+
+
+def without_adobe(jpeg: bytes) -> bytes:
+    return keep_segments(jpeg, lambda m, b: not (m == 0xEE and b[4:9] == b"Adobe"))
+
+
+def adobe_transform(jpeg: bytes, transform: int) -> bytes:
+    """The file with its Adobe APP14 segment's colour transform byte set."""
+    b = bytearray(jpeg)
+    at = re.search(rb"\xff\xee..Adobe", jpeg, re.S).start()
+    b[at + 15] = transform
+    return bytes(b)
+
+
+def relabel_sof(jpeg: bytes, marker: int = None, precision: int = None) -> bytes:
+    """The file's frame header given another SOF marker or sample precision."""
+    b = bytearray(jpeg)
+    sof = next(i for i in range(2, len(b) - 1) if b[i] == 0xFF and 0xC0 <= b[i + 1] <= 0xCF
+               and b[i + 1] not in (0xC4, 0xC8, 0xCC))
+    if marker is not None:
+        b[sof + 1] = marker
+    if precision is not None:
+        b[sof + 4] = precision
+    return bytes(b)
+
+
+# ------------------------------------------------------- the numpy encoders
+class BitWriter:
+    """Entropy-coded data: bits packed MSB first, 0xFF bytes stuffed."""
+
+    def __init__(self):
+        self.out, self.acc, self.n = bytearray(), 0, 0
+
+    def put(self, code: int, length: int) -> None:
+        self.acc, self.n = (self.acc << length) | code, self.n + length
+        while self.n >= 8:
+            self.n -= 8
+            byte = (self.acc >> self.n) & 0xFF
+            self.out += b"\xff\x00" if byte == 0xFF else bytes([byte])
+        self.acc &= (1 << self.n) - 1
+
+    def flush(self) -> bytes:
+        if self.n:
+            self.put((1 << (8 - self.n)) - 1, 8 - self.n)
+        out, self.out = bytes(self.out), bytearray()
+        return out
+
+
+def huffman_codes(table: bytes) -> dict:
+    """A table's (16 counts, then the symbols) canonical codes:
+    symbol → (code, length)."""
+    codes, code, k = {}, 0, 16
+    for length in range(1, 17):
+        for _ in range(table[length - 1]):
+            codes[table[k]] = (code, length)
+            code, k = code + 1, k + 1
+        code <<= 1
+    return codes
+
+
+def put_value(w: BitWriter, codes: dict, symbol: int, value: int, size: int) -> None:
+    """A Huffman symbol and its ``size`` extra bits of ``value`` (negative
+    values as one's complement, F.1.2.1)."""
+    w.put(*codes[symbol])
+    if size and size < 16:
+        w.put(value if value >= 0 else value + (1 << size) - 1, size)
+
+
+def segment(marker: int, body: bytes) -> bytes:
+    return bytes([0xFF, marker]) + struct.pack(">H", len(body) + 2) + body
+
+
+def frame_header(marker: int, h: int, w: int, comps, precision: int = 8) -> bytes:
+    """``comps``: ``(id, h, v, quantisation table)`` each."""
+    body = struct.pack(">BHHB", precision, h, w, len(comps))
+    return segment(marker, body + b"".join(bytes([c, (hs << 4) | vs, tq]) for c, hs, vs, tq in comps))
+
+
+def huffman_segment(tables: dict) -> bytes:
+    return segment(0xC4, b"".join(bytes([(tc << 4) | th]) + t for (tc, th), t in tables.items()))
+
+
+def scan_header(comps, ss: int, se: int, al: int = 0) -> bytes:
+    """``comps``: ``(id, DC table, AC table)`` each."""
+    body = bytes([len(comps)]) + b"".join(bytes([c, (td << 4) | ta]) for c, td, ta in comps)
+    return segment(0xDA, body + bytes([ss, se, al]))
+
+
+# quantisation tables of the baseline encoder (natural order): coarser
+# towards the high frequencies, the chroma's more so
+_FREQ = np.add.outer(np.arange(8), np.arange(8)).ravel()
+QUANT = (3 + 2 * _FREQ, 5 + 3 * _FREQ)
+
+
+def _dct_matrix() -> np.ndarray:
+    k, n = np.arange(8)[:, None], np.arange(8)[None, :]
+    m = np.cos((2 * n + 1) * k * np.pi / 16) / 2
+    m[0] /= np.sqrt(2)
+    return m
+
+
+def baseline_jpeg(planes, sampling, ids=None) -> bytes:
+    """A baseline JPEG (Annex K's Huffman tables, one interleaved scan) of
+    full-size uint8 ``planes`` with ``(h, v)`` sampling factors each: a
+    plane is decimated to its sampling, padded by its edge to whole MCUs,
+    transformed and quantised (table 0 for the first, 1 for the others)."""
+    from lvae_torch.data.image_io import STD_HUFFMAN, ZIGZAG
+
+    height, width = planes[0].shape
+    hmax, vmax = max(h for h, _ in sampling), max(v for _, v in sampling)
+    mcux, mcuy = -(-width // (8 * hmax)), -(-height // (8 * vmax))
+    ids = ids or list(range(1, len(planes) + 1))
+    dct, blocks = _dct_matrix(), []
+    for plane, (h, v), i in zip(planes, sampling, range(len(planes))):
+        sub = plane[::vmax // v, ::hmax // h].astype(np.float64) - 128
+        rows, cols = mcuy * v * 8, mcux * h * 8
+        sub = np.pad(sub, ((0, rows - sub.shape[0]), (0, cols - sub.shape[1])), mode="edge")
+        tiles = sub.reshape(rows // 8, 8, cols // 8, 8).transpose(0, 2, 1, 3)
+        coefs = np.round(dct @ tiles @ dct.T).reshape(rows // 8, cols // 8, 64)
+        blocks.append((np.round(coefs / QUANT[min(i, 1)])[..., ZIGZAG].astype(int), h, v))
+    codes = {k: huffman_codes(t) for k, t in STD_HUFFMAN.items()}
+    w, pred = BitWriter(), [0] * len(planes)
+    for my in range(mcuy):
+        for mx in range(mcux):
+            for c, (zz, h, v) in enumerate(blocks):
+                t = min(c, 1)
+                for dy in range(v):
+                    for dx in range(h):
+                        blk = zz[my * v + dy, mx * h + dx]
+                        diff = int(blk[0]) - pred[c]
+                        pred[c] = int(blk[0])
+                        put_value(w, codes[0, t], abs(diff).bit_length(), diff,
+                                  abs(diff).bit_length())
+                        run = 0
+                        for k in range(1, 64):
+                            a = int(blk[k])
+                            if not a:
+                                run += 1
+                                continue
+                            while run > 15:
+                                w.put(*codes[1, t][0xF0])
+                                run -= 16
+                            s = abs(a).bit_length()
+                            put_value(w, codes[1, t], (run << 4) | s, a, s)
+                            run = 0
+                        if run:
+                            w.put(*codes[1, t][0x00])
+    n = len(planes)
+    comps = [(ids[c], h, v, min(c, 1)) for c, (h, v) in enumerate(sampling)]
+    dqt = b"".join(bytes([t]) + QUANT[t][ZIGZAG].astype(np.uint8).tobytes() for t in range(min(n, 2)))
+    return (b"\xff\xd8" + segment(0xDB, dqt) + frame_header(0xC0, height, width, comps)
+            + huffman_segment({k: t for k, t in STD_HUFFMAN.items() if k[1] < min(n, 2)})
+            + scan_header([(ids[c], min(c, 1), min(c, 1)) for c in range(n)], 0, 63)
+            + w.flush() + b"\xff\xd9")
+
+
+def ycbcr(rgb: np.ndarray) -> list:
+    """JFIF's RGB → YCbCr, rounded: three uint8 planes."""
+    r, g, b = (rgb[..., i].astype(np.float64) for i in range(3))
+    y = 0.299 * r + 0.587 * g + 0.114 * b
+    planes = (y, 128 + (b - y) / 1.772, 128 + (r - y) / 1.402)
+    return [np.clip(np.round(p), 0, 255).astype(np.uint8) for p in planes]
+
+
+# a lossless DC table (16 counts, then the symbols 0..16), written by hand
+LOSSLESS_TABLE = bytes([0, 1, 2, 3, 4, 7] + [0] * 10 + list(range(17)))
+
+
+def _predict(r: np.ndarray, y: int, x: int, predictor: int, first: bool, pt: int) -> int:
+    """H.1.2.1's prediction of sample ``(y, x)`` from reconstructed ``r``
+    (jdpred.c's order: the first row of an interval from the left, its
+    first sample from 2**(7 - pt); a row's first sample from above)."""
+    if first:
+        return (1 << (7 - pt)) if x == 0 else int(r[y, x - 1])
+    if x == 0:
+        return int(r[y - 1, 0])
+    ra, rb, rc = int(r[y, x - 1]), int(r[y - 1, x]), int(r[y - 1, x - 1])
+    return (ra, rb, rc, ra + rb - rc, ra + ((rb - rc) >> 1), rb + ((ra - rc) >> 1),
+            (ra + rb) >> 1)[predictor - 1]
+
+
+def lossless_jpeg(samples: np.ndarray, predictor: int = 1, pt: int = 0, restart_rows: int = 0,
+                  interleaved: bool = True, wild=(), jfif: bool = False, sampling=None) -> bytes:
+    """A lossless (SOF3) 8-bit JPEG of ``samples [h, w, c]`` (c = 1 or 3,
+    ids 1.., one hand-made table): the samples shifted down by the point
+    transform ``pt``, each plane decimated to its ``(h, v)`` of
+    ``sampling`` (1×1 each by default) and padded by its edge to whole
+    MCUs, predicted by ``predictor``, a restart every ``restart_rows`` MCU
+    rows, the components in one scan or one each. Each ``(y, x, c)`` of
+    ``wild`` is coded as its sample plus 2**15 and the next sample
+    corrected back: differences of 16 bits (SSSS = 16)."""
+    h, w, nc = samples.shape
+    sampling = sampling or [(1, 1)] * nc
+    hmax, vmax = max(s[0] for s in sampling), max(s[1] for s in sampling)
+    mcux, mcuy = -(-w // hmax), -(-h // vmax)
+    planes = []
+    for c, (sh, sv) in enumerate(sampling):
+        plane = samples[::vmax // sv, ::hmax // sh, c].astype(np.int64) >> pt
+        grid = (mcuy * sv, mcux * sh) if interleaved and nc > 1 else plane.shape
+        plane = np.pad(plane, [(0, n - m) for n, m in zip(grid, plane.shape)], mode="edge")
+        for y, x, cw in wild:
+            if cw == c and y < plane.shape[0] and x < plane.shape[1]:
+                plane[y, x] = (plane[y, x] + 32768) & 0xFFFF
+        planes.append(plane)
+    codes = huffman_codes(LOSSLESS_TABLE)
+
+    def put(c, y, x, rows_per_mcu_row):
+        first = y % (restart_rows * rows_per_mcu_row) == 0 if restart_rows else y == 0
+        d = (int(planes[c][y, x]) - _predict(planes[c], y, x, predictor, first, pt)) & 0xFFFF
+        d = d - 65536 if d >= 32768 else d
+        s = 16 if d == -32768 else abs(d).bit_length()
+        put_value(wr, codes, s, d, s)
+
+    out = b"\xff\xd8"
+    if jfif:
+        out += segment(0xE0, b"JFIF\x00\x01\x01\x00\x00\x01\x00\x01\x00\x00")
+    out += frame_header(0xC3, h, w, [(c + 1, sh, sv, 0) for c, (sh, sv) in enumerate(sampling)])
+    out += huffman_segment({(0, 0): LOSSLESS_TABLE})
+    groups = [list(range(nc))] if interleaved and nc > 1 else [[c] for c in range(nc)]
+    if restart_rows:
+        per_row = mcux if len(groups[0]) > 1 else planes[0].shape[1]
+        out += segment(0xDD, struct.pack(">H", restart_rows * per_row))
+    for group in groups:
+        wr, data = BitWriter(), b""
+        if len(group) > 1:  # MCUs of h×v samples of each component
+            rows, cols = mcuy, mcux
+            cells = [(c, dy, dx) for c in group for dy in range(sampling[c][1])
+                     for dx in range(sampling[c][0])]
+        else:  # one sample an MCU
+            rows, cols = planes[group[0]].shape
+            cells = [(group[0], 0, 0)]
+        for my in range(rows):
+            if restart_rows and my and my % restart_rows == 0:
+                data += wr.flush() + bytes([0xFF, 0xD0 + (my // restart_rows - 1) % 8])
+            for mx in range(cols):
+                for c, dy, dx in cells:
+                    sv, sh = (sampling[c][1], sampling[c][0]) if len(group) > 1 else (1, 1)
+                    put(c, my * sv + dy, mx * sh + dx, sv)
+        out += scan_header([(c + 1, 0, 0) for c in group], predictor, 0, pt) + data + wr.flush()
+    return out + b"\xff\xd9"
+
+
+def _progressive(image, **kw) -> bytes:
+    return pillow_jpeg(image, progressive=True, **kw)
+
+
+# each JPEG form of the fixtures, written from a 28×28 uint8 grey digit
+FORMS = {
+    "progressive_q50": lambda g: _progressive(g, quality=50),
+    "progressive_q75": lambda g: _progressive(g, quality=75),
+    "progressive_q95": lambda g: _progressive(g, quality=95),
+    "progressive_optimize": lambda g: _progressive(g, quality=80, optimize=True),
+    "progressive_444": lambda g: _progressive(tinted(g), quality=90, subsampling=0),
+    "progressive_422": lambda g: _progressive(tinted(g), quality=70, subsampling=1),
+    "progressive_420": lambda g: _progressive(tinted(g), quality=85, subsampling=2),
+    "progressive_restart_blocks": lambda g: _progressive(g, restart_marker_blocks=2),
+    "progressive_restart_rows_420": lambda g: _progressive(tinted(g), subsampling=2,
+                                                           restart_marker_rows=1),
+    "progressive_dropped": lambda g: drop_refinements(_progressive(g, quality=75)),
+    "progressive_dropped_420": lambda g: drop_refinements(
+        _progressive(tinted(g), quality=85, subsampling=2)),
+    "progressive_dc_only": lambda g: dc_scans_only(_progressive(tinted(g), quality=85)),
+    "cmyk": lambda g: pillow_jpeg(cmyk_image(g), quality=85),
+    "cmyk_no_app14": lambda g: without_adobe(pillow_jpeg(cmyk_image(g), quality=85)),
+    "ycck": lambda g: adobe_transform(pillow_jpeg(cmyk_image(g), quality=85), 2),
+    "progressive_cmyk": lambda g: _progressive(cmyk_image(g), quality=80),
+    "dhtless": lambda g: without_dht(pillow_jpeg(g, quality=75)),
+    "dhtless_420": lambda g: without_dht(pillow_jpeg(tinted(g), quality=75, subsampling=2)),
+    **{f"lossless_p{p}": (lambda g, p=p: lossless_jpeg(g[..., None], predictor=p))
+       for p in range(1, 8)},
+    "lossless_pt2": lambda g: lossless_jpeg(g[..., None], predictor=4, pt=2),
+    "lossless_restart": lambda g: lossless_jpeg(g[..., None], predictor=7, restart_rows=3),
+    "lossless_rgb": lambda g: lossless_jpeg(tinted(g), predictor=6),
+    "lossless_rgb_scans": lambda g: lossless_jpeg(tinted(g), predictor=5, restart_rows=4,
+                                                  interleaved=False),
+    "lossless_ssss16": lambda g: lossless_jpeg(g[..., None], predictor=4,
+                                               wild=((3, 5, 0), (10, 0, 0), (20, 27, 0))),
+    "lossless_420": lambda g: lossless_jpeg(tinted(g), predictor=7, restart_rows=3,
+                                            sampling=[(2, 2), (1, 1), (1, 1)]),
+    "sampling_31": lambda g: baseline_jpeg(ycbcr(tinted(g)), [(3, 1), (1, 1), (1, 1)]),
+}
+
+
+def write_forms(rng: np.random.Generator) -> int:
+    """One file for each form of :data:`FORMS` and matplotlib's read of it."""
+    import matplotlib.pyplot as plt
+
+    from lvae_torch.data.healthmnist import _instance_image
+
+    shutil.rmtree(FORMS_DIR, ignore_errors=True)
+    os.makedirs(FORMS_DIR)
+    reference = {}
+    for i, (name, write) in enumerate(FORMS.items()):
+        grey = np.round(_instance_image("36"[i % 2], rng)).astype(np.uint8)
+        path = os.path.join(FORMS_DIR, name + ".jpg")
+        with open(path, "wb") as f:
+            f.write(write(grey))
+        reference[name + ".jpg"] = plt.imread(path)
+    np.savez_compressed(FORMS_REFERENCE, **reference)
+    return len(reference)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--only", choices=("digits", "forms"),
+                    help="write only the digit cohort or only the JPEG forms")
     args = ap.parse_args(argv)
 
+    if args.only != "forms":
+        write_digits(args.seed)
+    if args.only != "digits":
+        n = write_forms(np.random.default_rng([args.seed, 1]))
+        total = sum(os.path.getsize(os.path.join(FORMS_DIR, f)) for f in os.listdir(FORMS_DIR))
+        print(f"{n} JPEG forms, {total} bytes; {FORMS_REFERENCE}: "
+              f"{os.path.getsize(FORMS_REFERENCE)} bytes")
+    return 0
+
+
+def write_digits(seed: int) -> None:
+    """The 70 files a digit of the cohort and JAX's read of each."""
     from lvae_torch.data.healthmnist import _instance_image
     from lvae_tpu.data.healthmnist import _load_source_images
 
     shutil.rmtree(FIXTURES, ignore_errors=True)
-    rng = np.random.default_rng(args.seed)
+    rng = np.random.default_rng(seed)
     reference = {}  # path relative to FIXTURES -> JAX's read
     for digit in ("3", "6"):
         os.makedirs(os.path.join(FIXTURES, digit))
@@ -99,7 +494,6 @@ def main(argv=None) -> int:
                         images=np.stack([reference[p] for p in paths]))
     total = sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(FIXTURES) for f in fs)
     print(f"{len(reference)} files, {total} bytes; {REFERENCE}: {os.path.getsize(REFERENCE)} bytes")
-    return 0
 
 
 if __name__ == "__main__":
