@@ -4013,11 +4013,13 @@ SOURCE_TIMEOUT = 300  # seconds a generating process may take
 SOURCE_FIGURES = ("recon_complete.pdf", "recon_complete_best.pdf",
                   f"recon_VAE_{SOURCE_PRETRAIN_EPOCHS}.pdf")
 JPEG_SAMPLING = {0x11: "4:4:4", 0x21: "4:2:2", 0x22: "4:2:0", 0x12: "4:4:0", 0x41: "4:1:1"}
-JPEG_CODING = {0xC0: "baseline", 0xC1: "extended", 0xC2: "progressive", 0xC3: "lossless"}
+JPEG_CODING = {0xC0: "baseline", 0xC1: "extended", 0xC2: "progressive", 0xC3: "lossless",
+               0xC9: "arithmetic sequential", 0xCA: "arithmetic progressive"}
 PNG_COLOUR = {0: "grey", 2: "RGB", 3: "palette", 4: "grey+alpha", 6: "RGBA"}
 FORMS_DIR = os.path.join(ROOT, "tests", "fixtures", "torch_jpeg_forms")  # one file a form
 # the forms' families, by the start of the file's name (the longest first)
-FORM_FAMILIES = ("progressive_dropped", "progressive_dc_only", "progressive_cmyk", "progressive",
+FORM_FAMILIES = ("arith_progressive_dropped", "arith_progressive", "arith",
+                 "progressive_dropped", "progressive_dc_only", "progressive_cmyk", "progressive",
                  "cmyk", "ycck", "dhtless", "lossless", "sampling")
 
 
@@ -4035,8 +4037,9 @@ def jpeg_segments(data: bytes):
 def image_kind(path: str) -> str:
     """A fixture's format and mode from its header: a JPEG's coding (its
     SOF marker), colour (components and Adobe transform), sampling, and
-    restart interval, Huffman tables left out and scan count; a PNG's
-    colour type and depth."""
+    restart interval, Huffman tables left out (an arithmetic file's
+    conditioning set by a DAC segment) and scan count; a PNG's colour type
+    and depth."""
     with open(path, "rb") as f:
         data = f.read()
     if data.startswith(b"\x89PNG"):
@@ -4060,9 +4063,11 @@ def image_kind(path: str) -> str:
                        else ",".join(f"{x >> 4}x{x & 15}" for x in sampling))
     if any(m == 0xDD and int.from_bytes(b[:2], "big") for m, b in segs):
         kind += " restarts"
-    if not any(m == 0xC4 for m, b in segs):
+    if sof in (0xC9, 0xCA):
+        kind += " DAC" if any(m == 0xCC for m, b in segs) else ""
+    elif not any(m == 0xC4 for m, b in segs):
         kind += " no DHT"
-    if sof == 0xC2:
+    if sof in (0xC2, 0xCA):
         kind += f" {data.count(b'\xff\xda')} scans"
     return kind
 

@@ -5,29 +5,38 @@ same file (matplotlib over Pillow and libjpeg-turbo), with no image library
 on any machine:
 
 * JPEG, 8-bit, as libjpeg-turbo decodes it by default, which takes its
-  integer routines: the "islow" IDCT (``jidctint.c``), the "fancy" triangle
+  integer routines: the "islow" IDCT as its x86 SIMD code computes it
+  (``jidctint-avx2``: the C routine ``jidctint.c`` on values in range,
+  16-bit wrapping and saturation past it), the "fancy" triangle
   upsampling (``jdsample.c``: h2v1, h1v2, h2v2; other whole factors
   replicated, as ``int_upsample`` does) and the YCbCr→RGB tables
   (``jdcolor.c``). The codings: baseline (SOF0), extended sequential
-  (SOF1) and progressive (SOF2) Huffman, the last with libjpeg-turbo's
-  block smoothing (``jdcoefct.c``) where the scans leave coefficient bits
-  unknown; lossless (SOF3, predictors 1–7, a point transform, 16-bit
-  differences, restarts at MCU rows, components upsampled by replication).
-  Any Huffman tables (Annex K's where a scan names one the file never
-  defines, as Motion-JPEG frames do), 8- or 16-bit quantisation tables,
-  restart intervals, any whole sampling factors, one scan or many. 1
-  component: ``uint8 [H, W]``; 3: ``[H, W, 3]``, YCbCr or RGB as libjpeg
-  tells them (JFIF, Adobe transform, component ids; a lossless frame is
-  never converted); 4: ``[H, W, 4]``, CMYK (YCCK where the Adobe transform
-  is not 0) as Pillow reads it, inverted, then converted to RGBA (alpha
-  255) by Pillow's integer ``cmyk2rgb``, as matplotlib asks.
+  (SOF1) and progressive (SOF2) Huffman; sequential (SOF9) and
+  progressive (SOF10) arithmetic (T.81 Annex D's QM decoder as
+  ``jdarith.c`` runs it: the DAC segment's conditioning, L = 0, U = 1,
+  Kx = 5 by default; zeros read past a marker; a magnitude or run that
+  overflows ends its restart interval); the progressive ones with
+  libjpeg-turbo's block smoothing (``jdcoefct.c``) where the scans leave
+  coefficient bits unknown; lossless (SOF3, predictors 1–7, a point
+  transform, 16-bit differences, restarts at MCU rows, components
+  upsampled by replication). Any Huffman tables (Annex K's where a scan
+  names one the file never defines, as Motion-JPEG frames do), 8- or
+  16-bit quantisation tables, restart intervals, any whole sampling
+  factors, one scan or many. 1 component: ``uint8 [H, W]``; 3: ``[H, W,
+  3]``, YCbCr or RGB as libjpeg tells them (JFIF, Adobe transform,
+  component ids; a lossless frame is never converted); 4: ``[H, W, 4]``,
+  CMYK (YCCK where the Adobe transform is not 0) as Pillow reads it,
+  inverted, then converted to RGBA (alpha 255) by Pillow's integer
+  ``cmyk2rgb``, as matplotlib asks.
   Forms the reference's reader refuses raise ``ValueError`` naming the file:
   a precision other than 8 or 2 components (Pillow refuses them at open),
-  hierarchical frames (SOF5–7, SOF13–15), fractional sampling factors, more
-  than 10 blocks in an MCU, lossless YCbCr or YCCK, a lossless restart
-  interval that is not whole MCU rows. Arithmetic coding (SOF9–11), which
-  the reference reads, is not ported yet: ``NotImplementedError`` naming
-  the file and the SOF marker.
+  hierarchical frames (SOF5–7, SOF13–15), arithmetic lossless frames
+  (SOF11: libjpeg-turbo codes lossless with Huffman tables only),
+  fractional sampling factors, more than 10 blocks in an MCU, lossless
+  YCbCr or YCCK, a lossless restart interval that is not whole MCU rows,
+  a DAC segment that names a table past 15 or sets a DC L above its U, a
+  file of many scans (progressive, or components in scans of their own)
+  that ends before its EOI marker.
 * PNG, every bit depth and colour type, the five filters and Adam7
   interlacing: ``float32`` in matplotlib's scaling
   (``matplotlib.image._pil_png_to_float_array``): 1-bit grey 0/1; 2- and
@@ -94,7 +103,6 @@ SOF_NAMES = {
     0xCF: "SOF15 (arithmetic differential lossless)",
 }
 HIERARCHICAL = (0xC5, 0xC6, 0xC7, 0xCD, 0xCE, 0xCF)
-ARITHMETIC = (0xC9, 0xCA, 0xCB)
 
 # jidctint.c's constants, CONST_BITS = 13, PASS1_BITS = 2
 _F0298, _F0390, _F0541, _F0765 = 2446, 3196, 4433, 6270
@@ -102,29 +110,26 @@ _F0899, _F1175, _F1501, _F1847 = 7373, 9633, 12299, 15137
 _F1961, _F2053, _F2562, _F3072 = 16069, 16819, 20995, 25172
 
 
-def _idct_range_table() -> np.ndarray:
-    """libjpeg's post-IDCT range limit, indexed by the descaled value & 1023:
-    the value + 128 clamped to 0..255 for |value| < 512 (jdmaster.c)."""
-    i = np.arange(1024)
-    return np.select([i < 128, i < 512, i < 896], [i + 128, 255, 0], i - 896).astype(np.uint8)
-
-
-_IDCT_RANGE = _idct_range_table()
+def _wrap16(x: np.ndarray) -> np.ndarray:
+    """``x`` modulo 2**16, as a 16-bit lane keeps it."""
+    return ((x + 32768) & 0xFFFF) - 32768
 
 
 def _idct_1d(x: np.ndarray, axis: int, shift: int) -> np.ndarray:
-    """One pass of the islow IDCT along ``axis`` (int64), descaled by
-    ``shift`` bits with rounding."""
+    """One pass of the islow IDCT along ``axis`` of 16-bit values (int64),
+    as libjpeg-turbo's SIMD routines compute it: the sums x0 ± x4, x7 + x3
+    and x5 + x1 in 16 bits, the products and the rest in 32; descaled by
+    ``shift`` bits with rounding and saturated to 16 bits."""
     x0, x1, x2, x3, x4, x5, x6, x7 = np.moveaxis(x, axis, 0)
     z1 = (x2 + x6) * _F0541
     tmp2 = z1 - x6 * _F1847
     tmp3 = z1 + x2 * _F0765
-    tmp0 = (x0 + x4) << 13
-    tmp1 = (x0 - x4) << 13
+    tmp0 = _wrap16(x0 + x4) << 13
+    tmp1 = _wrap16(x0 - x4) << 13
     tmp10, tmp13 = tmp0 + tmp3, tmp0 - tmp3
     tmp11, tmp12 = tmp1 + tmp2, tmp1 - tmp2
 
-    z1, z2, z3, z4 = x7 + x1, x5 + x3, x7 + x3, x5 + x1
+    z1, z2, z3, z4 = x7 + x1, x5 + x3, _wrap16(x7 + x3), _wrap16(x5 + x1)
     z5 = (z3 + z4) * _F1175
     t0, t1, t2, t3 = x7 * _F0298, x5 * _F2053, x3 * _F3072, x1 * _F1501
     z1, z2 = z1 * -_F0899, z2 * -_F2562
@@ -137,16 +142,24 @@ def _idct_1d(x: np.ndarray, axis: int, shift: int) -> np.ndarray:
     half = 1 << (shift - 1)
     out = np.stack([tmp10 + t3, tmp11 + t2, tmp12 + t1, tmp13 + t0,
                     tmp13 - t0, tmp12 - t1, tmp11 - t2, tmp10 - t3])
-    return np.moveaxis((out + half) >> shift, 0, axis)
+    return np.moveaxis(np.clip((out + half) >> shift, -32768, 32767), 0, axis)
 
 
-def idct_islow(coefs: np.ndarray) -> np.ndarray:
-    """libjpeg's integer IDCT of dequantised blocks ``[N, 64]`` (natural
-    order) → ``uint8 [N, 8, 8]``: columns first, scaled up by 2**2, then
-    rows, descaled by 2**18 and range-limited."""
-    blocks = coefs.reshape(-1, 8, 8).astype(np.int64)
-    ws = _idct_1d(blocks, 1, 11)
-    return _IDCT_RANGE[_idct_1d(ws, 2, 18) & 1023]
+def idct_islow(coefs: np.ndarray, quant: np.ndarray) -> np.ndarray:
+    """libjpeg's integer IDCT of quantised blocks ``[N, 64]`` (natural
+    order) with their table ``quant [64]`` → ``uint8 [N, 8, 8]``, as
+    libjpeg-turbo's x86 SIMD routines (``jidctint-sse2``/``-avx2``)
+    compute it: dequantised in 16 bits; columns first, scaled up by 2**2
+    (a block whose rows 1–7 are zero takes its row 0 shifted, in 16 bits),
+    then rows, descaled by 2**18; saturated to −128..127 and centred. On
+    values in range this is the C routine (``jidctint.c``) bit for bit;
+    past it (corrupt or cut data) these wrap and saturate where C does
+    not."""
+    raw = coefs.reshape(-1, 8, 8).astype(np.int64)
+    blocks = _wrap16(raw * quant.reshape(8, 8))
+    flat = ~raw[:, 1:].any(axis=(1, 2))
+    ws = np.where(flat[:, None, None], _wrap16(blocks[:, :1] << 2), _idct_1d(blocks, 1, 11))
+    return (np.clip(_idct_1d(ws, 2, 18), -128, 127) + 128).astype(np.uint8)
 
 
 def _clamped(x: np.ndarray, axis: int, step: int) -> np.ndarray:
@@ -349,13 +362,14 @@ class _Frame:
         if marker in HIERARCHICAL:
             raise ValueError(f"{path}: a {name} JPEG, which the reference's reader refuses "
                              "(libjpeg decodes no hierarchical frame)")
-        if marker in ARITHMETIC:
-            raise NotImplementedError(f"{path}: a {name} JPEG is not read yet (arithmetic "
-                                      "coding is not ported)")
+        if marker == 0xCB:  # jdmaster.c: JERR_ARITH_NOTIMPL for a lossless frame
+            raise ValueError(f"{path}: a {name} JPEG, which the reference's reader refuses "
+                             "(libjpeg-turbo decodes lossless frames of Huffman coding only)")
         if height == 0 or width == 0 or len(seg) < 6 + 3 * n:
             raise ValueError(f"{path}: corrupt JPEG: a bad frame header")
         self.width, self.height = width, height
-        self.progressive, self.lossless = marker == 0xC2, marker == 0xC3
+        self.progressive, self.lossless = marker in (0xC2, 0xCA), marker == 0xC3
+        self.arithmetic = marker in (0xC9, 0xCA)
         self.comps = []
         for c in range(n):
             cid, hv, tq = seg[6 + 3 * c:9 + 3 * c]
@@ -378,7 +392,8 @@ class _Frame:
 
 
 class _Scan:
-    """A scan header (SOS): its components with their Huffman tables, the
+    """A scan header (SOS): its components with their Huffman tables (in
+    an arithmetic frame the ids of their conditioning tables), the
     spectral selection ``ss..se`` (a lossless scan's predictor in ``ss``)
     and the successive approximation bits ``ah``, ``al``."""
 
@@ -407,28 +422,33 @@ class _Scan:
                     raise ValueError(f"{path}: corrupt JPEG: a quantisation table is not defined")
                 comp.quant = quant[comp.tq]
             self.comps.append(comp)
-            # the tables the scan decodes with, as jdhuff.c and jdphuff.c build them
+            # the tables the scan decodes with, as jdhuff.c, jdphuff.c and jdarith.c take them
             need_dc = not frame.progressive or (self.ss == 0 and not refine_dc)
             need_ac = not frame.lossless and (not frame.progressive or self.ss > 0)
+            if frame.arithmetic:
+                self.dc.append(tdta >> 4 if need_dc else None)
+                self.ac.append(tdta & 15 if need_ac else None)
+                continue
             self.dc.append(_table(path, huff, 0, tdta >> 4, frame.lossless) if need_dc else None)
             self.ac.append(_table(path, huff, 1, tdta & 15, False) if need_ac else None)
 
-    def units(self, frame: _Frame):
-        """Each MCU's blocks (samples, in a lossless scan) as ``(scan
-        component, row, column)``: the MCU grid's where the scan is
-        interleaved, else the component's own grid, one an MCU."""
-        if len(self.comps) == 1:
-            c = self.comps[0]
-            w = c.sw if frame.lossless else c.bw
-            h = c.sh if frame.lossless else c.bh
-            return [((0, y, x),) for y in range(h) for x in range(w)], w
-        layout = [(s, dy, dx) for s, c in enumerate(self.comps)
-                  for dy in range(c.v) for dx in range(c.h)]
-        if len(layout) > 10:  # D_MAX_BLOCKS_IN_MCU
-            raise ValueError("corrupt JPEG: too many blocks in an MCU")
-        return [[(s, my * self.comps[s].v + dy, mx * self.comps[s].h + dx)
-                 for s, dy, dx in layout]
-                for my in range(frame.mcuy) for mx in range(frame.mcux)], frame.mcux
+
+
+def scan_units(frame: _Frame, comps: list) -> tuple:
+    """The MCUs of a scan of ``comps``, each a list of its blocks (samples,
+    in a lossless scan) as ``(scan component, row, column)``: the MCU
+    grid's where the scan is interleaved, else the component's own grid,
+    one an MCU; and the MCUs a row."""
+    if len(comps) == 1:
+        c = comps[0]
+        w = c.sw if frame.lossless else c.bw
+        h = c.sh if frame.lossless else c.bh
+        return [((0, y, x),) for y in range(h) for x in range(w)], w
+    layout = [(s, dy, dx) for s, c in enumerate(comps) for dy in range(c.v) for dx in range(c.h)]
+    if len(layout) > 10:  # D_MAX_BLOCKS_IN_MCU
+        raise ValueError("corrupt JPEG: too many blocks in an MCU")
+    return [[(s, my * comps[s].v + dy, mx * comps[s].h + dx) for s, dy, dx in layout]
+            for my in range(frame.mcuy) for mx in range(frame.mcux)], frame.mcux
 
 
 def _table(path: str, huff: dict, tc: int, th: int, lossless: bool) -> tuple:
@@ -627,6 +647,262 @@ def _undifference(comp: _Component, predictor: int, pt: int) -> None:
         prev = row
 
 
+# ----------------------------------------------------- arithmetic coding
+# T.81 Table D.2 (libjpeg's jaricom.c): each state's Qe, and its next state
+# after an LPS and after an MPS; an LPS in a state of _SWITCH_MPS also
+# swaps which symbol is the more probable
+_QE = (
+    0x5A1D, 0x2586, 0x1114, 0x080B, 0x03D8, 0x01DA, 0x00E5, 0x006F, 0x0036, 0x001A,
+    0x000D, 0x0006, 0x0003, 0x0001, 0x5A7F, 0x3F25, 0x2CF2, 0x207C, 0x17B9, 0x1182,
+    0x0CEF, 0x09A1, 0x072F, 0x055C, 0x0406, 0x0303, 0x0240, 0x01B1, 0x0144, 0x00F5,
+    0x00B7, 0x008A, 0x0068, 0x004E, 0x003B, 0x002C, 0x5AE1, 0x484C, 0x3A0D, 0x2EF1,
+    0x261F, 0x1F33, 0x19A8, 0x1518, 0x1177, 0x0E74, 0x0BFB, 0x09F8, 0x0861, 0x0706,
+    0x05CD, 0x04DE, 0x040F, 0x0363, 0x02D4, 0x025C, 0x01F8, 0x01A4, 0x0160, 0x0125,
+    0x00F6, 0x00CB, 0x00AB, 0x008F, 0x5B12, 0x4D04, 0x412C, 0x37D8, 0x2FE8, 0x293C,
+    0x2379, 0x1EDF, 0x1AA9, 0x174E, 0x1424, 0x119C, 0x0F6B, 0x0D51, 0x0BB6, 0x0A40,
+    0x5832, 0x4D1C, 0x438E, 0x3BDD, 0x34EE, 0x2EAE, 0x299A, 0x2516, 0x5570, 0x4CA9,
+    0x44D9, 0x3E22, 0x3824, 0x32B4, 0x2E17, 0x56A8, 0x4F46, 0x47E5, 0x41CF, 0x3C3D,
+    0x375E, 0x5231, 0x4C0F, 0x4639, 0x415E, 0x5627, 0x50E7, 0x4B85, 0x5597, 0x504F,
+    0x5A10, 0x5522, 0x59EB,
+)
+_NEXT_LPS = (
+    1, 14, 16, 18, 20, 23, 25, 28, 30, 33, 35, 9, 10, 12, 15, 36, 38, 39, 40,
+    42, 43, 45, 46, 48, 49, 51, 52, 54, 56, 57, 59, 60, 62, 63, 32, 33, 37, 64,
+    65, 67, 68, 69, 70, 72, 73, 74, 75, 77, 78, 79, 48, 50, 50, 51, 52, 53, 54,
+    55, 56, 57, 58, 59, 61, 61, 65, 80, 81, 82, 83, 84, 86, 87, 87, 72, 72, 74,
+    74, 75, 77, 77, 80, 88, 89, 90, 91, 92, 93, 86, 88, 95, 96, 97, 99, 99, 93,
+    95, 101, 102, 103, 104, 99, 105, 106, 107, 103, 105, 108, 109, 110, 111, 110, 112, 112,
+)
+_NEXT_MPS = (
+    1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13, 13, 15, 16, 17, 18, 19,
+    20, 21, 22, 23, 24, 25, 26, 27, 28, 29, 30, 31, 32, 33, 34, 35, 9, 37, 38,
+    39, 40, 41, 42, 43, 44, 45, 46, 47, 48, 49, 50, 51, 52, 53, 54, 55, 56, 57,
+    58, 59, 60, 61, 62, 63, 32, 65, 66, 67, 68, 69, 70, 71, 72, 73, 74, 75, 76,
+    77, 78, 79, 48, 81, 82, 83, 84, 85, 86, 87, 71, 89, 90, 91, 92, 93, 94, 86,
+    96, 97, 98, 99, 100, 93, 102, 103, 104, 99, 106, 107, 103, 109, 107, 111, 109, 111,
+)
+_SWITCH_MPS = (0, 14, 36, 64, 80, 88, 95, 105, 110, 112)
+# a statistics bin holds its state's index with the MPS in bit 7, as
+# jdarith.c keeps it; by state: (Qe, the next state after an MPS, the next
+# after an LPS with the switch in bit 7), then state 113, the fixed bin's,
+# which codes at probability 0.5 and never moves
+QM_STATES = tuple((qe, nm, nl | (i in _SWITCH_MPS) << 7) for i, (qe, nl, nm)
+                  in enumerate(zip(_QE, _NEXT_LPS, _NEXT_MPS))) + ((0x5A1D, 113, 113),)
+FIXED_BIN = 113
+DC_BINS, AC_BINS = 64, 256  # a DC and an AC statistics area (F.1.4.4.1, F.1.4.4.2)
+_STUFFED = re.compile(rb"\xff+\x00")
+
+
+def _i16(v: int) -> int:
+    """``v`` as libjpeg's 16-bit coefficients (JCOEF) keep it."""
+    return ((v + 32768) & 0xFFFF) - 32768
+
+
+class _Overflow(Exception):
+    """jdarith.c's JWRN_ARITH_BAD_CODE: a magnitude of 2**15 or a run of
+    zeros past the band's end ends the restart interval's decoding."""
+
+
+class _QM:
+    """T.81 Annex D.2's decoder over one restart interval's entropy-coded
+    bytes of the file ``path``, decision by decision as jdarith.c's
+    ``arith_decode``: stuffed zero bytes removed; past the bytes zeros
+    where a marker follows (libjpeg reads zeros once it meets a marker),
+    an error where the file ends (``at_file_end``)."""
+
+    __slots__ = ("path", "data", "p", "c", "a", "ct", "at_file_end")
+
+    def __init__(self, path: str, piece: bytes, at_file_end: bool):
+        self.path, self.at_file_end = path, at_file_end
+        self.data = _STUFFED.sub(b"\xff", piece.rstrip(b"\xff"))
+        self.p, self.c, self.a, self.ct = 0, 0, 0, -16  # the first decision reads 2 bytes
+
+    def bit(self, stats, i: int) -> int:
+        """The next decision, coded with statistics bin ``stats[i]``, which
+        it moves on (D.2.4, D.2.5)."""
+        a, ct = self.a, self.ct
+        if a < 0x8000:  # renormalisation (D.2.6): a byte into C each 8 doublings
+            c = self.c
+            while a < 0x8000:
+                ct -= 1
+                if ct < 0:
+                    if self.p < len(self.data):
+                        c = (c << 8) | self.data[self.p]
+                    elif self.at_file_end:
+                        raise ValueError(f"{self.path}: truncated JPEG entropy-coded data")
+                    else:
+                        c <<= 8
+                    self.p += 1
+                    ct += 8
+                    if ct < 0:
+                        ct += 1
+                        if ct == 0:
+                            a = 0x8000
+                a <<= 1
+            self.c = c
+        sv = stats[i]
+        qe, nm, nl = QM_STATES[sv & 0x7F]
+        a -= qe
+        temp = a << ct
+        if self.c >= temp:  # the LPS's sub-interval, or the MPS's after an exchange
+            self.c -= temp
+            if a < qe:
+                stats[i] = (sv & 0x80) ^ nm
+            else:
+                stats[i] = (sv & 0x80) ^ nl
+                sv ^= 0x80
+            a = qe
+        elif a < 0x8000:
+            if a < qe:
+                stats[i] = (sv & 0x80) ^ nl
+                sv ^= 0x80
+            else:
+                stats[i] = (sv & 0x80) ^ nm
+        self.a, self.ct = a, ct
+        return sv >> 7
+
+    def category(self, stats, x: int, m: int) -> tuple:
+        """Figure F.23's decisions from bin ``x`` on, ``m`` doubled for
+        each 1: ``m`` and the bin of the closing 0."""
+        while self.bit(stats, x):
+            m <<= 1
+            if m == 0x8000:
+                raise _Overflow
+            x += 1
+        return m, x
+
+    def magnitude(self, stats, x: int, m: int) -> int:
+        """Figure F.24: the bits below the category's ``m`` from bin ``x``
+        + 14; the magnitude (the value decoded plus 1)."""
+        v = m
+        x += 14
+        m >>= 1
+        while m:
+            if self.bit(stats, x):
+                v |= m
+            m >>= 1
+        return v + 1
+
+    def dc_diff(self, stats, ctx: list, s: int, lu: tuple) -> int:
+        """A DC difference (F.2.4.1) of the scan's component ``s`` in the
+        context its last one left in ``ctx[s]``, which it sets from the
+        conditioning bounds ``lu`` = (L, U) (F.1.4.4.1.2)."""
+        x = ctx[s]
+        if not self.bit(stats, x):
+            ctx[s] = 0
+            return 0
+        sign = self.bit(stats, x + 1)
+        x += 2 + sign
+        m = self.bit(stats, x)
+        if m:
+            m, x = self.category(stats, 20, 1)
+        ctx[s] = (0 if m < (1 << lu[0]) >> 1 else
+                  (12 if m > (1 << lu[1]) >> 1 else 4) + 4 * sign)
+        v = self.magnitude(stats, x, m)
+        return -v if sign else v
+
+    def ac_band(self, stats, fixed, blk: list, k: int, se: int, kx: int, al: int) -> None:
+        """Figure F.20 over coefficients ``k..se`` of ``blk``, each value
+        shifted up by ``al``; the magnitude bins split at ``kx``."""
+        while k <= se:
+            x = 3 * (k - 1)
+            if self.bit(stats, x):  # end of block
+                return
+            while not self.bit(stats, x + 1):
+                x += 3
+                k += 1
+                if k > se:
+                    raise _Overflow
+            sign = self.bit(fixed, 0)
+            x += 2
+            m = self.bit(stats, x)
+            if m and self.bit(stats, x):
+                m, x = self.category(stats, 189 if k <= kx else 217, 2)
+            v = self.magnitude(stats, x, m)
+            blk[_NATURAL[k]] = _i16((-v if sign else v) << al)
+            k += 1
+
+    def ac_refine(self, stats, fixed, blk: list, k: int, se: int, al: int) -> None:
+        """Figure G.10's decoding over ``k..se``: a correction bit for each
+        coefficient the earlier scans made nonzero, a new ±2**al where a
+        zero becomes nonzero; an end of block only past the earlier end."""
+        p1, m1 = 1 << al, -1 << al
+        kex = se
+        while kex and not blk[_NATURAL[kex]]:
+            kex -= 1
+        while k <= se:
+            x = 3 * (k - 1)
+            if k > kex and self.bit(stats, x):
+                return
+            while True:
+                pos = _NATURAL[k]
+                if blk[pos]:
+                    if self.bit(stats, x + 2):
+                        blk[pos] = _i16(blk[pos] + (m1 if blk[pos] < 0 else p1))
+                    break
+                if self.bit(stats, x + 1):
+                    blk[pos] = m1 if self.bit(fixed, 0) else p1
+                    break
+                x += 3
+                k += 1
+                if k > se:
+                    raise _Overflow
+            k += 1
+
+
+def _arithmetic_intervals(path: str, segment: bytes, n_mcus: int, restart: int,
+                          at_file_end: bool):
+    """An arithmetic scan's ``segment`` of ``n_mcus`` MCUs split at its
+    restart markers: ``(first MCU, MCU count, decoder)`` for each interval.
+    An interval whose marker is missing reads as empty (libjpeg's
+    resynchronisation leaves the marker for the next header), one past the
+    file's end as truncated; data after an unexpected marker is skipped."""
+    pieces = _RESTART.split(segment)
+    per_piece = restart or n_mcus
+    n = _ceil_div(n_mcus, per_piece) if n_mcus else 0
+    return [(i * per_piece, min(per_piece, n_mcus - i * per_piece),
+             _QM(path, pieces[i] if i < len(pieces) else b"",
+                 at_file_end and i >= len(pieces) - 1))
+            for i in range(n)]
+
+
+def _decode_arithmetic(intervals, units, scan: _Scan, progressive: bool, dc_lu: list,
+                       ac_k: list) -> None:
+    """One arithmetic-coded scan (F.2.4, G.1.3) into its components'
+    blocks, as jdarith.c decodes it: the statistics areas of the tables
+    the scan names (DAC's ``dc_lu`` and ``ac_k``), the DC predictions and
+    contexts and the decoder start over in each restart interval; an
+    overflow leaves the rest of the interval zero."""
+    ss, se, ah, al = scan.ss, scan.se, scan.ah, scan.al
+    cols = [c.cols for c in scan.comps]
+    fixed = bytearray([FIXED_BIN])
+    for first, count, qm in intervals:
+        dc = {t: bytearray(DC_BINS) for t in scan.dc if t is not None}
+        ac = {t: bytearray(AC_BINS) for t in scan.ac if t is not None}
+        pred, ctx = [0] * len(scan.comps), [0] * len(scan.comps)
+        try:
+            for m in range(first, first + count):
+                for sc, by, bx in units[m]:
+                    blk = scan.comps[sc].coefs[by * cols[sc] + bx]
+                    td, ta = scan.dc[sc], scan.ac[sc]
+                    if not progressive:  # the DC, 16 bits as libjpeg keeps it, then the band
+                        pred[sc] = (pred[sc] + qm.dc_diff(dc[td], ctx, sc, dc_lu[td])) & 0xFFFF
+                        blk[0] = _i16(pred[sc])
+                        qm.ac_band(ac[ta], fixed, blk, 1, 63, ac_k[ta], 0)
+                    elif ss == 0 and not ah:  # DC first
+                        pred[sc] += qm.dc_diff(dc[td], ctx, sc, dc_lu[td])
+                        blk[0] = _i16(pred[sc] << al)
+                    elif ss == 0:  # DC refinement: the next bit at probability 0.5
+                        if qm.bit(fixed, 0):
+                            blk[0] |= 1 << al
+                    elif not ah:
+                        qm.ac_band(ac[ta], fixed, blk, ss, se, ac_k[ta], al)
+                    else:
+                        qm.ac_refine(ac[ta], fixed, blk, ss, se, al)
+        except _Overflow:
+            pass
+
+
 def _next_marker(data: bytes, pos: int):
     """The next marker code at or after ``pos`` (fill bytes and stray data
     skipped, as libjpeg skips them) and the position after it; None at the
@@ -646,16 +922,25 @@ def _next_marker(data: bytes, pos: int):
 def read_jpeg(path: str, data: bytes) -> np.ndarray:
     """Decode a JPEG as libjpeg-turbo does by default and Pillow and
     matplotlib hand it on: the marker walk, then each scan into the
-    frame's blocks or samples, then the output stage."""
+    frame's blocks or samples (:func:`decode_jpeg`), then the output stage."""
+    return _output(path, *decode_jpeg(path, data))
+
+
+def decode_jpeg(path: str, data: bytes) -> tuple:
+    """The marker walk of the JPEG ``data`` (read from ``path``) and every
+    scan decoded: ``(frame, jfif, adobe)``, the frame holding each
+    component's quantised coefficients (lossless: its samples)."""
     quant, huff = {}, {}
     frame = None
     restart, jfif, adobe = 0, False, None
+    dc_lu, ac_k = [(0, 1)] * 16, [5] * 16  # arithmetic conditioning, jdmarker.c's at SOI
     scanned = set()
+    multi_scan = None  # jdinput.c's has_multiple_scans, set by the first scan
     pos = 2
     while True:
         marker, pos = _next_marker(data, pos)
-        if marker is None:
-            if frame is None or len(scanned) < len(frame.comps):
+        if marker is None:  # libjpeg reads a file of many scans whole before its output
+            if frame is None or len(scanned) < len(frame.comps) or multi_scan:
                 raise ValueError(f"{path}: truncated JPEG")
             break
         if marker == 0xD9:  # EOI
@@ -690,6 +975,19 @@ def read_jpeg(path: str, data: bytes) -> np.ndarray:
                         raise ValueError(f"{path}: corrupt JPEG: a bad Huffman table")
                     huff[tc, th] = seg[i + 1:i + 17 + total]
                     i += 17 + total
+            elif marker == 0xCC:  # DAC, checked as jdmarker.c's get_dac checks it
+                if len(seg) % 2:
+                    raise ValueError(f"{path}: corrupt JPEG: a bad DAC segment")
+                for index, value in zip(seg[::2], seg[1::2]):
+                    if index >= 32:
+                        raise ValueError(f"{path}: corrupt JPEG: DAC table index {index}")
+                    if index >= 16:
+                        ac_k[index - 16] = value
+                    elif value & 15 > value >> 4:
+                        raise ValueError(f"{path}: corrupt JPEG: DAC value {value:#04x} "
+                                         "(L above U)")
+                    else:
+                        dc_lu[index] = (value & 15, value >> 4)
             elif marker in SOF_NAMES:
                 if frame is not None:
                     raise ValueError(f"{path}: corrupt JPEG: a second frame header")
@@ -705,16 +1003,27 @@ def read_jpeg(path: str, data: bytes) -> np.ndarray:
                     raise ValueError(f"{path}: corrupt JPEG: a scan before the frame header")
                 scan = _Scan(path, seg, frame, quant, huff)
                 scanned.update(c.cid for c in scan.comps)
+                if multi_scan is None:
+                    multi_scan = frame.progressive or len(scan.comps) < len(frame.comps)
                 end = _ENTROPY_END.search(data, pos)
                 end = end.start() if end else len(data)
                 try:
-                    units, per_row = scan.units(frame)
+                    units, per_row = scan_units(frame, scan.comps)
                 except ValueError as e:
                     raise ValueError(f"{path}: {e}") from None
                 if frame.lossless and restart % per_row:  # jddiffct.c restarts at MCU rows
                     raise ValueError(f"{path}: a lossless JPEG whose restart interval ({restart} "
                                      f"MCUs) is not a whole number of MCU rows ({per_row}), "
                                      "which the reference's reader refuses")
+                if frame.progressive:
+                    for c in scan.comps:
+                        c.bits[scan.ss:scan.se + 1] = [scan.al] * (scan.se + 1 - scan.ss)
+                if frame.arithmetic:
+                    _decode_arithmetic(_arithmetic_intervals(path, data[pos:end], len(units),
+                                                             restart, end == len(data)),
+                                       units, scan, frame.progressive, dc_lu, ac_k)
+                    pos = end
+                    continue
                 bits_of = _intervals(path, data[pos:end], len(units), restart)
                 if frame.lossless:
                     for c in scan.comps:
@@ -725,15 +1034,13 @@ def read_jpeg(path: str, data: bytes) -> np.ndarray:
                         _undifference(c, scan.ss, scan.al)
                         c.pt = scan.al
                 elif frame.progressive:
-                    for c in scan.comps:
-                        c.bits[scan.ss:scan.se + 1] = [scan.al] * (scan.se + 1 - scan.ss)
                     _decode_progressive(path, bits_of, units, scan)
                 else:
                     _decode_sequential(path, bits_of, units, scan)
                 pos = end
         except (struct.error, IndexError) as e:
             raise ValueError(f"{path}: corrupt JPEG ({e})") from None
-    return _output(path, frame, jfif, adobe)
+    return frame, jfif, adobe
 
 
 def _output(path: str, frame: _Frame, jfif: bool, adobe) -> np.ndarray:
@@ -757,7 +1064,7 @@ def _output(path: str, frame: _Frame, jfif: bool, adobe) -> np.ndarray:
             continue
         coefs = _smoothed(frame, c) if smooth else c.coefs
         quantised = c.quant if c.quant is not None else np.zeros(64, np.int64)
-        blocks = idct_islow(np.array(coefs, np.int64).reshape(-1, 64) * quantised)
+        blocks = idct_islow(np.array(coefs, np.int64).reshape(-1, 64), quantised)
         plane = blocks.reshape(c.rows, c.cols, 8, 8).transpose(0, 2, 1, 3)
         x = plane.reshape(c.rows * 8, c.cols * 8)[:c.sh, :c.sw].astype(np.int64)
         planes.append(upsample(x, frame.hmax // c.h, frame.vmax // c.v)

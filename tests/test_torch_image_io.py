@@ -14,19 +14,25 @@ and its ``generate --source`` path against lvae_tpu's, on the CPU.
   libjpeg smooths; CMYK with and without its Adobe segment, YCCK,
   progressive CMYK; without Huffman tables; lossless with each predictor,
   a point transform, restarts, three components in one scan or three,
-  4:2:0, 16-bit differences; 3×1 sampling),
+  4:2:0, 16-bit differences; 3×1 sampling; arithmetic-coded sequential
+  and progressive files, grey, 4:2:0, CMYK, with a DAC segment, with
+  restarts, with refinements or AC scans dropped),
   PNGs in modes 1, L, I;16, RGB, RGBA, P with and without ``tRNS`` and LA,
   and PNGs that Pillow cannot write, encoded here with zlib (2- and 4-bit
   grey, 16-bit RGB, RGBA and grey+alpha, every filter type, Adam7), and a
   ``.jpg`` file that holds a PNG; ``imread`` also against matplotlib at odd
   sizes, where the upsampling's edges fall inside a block.
+* The arithmetic writer of ``tools/make_torch_source_fixtures.py``
+  against libjpeg alone: each arithmetic form reads through matplotlib as
+  the Huffman file it transcodes does.
 * The refusals: where matplotlib's read raises (12-bit and 2-component
-  files, hierarchical frames, fractional sampling, too many blocks in an
-  MCU, a lossless YCbCr file, a lossless restart interval inside a row),
-  the port raises ``ValueError`` naming the file; arithmetic-coded JPEGs
-  raise ``NotImplementedError`` naming the file and the SOF marker; a
-  missing file, a non-28×28 image and truncated files raise as JAX's do;
-  the reader imports neither Pillow nor matplotlib.
+  files, hierarchical frames, arithmetic lossless frames, fractional
+  sampling, too many blocks in an MCU, a lossless YCbCr file, a lossless
+  restart interval inside a row, a bad DAC segment), the port raises
+  ``ValueError`` naming the file; a missing file, a non-28×28 image and
+  truncated files raise as JAX's do; cut, noisy and overflowing
+  arithmetic data read as matplotlib reads them, or raise where it
+  raises; the reader imports neither Pillow nor matplotlib.
 * ``generate_healthmnist(source=...)``, ``generate_split(source=...)`` and
   ``cli generate --source`` against JAX's: arrays and CSV bytes equal; the
   splits read disjoint files.
@@ -55,7 +61,7 @@ from PIL import Image
 from lvae_tpu.data import healthmnist as jhm
 from lvae_torch import cli
 from lvae_torch.data import healthmnist as thm
-from lvae_torch.data.image_io import imread
+from lvae_torch.data.image_io import AC_BINS, DC_BINS, FIXED_BIN, ZIGZAG, idct_islow, imread
 from lvae_torch.evaluation.generation import save_grid
 from lvae_torch.utils.pdf import normalise_panel, read_grid_pdf, write_image_grid_pdf
 
@@ -254,7 +260,9 @@ def test_reads_bit_equal_to_jax(tmp_path, case):
                                   "png_adam7_grey4", "jpeg_progressive_420",
                                   "jpeg_progressive_dropped_420", "jpeg_progressive_dc_only",
                                   "jpeg_cmyk", "jpeg_ycck", "jpeg_lossless_420",
-                                  "jpeg_lossless_rgb_scans", "jpeg_sampling_31"])
+                                  "jpeg_lossless_rgb_scans", "jpeg_sampling_31",
+                                  "jpeg_arith_420", "jpeg_arith_progressive_dropped_420",
+                                  "jpeg_arith_restart"])
 def test_imread_equals_matplotlib_at_odd_sizes(tmp_path, case):
     import matplotlib.pyplot as plt
 
@@ -277,6 +285,12 @@ def sof_patched(marker: int = None, precision: int = None) -> bytes:
 
 def colour_planes():
     return forms.ycbcr(tinted(digits(0)[0]))
+
+
+def dac_file(body: bytes) -> bytes:
+    """A 4:2:2 SOF9 file with the DAC segment ``body`` before its scan."""
+    return forms.arithmetic_jpeg(forms.baseline_jpeg(colour_planes(), [(2, 1), (1, 1), (1, 1)]),
+                                 forms.segment(0xCC, body))
 
 
 def lossless_restart_mid_row() -> bytes:
@@ -303,6 +317,12 @@ REFUSED_BY_REFERENCE = {
     "lossless_ycbcr": (lambda: forms.lossless_jpeg(tinted(digits(0)[0]), jfif=True),
                        "lossless YCbCr"),
     "lossless_restart_mid_row": (lossless_restart_mid_row, "restart interval"),
+    # libjpeg-turbo decodes lossless frames of Huffman coding only
+    "arith_lossless": (lambda: forms.lossless_arithmetic_jpeg(digits(0)[0], predictor=4),
+                       "SOF11"),
+    "arith_dac_index": (lambda: dac_file(bytes([32, 5])), "DAC table index 32"),
+    "arith_dac_l_above_u": (lambda: dac_file(bytes([1, 0x23])), "L above U"),
+    "arith_dac_odd_length": (lambda: dac_file(bytes([0, 0x10, 1])), "DAC"),
 }
 
 
@@ -319,31 +339,229 @@ def test_forms_the_reference_refuses_raise_value_error(tmp_path, case):
     assert str(path) in str(e.value) and words in str(e.value)
 
 
-REFUSED = {
-    "arithmetic": (lambda: sof_patched(marker=0xC9), "SOF9"),
-    "arithmetic_progressive": (lambda: sof_patched(marker=0xCA), "SOF10"),
-    "arithmetic_lossless": (lambda: forms.relabel_sof(
-        forms.lossless_jpeg(digits(0)[0][..., None]), marker=0xCB), "SOF11"),
+def test_arithmetic_lossless_refused_where_huffman_reads(tmp_path):
+    """The SOF11 refusal is the coding's: the same digit and predictor
+    coded with Huffman tables (SOF3) reads in both readers."""
+    import matplotlib.pyplot as plt
+
+    grey = digits(0)[0]
+    (tmp_path / "sof3.jpg").write_bytes(forms.lossless_jpeg(grey[..., None], predictor=4))
+    (tmp_path / "sof11.jpg").write_bytes(forms.lossless_arithmetic_jpeg(grey, predictor=4))
+    assert np.array_equal(imread(str(tmp_path / "sof3.jpg")), grey)
+    assert np.array_equal(plt.imread(str(tmp_path / "sof3.jpg")), grey)
+    with pytest.raises(OSError):
+        plt.imread(str(tmp_path / "sof11.jpg"))
+    with pytest.raises(ValueError, match="SOF11"):
+        imread(str(tmp_path / "sof11.jpg"))
+
+
+@pytest.mark.parametrize("form", sorted(forms.ARITHMETIC_SOURCES))
+def test_arithmetic_writer_round_trips_through_matplotlib(tmp_path, form):
+    """Through matplotlib (libjpeg-turbo's own decoder), each arithmetic
+    form reads bit-equal to the Huffman file it transcodes: the same
+    coefficients and scan script, so the same smoothing too."""
+    import matplotlib.pyplot as plt
+
+    for i, grey in enumerate(digits(20 + sorted(forms.ARITHMETIC_SOURCES).index(form))):
+        source, arith = forms.ARITHMETIC_SOURCES[form](grey), forms.FORMS[form](grey)
+        sof = 0xCA if b"\xff\xc2" in source else 0xC9
+        assert bytes([0xFF, sof]) in arith and b"\xff\xc4" not in arith
+        assert (b"\xff\xcc" in arith) == (form in forms.ARITHMETIC_DAC)
+        assert arith.count(b"\xff\xda") == source.count(b"\xff\xda")
+        (tmp_path / f"{i}h.jpg").write_bytes(source)
+        (tmp_path / f"{i}a.jpg").write_bytes(arith)
+        want = plt.imread(str(tmp_path / f"{i}h.jpg"))
+        got = plt.imread(str(tmp_path / f"{i}a.jpg"))
+        assert got.dtype == want.dtype and np.array_equal(got, want), (form, i)
+
+
+# DAC segments matplotlib's read takes: AC Kx is not range-checked by
+# libjpeg's get_dac (0 puts every coefficient above it, 64 and up none),
+# and DC L may equal U
+DAC_READ = {"kx_0": bytes([16, 0, 17, 0]), "kx_64": bytes([16, 64, 17, 255]),
+            "l_equal_u": bytes([0, 0x44, 1, 0x00, 15, 0xFF])}
+
+
+@pytest.mark.parametrize("case", sorted(DAC_READ))
+def test_dac_values_the_reference_takes_read_bit_equal(tmp_path, case):
+    os.makedirs(tmp_path / "3")
+    (tmp_path / "3" / "000.jpg").write_bytes(dac_file(DAC_READ[case]))
+    want = jhm._load_source_images(str(tmp_path), "3", 1)
+    got = thm._load_source_images(str(tmp_path), "3", 1)
+    assert np.array_equal(got, want)
+
+
+def arithmetic_stream(blocks: list, progressive_ac: bool, restart: int, bad: tuple) -> bytes:
+    """A grey 8×(8·n) arithmetic JPEG of zigzag ``blocks`` (one DC scan
+    and one AC scan of SOF10 where ``progressive_ac``, else one SOF9 scan)
+    with a restart every ``restart`` blocks, in which block ``bad[0]``
+    codes ``bad[1]``: "dc", a DC magnitude category of 2**15, or "ac", a
+    run of zeros past coefficient 63, then the rest as they are."""
+    n = len(blocks)
+    out = (b"\xff\xd8" + forms.segment(0xDB, bytes([0]) + bytes([2] * 64))
+           + forms.frame_header(0xCA if progressive_ac else 0xC9, 8, 8 * n, [(1, 1, 1, 0)])
+           + forms.segment(0xDD, struct.pack(">H", restart)))
+    for scan in (("dc", "ac") if progressive_ac else ("all",)):
+        enc, fixed, data = forms.QMEncoder(), bytearray([FIXED_BIN]), b""
+        for b, zz in enumerate(blocks):
+            if b % restart == 0:
+                if b:
+                    data += enc.finish() + bytes([0xFF, 0xD0 + (b // restart - 1) % 8])
+                dc, ac, ctx, pred = bytearray(DC_BINS), bytearray(AC_BINS), [0], 0
+            if (b, scan) in ((bad[0], "all"), (bad[0], bad[1])):
+                if bad[1] == "dc":  # nonzero, positive, then 16 category bits of 1
+                    for i in (ctx[0], ctx[0] + 1, ctx[0] + 2, *range(20, 35)):
+                        enc.encode(dc, i, 0 if i == ctx[0] + 1 else 1)
+                    continue
+                if scan == "all":
+                    forms._dc_diff(enc, dc, ctx, 0, zz[0] - pred, (0, 1))
+                    pred = zz[0]
+                enc.encode(ac, 0, 0)  # no end of block, then 63 zeros
+                for k in range(1, 64):
+                    enc.encode(ac, 3 * (k - 1) + 1, 0)
+                continue
+            if scan != "ac":
+                forms._dc_diff(enc, dc, ctx, 0, zz[0] - pred, (0, 1))
+                pred = zz[0]
+            if scan != "dc":
+                forms._ac_band(enc, ac, fixed, zz, 1, 63, 5)
+        ss_se = {"dc": (0, 0), "ac": (1, 63), "all": (0, 63)}[scan]
+        out += forms.scan_header([(1, 0, 0)], *ss_se) + data + enc.finish()
+    return out + b"\xff\xd9"
+
+
+@pytest.mark.parametrize("case", ["dc", "ac", "progressive_dc", "progressive_ac"])
+def test_overflow_ends_the_restart_interval_as_libjpeg_does(tmp_path, case):
+    """jdarith.c's JWRN_ARITH_BAD_CODE: block 1 of 6 (a restart every 3)
+    codes a DC category of 2**15 or a run of zeros past coefficient 63;
+    the scan leaves the rest of the interval zero (a zero DC: the blocks'
+    mean is grey 128; zero AC coefficients: the blocks are flat), the next
+    interval decodes, and the image is matplotlib's."""
+    import matplotlib.pyplot as plt
+
+    rng = np.random.default_rng(4)
+    blocks = [[int(v) for v in rng.integers(-6, 7, 64) * (rng.random(64) < 0.25)]
+              for _ in range(6)]
+    for blk in blocks:
+        blk[0] = int(rng.integers(-60, 60))
+    path = tmp_path / f"{case}.jpg"
+    path.write_bytes(arithmetic_stream(blocks, case.startswith("progressive"), 3,
+                                       (1, case.split("_")[-1])))
+    want = plt.imread(str(path))
+    got = imread(str(path))
+    assert got.dtype == want.dtype and np.array_equal(got, want)
+    cells = got.reshape(8, 6, 8).transpose(1, 0, 2).astype(np.int64)
+    flat = cells.max(axis=(1, 2)) == cells.min(axis=(1, 2))
+    if case.endswith("dc"):
+        assert (np.abs(cells[1:3].mean(axis=(1, 2)) - 128) < 1).all()
+        assert flat[1:3].all() == (case == "dc")
+    else:
+        assert flat[1:3].all()
+    assert not flat[3:].any()
+
+
+def one_block_jpeg(coefs: np.ndarray, quant: np.ndarray) -> bytes:
+    """An 8×8 grey SOF9 file of one block: quantised ``coefs`` and a
+    16-bit quantisation table ``quant``, both ``[64]`` in natural order
+    (arithmetic coding takes any 16-bit coefficient)."""
+    zz = [int(coefs[i]) for i in ZIGZAG]
+    dqt = forms.segment(0xDB, bytes([0x10]) + np.asarray(quant)[ZIGZAG].astype(">u2").tobytes())
+    enc, dc, ac = forms.QMEncoder(), bytearray(DC_BINS), bytearray(AC_BINS)
+    forms._dc_diff(enc, dc, [0], 0, zz[0], (0, 1))
+    forms._ac_band(enc, ac, bytearray([FIXED_BIN]), zz, 1, 63, 5)
+    return (b"\xff\xd8" + dqt + forms.frame_header(0xC9, 8, 8, [(1, 1, 1, 0)])
+            + forms.scan_header([(1, 0, 0)], 0, 63) + enc.finish() + b"\xff\xd9")
+
+
+def wrapping_products(rng):
+    """A DC and one coefficient of 4096 over 16: its product wraps to 0."""
+    coefs, quant = np.zeros(64, np.int64), rng.integers(1, 50, 64)
+    coefs[0], k = rng.integers(-3000, 3000), rng.integers(8, 64)
+    coefs[k], quant[k] = 4096, 16
+    return coefs, quant
+
+
+# blocks (quantised coefficients, table) by kind: in range, where libjpeg's
+# C and SIMD routines agree, and past it, where the SIMD one wraps and saturates
+IDCT_BLOCKS = {
+    "in_range": lambda r: (r.integers(-60, 60, 64) * (r.random(64) < 0.3), r.integers(1, 20, 64)),
+    "wild": lambda r: (r.integers(-32768, 32768, 64) * (r.random(64) < r.random()),
+                       r.integers(1, 65536, 64)),
+    "dc_only": lambda r: (np.r_[r.integers(-32768, 32768, 1), np.zeros(63, np.int64)],
+                          r.integers(1, 300, 64)),
+    "first_row": lambda r: (np.r_[r.integers(-20000, 20000, 8), np.zeros(56, np.int64)],
+                            r.integers(1, 30, 64)),
+    "wrapping_products": wrapping_products,
 }
 
 
-@pytest.mark.parametrize("case", sorted(REFUSED))
-def test_refused_jpeg_forms_name_file_and_marker(tmp_path, case):
-    """The forms the reference reads and the port does not yet."""
-    make, marker = REFUSED[case]
-    path = tmp_path / "digit.jpg"
-    path.write_bytes(make())
-    with pytest.raises(NotImplementedError) as e:
-        imread(str(path))
-    assert str(path) in str(e.value) and marker in str(e.value)
-    assert "arithmetic" in str(e.value)
+@pytest.mark.parametrize("kind", sorted(IDCT_BLOCKS))
+def test_idct_equals_libjpeg_turbo_on_any_block(tmp_path, kind):
+    """``idct_islow`` against matplotlib's libjpeg-turbo, one block a file:
+    on values in range its C routine and its x86 SIMD one agree; past it
+    (the coefficients a cut or noisy scan decodes) the SIMD one, which
+    matplotlib's libjpeg-turbo runs on x86, dequantises and sums in 16 bits
+    and saturates."""
+    import matplotlib.pyplot as plt
+
+    rng = np.random.default_rng(sorted(IDCT_BLOCKS).index(kind))
+    path = str(tmp_path / "block.jpg")
+    for i in range(60):
+        coefs, quant = IDCT_BLOCKS[kind](rng)
+        with open(path, "wb") as f:
+            f.write(one_block_jpeg(coefs, quant))
+        want = plt.imread(path)
+        got = idct_islow(np.asarray(coefs, np.int64)[None], np.asarray(quant, np.int64))[0]
+        assert np.array_equal(got, want), (kind, i)
+        assert np.array_equal(imread(path), want), (kind, i)
+
+
+@pytest.mark.parametrize("form", ["arith_baseline", "arith_420", "arith_restart",
+                                  "arith_progressive_420", "arith_progressive_restart"])
+def test_cut_and_noisy_arithmetic_files_read_as_matplotlib_reads_them(tmp_path, form):
+    """The file cut at points through its scans, with and without an EOI
+    marker after the cut, and the first scan's data replaced by noise:
+    where matplotlib returns an image the port returns the same one
+    (libjpeg decodes zeros past a marker, and its SIMD IDCT wraps and
+    saturates the wild coefficients that gives); where it raises, the port
+    raises ``ValueError`` naming the file."""
+    import matplotlib.pyplot as plt
+
+    data = forms.FORMS[form](digits(6)[0])
+    first = data.find(b"\xff\xda")
+    start = first + 2 + struct.unpack_from(">H", data, first + 2)[0]
+    end = re.compile(rb"\xff+(?=[^\x00\xd0-\xd7\xff])").search(data, start).start()
+    cases = []
+    for cut in range(start + 1, len(data) - 1, max(1, (len(data) - start) // 14)):
+        cases += [data[:cut], data[:cut] + b"\xff\xd9"]
+    for seed in range(3):
+        noise = np.random.default_rng(seed).integers(0, 255, end - start).astype(np.uint8)
+        cases.append(data[:start] + noise.tobytes() + data[end:])
+    outcomes = set()
+    for i, case in enumerate(cases):
+        path = str(tmp_path / f"{i}.jpg")
+        with open(path, "wb") as f:
+            f.write(case)
+        try:
+            want = plt.imread(path)
+        except OSError:
+            with pytest.raises(ValueError, match=re.escape(path)):
+                imread(path)
+            outcomes.add("raised")
+            continue
+        got = imread(path)
+        assert got.dtype == want.dtype and np.array_equal(got, want), (form, i)
+        outcomes.add("read")
+    assert outcomes == {"raised", "read"}
 
 
 def test_reader_imports_no_image_library(tmp_path):
-    path = tmp_path / "digit.jpg"
+    path, arith = tmp_path / "digit.jpg", tmp_path / "arith.jpg"
     path.write_bytes(forms.FORMS["progressive_cmyk"](digits(2)[0]))
+    arith.write_bytes(forms.FORMS["arith_progressive_420"](digits(2)[0]))
     code = ("import sys; from lvae_torch.data.image_io import imread; "
             f"assert imread({str(path)!r}).shape == (28, 28, 4); "
+            f"assert imread({str(arith)!r}).shape == (28, 28, 3); "
             "print(sorted(m for m in sys.modules if m.split('.')[0] in "
             "('PIL', 'matplotlib', 'jax', 'lvae_tpu')))")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,

@@ -17,13 +17,16 @@ CPU and on the card.
 
 ``tests/fixtures/torch_jpeg_forms/`` gets one 28×28 digit file for each
 JPEG form of :data:`FORMS` (progressive, progressive with its refinement
-scans dropped, CMYK, YCCK, without Huffman tables, lossless, 3×1 sampling),
-and ``tests/fixtures/torch_jpeg_forms.npz`` matplotlib's ``imread`` of
-each, under the file's name (``uint8`` ``[28, 28]``, ``[28, 28, 3]`` or
-``[28, 28, 4]``). Pillow writes the progressive and CMYK files, byte
-patches make the others from Pillow's, and the small numpy encoders here
-write the lossless files and those of sampling factors Pillow does not
-write; the CPU tests build the same forms from other digits.
+scans dropped, CMYK, YCCK, without Huffman tables, lossless, 3×1 sampling,
+arithmetic-coded sequential and progressive), and
+``tests/fixtures/torch_jpeg_forms.npz`` matplotlib's ``imread`` of each,
+under the file's name (``uint8`` ``[28, 28]``, ``[28, 28, 3]`` or ``[28,
+28, 4]``). Pillow writes the progressive and CMYK files, byte patches make
+others from Pillow's, the small numpy encoders here write the lossless
+files and those of sampling factors Pillow does not write, and the QM
+encoder here (Pillow cannot write arithmetic coding) transcodes Huffman
+files to arithmetic coding; the CPU tests build the same forms from other
+digits.
 
 Needs Pillow, matplotlib and the JAX package; neither the port nor
 ``chip_smoke.py`` imports this script. Run from the repository's root:
@@ -400,6 +403,289 @@ def _progressive(image, **kw) -> bytes:
     return pillow_jpeg(image, progressive=True, **kw)
 
 
+# ------------------------------------------------------- arithmetic coding
+class QMEncoder:
+    """T.81 Annex D.1's arithmetic encoder as libjpeg's ``jcarith.c``
+    writes it: the C and A registers, carries into the bytes still held
+    (``buffer``, the stacked 0xFF bytes ``sc``, the pending zeros ``zc``),
+    0xFF bytes stuffed with a zero, and D.1.8's termination at the end of
+    each scan or restart interval, trailing zero bytes left out."""
+
+    def __init__(self):
+        from lvae_torch.data.image_io import QM_STATES
+
+        self.states, self.out = QM_STATES, bytearray()
+        self.start()
+
+    def start(self) -> None:
+        self.c, self.a, self.sc, self.zc, self.ct, self.buffer = 0, 0x10000, 0, 0, 11, -1
+
+    def _emit(self, byte: int) -> None:
+        self.out += b"\xff\x00" if byte == 0xFF else bytes([byte])
+
+    def _zeros(self) -> None:
+        self.out += bytes(self.zc)
+        self.zc = 0
+
+    def _carry(self) -> None:
+        """An overflow into the held byte: it gains one, the stacked 0xFF
+        bytes become pending zeros."""
+        if self.buffer >= 0:
+            self._zeros()
+            self._emit(self.buffer + 1)
+        self.zc += self.sc
+        self.sc = 0
+
+    def _release(self) -> None:
+        """The held byte and the stacked 0xFF bytes out: no carry can reach them."""
+        if self.buffer == 0:
+            self.zc += 1
+        elif self.buffer > 0:
+            self._zeros()
+            self._emit(self.buffer)
+        if self.sc:
+            self._zeros()
+            self.out += b"\xff\x00" * self.sc
+            self.sc = 0
+
+    def encode(self, stats, i: int, bit: int) -> None:
+        """``bit`` coded with statistics bin ``stats[i]``, which moves on
+        (D.1.4, D.1.5), then renormalised (D.1.6)."""
+        sv = stats[i]
+        qe, nm, nl = self.states[sv & 0x7F]
+        self.a -= qe
+        if bit != sv >> 7:  # the LPS
+            if self.a >= qe:
+                self.c += self.a
+                self.a = qe
+            stats[i] = (sv & 0x80) ^ nl
+        else:
+            if self.a >= 0x8000:
+                return
+            if self.a < qe:
+                self.c += self.a
+                self.a = qe
+            stats[i] = (sv & 0x80) ^ nm
+        while True:
+            self.a <<= 1
+            self.c <<= 1
+            self.ct -= 1
+            if self.ct == 0:
+                byte = self.c >> 19
+                if byte > 0xFF:
+                    self._carry()
+                    self.buffer = byte & 0xFF
+                elif byte == 0xFF:
+                    self.sc += 1
+                else:
+                    self._release()
+                    self.buffer = byte
+                self.c &= 0x7FFFF
+                self.ct += 8
+            if self.a >= 0x8000:
+                return
+
+    def finish(self) -> bytes:
+        """D.1.8: the value in the final interval with the most trailing
+        zero bits, its bytes out but for trailing zeros; the interval's
+        bytes, and the coder started over."""
+        temp = (self.a - 1 + self.c) & 0xFFFF0000
+        self.c = temp + 0x8000 if temp < self.c else temp
+        self.c <<= self.ct
+        if self.c & 0xF8000000:
+            self._carry()
+        else:
+            self._release()
+        if self.c & 0x7FFF800:
+            self._zeros()
+            self._emit((self.c >> 19) & 0xFF)
+            if self.c & 0x7F800:
+                self._emit((self.c >> 11) & 0xFF)
+        out = bytes(self.out)
+        self.out = bytearray()
+        self.start()
+        return out
+
+
+def _category(enc: QMEncoder, stats, x: int, v: int, second: bool, more: int) -> tuple:
+    """Figure F.8 for ``v`` = magnitude − 1 from bin ``x``: the AC coding
+    makes its second decision in ``x`` too (``second``), the rest go from
+    bin ``more`` on; returns the category's top bit and its closing bin."""
+    m = 0
+    if v:
+        enc.encode(stats, x, 1)
+        m, v2 = 1, v >> 1
+        if second and v2:
+            enc.encode(stats, x, 1)
+            m, v2 = 2, v2 >> 1
+            x = more
+        elif not second:
+            x = more
+        while v2:
+            enc.encode(stats, x, 1)
+            m <<= 1
+            v2 >>= 1
+            x += 1
+    enc.encode(stats, x, 0)
+    return m, x
+
+
+def _bits(enc: QMEncoder, stats, x: int, v: int, m: int) -> None:
+    """Figure F.9: the bits of ``v`` below its category's ``m``, in bin ``x`` + 14."""
+    m >>= 1
+    while m:
+        enc.encode(stats, x + 14, 1 if m & v else 0)
+        m >>= 1
+
+
+def _dc_diff(enc: QMEncoder, stats, ctx: list, s: int, diff: int, lu: tuple) -> None:
+    """F.1.4.1's DC difference of the scan's component ``s`` in the
+    context ``ctx[s]``, which it sets from the bounds ``lu`` = (L, U)."""
+    x = ctx[s]
+    if not diff:
+        enc.encode(stats, x, 0)
+        ctx[s] = 0
+        return
+    enc.encode(stats, x, 1)
+    sign = int(diff < 0)
+    enc.encode(stats, x + 1, sign)
+    v = abs(diff) - 1
+    m, x = _category(enc, stats, x + 2 + sign, v, False, 20)
+    ctx[s] = (0 if m < (1 << lu[0]) >> 1 else
+              (12 if m > (1 << lu[1]) >> 1 else 4) + 4 * sign)
+    _bits(enc, stats, x, v, m)
+
+
+def _ac_band(enc: QMEncoder, stats, fixed, zz: list, ss: int, se: int, kx: int) -> None:
+    """Figure F.5 over zigzag coefficients ``ss..se`` of ``zz`` (already
+    shifted by the scan's point transform)."""
+    end = max([k for k in range(ss, se + 1) if zz[k]], default=ss - 1)
+    k = ss
+    while k <= end:
+        enc.encode(stats, 3 * (k - 1), 0)
+        while not zz[k]:
+            enc.encode(stats, 3 * (k - 1) + 1, 0)
+            k += 1
+        enc.encode(stats, 3 * (k - 1) + 1, 1)
+        enc.encode(fixed, 0, int(zz[k] < 0))
+        v = abs(zz[k]) - 1
+        m, x = _category(enc, stats, 3 * k - 1, v, True, 189 if k <= kx else 217)
+        _bits(enc, stats, x, v, m)
+        k += 1
+    if k <= se:
+        enc.encode(stats, 3 * (k - 1), 1)  # end of block
+
+
+def _ac_refine(enc: QMEncoder, stats, fixed, zz: list, ss: int, se: int, ah: int,
+               al: int) -> None:
+    """Figure G.10 over zigzag coefficients ``ss..se`` of ``zz``: bit
+    ``al`` of each, as a correction bit where bits above it are nonzero."""
+    mag = [abs(v) >> al for v in zz]
+    end = max([k for k in range(ss, se + 1) if mag[k]], default=0)
+    old_end = max([k for k in range(1, end + 1) if abs(zz[k]) >> ah], default=0)
+    k = ss
+    while k <= end:
+        if k > old_end:
+            enc.encode(stats, 3 * (k - 1), 0)
+        x = 3 * (k - 1)
+        while True:
+            if mag[k] >> 1:  # nonzero before this scan
+                enc.encode(stats, x + 2, mag[k] & 1)
+                break
+            if mag[k]:  # newly nonzero
+                enc.encode(stats, x + 1, 1)
+                enc.encode(fixed, 0, int(zz[k] < 0))
+                break
+            enc.encode(stats, x + 1, 0)
+            x += 3
+            k += 1
+        k += 1
+    if k <= se:
+        enc.encode(stats, 3 * (k - 1), 1)
+
+
+def dac_segment(dc: dict = None, ac: dict = None) -> bytes:
+    """A DAC segment: ``dc`` table id → (L, U), ``ac`` table id → Kx."""
+    body = b"".join(bytes([t, (u << 4) | lo]) for t, (lo, u) in (dc or {}).items())
+    return segment(0xCC, body + b"".join(bytes([16 + t, kx]) for t, kx in (ac or {}).items()))
+
+
+def arithmetic_jpeg(jpeg: bytes, dac: bytes = b"") -> bytes:
+    """A Huffman-coded JPEG (sequential or progressive) transcoded to
+    arithmetic coding, as ``jpegtran -arithmetic`` does: the same
+    quantised coefficients, quantisation tables, scan script and restart
+    interval, SOF0/1 → SOF9 and SOF2 → SOF10, no DHT, the ``dac`` segment
+    (:func:`dac_segment`) before the first scan; each scan's table ids name
+    its conditioning tables."""
+    from lvae_torch.data.image_io import ZIGZAG, decode_jpeg
+
+    frame = decode_jpeg("the Huffman source", jpeg)[0]
+    zigzag = {c.cid: [[blk[i] for i in ZIGZAG] for blk in c.coefs] for c in frame.comps}
+    dc_lu, ac_k = [(0, 1)] * 16, [5] * 16
+    if dac:
+        for t, val in zip(dac[4::2], dac[5::2]):
+            if t < 16:
+                dc_lu[t] = (val & 15, val >> 4)
+            elif t < 32:
+                ac_k[t - 16] = val
+    out, restart = bytearray(), 0
+    for marker, seg in segments(jpeg):
+        if marker == 0xC4:
+            continue
+        if marker in (0xC0, 0xC1, 0xC2):
+            seg = bytes([0xFF, 0xCA if marker == 0xC2 else 0xC9]) + seg[2:]
+        elif marker == 0xDD:
+            restart = struct.unpack_from(">H", seg, 4)[0]
+        elif marker == 0xDA:
+            if dac:
+                out += dac
+                dac = b""
+            header = seg[:2 + struct.unpack_from(">H", seg, 2)[0]]
+            seg = header + _arithmetic_scan(frame, zigzag, header, restart, dc_lu, ac_k)
+        out += seg
+    return bytes(out)
+
+
+def _arithmetic_scan(frame, zigzag, header: bytes, restart: int, dc_lu, ac_k) -> bytes:
+    """The entropy-coded data of the scan ``header`` (its marker on) for
+    the frame's coefficients (``zigzag``, by component id)."""
+    n = header[4]
+    ids = [header[5 + 2 * s] for s in range(n)]
+    tables = [(header[6 + 2 * s] >> 4, header[6 + 2 * s] & 15) for s in range(n)]
+    from lvae_torch.data.image_io import AC_BINS, DC_BINS, FIXED_BIN, scan_units
+
+    ss, se, ah, al = scan_fields(header)
+    comps = [next(c for c in frame.comps if c.cid == i) for i in ids]
+    progressive = frame.progressive
+    enc, data, fixed = QMEncoder(), b"", bytearray([FIXED_BIN])
+    units = scan_units(frame, comps)[0]
+    for m, unit in enumerate(units):
+        if m % (restart or len(units)) == 0:
+            if m:
+                data += enc.finish() + bytes([0xFF, 0xD0 + (m // restart - 1) % 8])
+            dc = {td: bytearray(DC_BINS) for td, _ in tables}
+            ac = {ta: bytearray(AC_BINS) for _, ta in tables}
+            pred, ctx = [0] * n, [0] * n
+        for s, by, bx in unit:
+            zz = zigzag[ids[s]][by * comps[s].cols + bx]
+            td, ta = tables[s]
+            if not progressive:
+                _dc_diff(enc, dc[td], ctx, s, zz[0] - pred[s], dc_lu[td])
+                pred[s] = zz[0]
+                _ac_band(enc, ac[ta], fixed, zz, 1, 63, ac_k[ta])
+            elif ss == 0 and not ah:
+                _dc_diff(enc, dc[td], ctx, s, (zz[0] >> al) - pred[s], dc_lu[td])
+                pred[s] = zz[0] >> al
+            elif ss == 0:
+                enc.encode(fixed, 0, (zz[0] >> al) & 1)
+            elif not ah:
+                shifted = [v >> al if v >= 0 else -(-v >> al) for v in zz]
+                _ac_band(enc, ac[ta], fixed, shifted, ss, se, ac_k[ta])
+            else:
+                _ac_refine(enc, ac[ta], fixed, zz, ss, se, ah, al)
+    return data + enc.finish()
+
+
 # each JPEG form of the fixtures, written from a 28×28 uint8 grey digit
 FORMS = {
     "progressive_q50": lambda g: _progressive(g, quality=50),
@@ -435,6 +721,66 @@ FORMS = {
                                             sampling=[(2, 2), (1, 1), (1, 1)]),
     "sampling_31": lambda g: baseline_jpeg(ycbcr(tinted(g)), [(3, 1), (1, 1), (1, 1)]),
 }
+# the arithmetic forms (SOF9, SOF10): each transcodes the Huffman file its
+# source writes (:func:`arithmetic_jpeg`), one with a DAC segment;
+# appended to FORMS, so that the earlier forms draw the same digits
+ARITHMETIC_SOURCES = {
+    "arith_baseline": lambda g: baseline_jpeg([g], [(1, 1)]),
+    "arith_420": lambda g: baseline_jpeg(ycbcr(tinted(g)), [(2, 2), (1, 1), (1, 1)]),
+    "arith_dac": lambda g: baseline_jpeg(ycbcr(tinted(g)), [(2, 1), (1, 1), (1, 1)]),
+    "arith_restart": lambda g: pillow_jpeg(tinted(g), quality=80, subsampling=1,
+                                           restart_marker_blocks=2),
+    "arith_cmyk": lambda g: pillow_jpeg(cmyk_image(g), quality=85),
+    "arith_progressive_420": lambda g: _progressive(tinted(g), quality=85, subsampling=2),
+    "arith_progressive_dropped_420": lambda g: drop_refinements(
+        _progressive(tinted(g), quality=85, subsampling=2)),
+    "arith_progressive_dc_only": lambda g: dc_scans_only(_progressive(tinted(g), quality=85)),
+    "arith_progressive_restart": lambda g: _progressive(tinted(g), subsampling=2,
+                                                       restart_marker_rows=1),
+}
+# non-default DC bounds (L, U) and AC Kx for both table slots a colour file uses
+ARITHMETIC_DAC = {"arith_dac": dac_segment({0: (2, 6), 1: (1, 3)}, {0: 2, 1: 24})}
+FORMS.update({name: (lambda g, name=name: arithmetic_jpeg(ARITHMETIC_SOURCES[name](g),
+                                                          ARITHMETIC_DAC.get(name, b"")))
+              for name in ARITHMETIC_SOURCES})
+
+
+def lossless_arithmetic_jpeg(grey: np.ndarray, predictor: int = 1, lu: tuple = (0, 1)) -> bytes:
+    """A lossless arithmetic-coded (SOF11) 8-bit JPEG of ``grey [h, w]``:
+    the differences from ``predictor`` (H.1.2.1, one interval) coded as
+    Annex H.1.4.3 models them: a difference's zero, sign and magnitude
+    category decisions in one of 25 contexts, the classes (zero, small ±,
+    large ±, by the bounds ``lu`` as F.1.4.4.1.2 sets them) of the
+    differences to its left and above, its category's further bins and
+    bits in one of two sets by the class of the one above. libjpeg-turbo
+    refuses such a frame before it reads its entropy-coded data."""
+    h, w = grey.shape
+    plane = grey.astype(np.int64)
+    diffs = np.zeros((h, w), np.int64)
+    for y in range(h):
+        for x in range(w):
+            d = (int(plane[y, x]) - _predict(plane, y, x, predictor, y == 0, 0)) & 0xFFFF
+            diffs[y, x] = d - 65536 if d >= 32768 else d
+
+    def cls(d: int) -> int:
+        if abs(d) <= (1 << lu[0]) >> 1:
+            return 0
+        return (3 if abs(d) > 1 << lu[1] else 1) + int(d < 0)
+
+    enc, stats = QMEncoder(), bytearray(158)  # 25 contexts of 4 bins, 2 sets of 29 category bins
+    for y in range(h):
+        for x in range(w):
+            d, above = int(diffs[y, x]), int(diffs[y - 1, x]) if y else 0
+            s0 = 4 * (5 * cls(int(diffs[y, x - 1]) if x else 0) + cls(above))
+            enc.encode(stats, s0, int(d != 0))
+            if d:
+                sign = int(d < 0)
+                enc.encode(stats, s0 + 1, sign)
+                m, last = _category(enc, stats, s0 + 2 + sign, abs(d) - 1, False,
+                                    129 if cls(above) > 2 else 100)
+                _bits(enc, stats, last, abs(d) - 1, m)
+    return (b"\xff\xd8" + frame_header(0xCB, h, w, [(1, 1, 1, 0)])
+            + scan_header([(1, 0, 0)], predictor, 0) + enc.finish() + b"\xff\xd9")
 
 
 def write_forms(rng: np.random.Generator) -> int:
