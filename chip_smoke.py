@@ -4103,6 +4103,53 @@ def forms_decode() -> dict:
             "kinds": dict(sorted(kinds.items()))}
 
 
+DAMAGED_DIR = os.path.join(ROOT, "tests", "fixtures", "torch_jpeg_damaged")
+# the damage classes, by the end of the file's name (the longest first)
+DAMAGE_CLASSES = ("cut_eoi", "no_eoi", "cut", "noise", "rst_deleted", "rst_1",
+                  "bogus_progression", "bad_progression", "sequential", "progressive")
+
+
+def damaged_decode() -> dict:
+    """Every file of ``tests/fixtures/torch_jpeg_damaged`` through the
+    port's ``imread``: read bit-equal (dtype, shape, every entry) to the
+    committed read of matplotlib, or refused with ``ValueError`` where the
+    reference lists the file as refused; the count by damage class and
+    outcome, and the decode seconds."""
+    ref = np.load(DAMAGED_DIR + ".npz")
+    refused = set(ref["refused"].tolist())
+    names = sorted(os.listdir(DAMAGED_DIR))
+    if names != sorted(set(ref.files) - {"refused"} | refused):
+        raise AssertionError(f"damaged files {names} vs the reference's")
+    counts, differ, seconds = {}, {}, 0.0
+    for name in names:
+        path = os.path.join(DAMAGED_DIR, name)
+        t0 = time.perf_counter()
+        try:
+            got = imread(path)
+        except ValueError as e:
+            got = e
+        seconds += time.perf_counter() - t0
+        if name in refused:
+            outcome = "refused"
+            if not isinstance(got, ValueError) or path not in str(got):
+                differ[name] = f"read, where the reference refuses it: {got!r:.80}"
+        else:
+            outcome, want = "read", ref[name]
+            if isinstance(got, ValueError):
+                differ[name] = f"refused: {got}"
+            elif got.shape != want.shape or got.dtype != want.dtype:
+                differ[name] = f"{got.dtype}{list(got.shape)} vs {want.dtype}{list(want.shape)}"
+            elif not np.array_equal(got, want):
+                differ[name] = int((got != want).sum())
+        cls = next(c for c in DAMAGE_CLASSES if name[:-4].endswith(c))
+        counts.setdefault(cls, {}).setdefault(outcome, 0)
+        counts[cls][outcome] += 1
+    if differ:
+        raise AssertionError(f"damaged files read unlike the committed reference: {differ}")
+    return {"files": len(names), "refused": len(refused), "seconds": seconds,
+            "classes": dict(sorted(counts.items()))}
+
+
 def source_decode() -> dict:
     """Every fixture through the port's reader (``_load_source_images``,
     the generator's entry) held bit-equal to the committed read of the JAX
@@ -4190,6 +4237,8 @@ def source_phase(world: World, root: str, device: str = "cuda") -> dict:
     times["decode"] = dec["seconds"]
     forms = forms_decode()
     times["decode_forms"] = forms["seconds"]
+    damaged = damaged_decode()
+    times["decode_damaged"] = damaged["seconds"]
     data = os.path.join(root, "data")
     times["generate"] = source_generate(data, world.seed)
     results = os.path.join(root, "results")
@@ -4210,7 +4259,8 @@ def source_phase(world: World, root: str, device: str = "cuda") -> dict:
               for name in SOURCE_FIGURES}
     times["figures"] = time.perf_counter() - t0
     per_epoch = counter.pipeline.trainer.tables[0].index.shape[0] // world.cfg.subjects_per_batch
-    return {"times": times, "decode": dec, "forms": forms, "counts": counts, "counter": counter,
+    return {"times": times, "decode": dec, "forms": forms, "damaged": damaged, "counts": counts,
+            "counter": counter,
             "steps_per_epoch": per_epoch, "panels": panels, **out}
 
 
@@ -5221,7 +5271,12 @@ def main() -> int:
     forms = src["forms"]
     say("source", f"{forms['files']} JPEG form files (tests/fixtures/torch_jpeg_forms) decoded by "
         f"imread bit-equal to the committed matplotlib read in {forms['seconds']:.3f} s; by "
-        f"family {json.dumps(forms['families'])}; by header {json.dumps(forms['kinds'])}")
+        f"family {json.dumps(forms['families'])}; by header {json.dumps(forms['kinds'])} | {card}")
+    damaged = src["damaged"]
+    say("source", f"{damaged['files']} damaged JPEG files (tests/fixtures/torch_jpeg_damaged) "
+        f"each read bit-equal to the committed matplotlib read or refused as it is refused "
+        f"({damaged['refused']}) in {damaged['seconds']:.3f} s; by damage class and outcome "
+        f"{json.dumps(damaged['classes'])} | {card}")
     say("source", f"CLI on the real-image cohort ({2 * PIPE_PER_DIGIT} + {2 * PIPE_EVAL_PER_DIGIT} "
         f"+ {2 * PIPE_EVAL_PER_DIGIT} subjects from files 0, {SOURCE_SPLITS[1][2]}, "
         f"{SOURCE_SPLITS[2][2]} of each digit; {SOURCE_PRETRAIN_EPOCHS} pre-training epochs; "

@@ -46,8 +46,32 @@ on any machine:
   grey+alpha coarsened to their high bytes first, as Pillow does.
 
 The file type is found by its signature, as Pillow finds it; a ``.png``
-name must hold a PNG, as matplotlib opens such a name as PNG only. A
-corrupt or truncated file raises ``ValueError`` naming the file.
+name must hold a PNG, as matplotlib opens such a name as PNG only.
+
+A damaged file reads as matplotlib reads it, or raises ``ValueError``
+naming the file where matplotlib raises:
+
+* JPEG entropy-coded data as libjpeg-turbo's decoders take it: past a
+  marker the bits read as zeros; once a Huffman read has needed them the
+  restart interval's later MCUs are not decoded (``insufficient_data``:
+  they keep what they hold; a lossless row comes out as ``2**(7 - Pt)``),
+  and progressive block smoothing takes, past that iMCU row, the bits
+  known before the component's last scan; a code longer than 16 bits is
+  symbol 0; a run past the block's end writes at position 63; a restart
+  marker out of place is resynchronised as ``jpeg_resync_to_restart``
+  does (the wanted one or one 3 or more away taken, one 1 or 2 ahead or
+  another marker left for the next interval, one 1 or 2 behind skipped);
+  successive approximation that does not follow the scans before is
+  decoded as it says. Refused: a file of many scans that ends before its
+  EOI, a file of one scan where libjpeg's bit buffer asks for bytes past
+  the file's end (Pillow: "image file is truncated"), a scan after the
+  one scan of a one-scan file, a marker libjpeg does not know, a second
+  SOI or frame header, Al other than Ah - 1, a lossless component that
+  no scan before the EOI wrote.
+* PNG chunks as Pillow reads them: the checksums of the chunks before the
+  first IDAT only; the image data from the IDAT chunks that follow one
+  another there; the chunks after it read to IEND without checksums (one
+  cut short refused). A broken or cut zlib stream is refused.
 """
 
 from __future__ import annotations
@@ -90,7 +114,10 @@ ZIGZAG = np.array([
     35, 42, 49, 56, 57, 50, 43, 36, 29, 22, 15, 23, 30, 37, 44, 51,
     58, 59, 52, 45, 38, 31, 39, 46, 53, 60, 61, 54, 47, 55, 62, 63,
 ])
-_NATURAL = ZIGZAG.tolist()
+# and libjpeg's jpeg_natural_order: 16 more entries of 63, where a corrupt
+# run past the block's end writes its value and ends the block
+_NATURAL = ZIGZAG.tolist() + [63] * 16
+BAD_CODE = 17 << 8  # a bad Huffman code: 17 bits read, symbol 0
 
 SOF_NAMES = {
     0xC0: "SOF0 (baseline)", 0xC1: "SOF1 (extended sequential)",
@@ -244,10 +271,13 @@ def inverted_cmyk_to_rgba(cmyk: np.ndarray) -> np.ndarray:
 @functools.lru_cache(maxsize=64)
 def _huffman_table(counts: bytes, symbols: bytes, max_dc: int) -> tuple:
     """A 65,536-entry table from the next 16 bits to ``length << 8 |
-    symbol`` (0: no code), checked as jdhuff.c checks a table (DC symbols
-    at most ``max_dc``, or any symbol where it is 255); one build for each
-    distinct table, as files written by one encoder share theirs."""
-    lut = [0] * (1 << 16)
+    symbol``, checked as jdhuff.c checks a table (DC symbols at most
+    ``max_dc``, or any symbol where it is 255); bits that begin no code
+    give symbol 0 after 17 bits, as libjpeg's decoder reads a bad code
+    (``JWRN_HUFF_BAD_CODE``: it walks to the sentinel length 17 and fakes
+    a zero). One build for each distinct table, as files written by one
+    encoder share theirs."""
+    lut = [BAD_CODE] * (1 << 16)
     code, k = 0, 0
     for length in range(1, 17):
         span = 1 << (16 - length)
@@ -282,26 +312,100 @@ STD_HUFFMAN = {
         "e2e3e4e5e6e7e8e9eaf2f3f4f5f6f7f8f9fa"),
 }
 
-_ENTROPY_END = re.compile(rb"\xff+(?=[^\x00\xd0-\xd7\xff])")
-_RESTART = re.compile(rb"\xff[\xd0-\xd7]")
+# a marker: 0xFF bytes, then a code other than 0 (a stuffed byte) or 0xFF
+_MARKER = re.compile(rb"\xff+(?=[^\x00\xff])")
+_STUFFED = re.compile(rb"\xff+\x00")  # one data byte 0xFF (libjpeg swallows extra 0xFFs)
+# the zero bytes a block's decoding may read past its interval's data: 64
+# coefficients of at most 31 bits, or a refinement's codes and correction bits
+BLOCK_PAD = 320
+MIN_GET_BITS = 57  # jdhuff.h on a 64-bit bit buffer: each refill loads bytes to this many bits
+FAST_BYTES = 512  # jdhuff.c's BUFSIZE: the bytes a block needs left for decode_mcu_fast
+
+
+def _next_marker(data: bytes, pos: int):
+    """The next marker code at or after ``pos`` (fill bytes and stray data
+    skipped, as libjpeg's ``next_marker`` skips them) and the position
+    after it; None at the end of the data."""
+    m = _MARKER.search(data, pos)
+    return (data[m.end()], m.end() + 1) if m else (None, len(data))
+
+
+def _marker_at(path: str, data: bytes, pos: int) -> tuple:
+    """The next marker from ``pos``, where libjpeg must read one: the end of
+    the file there suspends it, and Pillow then reports a truncated file."""
+    code, after = _next_marker(data, pos)
+    if code is None:
+        raise ValueError(f"{path}: truncated JPEG entropy-coded data")
+    return code, after
+
+
+def _resync(path: str, data: bytes, code: int, after: int, want: int) -> tuple:
+    """The marker found where restart marker ``RST{want}`` was expected, as
+    ``read_restart_marker`` and ``jpeg_resync_to_restart`` (jdmarker.c)
+    treat it: ``(taken, code, after)``. The marker wanted, or an RST 3 or
+    more away, is taken (its interval's data follows it); one 1 or 2
+    ahead, or a marker that is no RST, is left standing (the interval
+    reads no data and the marker is met again at the next restart); one 1
+    or 2 behind, or a code below SOF0, is skipped to the next marker."""
+    while True:
+        if 0xD0 <= code <= 0xD7:
+            ahead = (code - 0xD0 - want) & 7
+            if ahead in (1, 2):
+                return False, code, after
+            if ahead not in (6, 7):
+                return True, code, after
+        elif code >= 0xC0:
+            return False, code, after
+        code, after = _marker_at(path, data, after)
+
+
+def scan_intervals(path: str, data: bytes, pos: int, n_mcus: int, restart: int) -> tuple:
+    """libjpeg's walk through a scan's entropy-coded data from ``pos`` in
+    ``data``, ``n_mcus`` MCUs with a restart every ``restart``: ``(first
+    MCU, MCU count, bytes, reset, at_end)`` for each restart interval, and
+    the marker that ends the scan's data as ``(code, position after it)``
+    (None where the data runs to the file's end). ``bytes`` are the
+    interval's own, up to the first marker whatever it is; ``reset`` is
+    False where the interval stands against a marker that
+    :func:`_resync` leaves (its bytes are empty and libjpeg keeps its
+    out-of-data flag); ``at_end`` where the bytes run to the file's end."""
+    per = restart or n_mcus
+    out, unread = [], None
+    for i in range(_ceil_div(n_mcus, per)):
+        reset = True
+        if i:  # process_restart: the bit buffer emptied, the marker read and checked
+            code, after = unread if unread else _marker_at(path, data, pos)
+            reset, code, after = _resync(path, data, code, after, (i - 1) & 7)
+            unread, pos = (None, after) if reset else ((code, after), pos)
+        if unread:
+            piece, at_end = b"", False
+        else:
+            m = _MARKER.search(data, pos)
+            if m:
+                piece, at_end = data[pos:m.start()], False
+                unread = (data[m.end()], m.end() + 1)
+            else:
+                piece, at_end, pos = data[pos:], True, len(data)
+        out.append((i * per, min(per, n_mcus - i * per), piece, reset, at_end))
+    return out, unread
 
 
 class _Bits:
-    """The bits of one restart interval's entropy-coded data in the file
-    ``path`` (stuffed zero bytes removed, zeros past its end)."""
+    """The bits of one restart interval's entropy-coded ``piece`` in the
+    file ``path``: stuffed zero bytes removed, ``pad`` zero bytes past its
+    end (libjpeg reads zeros once its data meet a marker); ``nbits`` of
+    them are the data's."""
 
     __slots__ = ("path", "buf", "p", "nbits")
 
-    def __init__(self, path: str, piece: bytes):
-        buf = piece.rstrip(b"\xff").replace(b"\xff\x00", b"\xff")
+    def __init__(self, path: str, piece: bytes, pad: int):
+        buf = _STUFFED.sub(b"\xff", piece.rstrip(b"\xff"))
         self.path, self.nbits = path, len(buf) * 8
-        self.buf, self.p = buf + bytes(8), 0
+        self.buf, self.p = buf + bytes(pad + 4), 0
 
     def huff(self, lut: tuple) -> int:
         q, p = self.p >> 3, self.p
         e = lut[(int.from_bytes(self.buf[q:q + 3], "big") >> (8 - (p & 7))) & 0xFFFF]
-        if not e:
-            raise ValueError(f"{self.path}: corrupt JPEG: a bad Huffman code")
         self.p = p + (e >> 8)
         return e & 0xFF
 
@@ -315,21 +419,69 @@ class _Bits:
         v = self.get(s)
         return v - (1 << s) + 1 if v < 1 << (s - 1) else v
 
-    def check(self) -> None:
-        if self.p > self.nbits:
-            raise ValueError(f"{self.path}: truncated or corrupt JPEG entropy-coded data")
+    def out(self) -> bool:
+        """Whether the decoder has read past the data (libjpeg's
+        ``insufficient_data``, set when a read needs more bits than are left
+        before the marker)."""
+        return self.p > self.nbits
 
 
-def _intervals(path: str, segment: bytes, n_mcus: int, restart: int):
-    """A scan's entropy-coded ``segment`` of ``n_mcus`` MCUs split at its
-    restart markers: ``(first MCU, MCU count, bits)`` for each interval."""
-    pieces = _RESTART.split(segment)
-    per_piece = restart or n_mcus
-    n = _ceil_div(n_mcus, per_piece) if n_mcus else 0
-    if len(pieces) < n or (not restart and len(pieces) > 1):
-        raise ValueError(f"{path}: corrupt JPEG: restart markers do not match the interval")
-    return [(i * per_piece, min(per_piece, n_mcus - i * per_piece), _Bits(path, pieces[i]))
-            for i in range(n)]
+class _Counted(_Bits):
+    """The bits of a scan's last interval where the file ends inside its
+    data (no marker follows), read through libjpeg's bit buffer: each
+    refill of ``jpeg_fill_bit_buffer`` loads whole bytes until the buffer
+    holds :data:`MIN_GET_BITS`, and ``decode_mcu_fast`` (``fast``, for an
+    MCU with :data:`FAST_BYTES` a block left in the file and no restarts)
+    loads 6 bytes where 16 bits or fewer are left. A refill that meets the
+    file's end suspends libjpeg, and Pillow then reports the file as
+    truncated: :class:`ValueError`."""
+
+    __slots__ = ("loaded", "ends", "fast")
+
+    def __init__(self, path: str, piece: bytes, pad: int):
+        super().__init__(path, piece, pad)
+        self.loaded, self.fast = 0, False
+        self.ends = [len(piece)]  # the bytes left in the file after each count of loaded bytes
+        for m in re.finditer(rb"\xff+\x00|[^\xff]", piece):  # one loaded byte each
+            self.ends.append(len(piece) - m.end())
+
+    def _fill(self, p: int) -> None:
+        want = (p + MIN_GET_BITS + 7) >> 3
+        if want > self.nbits >> 3:
+            raise ValueError(f"{self.path}: truncated JPEG entropy-coded data")
+        self.loaded = max(self.loaded, want)
+
+    def _need(self, n: int) -> None:
+        """The buffer made to hold ``n`` bits (CHECK_BIT_BUFFER; on the fast
+        path FILL_BIT_BUFFER_FAST)."""
+        if self.fast:
+            if self.loaded * 8 - self.p <= 16:
+                self.loaded += 6
+        elif self.loaded * 8 - self.p < n:
+            self._fill(self.p)
+
+    def huff(self, lut: tuple) -> int:
+        p = self.p
+        n = lut[(int.from_bytes(self.buf[p >> 3:(p >> 3) + 3], "big") >> (8 - (p & 7)))
+                & 0xFFFF] >> 8
+        if n > 8 and not self.fast:  # jpeg_huff_decode: 9 bits, then one at a time
+            self._need(8)
+            self._need(9)
+            for q in range(p + 9, p + n):
+                if self.loaded * 8 - q < 1:
+                    self._fill(q)
+        else:
+            self._need(8)
+        return super().huff(lut)
+
+    def get(self, n: int) -> int:
+        self._need(n)
+        return super().get(n)
+
+    def use_fast(self, blocks: int, restart: int) -> None:
+        """Whether the next MCU of ``blocks`` blocks takes decode_mcu_fast."""
+        self.fast = not restart and self.ends[min(self.loaded, len(self.ends) - 1)] >= \
+            FAST_BYTES * blocks
 
 
 class _Component:
@@ -340,7 +492,8 @@ class _Component:
         self.samples = None  # lossless: sample rows of differences, then of samples
         self.bits = [-1] * 64  # the lowest known bit of each coefficient (libjpeg's coef_bits)
         self.restarts = set()  # lossless: the sample rows that start a restart interval
-        self.pt = 0  # lossless: the point transform
+        self.pt = None  # lossless: the point transform, once a scan has set it
+        self.prev = [0] * 64  # progressive: coefficient bits before the component's last scan
 
 
 class _Frame:
@@ -370,6 +523,8 @@ class _Frame:
         self.width, self.height = width, height
         self.progressive, self.lossless = marker in (0xC2, 0xCA), marker == 0xC3
         self.arithmetic = marker in (0xC9, 0xCA)
+        self.n_scans = 0  # libjpeg's input_scan_number
+        self.last_good = 0  # the iMCU row of the last MCU begun with data (jdcoefct.c)
         self.comps = []
         for c in range(n):
             cid, hv, tq = seg[6 + 3 * c:9 + 3 * c]
@@ -399,7 +554,7 @@ class _Scan:
 
     def __init__(self, path: str, seg: bytes, frame: _Frame, quant: dict, huff: dict):
         ns = seg[0]
-        if not 1 <= ns <= len(frame.comps) or len(seg) < 4 + 2 * ns:
+        if not 1 <= ns <= len(frame.comps) or len(seg) != 4 + 2 * ns:
             raise ValueError(f"{path}: corrupt JPEG: a bad scan header")
         self.ss, self.se = seg[1 + 2 * ns], seg[2 + 2 * ns]
         self.ah, self.al = seg[3 + 2 * ns] >> 4, seg[3 + 2 * ns] & 15
@@ -467,21 +622,68 @@ def _table(path: str, huff: dict, tc: int, th: int, lossless: bool) -> tuple:
         raise ValueError(f"{path}: corrupt JPEG: {e}") from None
 
 
-def _decode_sequential(path: str, bits_of, units, scan: _Scan) -> None:
+def _huffman_block(bits: _Bits, dc_lut: tuple, ac_lut: tuple, blk: list, pred: list,
+                   sc: int) -> None:
+    """One block of a sequential Huffman scan (F.2.2.1, F.2.2.2) into
+    ``blk``, its DC prediction in ``pred[sc]``: the DC, then each nonzero
+    AC coefficient written in place (a run past the block's end writes at
+    63 and ends it, as jpeg_natural_order's safety entries do)."""
+    s = bits.huff(dc_lut)
+    if s:
+        pred[sc] += bits.extend(s)
+    blk[0] = pred[sc]
+    k = 1
+    while k < 64:
+        rs = bits.huff(ac_lut)
+        r, s = rs >> 4, rs & 15
+        if s:
+            k += r
+            blk[_NATURAL[k]] = bits.extend(s)
+        elif r != 15:
+            break
+        else:
+            k += 15
+        k += 1
+
+
+def _decode_sequential(path: str, intervals, units, scan: _Scan, one_pass: bool,
+                       restart: int) -> None:
     """Huffman-decode the MCUs of one sequential scan (F.2.2) into its
-    components' blocks."""
+    components' blocks as jdhuff.c does: past an interval's data the bits
+    read as zeros, and once a read has needed them the interval's later
+    MCUs are not decoded (libjpeg's ``insufficient_data``; they keep the
+    zeros they hold). The flag clears at a restart whose data follows its
+    marker. An intact interval takes the inlined loop; where a file of
+    one scan ends inside its last interval, that interval goes through
+    libjpeg's bit buffer (:class:`_Counted`)."""
     cols = [c.cols for c in scan.comps]
-    for first, count, bits in bits_of:
-        buf, p = bits.buf, 0
+    coefs = [c.coefs for c in scan.comps]
+    pad = BLOCK_PAD * len(units[0])
+    out = False
+    for first, count, piece, reset, at_end in intervals:
+        out = out and not reset
         pred = [0] * len(scan.comps)
+        if at_end and one_pass:
+            bits = _Counted(path, piece, pad)
+            for m in range(first, first + count):
+                if out:
+                    break
+                bits.use_fast(len(units[m]), restart)
+                for sc, by, bx in units[m]:
+                    _huffman_block(bits, scan.dc[sc], scan.ac[sc], coefs[sc][by * cols[sc] + bx],
+                                   pred, sc)
+                out = bits.out()
+            continue
+        bits = _Bits(path, piece, pad)
+        buf, nbits, p = bits.buf, bits.nbits, 0
         for m in range(first, first + count):
+            if out:
+                break
             for sc, by, bx in units[m]:
                 dc_lut, ac_lut = scan.dc[sc], scan.ac[sc]
-                blk = [0] * 64
+                blk = coefs[sc][by * cols[sc] + bx]
                 q = p >> 3
                 e = dc_lut[(int.from_bytes(buf[q:q + 3], "big") >> (8 - (p & 7))) & 0xFFFF]
-                if not e:
-                    raise ValueError(f"{path}: corrupt JPEG: a bad Huffman code")
                 p += e >> 8
                 s = e & 0xFF
                 if s:
@@ -496,14 +698,10 @@ def _decode_sequential(path: str, bits_of, units, scan: _Scan) -> None:
                 while k < 64:
                     q = p >> 3
                     e = ac_lut[(int.from_bytes(buf[q:q + 3], "big") >> (8 - (p & 7))) & 0xFFFF]
-                    if not e:
-                        raise ValueError(f"{path}: corrupt JPEG: a bad Huffman code")
                     p += e >> 8
                     r, s = (e >> 4) & 15, e & 15
                     if s:
                         k += r
-                        if k > 63:
-                            raise ValueError(f"{path}: corrupt JPEG: a run past the block's end")
                         q = p >> 3
                         v = (int.from_bytes(buf[q:q + 4], "big") >> (32 - (p & 7) - s)) \
                             & ((1 << s) - 1)
@@ -516,22 +714,36 @@ def _decode_sequential(path: str, bits_of, units, scan: _Scan) -> None:
                         k += 16
                     else:
                         break
-                scan.comps[sc].coefs[by * cols[sc] + bx] = blk
-        bits.p = p
-        bits.check()
+            out = p > nbits
 
 
-def _decode_progressive(path: str, bits_of, units, scan: _Scan) -> None:
+def _decode_progressive(path: str, intervals, units, scan: _Scan, frame: _Frame,
+                        per_row: int) -> None:
     """One progressive scan (G.1.2) over its components' blocks: DC first
     (point transform ``al``), DC refinement, AC first over ``ss..se`` with
-    end-of-band runs, or AC refinement with correction bits (jdphuff.c)."""
+    end-of-band runs, or AC refinement with correction bits, as jdphuff.c
+    decodes them, coefficients kept in 16 bits. Past an interval's data
+    the bits read as zeros and, once a read has needed them, the
+    interval's later MCUs are left as they are; ``frame.last_good`` keeps
+    the iMCU row of the last MCU begun with data (jdcoefct.c's
+    ``last_good_iMCU_row``), where block smoothing changes its rule."""
     ss, se, ah, al = scan.ss, scan.se, scan.ah, scan.al
     p1, m1 = 1 << al, -1 << al
     cols = [c.cols for c in scan.comps]
-    for first, count, bits in bits_of:
+    v_rows = 1 if len(scan.comps) > 1 else scan.comps[0].v  # MCU rows an iMCU row
+    pad = BLOCK_PAD * len(units[0])
+    out = False
+    for first, count, piece, reset, _ in intervals:
+        bits = _Bits(path, piece, pad)
         pred = [0] * len(scan.comps)  # a restart resets the predictions and the band run
         eobrun = 0
         for m in range(first, first + count):
+            if not out:
+                frame.last_good = m // per_row // v_rows
+            if m == first and reset:
+                out = False
+            if out:
+                continue
             for sc, by, bx in units[m]:
                 blk = scan.comps[sc].coefs[by * cols[sc] + bx]
                 if ss == 0:
@@ -539,7 +751,7 @@ def _decode_progressive(path: str, bits_of, units, scan: _Scan) -> None:
                         s = bits.huff(scan.dc[sc])
                         if s:
                             pred[sc] += bits.extend(s)
-                        blk[0] = pred[sc] << al
+                        blk[0] = _i16(pred[sc] << al)
                     elif bits.get(1):
                         blk[0] |= p1
                     continue
@@ -553,9 +765,7 @@ def _decode_progressive(path: str, bits_of, units, scan: _Scan) -> None:
                         r, s = rs >> 4, rs & 15
                         if s:
                             k += r
-                            if k > 63:
-                                raise ValueError(f"{path}: corrupt JPEG: a run past the band's end")
-                            blk[_NATURAL[k]] = bits.extend(s) << al
+                            blk[_NATURAL[k]] = _i16(bits.extend(s) << al)
                         elif r == 15:
                             k += 15
                         else:
@@ -577,34 +787,56 @@ def _decode_progressive(path: str, bits_of, units, scan: _Scan) -> None:
                             pos = _NATURAL[k]
                             if blk[pos]:
                                 if bits.get(1) and not blk[pos] & p1:
-                                    blk[pos] += p1 if blk[pos] >= 0 else m1
+                                    blk[pos] = _i16(blk[pos] + (p1 if blk[pos] >= 0 else m1))
                             else:
                                 r -= 1
                                 if r < 0:
                                     break
                             k += 1
                         if s:
-                            blk[_NATURAL[min(k, 63)]] = s
+                            blk[_NATURAL[k]] = s
                         k += 1
                 if eobrun:  # in a band run: a correction bit for each nonzero coefficient
                     while k <= se:
                         pos = _NATURAL[k]
                         if blk[pos] and bits.get(1) and not blk[pos] & p1:
-                            blk[pos] += p1 if blk[pos] >= 0 else m1
+                            blk[pos] = _i16(blk[pos] + (p1 if blk[pos] >= 0 else m1))
                         k += 1
                     eobrun -= 1
-        bits.check()
+            out = bits.out()
 
 
-def _decode_lossless(path: str, bits_of, units, scan: _Scan) -> None:
+def _decode_lossless(path: str, intervals, units, scan: _Scan, per_row: int,
+                     one_pass: bool) -> None:
     """Huffman-decode one lossless scan's differences (H.2.2; SSSS = 16
-    means 32768 and no further bits) into its components' sample grids."""
-    for first, count, bits in bits_of:
-        for m in range(first, first + count):
-            for sc, y, x in units[m]:
-                s = bits.huff(scan.dc[sc])
-                scan.comps[sc].samples[y][x] = 32768 if s == 16 else (bits.extend(s) if s else 0)
-        bits.check()
+    means 32768 and no further bits) into its components' sample grids, an
+    MCU row at a time as jdlhuff.c does: past an interval's data the bits
+    read as zeros, and once a row has needed them the interval's later
+    rows are not decoded: their differences are zero and the
+    undifferencer starts over at their iMCU row (``decode_mcus`` resets
+    it), so that they come out as ``2**(7 - Pt)``."""
+    pad = 5 * len(units[0]) * per_row
+    interleaved = len(scan.comps) > 1
+    out = False
+    for first, count, piece, reset, at_end in intervals:
+        out = out and not reset
+        bits = (_Counted if at_end and one_pass else _Bits)(path, piece, pad)
+        for row in range(first, first + count, per_row):
+            mcus = units[row:row + per_row]
+            if out:
+                for unit in mcus:
+                    for sc, y, x in unit:
+                        scan.comps[sc].samples[y][x] = 0
+                r = row // per_row
+                for c in scan.comps:
+                    c.restarts.add(r * c.v if interleaved else r - r % c.v)
+                continue
+            for unit in mcus:
+                for sc, y, x in unit:
+                    s = bits.huff(scan.dc[sc])
+                    scan.comps[sc].samples[y][x] = 32768 if s == 16 else (
+                        bits.extend(s) if s else 0)
+            out = bits.out()
 
 
 def _undifference(comp: _Component, predictor: int, pt: int) -> None:
@@ -690,7 +922,6 @@ QM_STATES = tuple((qe, nm, nl | (i in _SWITCH_MPS) << 7) for i, (qe, nl, nm)
                   in enumerate(zip(_QE, _NEXT_LPS, _NEXT_MPS))) + ((0x5A1D, 113, 113),)
 FIXED_BIN = 113
 DC_BINS, AC_BINS = 64, 256  # a DC and an AC statistics area (F.1.4.4.1, F.1.4.4.2)
-_STUFFED = re.compile(rb"\xff+\x00")
 
 
 def _i16(v: int) -> int:
@@ -850,22 +1081,6 @@ class _QM:
             k += 1
 
 
-def _arithmetic_intervals(path: str, segment: bytes, n_mcus: int, restart: int,
-                          at_file_end: bool):
-    """An arithmetic scan's ``segment`` of ``n_mcus`` MCUs split at its
-    restart markers: ``(first MCU, MCU count, decoder)`` for each interval.
-    An interval whose marker is missing reads as empty (libjpeg's
-    resynchronisation leaves the marker for the next header), one past the
-    file's end as truncated; data after an unexpected marker is skipped."""
-    pieces = _RESTART.split(segment)
-    per_piece = restart or n_mcus
-    n = _ceil_div(n_mcus, per_piece) if n_mcus else 0
-    return [(i * per_piece, min(per_piece, n_mcus - i * per_piece),
-             _QM(path, pieces[i] if i < len(pieces) else b"",
-                 at_file_end and i >= len(pieces) - 1))
-            for i in range(n)]
-
-
 def _decode_arithmetic(intervals, units, scan: _Scan, progressive: bool, dc_lu: list,
                        ac_k: list) -> None:
     """One arithmetic-coded scan (F.2.4, G.1.3) into its components'
@@ -903,22 +1118,6 @@ def _decode_arithmetic(intervals, units, scan: _Scan, progressive: bool, dc_lu: 
             pass
 
 
-def _next_marker(data: bytes, pos: int):
-    """The next marker code at or after ``pos`` (fill bytes and stray data
-    skipped, as libjpeg skips them) and the position after it; None at the
-    end of the data."""
-    n = len(data)
-    while True:
-        while pos < n and data[pos] != 0xFF:
-            pos += 1
-        while pos < n and data[pos] == 0xFF:
-            pos += 1
-        if pos >= n:
-            return None, n
-        if data[pos] != 0:
-            return data[pos], pos + 1
-
-
 def read_jpeg(path: str, data: bytes) -> np.ndarray:
     """Decode a JPEG as libjpeg-turbo does by default and Pillow and
     matplotlib hand it on: the marker walk, then each scan into the
@@ -926,41 +1125,127 @@ def read_jpeg(path: str, data: bytes) -> np.ndarray:
     return _output(path, *decode_jpeg(path, data))
 
 
+def _unknown_marker(code: int) -> bool:
+    """A code libjpeg's ``read_markers`` stops at (JERR_UNKNOWN_MARKER):
+    the reserved codes, JPG and JPGn, DHP and EXP."""
+    return code < 0xC0 and code != 0x01 or code in (0xC8, 0xDE, 0xDF) or 0xF0 <= code <= 0xFD
+
+
+def _stops_before_end(marker: int, rest: bytes, frame: _Frame) -> bool:
+    """Whether libjpeg's reader of the segment ``rest`` (from its length
+    field to the file's end, which cuts it) stops at an error before it
+    needs a byte past the end (jdmarker.c: ``get_dri`` checks the length
+    first, ``get_sos`` the length and each component, ``get_dht``,
+    ``get_dqt`` and ``get_dac`` each table as they read it); skipped
+    segments (APPn, COM, DNL) just need their bytes."""
+    if len(rest) < 2:
+        return False
+    left = struct.unpack_from(">H", rest)[0] - 2
+    if marker == 0xDD:
+        return left != 2
+    if marker == 0xDA:
+        n = rest[2] if len(rest) > 2 else 0
+        if len(rest) > 2 and (left != 2 * n + 4 or not 1 <= n <= 4):
+            return True
+        ids = {c.cid for c in frame.comps}
+        return any(cid not in ids for cid in rest[3:3 + 2 * n:2])
+    i = 2
+    if marker == 0xC4:
+        while left > 16:
+            if i + 17 > len(rest):
+                return False
+            count = sum(rest[i + 1:i + 17])
+            left -= 17
+            if count > 256 or count > left:
+                return True
+            if i + 17 + count > len(rest):
+                return False
+            if rest[i] & 0x0F >= 4 or rest[i] >> 4 > 1:
+                return True
+            left -= count
+            i += 17 + count
+        return left != 0
+    if marker == 0xDB:
+        while left > 0:
+            if i >= len(rest):
+                return False
+            if rest[i] & 0x0F >= 4:
+                return True
+            size = 128 if rest[i] >> 4 else 64
+            if i + 1 + size > len(rest):
+                return False
+            left -= 1 + size
+            i += 1 + size
+        return left != 0
+    if marker == 0xCC:
+        while left > 0:
+            if i + 2 > len(rest):
+                return False
+            index, value = rest[i:i + 2]
+            if index >= 32 or index < 16 and value & 15 > value >> 4:
+                return True
+            left -= 2
+            i += 2
+        return left != 0
+    return False
+
+
 def decode_jpeg(path: str, data: bytes) -> tuple:
     """The marker walk of the JPEG ``data`` (read from ``path``) and every
     scan decoded: ``(frame, jfif, adobe)``, the frame holding each
-    component's quantised coefficients (lossless: its samples)."""
+    component's quantised coefficients (lossless: its samples). As
+    libjpeg under Pillow: a file of many scans is read to its EOI before
+    any output, so that its end anywhere else is a truncated file; a file
+    of one scan is output once its scan is decoded, and what follows is
+    read for errors only (a second scan is one), its end there being no
+    fault."""
     quant, huff = {}, {}
     frame = None
     restart, jfif, adobe = 0, False, None
     dc_lu, ac_k = [(0, 1)] * 16, [5] * 16  # arithmetic conditioning, jdmarker.c's at SOI
-    scanned = set()
     multi_scan = None  # jdinput.c's has_multiple_scans, set by the first scan
+    pending = None  # the marker a scan's data ran into (libjpeg's unread_marker)
     pos = 2
     while True:
-        marker, pos = _next_marker(data, pos)
-        if marker is None:  # libjpeg reads a file of many scans whole before its output
-            if frame is None or len(scanned) < len(frame.comps) or multi_scan:
+        marker, pos = pending or _next_marker(data, pos)
+        pending = None
+        if marker is None:
+            if multi_scan is not False:  # libjpeg suspends for more data
                 raise ValueError(f"{path}: truncated JPEG")
             break
         if marker == 0xD9:  # EOI
+            # jddiffct.c keeps a lossless file's samples in arrays that are not pre-zeroed:
+            # libjpeg reads a component no scan wrote as a bad access
+            if frame is not None and frame.lossless and any(c.pt is None for c in frame.comps):
+                raise ValueError(f"{path}: corrupt JPEG: a lossless component without a scan")
             break
-        if marker == 0xD8 or 0xD0 <= marker <= 0xD7 or marker == 0x01:
+        if 0xD0 <= marker <= 0xD7 or marker == 0x01:
             continue
-        if pos + 2 > len(data):
-            raise ValueError(f"{path}: truncated JPEG")
-        length = struct.unpack_from(">H", data, pos)[0]
+        if marker == 0xD8:
+            raise ValueError(f"{path}: corrupt JPEG: a second SOI marker")
+        if _unknown_marker(marker):
+            raise ValueError(f"{path}: corrupt JPEG: unknown marker 0x{marker:02x}")
+        if marker in SOF_NAMES and frame is not None:  # refused before its length is read
+            raise ValueError(f"{path}: corrupt JPEG: a second frame header")
+        length = struct.unpack_from(">H", data, pos)[0] if pos + 2 <= len(data) else 1 << 16
+        if pos + length > len(data):  # the file ends inside the segment
+            if multi_scan is False and not _stops_before_end(marker, data[pos:], frame):
+                break
+            raise ValueError(f"{path}: truncated or corrupt JPEG (a cut segment)")
+        if length < 2:
+            if marker >= 0xE0 or marker == 0xDC:  # skip_variable reads the length alone
+                pos += 2
+                continue
+            raise ValueError(f"{path}: corrupt JPEG: a segment of length {length}")
         seg = data[pos + 2:pos + length]
-        if length < 2 or len(seg) != length - 2:
-            raise ValueError(f"{path}: truncated JPEG")
         pos += length
         try:
             if marker == 0xDB:  # DQT
                 i = 0
                 while i < len(seg):
-                    pq, tq = seg[i] >> 4, seg[i] & 15
-                    size = 64 * (pq + 1)
-                    if pq > 1 or tq > 3 or i + 1 + size > len(seg):
+                    pq, tq = seg[i] >> 4, seg[i] & 15  # any nonzero precision: 16-bit entries
+                    size = 128 if pq else 64
+                    if tq > 3 or i + 1 + size > len(seg):
                         raise ValueError(f"{path}: corrupt JPEG: a bad quantisation table")
                     table = np.zeros(64, np.int64)
                     table[ZIGZAG] = np.frombuffer(seg, ">u2" if pq else np.uint8, 64, i + 1)
@@ -971,7 +1256,7 @@ def decode_jpeg(path: str, data: bytes) -> tuple:
                 while i < len(seg):
                     tc, th = seg[i] >> 4, seg[i] & 15
                     total = sum(seg[i + 1:i + 17])
-                    if tc > 1 or th > 3 or len(seg) < i + 17 + total:
+                    if tc > 1 or th > 3 or total > 256 or len(seg) < i + 17 + total:
                         raise ValueError(f"{path}: corrupt JPEG: a bad Huffman table")
                     huff[tc, th] = seg[i + 1:i + 17 + total]
                     i += 17 + total
@@ -989,55 +1274,59 @@ def decode_jpeg(path: str, data: bytes) -> tuple:
                     else:
                         dc_lu[index] = (value & 15, value >> 4)
             elif marker in SOF_NAMES:
-                if frame is not None:
-                    raise ValueError(f"{path}: corrupt JPEG: a second frame header")
                 frame = _Frame(path, marker, seg)
             elif marker == 0xDD:  # DRI
+                if len(seg) != 2:
+                    raise ValueError(f"{path}: corrupt JPEG: a bad DRI segment")
                 restart = struct.unpack_from(">H", seg)[0]
-            elif marker == 0xE0 and seg[:5] == b"JFIF\0" and len(seg) >= 14:
+            # libjpeg takes the colour space from the markers before the first scan
+            elif multi_scan is None and marker == 0xE0 and seg[:5] == b"JFIF\0" and len(seg) >= 14:
                 jfif = True
-            elif marker == 0xEE and seg[:5] == b"Adobe" and len(seg) >= 12:
+            elif multi_scan is None and marker == 0xEE and seg[:5] == b"Adobe" and len(seg) >= 12:
                 adobe = seg[11]
-            elif marker == 0xDA:  # SOS
-                if frame is None:
-                    raise ValueError(f"{path}: corrupt JPEG: a scan before the frame header")
-                scan = _Scan(path, seg, frame, quant, huff)
-                scanned.update(c.cid for c in scan.comps)
-                if multi_scan is None:
-                    multi_scan = frame.progressive or len(scan.comps) < len(frame.comps)
-                end = _ENTROPY_END.search(data, pos)
-                end = end.start() if end else len(data)
-                try:
-                    units, per_row = scan_units(frame, scan.comps)
-                except ValueError as e:
-                    raise ValueError(f"{path}: {e}") from None
-                if frame.lossless and restart % per_row:  # jddiffct.c restarts at MCU rows
-                    raise ValueError(f"{path}: a lossless JPEG whose restart interval ({restart} "
-                                     f"MCUs) is not a whole number of MCU rows ({per_row}), "
-                                     "which the reference's reader refuses")
-                if frame.progressive:
-                    for c in scan.comps:
-                        c.bits[scan.ss:scan.se + 1] = [scan.al] * (scan.se + 1 - scan.ss)
-                if frame.arithmetic:
-                    _decode_arithmetic(_arithmetic_intervals(path, data[pos:end], len(units),
-                                                             restart, end == len(data)),
-                                       units, scan, frame.progressive, dc_lu, ac_k)
-                    pos = end
-                    continue
-                bits_of = _intervals(path, data[pos:end], len(units), restart)
-                if frame.lossless:
-                    for c in scan.comps:
-                        step = restart // per_row * (c.v if len(scan.comps) > 1 else 1)
-                        c.restarts = set(range(step, c.sh, step)) if step else set()
-                    _decode_lossless(path, bits_of, units, scan)
-                    for c in scan.comps:
-                        _undifference(c, scan.ss, scan.al)
-                        c.pt = scan.al
-                elif frame.progressive:
-                    _decode_progressive(path, bits_of, units, scan)
-                else:
-                    _decode_sequential(path, bits_of, units, scan)
-                pos = end
+            if marker != 0xDA:  # SOS
+                continue
+            if frame is None:
+                raise ValueError(f"{path}: corrupt JPEG: a scan before the frame header")
+            if multi_scan is False:  # jdinput.c: JERR_EOI_EXPECTED
+                raise ValueError(f"{path}: corrupt JPEG: a second scan in a file of one scan")
+            scan = _Scan(path, seg, frame, quant, huff)
+            frame.n_scans += 1
+            if multi_scan is None:
+                multi_scan = frame.progressive or len(scan.comps) < len(frame.comps)
+            try:
+                units, per_row = scan_units(frame, scan.comps)
+            except ValueError as e:
+                raise ValueError(f"{path}: {e}") from None
+            if frame.lossless and restart % per_row:  # jddiffct.c restarts at MCU rows
+                raise ValueError(f"{path}: a lossless JPEG whose restart interval ({restart} "
+                                 f"MCUs) is not a whole number of MCU rows ({per_row}), "
+                                 "which the reference's reader refuses")
+            if frame.progressive:  # the coefficient bits known, and those before this scan
+                lo, hi = min(scan.ss, 1), max(scan.se, 9)
+                for c in scan.comps:
+                    c.prev[lo:hi + 1] = c.bits[lo:hi + 1] if frame.n_scans > 1 else [0] * (
+                        hi + 1 - lo)
+                    c.bits[scan.ss:scan.se + 1] = [scan.al] * (scan.se + 1 - scan.ss)
+            intervals, pending = scan_intervals(path, data, pos, len(units), restart)
+            pos = len(data)
+            if frame.arithmetic:  # jdarith.c never runs out of data: zeros past a marker
+                frame.last_good = frame.mcuy - 1
+                _decode_arithmetic([(first, count, _QM(path, piece, at_end))
+                                    for first, count, piece, _, at_end in intervals],
+                                   units, scan, frame.progressive, dc_lu, ac_k)
+            elif frame.lossless:
+                for c in scan.comps:
+                    step = restart // per_row * (c.v if len(scan.comps) > 1 else 1)
+                    c.restarts = set(range(step, c.sh, step)) if step else set()
+                _decode_lossless(path, intervals, units, scan, per_row, not multi_scan)
+                for c in scan.comps:
+                    _undifference(c, scan.ss, scan.al)
+                    c.pt = scan.al
+            elif frame.progressive:
+                _decode_progressive(path, intervals, units, scan, frame, per_row)
+            else:
+                _decode_sequential(path, intervals, units, scan, not multi_scan, restart)
         except (struct.error, IndexError) as e:
             raise ValueError(f"{path}: corrupt JPEG ({e})") from None
     return frame, jfif, adobe
@@ -1129,15 +1418,20 @@ def _smoothed(frame: _Frame, c: _Component) -> list:
     where no AC coefficient was coded at all (``change_dc``) the DC too.
     The window's columns stop at the row's ends; its rows follow libjpeg's
     own choice, which counts the last iMCU row's block rows (``ib``) from a
-    shorter stride where a component's block rows do not fill it."""
-    bits, q = c.bits, [int(v) for v in c.quant]
-    change_dc = all(b == -1 for b in bits[1:10])
+    shorter stride where a component's block rows do not fill it. Past
+    the iMCU row where the last scan's data ran out (``frame.last_good``)
+    the rule takes the bits known before the component's last scan (none
+    where the file had one scan), as libjpeg-turbo does."""
+    q = [int(v) for v in c.quant]
+    before = c.prev[:10] if frame.n_scans > 1 else [0] + [-1] * 9
     q00, q01, q10, q20, q11, q02 = q[0], q[1], q[8], q[16], q[9], q[2]
     q03, q12, q21, q30 = q[3], q[10], q[17], q[24]
     coefs, cols = c.coefs, c.cols
     out = [blk[:] for blk in coefs]
     total = frame.mcuy
     for row in range(total):
+        bits = c.bits if row <= frame.last_good else before
+        change_dc = all(b == -1 for b in bits[1:10])
         block_rows = c.v if row < total - 1 else (c.bh % c.v or c.v)
         image_rows = block_rows * total
         for br in range(block_rows):
@@ -1263,28 +1557,35 @@ def _samples(rows: np.ndarray, width: int, channels: int, depth: int) -> np.ndar
 
 def read_png(path: str, data: bytes) -> np.ndarray:
     """Decode a PNG to matplotlib's float32 array (see the module's doc)."""
+    # as Pillow's PngImagePlugin reads the chunks: their checksums until the
+    # first IDAT only; the image data from the IDAT chunks that follow one
+    # another there; the rest to IEND with no checksum, a cut chunk refused
     pos = len(PNG_SIGNATURE)
-    header, palette, trns, idat = None, None, None, []
+    header, palette, trns, idat, run = None, None, None, [], 0  # run: before, in, after IDATs
     while pos + 8 <= len(data):
         length, ctype = struct.unpack_from(">I4s", data, pos)
         body = data[pos + 8:pos + 8 + length]
         crc = data[pos + 8 + length:pos + 12 + length]
-        if len(crc) < 4:
+        if run < 2 and (ctype == b"IDAT") != (run == 1):  # the first IDAT, the chunk after
+            run += 1
+        if run == 2 and ctype != b"IEND" and len(body) < length:
+            raise ValueError(f"{path}: truncated PNG chunk {ctype!r}")
+        if len(crc) < 4 and run != 1:
             break
-        if zlib.crc32(ctype + body) != struct.unpack(">I", crc)[0]:
+        if run == 0 and zlib.crc32(ctype + body) != struct.unpack(">I", crc)[0]:
             raise ValueError(f"{path}: corrupt PNG: a bad checksum in {ctype!r}")
         pos += 12 + length
         if header is None and ctype != b"IHDR":
             raise ValueError(f"{path}: corrupt PNG: no IHDR chunk first")
-        if ctype == b"IHDR":
+        if ctype == b"IHDR" and not run:
             if len(body) != 13:
                 raise ValueError(f"{path}: corrupt PNG: a bad IHDR chunk")
             header = struct.unpack(">IIBBBBB", body)
-        elif ctype == b"PLTE":
+        elif ctype == b"PLTE" and not run:
             palette = body
         elif ctype == b"tRNS":
             trns = body
-        elif ctype == b"IDAT":
+        elif ctype == b"IDAT" and run == 1:
             idat.append(body)
         elif ctype == b"IEND":
             break

@@ -53,6 +53,8 @@ FIXTURES = os.path.join(ROOT, "tests", "fixtures", "torch_source_digits")
 REFERENCE = FIXTURES + ".npz"
 FORMS_DIR = os.path.join(ROOT, "tests", "fixtures", "torch_jpeg_forms")
 FORMS_REFERENCE = FORMS_DIR + ".npz"
+DAMAGED_DIR = os.path.join(ROOT, "tests", "fixtures", "torch_jpeg_damaged")
+DAMAGED_REFERENCE = DAMAGED_DIR + ".npz"
 PER_DIGIT = 70
 QUALITIES = (60, 75, 85, 90, 95)
 PNG_MODES = ("L", "RGB", "RGBA", "P", "LA", "I;16")
@@ -783,6 +785,225 @@ def lossless_arithmetic_jpeg(grey: np.ndarray, predictor: int = 1, lu: tuple = (
             + scan_header([(1, 0, 0)], predictor, 0) + enc.finish() + b"\xff\xd9")
 
 
+# ------------------------------------------------------------ damaged files
+# the forms damage is done to: Pillow's baseline files (grey, 4:2:0, and
+# 4:2:2 with a restart every 2 blocks) and forms of FORMS
+DAMAGE_FORMS = {
+    "baseline_grey": lambda g: pillow_jpeg(g, quality=75),
+    "baseline_420": lambda g: pillow_jpeg(tinted(g), quality=85, subsampling=2),
+    "restart_422": lambda g: pillow_jpeg(tinted(g), quality=80, subsampling=1,
+                                         restart_marker_blocks=2),
+    **{name: FORMS[name] for name in (
+        "progressive_420", "progressive_restart_blocks", "progressive_restart_rows_420", "cmyk",
+        "dhtless", "lossless_restart", "lossless_p1", "arith_restart",
+        "arith_progressive_restart")},
+}
+RESTART_FORMS = ("restart_422", "progressive_restart_blocks", "progressive_restart_rows_420",
+                 "lossless_restart", "arith_restart", "arith_progressive_restart")
+PROGRESSIVE_FORMS = ("progressive_420", "progressive_restart_blocks",
+                     "progressive_restart_rows_420")
+# what a restart marker is made: deleted, its interval cut short before it,
+# renumbered by -2..+4, or replaced by another marker: DRI or COM (whose
+# length libjpeg then reads from the entropy-coded data) or a reserved code
+RESTART_DAMAGE = ("deleted", "cut", -2, -1, 1, 2, 3, 4, "dri", "com", "reserved")
+_OTHER_MARKERS = {"dri": 0xDD, "com": 0xFE, "reserved": 0x05}
+_MARKER = re.compile(rb"\xff+(?=[^\x00\xff])")
+_SCAN_END = re.compile(rb"\xff+(?=[^\x00\xd0-\xd7\xff])")
+
+
+def scan_spans(jpeg: bytes) -> list:
+    """``(start, end)`` of each scan's entropy-coded data, restart markers
+    included."""
+    out, pos = [], 0
+    while True:
+        sos = jpeg.find(b"\xff\xda", pos)
+        if sos < 0:
+            return out
+        start = sos + 2 + struct.unpack_from(">H", jpeg, sos + 2)[0]
+        end = _SCAN_END.search(jpeg, start)
+        out.append((start, end.start() if end else len(jpeg)))
+        pos = out[-1][1]
+
+
+def cut(jpeg: bytes, fraction: float, eoi: bool) -> bytes:
+    """The file cut at ``fraction`` of the way from its first scan's data
+    to its end, an EOI marker put after the cut where ``eoi``."""
+    start = scan_spans(jpeg)[0][0]
+    at = start + 1 + int(fraction * (len(jpeg) - start - 3))
+    return jpeg[:at] + (b"\xff\xd9" if eoi else b"")
+
+
+def cut_scan(jpeg: bytes, scan: int, eoi: bool) -> bytes:
+    """The file cut halfway through scan ``scan``'s entropy-coded data, an
+    EOI marker put after the cut where ``eoi``."""
+    start, end = scan_spans(jpeg)[scan]
+    return jpeg[:(start + end) // 2] + (b"\xff\xd9" if eoi else b"")
+
+
+def tail(jpeg: bytes, k: int, end: str) -> bytes:
+    """The file without its last ``k`` bytes, then ``end``: "" (the file
+    ends there), "eoi" (an EOI marker) or "com" (a comment segment, no EOI)."""
+    return jpeg[:-k] + {"": b"", "eoi": b"\xff\xd9", "com": segment(0xFE, b"cut")}[end]
+
+
+def noise(jpeg: bytes, seed: int, scan: int = 0) -> bytes:
+    """Scan ``scan``'s entropy-coded data replaced by seeded noise (which
+    may hold markers)."""
+    start, end = scan_spans(jpeg)[scan]
+    return jpeg[:start] + np.random.default_rng(seed).bytes(end - start) + jpeg[end:]
+
+
+def flips(jpeg: bytes, seed: int) -> bytes:
+    """Three seeded bytes of the first scan's data changed."""
+    start, end = scan_spans(jpeg)[0]
+    rng, out = np.random.default_rng(seed), bytearray(jpeg)
+    for at in rng.integers(start, end, 3):
+        out[at] ^= int(rng.integers(1, 256))
+    return bytes(out)
+
+
+def long_code(jpeg: bytes, fraction: float) -> bytes:
+    """32 one bits (four stuffed 0xFF bytes) put into the first scan's data
+    ``fraction`` of the way through: a Huffman code longer than 16 bits,
+    as every table leaves the code of all ones unused."""
+    start, end = scan_spans(jpeg)[0]
+    at = start + int(fraction * (end - start))
+    return jpeg[:at] + b"\xff\x00" * 4 + jpeg[at:]
+
+
+def restart_damage(jpeg: bytes, index: int, how) -> bytes:
+    """Restart marker ``index`` of the file (counted over all its scans)
+    deleted, its interval cut short by 3 bytes before it (``"cut"``),
+    replaced by another marker (``"dri"``, ``"com"``, ``"reserved"``), or
+    renumbered by ``how``."""
+    found = [s + m.start() for s, e in scan_spans(jpeg)
+             for m in re.finditer(rb"\xff[\xd0-\xd7]", jpeg[s:e])]
+    at = found[index]
+    if how == "deleted":
+        return jpeg[:at] + jpeg[at + 2:]
+    if how == "cut":
+        return jpeg[:at - 3] + jpeg[at:]
+    if how in _OTHER_MARKERS:
+        return jpeg[:at + 1] + bytes([_OTHER_MARKERS[how]]) + jpeg[at + 2:]
+    return jpeg[:at + 1] + bytes([0xD0 + (jpeg[at + 1] - 0xD0 + how) % 8]) + jpeg[at + 2:]
+
+
+def progression(jpeg: bytes, scan: int, how: str) -> bytes:
+    """Scan ``scan``'s successive approximation bits changed: ``"bogus"``
+    (Ah and Al one higher, Al = Ah - 1 still: libjpeg warns that it does
+    not follow the scans before, JWRN_BOGUS_PROGRESSION) or ``"bad"`` (Al
+    set to Ah + 1: libjpeg stops, JERR_BAD_PROGRESSION)."""
+    sos = [m.start() for m in re.finditer(rb"\xff\xda", jpeg)][scan]
+    at = sos + 5 + 2 * jpeg[sos + 4] + 2
+    ah, al = jpeg[at] >> 4, jpeg[at] & 15
+    ah, al = (ah + 1, al + 1) if how == "bogus" else (ah, ah + 1)
+    return jpeg[:at] + bytes([ah << 4 | al]) + jpeg[at + 1:]
+
+
+def _runs_scan(dc: dict, ac: dict, blocks) -> bytes:
+    """Blocks of explicit symbols: each ``(DC difference, [(run, size,
+    value)...], end)``, ``end`` "eob", "bad" (17 one bits) or None."""
+    w = BitWriter()
+    for diff, acs, end in blocks:
+        size = abs(diff).bit_length()
+        put_value(w, dc, size, diff, size)
+        for run, size, value in acs:
+            put_value(w, ac, run << 4 | size, value, size)
+        if end == "eob":
+            w.put(*ac[0])
+        elif end == "bad":
+            w.put((1 << 17) - 1, 17)
+    return w.flush()
+
+
+def run_past_end(progressive: bool) -> bytes:
+    """A grey 8×24 file whose coded runs overrun the block: in a sequential
+    scan (SOF0) three zero runs of 16 and a run of 15 (coefficient 64), then
+    a code of 17 one bits; in a progressive one (SOF2) a run out of the band
+    1..5 (to coefficient 16) and, in the band 6..63, one past 63. libjpeg
+    writes such a value at its natural position 63 (or at the run's end
+    inside the block) and reads a bad code as symbol 0."""
+    from lvae_torch.data.image_io import STD_HUFFMAN
+
+    dc, ac = huffman_codes(STD_HUFFMAN[0, 0]), huffman_codes(STD_HUFFMAN[1, 0])
+    head = (b"\xff\xd8" + segment(0xDB, bytes([0]) + bytes(range(2, 66)))
+            + frame_header(0xC2 if progressive else 0xC0, 8, 24, [(1, 1, 1, 0)])
+            + huffman_segment({(0, 0): STD_HUFFMAN[0, 0], (1, 0): STD_HUFFMAN[1, 0]}))
+    past = [(15, 0, 0)] * 3 + [(15, 2, 3)]
+    if not progressive:
+        data = _runs_scan(dc, ac, [(10, past, None), (-5, [(0, 1, 1)], "bad"),
+                                   (3, [(2, 3, -5)], "eob")])
+        return head + scan_header([(1, 0, 0)], 0, 63) + data + b"\xff\xd9"
+    w = BitWriter()
+    for diff in (10, -5, 3):
+        size = abs(diff).bit_length()
+        put_value(w, dc, size, diff, size)
+    out = head + scan_header([(1, 0, 0)], 0, 0) + w.flush()
+    w = BitWriter()  # band 1..5: a run of 15 past its end, then an EOB in each other block
+    put_value(w, ac, 15 << 4 | 1, 1, 1)
+    w.put(*ac[0])
+    w.put(*ac[0])
+    out += scan_header([(1, 0, 0)], 1, 5) + w.flush()
+    w = BitWriter()  # band 6..63: two runs of 16, a run of 15 and one past 63
+    for run, size, value in [(15, 0, 0)] * 2 + [(15, 1, -1), (15, 2, 2)]:
+        put_value(w, ac, run << 4 | size, value, size)
+    w.put((1 << 17) - 1, 17)  # a bad code, read as an EOB
+    w.put(*ac[0])
+    w.put(*ac[0])
+    out += scan_header([(1, 0, 0)], 6, 63) + w.flush()
+    return out + b"\xff\xd9"
+
+
+# the committed damaged files: name → (form, damage); the damage done to
+# the form's file of one digit
+def _damaged_files() -> dict:
+    files = {}
+    for form in DAMAGE_FORMS:
+        files[f"{form}_cut_eoi"] = (form, lambda d: cut_scan(d, -1, True))
+        files[f"{form}_cut"] = (form, lambda d: cut_scan(d, -1, False))
+        files[f"{form}_no_eoi"] = (form, lambda d: tail(d, 2, ""))
+        files[f"{form}_noise"] = (form, lambda d: long_code(noise(d, 7), 0.3))
+    for form in RESTART_FORMS:
+        for how in ("deleted", 1):
+            files[f"{form}_rst_{how}"] = (form, lambda d, how=how: restart_damage(d, 1, how))
+    for form in PROGRESSIVE_FORMS[:2]:
+        for how in ("bogus", "bad"):
+            files[f"{form}_{how}_progression"] = (form, lambda d, how=how: progression(d, -1, how))
+    return files
+
+
+DAMAGED_FILES = _damaged_files()
+
+
+def write_damaged(rng: np.random.Generator) -> int:
+    """One file for each entry of :data:`DAMAGED_FILES` and the two run
+    files of :func:`run_past_end`, with matplotlib's read of each or its
+    name in ``refused``."""
+    import matplotlib.pyplot as plt
+
+    from lvae_torch.data.healthmnist import _instance_image
+
+    shutil.rmtree(DAMAGED_DIR, ignore_errors=True)
+    os.makedirs(DAMAGED_DIR)
+    digits = {form: np.round(_instance_image("36"[i % 2], rng)).astype(np.uint8)
+              for i, form in enumerate(DAMAGE_FORMS)}
+    made = {name: damage(DAMAGE_FORMS[form](digits[form]))
+            for name, (form, damage) in DAMAGED_FILES.items()}
+    made.update(run_past_end_sequential=run_past_end(False),
+                run_past_end_progressive=run_past_end(True))
+    reference, refused = {}, []
+    for name, data in made.items():
+        path = os.path.join(DAMAGED_DIR, name + ".jpg")
+        with open(path, "wb") as f:
+            f.write(data)
+        try:
+            reference[name + ".jpg"] = plt.imread(path)
+        except Exception:
+            refused.append(name + ".jpg")
+    np.savez_compressed(DAMAGED_REFERENCE, refused=np.array(sorted(refused)), **reference)
+    return len(made)
+
+
 def write_forms(rng: np.random.Generator) -> int:
     """One file for each form of :data:`FORMS` and matplotlib's read of it."""
     import matplotlib.pyplot as plt
@@ -805,13 +1026,18 @@ def write_forms(rng: np.random.Generator) -> int:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--only", choices=("digits", "forms"),
-                    help="write only the digit cohort or only the JPEG forms")
+    ap.add_argument("--only", choices=("digits", "forms", "damaged"),
+                    help="write only the digit cohort, the JPEG forms or the damaged files")
     args = ap.parse_args(argv)
 
-    if args.only != "forms":
+    if args.only in (None, "digits"):
         write_digits(args.seed)
-    if args.only != "digits":
+    if args.only in (None, "damaged"):
+        n = write_damaged(np.random.default_rng([args.seed, 2]))
+        total = sum(os.path.getsize(os.path.join(DAMAGED_DIR, f)) for f in os.listdir(DAMAGED_DIR))
+        print(f"{n} damaged JPEG files, {total} bytes; {DAMAGED_REFERENCE}: "
+              f"{os.path.getsize(DAMAGED_REFERENCE)} bytes")
+    if args.only in (None, "forms"):
         n = write_forms(np.random.default_rng([args.seed, 1]))
         total = sum(os.path.getsize(os.path.join(FORMS_DIR, f)) for f in os.listdir(FORMS_DIR))
         print(f"{n} JPEG forms, {total} bytes; {FORMS_REFERENCE}: "
