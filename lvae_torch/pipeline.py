@@ -55,7 +55,7 @@ from lvae_torch.utils.checkpoint import (
     try_load_checkpoint, vae_state_dict, wait_for_async_saves,
 )
 from lvae_torch.utils.device import resolve_device
-from lvae_torch.utils.metrics import MetricsLogger, device_memory_stats
+from lvae_torch.utils.metrics import RECORDER, MetricsLogger, device_memory_stats, span
 from lvae_torch.utils.torch_compat import save_reference_gp_state
 
 DTYPES = {"float32": torch.float32, "float64": torch.float64}
@@ -72,6 +72,16 @@ def check_ported(cfg) -> None:
                        "model_dtype=bfloat16 runs the VAE in bf16")
     if waiting:
         raise NotImplementedError("not ported to lvae_torch: " + "; ".join(waiting))
+
+
+def profile_line(summary: dict) -> str:
+    """One line of a profiled run's phases (median device ms a step of the
+    captured step's last replay, sampled at each chunk's read) and spans
+    (count and total seconds)."""
+    phases = " ".join(f"{k} {v:.3f}" for k, v in summary["phase_ms"].items()) or "not marked"
+    spans = " ".join(f"{k} {v['total_s']:.3f} s ({v['count']})"
+                     for k, v in sorted(summary["spans"].items()))
+    return f"Profile phases (median ms a step): {phases}; spans (total): {spans or 'none'}"
 
 
 def reference_vae_state_dict(sd: dict) -> dict:
@@ -169,9 +179,10 @@ class LVAEPipeline:
         """A checkpoint of the whole state, written by rank 0 while the
         other ranks wait (with ``orbax_async``, until rank 0 has started
         the write: :meth:`_settle` waits for its commit)."""
-        if self.writer:
-            self._save_ckpt(path, state, metadata=metadata)
-        self._barrier()
+        with span("lvae.pipeline.checkpoint"):
+            if self.writer:
+                self._save_ckpt(path, state, metadata=metadata)
+            self._barrier()
 
     def _save_ckpt(self, path: str, state, metadata=None) -> None:
         """Write through the configured backend: a file (``pickle``), a
@@ -310,13 +321,14 @@ class LVAEPipeline:
             if fresh:
                 del trainer.history[start:]
             return "rollback"
-        if fresh:
-            base = epoch - len(fresh)
-            for i, m in enumerate(fresh):
-                self.metrics.log(base + i + 1, m._asdict())
-            self._metrics_logged = len(hist)
-        else:
-            self.metrics.log(epoch, metrics._asdict())
+        with span("lvae.pipeline.log"):
+            if fresh:
+                base = epoch - len(fresh)
+                for i, m in enumerate(fresh):
+                    self.metrics.log(base + i + 1, m._asdict())
+                self._metrics_logged = len(hist)
+            else:
+                self.metrics.log(epoch, metrics._asdict())
         if cfg.auto_recover or (cfg.checkpoint_every > 0 and epoch % cfg.checkpoint_every == 0):
             # the rolling known-good snapshot (auto_recover: every chunk,
             # finiteness checked above), else the flag's cadence
@@ -329,26 +341,27 @@ class LVAEPipeline:
             return None
         if cfg.test_freq <= 0 or epoch % cfg.test_freq != 0:
             return None
-        model, gp_params, noise = self.current_params()
-        res = validate(
-            model, gp_params, noise, self.spec0, self.spec1, self.validation_dataset,
-            trainer.tdata.z, cfg.id_covariate, cfg.weight, cfg.loss_function,
-            cfg.latent_dim, cfg.eps, type_kl=cfg.type_KL, num_samples=cfg.num_samples,
-            device=self.device,
-        )
-        val = self._agree(res.net)
-        if val < self.best["val"]:
-            self.best = {"val": val, "epoch": epoch}
-            print("Saving better model")
-            self._save(os.path.join(self.out_dir, "model_best.ckpt"), trainer.state,
-                       metadata={"epoch": epoch, "val": val})
-            run_tests = cfg.run_tests and self.test_dataset is not None
-            gen = cfg.generate_images and self.generation_dataset is not None
-            pred = self.encode_prediction_cohort() if (run_tests or gen) else None
-            if run_tests:
-                self._run_tests(save_file="result_error_best.csv", pred=pred)
-            if gen and self.writer:
-                self._generate(pred, epoch)
+        with span("lvae.pipeline.validate"):
+            model, gp_params, noise = self.current_params()
+            res = validate(
+                model, gp_params, noise, self.spec0, self.spec1, self.validation_dataset,
+                trainer.tdata.z, cfg.id_covariate, cfg.weight, cfg.loss_function,
+                cfg.latent_dim, cfg.eps, type_kl=cfg.type_KL, num_samples=cfg.num_samples,
+                device=self.device,
+            )
+            val = self._agree(res.net)
+            if val < self.best["val"]:
+                self.best = {"val": val, "epoch": epoch}
+                print("Saving better model")
+                self._save(os.path.join(self.out_dir, "model_best.ckpt"), trainer.state,
+                           metadata={"epoch": epoch, "val": val})
+                run_tests = cfg.run_tests and self.test_dataset is not None
+                gen = cfg.generate_images and self.generation_dataset is not None
+                pred = self.encode_prediction_cohort() if (run_tests or gen) else None
+                if run_tests:
+                    self._run_tests(save_file="result_error_best.csv", pred=pred)
+                if gen and self.writer:
+                    self._generate(pred, epoch)
         return None
 
     def _recover(self, trainer, epoch, last_path: str) -> None:
@@ -380,7 +393,10 @@ class LVAEPipeline:
         """Fit ``cfg.epochs`` epochs in chunks of gcd(checkpoint_every,
         test_freq) epochs, so that the callback sees every checkpoint and
         validation epoch; with ``cfg.profile`` under ``torch.profiler``,
-        writing a Chrome trace to ``<results>/profile/trace.json``."""
+        writing a Chrome trace to ``<results>/profile/trace.json`` (the
+        program's spans and the eager steps' phases among its ranges) and
+        printing each captured phase's median device ms a step and each
+        span's total."""
         if self.trainer is None:
             self.build_trainer()
         cfg = self.cfg
@@ -395,12 +411,14 @@ class LVAEPipeline:
             acts = [ProfilerActivity.CPU]
             if self.device.type == "cuda":
                 acts.append(ProfilerActivity.CUDA)
+            since = time.time_ns()
             with profile(activities=acts) as prof:
                 self.trainer.fit(cfg.epochs, **fit_kwargs)
             trace = os.path.join(self.out_dir, "profile", "trace.json")
             os.makedirs(os.path.dirname(trace), exist_ok=True)
             prof.export_chrome_trace(trace)
             print(f"Profile written to {trace}")
+            print(profile_line(RECORDER.summary(since)))
         else:
             self.trainer.fit(cfg.epochs, **fit_kwargs)
         print(f"Duration of training: {time.perf_counter() - start:.2f} seconds")

@@ -49,6 +49,7 @@ from lvae_torch.kernels_cuda import block_pair as k4
 from lvae_torch.kernels_cuda import cholesky as k2
 from lvae_torch.kernels_cuda import kernel_matrix as k3
 from lvae_torch.ops import kernels as kx
+from lvae_torch.utils import metrics
 
 # (module, wrapper name) of every kernel wrapper with a ``launches`` count,
 # read by name at each use so that a replaced wrapper is the one counted
@@ -118,7 +119,9 @@ class CapturedStep:
     :meth:`replay` copies new inputs into the fixed ones, replays the
     graph, adds the step's kernel launches to the counters and returns the
     fixed output (overwritten by the next replay). ``launches`` holds the
-    step's launches in the order of :data:`COUNTERS`."""
+    step's launches in the order of :data:`COUNTERS`. ``markers`` holds the
+    timing events of the step's phase boundaries (``utils/metrics``), which
+    every replay stamps; :meth:`phase_times` reads the last replay's."""
 
     def __init__(self, step: Callable[..., torch.Tensor], inputs: Sequence[torch.Tensor],
                  out: Optional[torch.Tensor] = None, pool=None, inference: bool = False):
@@ -133,9 +136,12 @@ class CapturedStep:
                 out.copy_(warm)
         main.wait_stream(side)
         before = launch_counts()
+        self.markers = metrics.StepMarkers(side)
+        self.replays = 0
         self.graph = torch.cuda.CUDAGraph()
         with collector_off(), torch.cuda.graph(self.graph, pool=pool, stream=side,
-                                               capture_error_mode=CAPTURE_MODE), mode():
+                                               capture_error_mode=CAPTURE_MODE), mode(), \
+                metrics.capturing(self.markers):
             self.out = step(*self.inputs)
         self.launches = tuple(a - b for a, b in zip(launch_counts(), before))
         add_launches([-d for d in self.launches])  # the capture launched nothing
@@ -146,8 +152,23 @@ class CapturedStep:
         for fixed, x in zip(self.inputs, inputs):
             fixed.copy_(x, non_blocking=True)
         self.graph.replay()
+        self.replays += 1
         add_launches(self.launches)
         return self.out
+
+    def phase_times(self):
+        """Device ms of each marked phase in the last replay; None before
+        the first replay, while one is in flight, or where the step marks
+        no phase."""
+        return self.markers.times() if self.replays else None
+
+
+def record_phases(graphs: "StepGraphs") -> None:
+    """With tracing on, one sample of each captured step's phase times in
+    ``metrics.RECORDER`` (a step with a replay in flight gives none)."""
+    if metrics.tracing():
+        for key, captured in graphs.items():
+            metrics.RECORDER.add_sample(key, captured.phase_times())
 
 
 # set by :func:`eager_steps`: every step of :class:`StepGraphs` runs eagerly
@@ -185,7 +206,8 @@ class StepGraphs(dict):
 
     def capture(self, key, step: Callable[..., torch.Tensor], inputs: Sequence[torch.Tensor],
                 out: Optional[torch.Tensor] = None) -> CapturedStep:
-        self[key] = CapturedStep(step, inputs, out, self.pool, self.inference)
+        with metrics.span("lvae.train.capture"):
+            self[key] = CapturedStep(step, inputs, out, self.pool, self.inference)
         return self[key]
 
     def run(self, key, step: Callable[..., torch.Tensor], inputs: Sequence[torch.Tensor],
@@ -259,13 +281,15 @@ def run_staged(n: int, specs: Sequence[Tuple[tuple, torch.dtype]],
     pin = device.type == "cuda"
     for start in range(0, n, part):
         m = min(part, n - start)
-        slabs = [torch.empty((m,) + tuple(shape), dtype=dtype, pin_memory=pin)
-                 for shape, dtype in specs]
-        for i in range(m):
-            fill(start + i, [slab[i] for slab in slabs])
-        staged = [slab.to(device, non_blocking=True) for slab in slabs]
-        for i in range(m):
-            run_step(start + i, [x[i] for x in staged])
+        with metrics.span("lvae.train.draws"):
+            slabs = [torch.empty((m,) + tuple(shape), dtype=dtype, pin_memory=pin)
+                     for shape, dtype in specs]
+            for i in range(m):
+                fill(start + i, [slab[i] for slab in slabs])
+            staged = [slab.to(device, non_blocking=True) for slab in slabs]
+        with metrics.span("lvae.train.dispatch"):
+            for i in range(m):
+                run_step(start + i, [x[i] for x in staged])
 
 
 def start_host_copy(t: torch.Tensor) -> Tuple[torch.Tensor, Optional[torch.cuda.Event]]:

@@ -51,9 +51,11 @@ from lvae_torch.ops import kernels as kx
 from lvae_torch.ops.shard import LOCAL, Local
 from lvae_torch.train import state as st
 from lvae_torch.train.graph import (
-    StepGraphs, epochs_per_slab, finish_host_copy, route_key, run_chunks, start_host_copy,
+    StepGraphs, epochs_per_slab, finish_host_copy, record_phases, route_key, run_chunks,
+    start_host_copy,
 )
 from lvae_torch.utils.device import resolve_device
+from lvae_torch.utils.metrics import phase, phase_at_grads, phase_end, span
 
 
 # The bf16 frame table: under a bf16 model over an f32 GP dtype the frame
@@ -191,6 +193,7 @@ def batch_loss(
     # the GP algebra never sees a bf16 model's moments
     mu, log_var = mu_m.to(gp_dtype), lv_m.to(gp_dtype)
 
+    phase("gp_forward")
     lat = view.lat
     gp = trainables.gp
     noise = _noise_from(gp, cfg)
@@ -203,6 +206,8 @@ def batch_loss(
     else:
         m_var = trainables.m
         psd_h = st.psd_from_factor(trainables.h_factor)
+    # the GP part's backward ends when each of its inputs has its gradient
+    phase_at_grads([mu_b, lv_b, *gp.kp0, *gp.kp1, noise, z_pts, m_var, psd_h], "vae_backward")
 
     # K0zz and H factor in one stacked call
     ops = eb.gp_block_operators(
@@ -338,6 +343,7 @@ class HensmanTrainer:
         the guard kept the natural-gradient update (on a mesh, the metrics
         summed over the ranks). Safe to capture (``train/graph.py``)."""
         state, view, cfg = self._state, self.view, self.cfg
+        phase("vae_forward")
         b_idx = table.index[rows]
         b_mask = table.mask[rows]
         p_batch = torch.sum(rows < table.num_real).to(b_mask.dtype)
@@ -354,7 +360,9 @@ class HensmanTrainer:
             self.model, cfg, shard.trainables, shard.m_nat, shard.H_nat,
             self.tdata, b_idx, b_mask, p_batch, eps=eps, view=view,
         )
+        phase("gp_backward")
         net.backward()
+        phase("update")
         params = list(state.trainables.parameters())
         for p in params:
             # a trainable the loss does not reach (raw_noise under
@@ -374,7 +382,9 @@ class HensmanTrainer:
             state.m_nat.copy_(m_new)
             state.H_nat.copy_(h_new)
             kept = ok.to(net.dtype)
-        return torch.stack([*view.world_metrics(metrics), kept])
+        out = torch.stack([*view.world_metrics(metrics), kept])
+        phase_end()
+        return out
 
     def train_step(self, table: BlockTable, order_rows: torch.Tensor,
                    eps: Optional[torch.Tensor] = None) -> StepMetrics:
@@ -463,27 +473,32 @@ class HensmanTrainer:
         part = epochs_per_slab(epoch_bytes)
         for start in range(0, n, part):
             m = min(part, n - start)
-            draws = self._draws(m, None if orders is None else orders[start:start + m])
-            for e in range(m):
-                k = 0
-                for b, (rows, eps) in enumerate(draws):
-                    for i in range(rows.shape[1]):
-                        self._run_step(b, rows[e, i], eps[e, i], out[start + e, k])
-                        k += 1
+            with span("lvae.train.draws"):
+                draws = self._draws(m, None if orders is None else orders[start:start + m])
+            with span("lvae.train.dispatch"):
+                for e in range(m):
+                    k = 0
+                    for b, (rows, eps) in enumerate(draws):
+                        for i in range(rows.shape[1]):
+                            self._run_step(b, rows[e, i], eps[e, i], out[start + e, k])
+                            k += 1
         return start_host_copy(out)
 
     def _materialize_metrics(self, chunk, n: int) -> List[StepMetrics]:
         """Wait for a dispatched chunk's metrics; returns each epoch's mean
         over its steps as host floats (appended to ``history``); its steps'
-        metrics and guard decisions become ``last_steps``."""
-        host = finish_host_copy(chunk)
-        out = []
-        for e in range(n):
-            m = StepMetrics(*host[e, :, :4].mean(0).tolist())
-            self.history.append(m)
-            out.append(m)
-        self.last_steps = [(StepMetrics(*row[:4]), row[4] > 0)
-                           for row in host.reshape(-1, 5).tolist()]
+        metrics and guard decisions become ``last_steps``. With tracing on
+        the captured step's phase times are sampled after the wait."""
+        with span("lvae.train.read"):
+            host = finish_host_copy(chunk)
+            record_phases(self._graphs)
+            out = []
+            for e in range(n):
+                m = StepMetrics(*host[e, :, :4].mean(0).tolist())
+                self.history.append(m)
+                out.append(m)
+            self.last_steps = [(StepMetrics(*row[:4]), row[4] > 0)
+                               for row in host.reshape(-1, 5).tolist()]
         return out
 
     def run_epochs(self, n: int) -> List[StepMetrics]:
@@ -521,8 +536,9 @@ class HensmanTrainer:
 
         def read(done: int, n: int, chunk_):
             ms = self._materialize_metrics(chunk_, n) if lag else chunk_
-            self._log_chunk(ms, done, epochs, log_every)
-            return None if callback is None else callback(self, done + n, ms[-1])
+            with span("lvae.train.callback"):
+                self._log_chunk(ms, done, epochs, log_every)
+                return None if callback is None else callback(self, done + n, ms[-1])
 
         # without the lag each chunk runs through run_epochs and is read at once
         run_chunks(epochs, chunk, self._dispatch_epochs if lag else self.run_epochs, read, lag)

@@ -56,9 +56,11 @@ from lvae_torch.ops import kernels as kx
 from lvae_torch.ops.shard import LOCAL, Local
 from lvae_torch.train import state as st
 from lvae_torch.train.graph import (
-    StepGraphs, finish_host_copy, route_key, run_chunks, run_staged, start_host_copy,
+    StepGraphs, finish_host_copy, record_phases, route_key, run_chunks, run_staged,
+    start_host_copy,
 )
 from lvae_torch.utils.device import resolve_device
+from lvae_torch.utils.metrics import phase, phase_at_grads, phase_end, span
 
 SPARSE_KL = ("GPapprox", "GPapprox_closed")
 
@@ -174,6 +176,7 @@ def full_batch_loss(
     else:  # another latent rank of these subjects counts their reconstruction
         recon_loss = nll_loss = mu.new_zeros(())
 
+    phase("gp_forward")
     gp = trainables.gp.latents(lat)
     noise = torch.ones_like(gp.raw_noise) if cfg.constrain_scales else kx.constrain(gp.raw_noise)
     kp0, kp1 = gp.kp0, gp.kp1
@@ -187,6 +190,8 @@ def full_batch_loss(
             return view.gather_rows(x.reshape(-1, t, x.shape[-1]), p).reshape(p * t, -1)[:, lat]
 
         mu_all, lv_all = whole(mu), whole(log_var)
+        # the GP part's backward ends when each of its inputs has its gradient
+        phase_at_grads([mu_all, lv_all, *kp0, *kp1, noise], "vae_backward")
         valid = block_mask.reshape(-1).to(mu.dtype)
         k_full = kx.kernel_matrix(spec_full, kp_full, tdata.labels, tdata.labels)
         k_full = k_full * (valid[:, None] * valid[None, :])
@@ -194,9 +199,11 @@ def full_batch_loss(
         k_prior = k_full + torch.diag_embed(diag_add)
         gp_loss = torch.sum(eb.kl_closed(k_prior, mu_all.t() * valid, lv_all.t() * valid))
     elif cfg.type_KL in SPARSE_KL:
+        mu_lat, lv_lat = mu[:, lat], log_var[:, lat]
+        phase_at_grads([mu_lat, lv_lat, *kp0, *kp1, noise], "vae_backward")
         gp_loss = _sparse_gp_loss(
-            cfg, kp0, kp1, noise, tdata.labels[frames], tdata.z, block_mask[rows], mu[:, lat],
-            log_var[:, lat], None if gp_eps is None else gp_eps[:, rows, :, lat], view)
+            cfg, kp0, kp1, noise, tdata.labels[frames], tdata.z, block_mask[rows], mu_lat,
+            lv_lat, None if gp_eps is None else gp_eps[:, rows, :, lat], view)
     else:
         raise ValueError(f"Unsupported type_KL {cfg.type_KL!r}")
     gp_loss = view.weight("latent") * gp_loss
@@ -390,16 +397,21 @@ class StandardTrainer:
             metrics = gppvae_grads(self.model, cfg, trainables, self.tdata, self.block_mask,
                                    eps=eps, gp_eps=gp_eps)
         else:
+            phase("vae_forward")
             net, metrics = full_batch_loss(self.model, cfg, trainables, self.tdata,
                                            self.block_mask, eps=eps, gp_eps=gp_eps, view=view)
+            phase("gp_backward")
             net.backward()
+            phase("update")
         _zero_missing_grads(trainables)
         view.sum_grads(list(trainables.parameters()))
         opt.step()
         if cfg.constrain_scales and not self.pseudo_minibatch:
             with torch.no_grad():
                 trainables.gp.raw_noise.fill_(float(kx.unconstrain(1.0)))
-        return torch.stack(list(view.world_metrics(metrics)))
+        out = torch.stack(list(view.world_metrics(metrics)))
+        phase_end()
+        return out
 
     def _run_step(self, noise: Sequence[torch.Tensor], out: torch.Tensor) -> None:
         """Step the noise ``noise`` (``eps``, and ``gp_eps`` under GPapprox)
@@ -447,9 +459,12 @@ class StandardTrainer:
 
     def _materialize_metrics(self, chunk, n: int) -> List[StandardMetrics]:
         """Wait for a dispatched chunk's metrics; returns them as host floats
-        (appended to ``history``)."""
-        out = [StandardMetrics(*row) for row in finish_host_copy(chunk).tolist()]
-        self.history.extend(out)
+        (appended to ``history``). With tracing on the captured step's
+        phase times are sampled after the wait."""
+        with span("lvae.train.read"):
+            out = [StandardMetrics(*row) for row in finish_host_copy(chunk).tolist()]
+            record_phases(self._graphs)
+            self.history.extend(out)
         return out
 
     def run_epochs(self, n: int) -> List[StandardMetrics]:
@@ -496,8 +511,9 @@ class StandardTrainer:
 
         def read(done: int, n: int, chunk_):
             ms = self._materialize_metrics(chunk_, n) if lag else chunk_
-            self._log_chunk(ms, done, epochs, log_every)
-            return None if callback is None else callback(self, done + n, ms[-1])
+            with span("lvae.train.callback"):
+                self._log_chunk(ms, done, epochs, log_every)
+                return None if callback is None else callback(self, done + n, ms[-1])
 
         # without the lag each chunk runs through run_epochs and is read at once
         run_chunks(epochs, chunk, self._dispatch_epochs if lag else self.run_epochs, read, lag)

@@ -1,0 +1,12 @@
+"""The share of the traced minibatch training window in which the device
+idles while the innermost open span of the training loop is
+``lvae.train.read`` (the wait for a chunk's metrics and their host copy)
+or ``lvae.train.callback`` (``fit``'s callback). With
+``idle_in_draws.train``, ``idle_in_dispatch.train`` and the idle outside
+the loop's spans it makes up ``idle_share.train``."""
+
+from perfbench import spans
+
+
+def read(run):
+    return spans.idle_share_under(run, ("lvae.train.read", "lvae.train.callback"))

@@ -39,7 +39,8 @@ from lvae_torch.ops import elbo as teb
 from lvae_torch.pipeline import LVAEPipeline
 from lvae_torch.utils import checkpoint as ck
 from lvae_torch.utils.debug import assert_state_finite, gp_health
-from lvae_torch.utils.metrics import StepTimer, device_memory_stats
+from lvae_torch.utils import metrics
+from lvae_torch.utils.metrics import device_memory_stats
 
 SPLITS = ("", "test", "prediction", "validation", "generation")
 
@@ -181,13 +182,21 @@ def test_standard_regime_closed_kl_with_exact_tests(small):
     assert ck.read_checkpoint(str(results / "model_final.ckpt"))["kind"] == "standard"
 
 
-def test_profile_writes_a_chrome_trace(small):
+def test_profile_writes_a_chrome_trace(small, capsys):
+    """The trace holds the program's spans and the eager steps' phases; a
+    line beside its path gives each span's total (no phase is timed on the
+    CPU, which captures nothing)."""
     results = small / "profiled"
     cfg = small_cfg(small, results, *HENSMAN_FLAGS, "--profile=True", "--test_freq=0")
     pipe = LVAEPipeline(cfg, device="cpu")
     pipe.train()
     trace = json.load(open(results / "profile" / "trace.json"))
     assert trace["traceEvents"]
+    names = {e.get("name") for e in trace["traceEvents"]}
+    assert {"lvae.train.draws", "lvae.train.dispatch", "lvae.train.read", "lvae.train.callback",
+            "lvae.pipeline.log", *metrics.PHASES} <= names
+    line = next(x for x in capsys.readouterr().out.splitlines() if x.startswith("Profile phases"))
+    assert "not marked" in line and "lvae.train.draws" in line and "lvae.pipeline.log" in line
 
 
 def test_auto_recover_rolls_back_a_non_finite_chunk(small, capsys):
@@ -317,9 +326,28 @@ def test_debug_guards(small, tmp_path, monkeypatch):
         assert ("finite_iB" in health) == b_chain and ("min_LB_pivot" in health) != b_chain
 
 
-def test_metrics_helpers(tmp_path):
-    timer = StepTimer()
-    assert timer.time(lambda x: x + 1, 1) == 2 and len(timer.times) == 1
-    assert timer.median_ms >= 0.0
+def test_metrics_helpers(tmp_path, monkeypatch):
+    """``device_memory_stats``, and the span recorder's count and total per
+    name (kept only while the profiler runs) and its summary."""
     if not torch.cuda.is_available():
         assert device_memory_stats() == {}
+    rec = metrics.Recorder()
+    monkeypatch.setattr(metrics, "RECORDER", rec)
+    with metrics.span("test.off"):
+        pass
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU]):
+        for _ in range(3):
+            with metrics.span("test.a"):
+                with metrics.span("test.b"):
+                    pass
+    assert dict(rec.counts) == {"test.a": 3, "test.b": 3}
+    assert rec.total_ns["test.a"] >= rec.total_ns["test.b"] > 0
+    rec.samples.append(metrics.PhaseSample("g", 5, {"update": 2.0}))
+    rec.samples.append(metrics.PhaseSample("g", 6, {"update": 4.0}))
+    summary = rec.summary()
+    assert summary["phase_ms"] == {"update": 3.0}
+    assert summary["spans"]["test.a"]["count"] == 3
+    assert summary["spans"]["test.a"]["total_s"] == pytest.approx(rec.total_ns["test.a"] * 1e-9)
+    assert rec.summary(since_ns=6)["phase_ms"] == {"update": 4.0}
