@@ -159,22 +159,86 @@ def gp_block_operators(
     )
 
 
-@_full_precision
+class ClosedKL(torch.autograd.Function):
+    """The exact N×N KL(q‖p) of :func:`kl_closed` on flat stacks ``K [B, N,
+    N]``, ``mu``/``log_var [B, N]``, with its gradient in closed form.
+
+    With K = L Lᵀ, v = exp(log_var), W = L⁻¹ diag(√v), b = L⁻¹μ and
+    a = K⁻¹μ = L⁻ᵀb, the gradient under the cotangent ḡ of each entry is
+
+    * K̄ = ½ ḡ L⁻ᵀ (I − W Wᵀ − b bᵀ) L⁻¹;
+    * μ̄ = ḡ a;
+    * log_var̄ = ½ ḡ (v ⊙ diag K⁻¹ − 1), diag K⁻¹ the squared column norms
+      of L⁻¹.
+
+    The bracket is formed in the whitened space, where its terms are of
+    order 1, and mapped back by two triangular solves: written as
+    K⁻¹ − K⁻¹ diag(v) K⁻¹ − a aᵀ its terms nearly cancel, and in f32 the
+    kernel scales' gradients, which contract K̄ with the prior's smooth
+    components, lose up to 1e-3 of their norm against float64 on the
+    closed cell's priors (2e-6 this way and through autograd). Forward:
+    ``potrf``, L⁻¹ by one solve, two GEMVs; backward: one product and two
+    solves, where autograd through ``la.chol_inverse`` runs four more
+    solves and three products.
+    ``backward_calls`` counts the backward's runs on the host (a CUDA-graph
+    replay runs no Python and is not counted).
+    """
+
+    backward_calls = 0
+
+    @staticmethod
+    def forward(ctx, k, mu, log_var):
+        with la.full_precision():
+            n = k.shape[-1]
+            lk = la.cholesky(k)
+            logdet_k = la.logdet_from_chol(lk, batch_dims=1)
+            eye = torch.eye(n, dtype=k.dtype, device=k.device)
+            li = torch.linalg.solve_triangular(lk, eye.expand_as(lk), upper=False)
+            diag_ik = torch.linalg.vector_norm(li, dim=-2).square()
+            b = torch.bmm(li, mu[:, :, None])
+            a = torch.bmm(li.mT, b)[:, :, 0]
+            v = torch.exp(log_var)
+            w = li.mul_(torch.sqrt(v)[:, None, :])
+            # tr(K⁻¹ diag(v)) from the diagonal: the JAX package takes it
+            # through an eye mask for its scatter VJP, which a written-out
+            # backward does not need
+            tr = torch.sum(v * diag_ik, dim=-1)
+            qf = torch.sum(b[:, :, 0].square(), dim=-1)
+            ctx.save_for_backward(lk, w, b, a, v, diag_ik)
+            return 0.5 * (tr + qf - n + logdet_k - torch.sum(log_var, dim=-1))
+
+    @staticmethod
+    def backward(ctx, g):
+        ClosedKL.backward_calls += 1
+        # autograd runs this after the forward's full_precision() block has
+        # exited, so the backward enters it again itself
+        with la.full_precision():
+            lk, w, b, a, v, diag_ik = ctx.saved_tensors
+            half_g = 0.5 * g
+            m = torch.bmm(w, w.mT)
+            m.addcmul_(b, b.mT)
+            m.mul_(-half_g[:, None, None])
+            m.diagonal(dim1=-2, dim2=-1).add_(half_g[:, None])
+            y = torch.linalg.solve_triangular(lk.mT, m, upper=True)
+            del m
+            # K̄ comes out column-major, as the solves leave it: K3's
+            # backward reads that layout with one copy fewer per component
+            # than a row-major one
+            dk = torch.linalg.solve_triangular(lk.mT, y.mT, upper=True)
+            dmu = g[:, None] * a
+            dlv = half_g[:, None] * (v * diag_ik - 1)
+            return dk, dmu, dlv
+
+
 def kl_closed(K: torch.Tensor, mu: torch.Tensor, log_var: torch.Tensor) -> torch.Tensor:
     """Exact N×N KL(q‖p) per leading batch entry (the JAX package vmaps it
     over latents): ``K [..., N, N]`` is the dense prior covariance with the
     observation noise, ``mu``/``log_var [..., N]`` the diagonal variational
-    moments. The N×N Cholesky and solves are ``torch.linalg``'s."""
+    moments, with the same leading dims. The N×N Cholesky and solves are
+    ``torch.linalg``'s; the gradient is :class:`ClosedKL`'s closed form."""
     n = K.shape[-1]
-    lk = la.cholesky(K)
-    ik = la.chol_inverse(lk)
-    v = torch.exp(log_var)
-    # eye-masked tr(K⁻¹ diag(v)), as the JAX package takes it
-    eye_n = torch.eye(n, dtype=v.dtype, device=v.device)
-    tr = torch.sum(ik * eye_n * v[..., None, :], dim=(-2, -1))
-    qf = torch.sum(mu * (ik @ mu[..., None])[..., 0], dim=-1)
-    logdet_k = la.logdet_from_chol(lk, batch_dims=lk.ndim - 2)
-    return 0.5 * (tr + qf - n + logdet_k - torch.sum(log_var, dim=-1))
+    out = ClosedKL.apply(K.reshape(-1, n, n), mu.reshape(-1, n), log_var.reshape(-1, n))
+    return out.reshape(K.shape[:-2])
 
 
 def _w_cholesky(ops: GPBlockOperators, k0zx_ib_k0xz: torch.Tensor, logdet_b: torch.Tensor,

@@ -51,7 +51,9 @@ eager programs' bits, read parameters updated in place, and capture again
 on new storages; a dataset's arrays go to the card once. The standard
 epoch program replays each mode's step (closed with K3, fused Adam's K5,
 the sparse and GPPVAE steps with K1 and K2, by name in a trace and on the
-counters) with the eager epochs' bits at N = 520, captures again after a
+counters) with the eager epochs' bits at N = 520 (a captured closed
+step's gradients, through ClosedKL's closed-form backward, too, which at
+``[4, 2000, 2000]`` matches float64 on the CPU), captures again after a
 state is assigned, and draws fresh dropout masks each replay; the serving
 bundle's basis fold (K2 inside it) and refresh replay with the eager
 programs' bits, a second ``aot_compile`` captures nothing, and a predictor
@@ -1574,6 +1576,72 @@ def test_standard_replayed_epochs_are_bit_equal_to_eager(gen, run, monkeypatch):
     assert not eager._graphs
     assert graph.history == eager.history and all(math.isfinite(v) for v in graph.history[-1])
     for a, b in zip(std_arrays(graph), std_arrays(eager)):
+        assert torch.equal(a, b)
+
+
+def test_closed_kl_gradients_on_the_card_match_float64(gen, monkeypatch):
+    """ClosedKL at the closed cell's N, ``[4, 2000, 2000]`` in f32, against
+    the same computation in float64 on the CPU: the value at 1e-5 relative,
+    each gradient at max |Δ| over max |reference| ≤ 1e-4 (f32 rounding
+    reads 2e-6 at condition number 1e2). TF32 is switched on around the
+    call: the forward and the backward hold their products to full f32
+    themselves and leave the switches as they found them."""
+    n_lat, n = 4, 2000
+    k = spd_stack((n_lat,), n, gen)
+    mu = torch.randn(n_lat, n, generator=gen, device="cuda")
+    lv = 0.3 * torch.randn(n_lat, n, generator=gen, device="cuda")
+    cot = torch.randn(n_lat, generator=gen, device="cuda")
+
+    def run(device, dtype):
+        leaves = [x.to(device, dtype, copy=True).requires_grad_(True) for x in (k, mu, lv)]
+        out = eb.kl_closed(*leaves)
+        torch.sum(out * cot.to(device, dtype)).backward()
+        return out.detach().cpu().double(), [x.grad.cpu().double() for x in leaves]
+
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
+    before = eb.ClosedKL.backward_calls
+    got, got_g = run("cuda", torch.float32)
+    assert eb.ClosedKL.backward_calls == before + 1
+    assert torch.backends.cuda.matmul.allow_tf32
+    want, want_g = run("cpu", torch.float64)
+    assert float(((got - want).abs() / want.abs()).max()) <= 1e-5
+    for a, b in zip(got_g, want_g):
+        assert float((a - b).abs().max() / b.abs().max()) <= 1e-4
+
+
+def test_captured_closed_step_gradients_equal_the_eager_step(gen, monkeypatch):
+    """A closed step's gradients (ConvVAE, K3's prior, ClosedKL and their
+    backward) captured as a CUDA graph give the eager step's bits on two
+    noises (cuDNN deterministic). The warm-up and the capture run
+    ClosedKL's backward on the host, a replay does not."""
+    from lvae_torch.train.graph import CapturedStep
+    from lvae_torch.train.standard import full_batch_loss
+    from lvae_torch.utils.metrics import phase_end
+
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    trainer = card_standard_trainer("closed")
+    params = list(trainer.state.trainables.parameters())
+
+    def grads(eps):
+        for p in params:
+            p.grad = None
+        net, _ = full_batch_loss(trainer.model, trainer.cfg, trainer.state.trainables,
+                                 trainer.tdata, trainer.block_mask, eps=eps)
+        net.backward()
+        phase_end()
+        return torch.cat([torch.zeros_like(p).reshape(-1) if p.grad is None
+                          else p.grad.reshape(-1) for p in params])
+
+    (shape, dtype), = trainer._noise_specs()
+    noises = [torch.randn(shape, dtype=dtype, generator=gen, device="cuda") for _ in range(2)]
+    before = eb.ClosedKL.backward_calls
+    captured = CapturedStep(grads, noises[:1])
+    assert eb.ClosedKL.backward_calls == before + 2
+    replayed = [captured.replay(e).clone() for e in noises]
+    assert eb.ClosedKL.backward_calls == before + 2
+    eager = [grads(e) for e in noises]
+    assert not torch.equal(eager[0], eager[1])
+    for a, b in zip(replayed, eager):
         assert torch.equal(a, b)
 
 

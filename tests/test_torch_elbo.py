@@ -492,3 +492,54 @@ def test_kl_closed_batched_matches_jax_vmapped(ghost):
     np.testing.assert_allclose(tv.detach().numpy(), np.asarray(jv), rtol=1e-8)
     for got, want in zip((x.grad for x in leaves), jg):
         np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-8, atol=1e-12)
+
+
+def kl_closed_autograd(K, mu, log_var):
+    """The oracle: kl_closed as autograd differentiates it through the
+    Cholesky factor, the two triangular solves of the inverse and the
+    eye-masked trace."""
+    n = K.shape[-1]
+    lk = torch.linalg.cholesky(K)
+    eye = torch.eye(n, dtype=K.dtype).broadcast_to(K.shape)
+    ik = torch.linalg.solve_triangular(lk.mT, torch.linalg.solve_triangular(lk, eye, upper=False),
+                                       upper=True)
+    v = torch.exp(log_var)
+    tr = torch.sum(ik * torch.eye(n, dtype=K.dtype) * v[..., None, :], dim=(-2, -1))
+    qf = torch.sum(mu * (ik @ mu[..., None])[..., 0], dim=-1)
+    logdet = 2.0 * torch.sum(torch.log(torch.diagonal(lk, dim1=-2, dim2=-1)), dim=-1)
+    return 0.5 * (tr + qf - n + logdet - torch.sum(log_var, dim=-1))
+
+
+@pytest.mark.parametrize("ghost", [False, True], ids=["all_real", "ghost_rows"])
+@pytest.mark.parametrize("n", [9, 64])
+def test_closed_kl_backward_matches_autograd(n, ghost):
+    """ClosedKL's value and its closed-form gradients in K, mu and log_var
+    against autograd through the factorisation, in float64, under a random
+    cotangent per latent; ghost rows (an identity row and column, zero
+    moments) as the standard regime adds them."""
+    rng = np.random.default_rng(n)
+    latent = 3
+    a = rng.normal(size=(latent, n, n))
+    k = a @ a.transpose(0, 2, 1) / n + np.eye(n) * rng.uniform(0.3, 1.0, size=(latent, 1, 1))
+    mu, lv = rng.normal(size=(latent, n)), rng.normal(size=(latent, n)) * 0.3
+    if ghost:
+        valid = np.ones(n)
+        valid[-3:] = 0.0
+        k = k * valid[:, None] * valid[None, :] + np.diag(1.0 - valid)
+        mu, lv = mu * valid, lv * valid
+    cot = t(rng.normal(size=latent))
+
+    def run(fn):
+        leaves = [t(x).requires_grad_(True) for x in (k, mu, lv)]
+        out = fn(*leaves)
+        torch.sum(out * cot).backward()
+        return out.detach(), [x.grad for x in leaves]
+
+    before = teb.ClosedKL.backward_calls
+    got, got_g = run(teb.kl_closed)
+    assert teb.ClosedKL.backward_calls == before + 1
+    want, want_g = run(kl_closed_autograd)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-10)
+    for name, a_, b_ in zip(("K", "mu", "log_var"), got_g, want_g):
+        np.testing.assert_allclose(a_.numpy(), b_.numpy(), rtol=1e-10,
+                                   atol=1e-13 * float(b_.abs().max()), err_msg=name)

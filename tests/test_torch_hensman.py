@@ -31,6 +31,7 @@ from lvae_tpu.train import hensman as jth
 from lvae_tpu.train import state as jst
 from lvae_torch.data import blocks as tbk
 from lvae_torch.models import vae as tv
+from lvae_torch.ops import elbo as teb
 from lvae_torch.ops import kernels as tkx
 from lvae_torch.train import hensman as tth
 from lvae_torch.train import state as tst
@@ -286,6 +287,16 @@ def test_run_epoch_takes_an_explicit_batch_order():
     want = [float(torch.stack(col).mean()) for col in zip(*steps)]
     assert list(got) == want
     assert torch.equal(a.state.m_nat, b.state.m_nat) and a.state.step == b.state.step == 3
+
+
+def test_hensman_step_leaves_the_closed_kl_backward_alone():
+    """A Hensman step runs minibatch_kld, never kl_closed: ClosedKL's
+    backward counter stays where it was."""
+    _, ttr = make_pair("conv_ng_mse")
+    before = teb.ClosedKL.backward_calls
+    metrics = ttr.train_step(ttr.tables[0], torch.tensor([4, 5]))
+    assert all(np.isfinite(float(v)) for v in metrics)
+    assert teb.ClosedKL.backward_calls == before
 
 
 def test_ragged_cohort_in_t_buckets_trains():

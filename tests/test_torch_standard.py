@@ -35,6 +35,7 @@ from lvae_torch.data import blocks as tbk
 from lvae_torch.kernels_cuda import adam as tad
 from lvae_torch.kernels_cuda import kernel_matrix as tkm
 from lvae_torch.models import vae as tv
+from lvae_torch.ops import elbo as teb
 from lvae_torch.ops import kernels as tkx
 from lvae_torch.train import standard as tts
 from lvae_torch.utils.convert import standard_state_from_jax, vae_state_dict_from_jax
@@ -308,6 +309,15 @@ def test_noise_is_repinned_and_no_kernel_launches_on_the_cpu():
     assert (tkm.kernel_matrix_fused.launches, tad.fused_adam_update.launches) == before
     np.testing.assert_array_equal(ttr.state.trainables.gp.raw_noise.detach().numpy(),
                                   float(tkx.unconstrain(1.0)))
+
+
+def test_closed_step_runs_the_closed_kl_backward_once():
+    """One eager closed-regime step differentiates kl_closed through
+    ClosedKL's closed-form backward, once."""
+    _, ttr = make_pair("closed")
+    before = teb.ClosedKL.backward_calls
+    ttr.run_epochs(1)
+    assert teb.ClosedKL.backward_calls == before + 1
 
 
 def test_trainer_rejects_what_the_regime_does_not_take():
