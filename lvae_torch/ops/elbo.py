@@ -149,7 +149,7 @@ def gp_block_operators(
         LB=lb,
         iB=ib,
         iB_K0xz=ib_k0xz,
-        K0zx_iB_K0xz=torch.einsum("lptm,lptn->lmn", k0xz, ib_k0xz),
+        K0zx_iB_K0xz=la.cohort_gram(k0xz, ib_k0xz),
         logdet_B=logdet_b,
         logdet_K0zz=la.logdet_from_chol(lk0zz, batch_dims=1),
         mask=mask,

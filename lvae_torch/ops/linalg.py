@@ -99,6 +99,19 @@ def symmetrize(a: torch.Tensor) -> torch.Tensor:
     return 0.5 * (a + a.mT)
 
 
+def cohort_gram(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``Σ_{p,t} a[l, p, t]ᵀ b[l, p, t]`` per latent: ``[L, M, N]`` from
+    ``a [L, P, T, M]`` and ``b [L, P, T, N]``, accumulated in float64 and
+    returned in ``a``'s dtype (float64 is unchanged).
+
+    For ``K0zx B⁻¹ K0xz`` over a whole cohort: ``W = K0zz + K0zx B⁻¹ K0xz``
+    is nearly of low rank, its small eigenvalues the jitters' (3e-4 of the
+    mean diagonal), and a float32 sum over 20,000 frames on the card moves
+    them by as much (a latent's W then read −0.005 and did not factor);
+    summed in float64 and rounded once, W keeps them."""
+    return torch.einsum("lptm,lptn->lmn", a.double(), b.double()).to(a.dtype)
+
+
 def uses_kernel(a: torch.Tensor) -> bool:
     """Whether :func:`cholesky_and_inverse` sends ``a`` to the CUDA kernel:
     the shape and dtype gate of the JAX package's ``_use_pallas``."""

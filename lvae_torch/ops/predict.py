@@ -71,7 +71,7 @@ def _cohort_fold(spec0, spec1, kp0, kp1, noise, xb, mask, mu_b, z, eps, view: Lo
     ib_k0xz = ib @ k0xz
     mu = (mu_b * mask[..., None]).permute(2, 0, 1)  # [L, P, T]
     ib_mu = torch.einsum("lptu,lpu->lpt", ib, mu)
-    k0zx_ib_k0xz, c = view.data_sums(torch.einsum("lptm,lptn->lmn", k0xz, ib_k0xz),
+    k0zx_ib_k0xz, c = view.data_sums(la.cohort_gram(k0xz, ib_k0xz),
                                      torch.einsum("lptm,lpt->lm", k0xz, ib_mu))
     h_nojit = la.symmetrize(k0zz + k0zx_ib_k0xz)
     return k0xz, k0zz, ib, ib_mu, h_nojit, c

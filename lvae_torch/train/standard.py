@@ -235,7 +235,11 @@ def gppvae_grads(
     5. the optimizer step, which is the caller's.
 
     ``eps [N, L]`` is the replay's reparameterisation noise and ``gp_eps``
-    the GPapprox samples' noise."""
+    the GPapprox samples' noise. Phases 1–4 start at the step's phase
+    boundaries ``encode``, ``gp_forward``, ``gp_backward`` (before the GP
+    loss's ``autograd.grad``) and ``replay`` (``utils/metrics``,
+    :data:`~lvae_torch.utils.metrics.GPPVAE_PHASES`); the caller marks
+    ``update``."""
     if cfg.type_KL not in SPARSE_KL:
         raise ValueError(f"mini_batch supports GPapprox(_closed), got {cfg.type_KL!r}")
     p, t = block_mask.shape
@@ -243,6 +247,7 @@ def gppvae_grads(
     model.train(cfg.dropout)
 
     # phase 1
+    phase("encode")
     with torch.no_grad():
         full_mu, full_lv = (m.to(tdata.labels.dtype) for m in model.encode(tdata.data))
     eps, gp_eps = _noises(cfg, full_mu, eps, gp_eps)
@@ -253,12 +258,14 @@ def gppvae_grads(
              else kx.constrain(gp.raw_noise.detach()))
     mu_leaf = full_mu.detach().requires_grad_(True)
     lv_leaf = full_lv.detach().requires_grad_(True)
+    phase("gp_forward")
     gp_raw = _sparse_gp_loss(cfg, gp.kp0, gp.kp1, noise, tdata.labels, tdata.z, block_mask,
                              mu_leaf, lv_leaf, gp_eps)
     # MSE weighs the loss before differentiation, so the cotangents carry
     # weight / latent_dim
     scaled = cfg.weight * gp_raw / latent if cfg.loss_function == "mse" else gp_raw
     kp_leaves = [*gp.kp0, *gp.kp1]
+    phase("gp_backward")
     mu_ct, lv_ct, *kp_grads = torch.autograd.grad(
         scaled, [mu_leaf, lv_leaf, *kp_leaves], allow_unused=True)
     for leaf, grad in zip(kp_leaves, kp_grads):
@@ -266,6 +273,7 @@ def gppvae_grads(
             leaf.grad = grad if leaf.grad is None else leaf.grad + grad
 
     # phase 4
+    phase("replay")
     shape = (p, t)
     data_b = tdata.data.reshape(shape + tdata.data.shape[1:])
     pix_b = tdata.pixmask.reshape(shape + tdata.pixmask.shape[1:])
@@ -396,6 +404,7 @@ class StandardTrainer:
                 raise ValueError("the GPPVAE regime runs in one process")
             metrics = gppvae_grads(self.model, cfg, trainables, self.tdata, self.block_mask,
                                    eps=eps, gp_eps=gp_eps)
+            phase("update")
         else:
             phase("vae_forward")
             net, metrics = full_batch_loss(self.model, cfg, trainables, self.tdata,

@@ -14,13 +14,14 @@ profiler's flag and a phase boundary one more read. On, a span is also a
 clock the profiler stamps its events with (``time.time_ns()``), with a
 count and total per name.
 
-A step's phases (:data:`PHASES`) are marked by :func:`phase`,
-:func:`phase_at_grads` and :func:`phase_end`. While a graph is captured
-(``train/graph.CapturedStep``) each boundary records a timing event that
-the capture turns into an event-record node, so that every replay stamps
-its phases on the device; the owner reads the last replay's times with
-:meth:`StepMarkers.times`. In an eager step with tracing on each phase is a
-``record_function`` instead; otherwise a boundary does nothing.
+A step's phases (:data:`PHASES`; the GPPVAE step's :data:`GPPVAE_PHASES`)
+are marked by :func:`phase`, :func:`phase_at_grads` and :func:`phase_end`.
+While a graph is captured (``train/graph.CapturedStep``) each boundary
+records a timing event that the capture turns into an event-record node,
+so that every replay stamps its phases on the device; the owner reads the
+last replay's times with :meth:`StepMarkers.times`. In an eager step with
+tracing on each phase is a ``record_function`` instead; otherwise a
+boundary does nothing.
 """
 
 from __future__ import annotations
@@ -42,6 +43,10 @@ from torch.autograd import profiler as _profiler
 # the backward, and the update (zero-gradient fill, the optimizer, the
 # natural-gradient step, the noise pin)
 PHASES = ("vae_forward", "gp_forward", "gp_backward", "vae_backward", "update")
+# the GPPVAE step's (``train/standard.gppvae_grads``): the no-grad encode of
+# the cohort, the GP loss on its moments, that loss's gradient, the
+# per-subject encoder replays that splice it in, and the update
+GPPVAE_PHASES = ("encode", "gp_forward", "gp_backward", "replay", "update")
 SPAN_LIMIT = 1 << 16  # spans kept; the oldest go first
 SAMPLE_LIMIT = 1 << 12  # phase samples kept
 

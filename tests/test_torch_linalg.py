@@ -181,3 +181,17 @@ def test_cholesky_and_inverse_backward_runs_at_full_precision(monkeypatch):
     assert not entered
     inv.sum().backward()
     assert entered
+
+
+def test_cohort_gram_sums_in_float64():
+    """``K0zx B⁻¹ K0xz`` over a cohort is summed in float64 and rounded
+    once: a float32 stack gives the float64 sum's float32 bits, a float64
+    stack the plain einsum's."""
+    rng = np.random.default_rng(7)
+    a, b = (torch.from_numpy(rng.normal(size=(3, 40, 5, 6))) for _ in range(2))
+    want = torch.einsum("lptm,lptn->lmn", a, b)
+    assert torch.equal(tla.cohort_gram(a, b), want)
+    got = tla.cohort_gram(a.float(), b.float())
+    assert got.dtype == torch.float32
+    assert torch.equal(got, torch.einsum("lptm,lptn->lmn", a.float().double(),
+                                         b.float().double()).float())

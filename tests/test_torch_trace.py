@@ -7,12 +7,15 @@ With ``torch.profiler`` off a span records nothing and opens no
 their bits. Under the profiler each span is a host event of its name, its
 interval within 100 µs of the recorder's, and a tiny Hensman and a tiny
 closed-KL ``fit`` record draws, dispatch, read and callback in that order
-under the span that encloses the ``fit``. The nine per-layer readers give
-known values on a hand-built window and recorder, and the three idle
-shares of the loop plus the idle outside its spans make up the window's
-idle share. On the card (marked ``cuda``) a captured Hensman step's five
-phase times are positive and sum to within 5% of the replay's event-timed
-step, and its replays give the bits of a capture without markers.
+under the span that encloses the ``fit``, and so does a tiny GPPVAE
+``fit``, whose eager step marks its own five phases in order. The phase
+readers give known values on a hand-built window and recorder, and the
+three idle shares of the loop plus the idle outside its spans make up the
+window's idle share. On the card (marked ``cuda``) a captured Hensman
+step's five phase times are positive and sum to within 5% of the replay's
+event-timed step, and its replays give the bits of a capture without
+markers; the replayed GPPVAE step, markers on, gives the eager step's bits
+and its five phases sum to within 15% of the replay's.
 """
 
 import math
@@ -82,7 +85,21 @@ def closed_trainer(device="cpu"):
                               seed=0, device=device)
 
 
-TRAINERS = {"hensman": hensman_trainer, "closed": closed_trainer}
+def gppvae_trainer(device="cpu", p=P, t=T, n_lat=L, m_ind=M):
+    """A ConvVAE GPPVAE trainer: the five-phase step over the DUBO."""
+    ds = cohort(p, t)
+    cfg = ts.StandardConfig(*specs(), latent_dim=n_lat, P_tot=p, T=t, weight=0.15,
+                            loss_function="mse", type_KL="GPapprox_closed", num_samples=1,
+                            constrain_scales=True, eps=1e-5, dropout=False)
+    model = make_vae("conv", n_lat, 1296, dropout=0.0, generator=torch.Generator().manual_seed(1))
+    return ts.StandardTrainer(model, cfg, ds, build_subject_blocks(ds.labels, 2),
+                              ds.labels[:m_ind], seed=0, pseudo_minibatch=True, device=device)
+
+
+TRAINERS = {"hensman": hensman_trainer, "closed": closed_trainer, "gppvae": gppvae_trainer}
+# the phases each trainer's step marks
+STEP_PHASES = {"hensman": metrics.PHASES, "closed": metrics.PHASES,
+               "gppvae": metrics.GPPVAE_PHASES}
 
 
 def arrays(trainer):
@@ -160,7 +177,21 @@ def test_phase_helpers_keep_eager_steps_bit_equal(kind, recorder):
         assert torch.equal(a, b)
     assert metrics._markers is None and metrics._eager_phase is None and not metrics._hooks
     names = {e.name() for e in prof.profiler.kineto_results.events()}
-    assert set(metrics.PHASES) <= names  # each eager phase a range of its name
+    assert set(STEP_PHASES[kind]) <= names  # each eager phase a range of its name
+
+
+def test_gppvae_step_marks_its_five_phases_in_order():
+    """An eager GPPVAE step under the profiler opens one range a phase, in
+    the step's order, one after another."""
+    trainer = gppvae_trainer()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        trainer.run_epoch()
+    ranges = sorted((e.start_ns(), e.start_ns() + e.duration_ns(), e.name())
+                    for e in prof.profiler.kineto_results.events()
+                    if e.name() in metrics.GPPVAE_PHASES)
+    assert [n for _, _, n in ranges] == list(metrics.GPPVAE_PHASES)
+    assert all(a[1] <= b[0] for a, b in zip(ranges, ranges[1:]))
+    assert metrics._eager_phase is None
 
 
 # ---------------------------------------------------------------- readers
@@ -192,7 +223,7 @@ def hand_built(recorder):
               span("lvae.train.draws", 99.0, 99.5)):  # before the window
         recorder.add(s)
     ms = {"vae_forward": 1.0, "gp_forward": 0.25, "gp_backward": 0.5, "vae_backward": 2.0,
-          "update": 0.125}
+          "update": 0.125, "encode": 0.375, "replay": 4.0}
     for at, scale in ((100.75, 1.0), (100.8, 3.0), (100.85, 2.0), (102.0, 100.0)):
         recorder.samples.append(metrics.PhaseSample("g", int(at * 1e9),
                                                     {k: v * scale for k, v in ms.items()}))
@@ -207,6 +238,7 @@ READINGS = {
     "gp_ms_per_step.train": 1.5, "gp_ms_per_step.full_batch": 1.5,
     "vae_ms_per_step.train": 6.0, "vae_ms_per_step.full_batch": 6.0,
     "update_ms_per_step.train": 0.25, "update_ms_per_step.full_batch": 0.25,
+    "encode_ms_per_step.gppvae": 0.75, "replay_ms_per_step.gppvae": 8.0,
 }
 
 
@@ -277,3 +309,37 @@ def test_captured_phase_times_sum_to_the_replayed_step(monkeypatch):
     torch.cuda.synchronize()
     for a, b in zip(arrays(marked), arrays(bare)):
         assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_replayed_gppvae_step_is_the_eager_step_and_its_phases_sum_to_it(monkeypatch):
+    """At P = 8 (T 20, L 32, M 60) the replays of the captured GPPVAE step,
+    its five markers on, give the bits of eager steps (cuDNN held to its
+    deterministic algorithms); the five phases of a replay are positive and
+    sum to within 15% of its event-timed device time."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from lvae_torch.train.graph import eager_steps
+
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    size = dict(p=8, t=20, n_lat=32, m_ind=60)
+    replayed, eager = gppvae_trainer("cuda", **size), gppvae_trainer("cuda", **size)
+    replayed.run_epochs(3)
+    with eager_steps():
+        eager.run_epochs(3)
+    torch.cuda.synchronize()
+    assert replayed.history == eager.history
+    for a, b in zip(arrays(replayed), arrays(eager)):
+        assert torch.equal(a, b)
+    (captured,) = replayed._graphs.values()
+    assert captured.replays == 2 and not eager._graphs
+    ms = captured.phase_times()
+    assert set(ms) == set(metrics.GPPVAE_PHASES) and all(v > 0 for v in ms.values()), ms
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    captured.replay(*captured.inputs)
+    end.record()
+    end.synchronize()
+    ms = captured.phase_times()
+    step = start.elapsed_time(end)
+    assert math.isclose(sum(ms.values()), step, rel_tol=0.15), (ms, step)
