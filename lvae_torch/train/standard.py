@@ -15,9 +15,9 @@ optimizer step.
 With ``pseudo_minibatch`` an epoch is instead the five-phase GPPVAE
 gradient (:func:`gppvae_grads`): a no-grad encode of the cohort, the GP loss
 on the cached encodings, its gradients w.r.t. them and the kernel
-parameters, a per-subject encoder replay that splices those cotangents in,
-and the optimizer step. With a deterministic encoder it equals the
-full-batch gradient.
+parameters, one batched encoder replay of the cohort that splices those
+cotangents in, and the optimizer step. With a deterministic encoder it
+equals the full-batch gradient.
 
 The trainer runs the epoch program (the JAX package's ``epochs_fn``): a
 chunk's reparameterisation noise and GP-sample noise are drawn from a CPU
@@ -30,7 +30,7 @@ fixed buffers that updates its tensors in place. On the card it is captured
 once as a CUDA graph (``train/graph.CapturedStep``) and replayed every
 epoch: the closed step with K3, its backward and the N×N factorisation
 (K5 under the fused optimizer), the sparse and GPPVAE steps with K1 and K2,
-the GPPVAE step whole, its per-subject replay loop included. Assigning
+the GPPVAE step whole, its replay included. Assigning
 ``trainer.state`` drops the graph. Both loss functions take the noise as
 tensors.
 
@@ -229,9 +229,11 @@ def gppvae_grads(
     2. the GP loss on detached ``full_mu``/``full_lv`` leaves (the likelihood
        noise detached: it gets no gradient in this regime);
     3. its gradients w.r.t. those leaves and the kernel parameters;
-    4. per subject (a batch of T frames), replay the encoder and take
+    4. replay the encoder over the cohort and take
        ``backward([primal, mu, log_var], [1, mu_ct, lv_ct])``, which adds the
-       reconstruction gradient and the spliced GP cotangents;
+       reconstruction gradient and the spliced GP cotangents (the VAE
+       couples no two subjects' frames and its loss is per frame, so this is
+       the sum of each subject's replay);
     5. the optimizer step, which is the caller's.
 
     ``eps [N, L]`` is the replay's reparameterisation noise and ``gp_eps``
@@ -242,7 +244,6 @@ def gppvae_grads(
     ``update``."""
     if cfg.type_KL not in SPARSE_KL:
         raise ValueError(f"mini_batch supports GPapprox(_closed), got {cfg.type_KL!r}")
-    p, t = block_mask.shape
     latent = cfg.latent_dim
     model.train(cfg.dropout)
 
@@ -274,25 +275,14 @@ def gppvae_grads(
 
     # phase 4
     phase("replay")
-    shape = (p, t)
-    data_b = tdata.data.reshape(shape + tdata.data.shape[1:])
-    pix_b = tdata.pixmask.reshape(shape + tdata.pixmask.shape[1:])
-    eps_b = eps.reshape(p, t, latent)
-    mu_ct_b = mu_ct.reshape(p, t, latent)
-    lv_ct_b = lv_ct.reshape(p, t, latent)
-    recon_sum = torch.zeros((), dtype=full_mu.dtype, device=full_mu.device)
-    nll_sum = torch.zeros_like(recon_sum)
-    for i in range(p):
-        mu_i, lv_i = model.encode(data_b[i])
-        mse_i, nll_i = _recon_losses(model, cfg, data_b[i], pix_b[i], mu_i, lv_i, eps_b[i])
-        recon_l, nll_l = torch.sum(mse_i), torch.sum(nll_i)
-        primal = recon_l if cfg.loss_function == "mse" else nll_l
-        # the cotangents are in the GP dtype: so are the moments they splice into
-        mu_i, lv_i = mu_i.to(mu_ct_b.dtype), lv_i.to(mu_ct_b.dtype)
-        torch.autograd.backward([primal, mu_i, lv_i],
-                                [torch.ones_like(primal), mu_ct_b[i], lv_ct_b[i]])
-        recon_sum = recon_sum + recon_l.detach()
-        nll_sum = nll_sum + nll_l.detach()
+    mu, lv = model.encode(tdata.data)
+    mse, nll = _recon_losses(model, cfg, tdata.data, tdata.pixmask, mu, lv, eps)
+    recon_sum, nll_sum = torch.sum(mse), torch.sum(nll)
+    primal = recon_sum if cfg.loss_function == "mse" else nll_sum
+    # the cotangents are in the GP dtype: so are the moments they splice into
+    mu, lv = mu.to(mu_ct.dtype), lv.to(mu_ct.dtype)
+    torch.autograd.backward([primal, mu, lv], [torch.ones_like(primal), mu_ct, lv_ct])
+    recon_sum, nll_sum = recon_sum.detach(), nll_sum.detach()
 
     net, gp_rep = _report(cfg, recon_sum, nll_sum, gp_raw.detach())
     return StandardMetrics(net=net, recon=recon_sum, nll=nll_sum, gp=gp_rep)

@@ -44,8 +44,8 @@ from torch.autograd import profiler as _profiler
 # natural-gradient step, the noise pin)
 PHASES = ("vae_forward", "gp_forward", "gp_backward", "vae_backward", "update")
 # the GPPVAE step's (``train/standard.gppvae_grads``): the no-grad encode of
-# the cohort, the GP loss on its moments, that loss's gradient, the
-# per-subject encoder replays that splice it in, and the update
+# the cohort, the GP loss on its moments, that loss's gradient, the batched
+# encoder replay of the cohort that splices it in, and the update
 GPPVAE_PHASES = ("encode", "gp_forward", "gp_backward", "replay", "update")
 SPAN_LIMIT = 1 << 16  # spans kept; the oldest go first
 SAMPLE_LIMIT = 1 << 12  # phase samples kept

@@ -15,10 +15,13 @@ window's idle share. On the card (marked ``cuda``) a captured Hensman
 step's five phase times are positive and sum to within 5% of the replay's
 event-timed step, and its replays give the bits of a capture without
 markers; the replayed GPPVAE step, markers on, gives the eager step's bits
-and its five phases sum to within 15% of the replay's.
+and its five phases sum to within 15% of the replay's; and its replay
+phase launches about as many device kernels at P = 16 as at P = 8.
 """
 
+import collections
 import math
+import os
 
 import numpy as np
 import pytest
@@ -34,8 +37,11 @@ from lvae_torch.train import standard as ts
 from lvae_torch.utils import metrics
 from perfbench import harness, trace
 
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 LOOP = ("lvae.train.draws", "lvae.train.dispatch", "lvae.train.read", "lvae.train.callback")
 P, T, L, M, S = 4, 3, 2, 4, 2
+# device kernels of one subject's encoder replay at T 20, L 32
+SUBJECT_REPLAY_KERNELS = 150
 
 
 @pytest.fixture
@@ -343,3 +349,44 @@ def test_replayed_gppvae_step_is_the_eager_step_and_its_phases_sum_to_it(monkeyp
     ms = captured.phase_times()
     step = start.elapsed_time(end)
     assert math.isclose(sum(ms.values()), step, rel_tol=0.15), (ms, step)
+
+
+@pytest.mark.cuda
+def test_gppvae_step_kernels_do_not_grow_with_the_cohort(monkeypatch):
+    """At P = 8 and P = 16 (T 20, L 32, M 60) the replays of the captured
+    GPPVAE step give the bits of eager steps (cuDNN held to its
+    deterministic algorithms), and the ``replay`` phase of an eager step,
+    traced, launches about as many device kernels at P = 16 as at P = 8:
+    one pass over the cohort (``tools/phase_kernel_map.py`` puts each kernel
+    to the phase whose range holds its launch; copies and fills are not
+    kernels there). A replay a subject launched some 150 kernels at this T
+    and L, so 8 more subjects would add ~1200; the counts may differ by the
+    kernel or two that cuBLAS and cuDNN pick by shape (147 and 149 on an
+    H100), and must differ by less than half of one subject's replay."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from lvae_torch.train.graph import eager_steps
+
+    monkeypatch.syspath_prepend(os.path.join(ROOT, "tools"))
+    import phase_kernel_map
+
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    replay = {}
+    for p in (8, 16):
+        size = dict(p=p, t=20, n_lat=32, m_ind=60)
+        replayed, eager = gppvae_trainer("cuda", **size), gppvae_trainer("cuda", **size)
+        replayed.run_epochs(3)
+        with eager_steps():
+            eager.run_epochs(3)
+        torch.cuda.synchronize()
+        assert replayed.history == eager.history, p
+        for a, b in zip(arrays(replayed), arrays(eager)):
+            assert torch.equal(a, b), p
+        _, rows = phase_kernel_map.kernel_rows(phase_kernel_map.trace_events(eager))
+        replay[p] = collections.Counter()
+        for phase, _, name, _, count in rows:
+            if phase == "replay":
+                replay[p][name] += count
+    n8, n16 = sum(replay[8].values()), sum(replay[16].values())
+    assert n8 > 0 and abs(n16 - n8) < SUBJECT_REPLAY_KERNELS // 2, (
+        n8, n16, replay[8] - replay[16], replay[16] - replay[8])
