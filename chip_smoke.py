@@ -45,7 +45,7 @@ frames, random frames and weights from ``--seed``):
   as a CUDA graph: 5 epochs of ``type_KL=closed`` (one step each over all
   N = 2000 frames, K3 building the ``[32, 2000, 2000]`` prior once a step),
   2 each of ``GPapprox_closed``, ``GPapprox`` and the five-phase GPPVAE
-  regime (its per-subject replay loop inside one graph), and 2 closed
+  regime (its batched replay of the cohort inside one graph), and 2 closed
   epochs with the fused optimizer (K5 once a step); each run, and a bf16
   GPapprox_closed run, replayed against the same epochs run eagerly from
   one state (cuDNN deterministic, held bit-equal; the host clock of each;
@@ -1697,9 +1697,9 @@ def standard_dropout_replays(world: World) -> dict:
             tr = world.standard_trainer("cuda", "GPapprox_closed", dropout=p)
             gen = torch.Generator().manual_seed(world.seed + 3)
             noise = [torch.randn(shape, generator=gen, dtype=dtype).to(tr.device)
-                     for shape, dtype in tr._noise_specs()]
+                     for shape, dtype in tr._epoch_specs()]
             row = torch.empty(4, dtype=tr.dtype, device=tr.device)
-            tr._run_step(noise, row)  # the capture, its warm-up this step
+            tr._run_step(*noise, row)  # the capture, its warm-up this step
             opt = tr.state.opt_state
             held = [*tr.state.trainables.parameters(),
                     *(v for st in opt.state.values() for v in st.values() if torch.is_tensor(v))]
@@ -1709,7 +1709,7 @@ def standard_dropout_replays(world: World) -> dict:
                 with torch.no_grad():
                     for t, v in zip(held, saved):
                         t.copy_(v)
-                tr._run_step(noise, row)
+                tr._run_step(*noise, row)
                 rows.append(row.cpu().numpy().copy())
             if len(tr._graphs) != 1:
                 raise AssertionError(f"dropout {p}: {len(tr._graphs)} graphs")
@@ -3267,14 +3267,21 @@ def bf16_profiles(world: World) -> dict:
     return out
 
 
+def first_batch(trainer: HensmanTrainer):
+    """The batch rows and noise of the first step of a fresh epoch of bucket
+    0, drawn as the epoch program draws them, on the trainer's device."""
+    inputs = [torch.empty(shape, dtype=dtype) for shape, dtype in trainer._epoch_specs()]
+    trainer._draw(0, inputs)
+    return inputs[0][0].to(trainer.device), inputs[1][0].to(trainer.device)
+
+
 def step_kernel_names(trainer: HensmanTrainer) -> list:
     """The names of the kernels one replayed step launches, from a trace of
     the card."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    draws = trainer._draws(1)
-    rows, eps = draws[0][0][0, 0], draws[0][1][0, 0]
+    rows, eps = first_batch(trainer)
     out = torch.empty(5, dtype=trainer.dtype, device=trainer.device)
     trainer._run_step(0, rows, eps, out)
     torch.cuda.synchronize()
@@ -3524,8 +3531,7 @@ def replayed_host_ms(trainer: HensmanTrainer):
     median of the last 5 of 6, each ending in a synchronise), on the batch
     and noise of a fresh draw's first step; returns it and the step's
     inputs ``(rows, eps, out)``."""
-    draws = trainer._draws(1)
-    rows, eps = draws[0][0][0, 0], draws[0][1][0, 0]
+    rows, eps = first_batch(trainer)
     out = torch.empty(5, dtype=trainer.dtype, device=trainer.device)
     step_ms = []
     for _ in range(6):

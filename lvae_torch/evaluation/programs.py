@@ -49,7 +49,7 @@ import torch
 from torch import nn
 
 from lvae_torch.data.blocks import build_subject_blocks
-from lvae_torch.train.graph import StepGraphs, route_key
+from lvae_torch.train.graph import StepGraphs, route_key, steps_eagerly
 
 # graphs kept per program name: the keys one run meets (two validation
 # cohorts in three modes, the test and generation cohorts) without holding
@@ -107,11 +107,11 @@ def run(name: str, fn: Callable[..., torch.Tensor], inputs: Sequence[torch.Tenso
     inputs = [x.detach().to(device, non_blocking=True) for x in inputs]
     out = torch.empty(out_shape, dtype=out_dtype, device=device)
     graphs = graphs_of(model, device)
-    on_card = device.type == "cuda"
+    eager = steps_eagerly(device)
     key = program_key(name, inputs, model, static)
-    if on_card and key not in graphs:
+    if not eager and key not in graphs:
         _make_room(graphs, key)
-    return graphs.run(key, fn, inputs, out, eager=not on_card)
+    return graphs.run(key, fn, inputs, out, eager=eager)
 
 
 # ------------------------------------------------------------- host → device

@@ -43,7 +43,7 @@ from lvae_torch.ops.predict import (
     gp_predict_extend_batch,
     predict_latents,
 )
-from lvae_torch.train.graph import StepGraphs
+from lvae_torch.train.graph import StepGraphs, steps_eagerly
 from lvae_torch.train.state import GPParams
 from lvae_torch.utils.device import resolve_device
 
@@ -317,7 +317,7 @@ class CompiledServing:
         fixed shapes): on the card a replay of its graph, whose output the
         next replay overwrites; on the CPU the eager program."""
         return self._graphs.run(name, self._program(name), inputs,
-                                eager=self.device.type != "cuda")
+                                eager=steps_eagerly(self.device))
 
     def for_k_subjects(self, k_subjects: int) -> "CompiledServing":
         """A sibling bundle serving ``k_subjects``-sized requests: it shares

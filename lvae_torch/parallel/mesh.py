@@ -351,9 +351,10 @@ class ShardedStandardTrainer(_ShardedTrainer):
     message names them), the latents over 'latent'. The sparse modes sum
     their subject terms over 'data'; the closed mode gathers the whole
     cohort's moments over 'data' and builds the rank's ``[L/l, N, N]``
-    prior (kernel K3). The GPPVAE pseudo-minibatch regime is refused: its
-    per-subject replay exists to bound memory. The inner trainer's epoch
-    program runs its steps eagerly here, as ``ShardedHensmanTrainer``'s.
+    prior (kernel K3). The GPPVAE pseudo-minibatch regime is refused: it
+    runs in one process, its replay of the cohort one batched pass. The
+    inner trainer's epoch program runs its steps eagerly here, as
+    ``ShardedHensmanTrainer``'s.
     """
 
     def __init__(self, trainer, mesh: Mesh):
@@ -408,11 +409,6 @@ class ShardedVITrainer(_ShardedTrainer):
         super().__init__(trainer, mesh)
         trainer.view = mesh.view(trainer.block_mask.shape[0], trainer.cfg.latent_dim,
                                  "ShardedVITrainer")
-
-    def fit(self, epochs: int, log_every: int = 100, chunk: int = 100, overlap=None):
-        # VITrainer.fit has no callback parameter; the inner trainer's steps
-        # run eagerly on the view
-        return self.inner.fit(epochs, log_every=log_every, chunk=chunk, overlap=overlap)
 
     def optimize_prediction_set(self, *args, **kwargs):
         mu_pred, lv_pred = self.inner.optimize_prediction_set(*args, **kwargs)

@@ -17,10 +17,10 @@ file while the other ranks wait; a checkpoint holds the whole state.
 ``model_dtype=bfloat16`` (or ``''`` with ``LVAE_MODEL_BF16=1``) runs the
 VAE's layers in bf16 with f32 parameters, losses and GP algebra
 (``models/vae.py``); ``dtype=bfloat16``, the GP algebra in bf16, raises
-``NotImplementedError`` naming ROADMAP item 13. Every checkpoint goes
-through the configured ``checkpoint_backend`` (``utils/checkpoint.py``: a
-file, a directory, or a directory written in the background while
-training goes on); a resume reads either form.
+``NotImplementedError``: the JAX package's kernels take f32 only. Every
+checkpoint goes through the configured ``checkpoint_backend``
+(``utils/checkpoint.py``: a file, a directory, or a directory written in
+the background while training goes on); a resume reads either form.
 """
 
 from __future__ import annotations
@@ -64,11 +64,11 @@ MODEL_DTYPES = {**DTYPES, "bfloat16": torch.bfloat16}
 
 def check_ported(cfg) -> None:
     """Raise ``NotImplementedError`` for a configuration the port does not
-    run, naming the ROADMAP item that says why."""
+    run, saying why."""
     waiting = []
     if getattr(cfg, "dtype", "") == "bfloat16":
         waiting.append("dtype=bfloat16: the GP algebra runs at f32 or wider, as in the JAX "
-                       "package, whose kernels take f32 only (ROADMAP queue 1 item 13); "
+                       "package, whose kernels take f32 only; "
                        "model_dtype=bfloat16 runs the VAE in bf16")
     if waiting:
         raise NotImplementedError("not ported to lvae_torch: " + "; ".join(waiting))
@@ -554,7 +554,7 @@ class LVAEPipeline:
             print("WARNING: run_tests/run_validation are not supported under "
                   "variational_inference_training; ignoring")
         trainer = self.build_vi_trainer()
-        trainer.fit(cfg.epochs, log_every=1)
+        trainer.fit(cfg.epochs, log_every=1, chunk=100)
         if self.writer:
             os.makedirs(cfg.save_path, exist_ok=True)
         self._save(os.path.join(cfg.save_path, "model_vi.ckpt"), trainer.state)

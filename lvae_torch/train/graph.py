@@ -20,18 +20,20 @@ wrappers count their launches on the host, which a replay does not reach:
 the step's launches are recorded at the capture and added to the counters
 after every replay, so the counters still say how many launches ran.
 
-:class:`StepGraphs` holds an owner's graphs by key and makes the one
-decision every owner makes: on the CPU and on a mesh view a step runs
-eagerly (by rule), on the card it replays its graph, captured at its first
-run. The trainers (Hensman, pre-training, both VI phases) and the serving
-bundle (``inference.CompiledServing``, which captures its programs at
+:class:`StepGraphs` holds an owner's graphs by key and runs a step either
+way; :func:`steps_eagerly` is the one rule by which a step runs eagerly: on
+the CPU and on a mesh view (its collectives cannot be captured), while on
+the card it replays its graph, captured at its first run. The trainers
+(``train/loop.EpochProgram``), the serving bundle
+(``inference.CompiledServing``, which captures its programs at
 construction, under ``torch.inference_mode()``, several graphs of one
 bundle in one memory pool: each replay's output is copied out before the
-next replay, so one graph's scratch may reuse another's) all go through
-it; :func:`eager_steps` runs every step eagerly on the card too, the
-reference a replay is compared with. :func:`run_staged` stages a chunk's
-host-drawn inputs in one pinned slab and :func:`run_chunks` runs the chunks
-with the one-chunk lag of the JAX package's ``fit``.
+next replay, so one graph's scratch may reuse another's) and the
+evaluation programs all go through it; :func:`eager_steps` runs every step
+eagerly on the card too, the reference a replay is compared with.
+:func:`run_staged` stages a chunk's host-drawn inputs in pinned slabs and
+:func:`run_chunks` runs the chunks with the one-chunk lag of the JAX
+package's ``fit``.
 """
 
 from __future__ import annotations
@@ -49,6 +51,7 @@ from lvae_torch.kernels_cuda import block_pair as k4
 from lvae_torch.kernels_cuda import cholesky as k2
 from lvae_torch.kernels_cuda import kernel_matrix as k3
 from lvae_torch.ops import kernels as kx
+from lvae_torch.ops.shard import LOCAL, Local
 from lvae_torch.utils import metrics
 
 # (module, wrapper name) of every kernel wrapper with a ``launches`` count,
@@ -171,6 +174,13 @@ def record_phases(graphs: "StepGraphs") -> None:
             metrics.RECORDER.add_sample(key, captured.phase_times())
 
 
+def steps_eagerly(device: torch.device, view: Local = LOCAL) -> bool:
+    """Whether a step runs eagerly by rule (never as a fallback): on the CPU
+    and on a mesh view, whose collectives a CUDA graph cannot capture; on
+    the card it replays its graph."""
+    return device.type != "cuda" or view is not LOCAL
+
+
 # set by :func:`eager_steps`: every step of :class:`StepGraphs` runs eagerly
 _eager_everywhere = False
 
@@ -193,9 +203,8 @@ class StepGraphs(dict):
     program name), captured in the memory pool ``pool`` and, with
     ``inference``, under ``torch.inference_mode()``.
 
-    :meth:`run` holds the one decision every owner makes: where the caller
-    says ``eager`` (the CPU, a mesh view: a rule of the device or the view,
-    never a fallback) the step runs eagerly; otherwise it is a replay of
+    :meth:`run`: where the caller says ``eager`` (:func:`steps_eagerly`)
+    the step runs eagerly; otherwise it is a replay of
     the key's graph, captured at the key's first run (that run is the
     capture's warm-up) or beforehand by :meth:`capture`. A capture that
     fails raises."""
@@ -259,37 +268,32 @@ def run_chunks(total: int, chunk: int, dispatch: Callable[[int], object],
 SLAB_BYTES = 64 << 20
 
 
-def epochs_per_slab(epoch_bytes: int) -> int:
-    """How many epochs' draws of ``epoch_bytes`` each one slab holds."""
-    return max(1, SLAB_BYTES // max(1, epoch_bytes))
-
-
 def run_staged(n: int, specs: Sequence[Tuple[tuple, torch.dtype]],
                fill: Callable[[int, List[torch.Tensor]], None],
-               run_step: Callable[[int, List[torch.Tensor]], None], device: torch.device) -> None:
-    """Run ``n`` steps whose inputs are drawn on the host, without waiting
-    for the device. Step ``i`` takes one input of each ``(shape, dtype)``
-    of ``specs``: ``fill(i, inputs)`` draws them on the host, in step
+               run_epoch: Callable[[int, List[torch.Tensor]], None], device: torch.device) -> None:
+    """Run ``n`` epochs whose inputs are drawn on the host, without waiting
+    for the device. Epoch ``e`` takes one input of each ``(shape, dtype)``
+    of ``specs``: ``fill(e, inputs)`` draws them on the host, in the steps'
     order, into fresh slabs (pinned on the card), which go to ``device`` in
-    one copy each, in parts of at most :data:`SLAB_BYTES`; then
-    ``run_step(i, inputs)`` runs the step on their device copies. The
-    allocator keeps a pinned block until its copy is done, so a slab in
-    flight is never refilled."""
-    step_bytes = sum(math.prod(shape) * torch.empty((), dtype=dtype).element_size()
-                     for shape, dtype in specs)
-    part = epochs_per_slab(step_bytes)
+    one copy each, in parts of whole epochs of at most :data:`SLAB_BYTES`;
+    then ``run_epoch(e, inputs)`` runs the epoch's steps on their device
+    copies. The allocator keeps a pinned block until its copy is done, so
+    a slab in flight is never refilled."""
+    epoch_bytes = sum(math.prod(shape) * torch.empty((), dtype=dtype).element_size()
+                      for shape, dtype in specs)
+    part = max(1, SLAB_BYTES // max(1, epoch_bytes))
     pin = device.type == "cuda"
     for start in range(0, n, part):
         m = min(part, n - start)
         with metrics.span("lvae.train.draws"):
             slabs = [torch.empty((m,) + tuple(shape), dtype=dtype, pin_memory=pin)
                      for shape, dtype in specs]
-            for i in range(m):
-                fill(start + i, [slab[i] for slab in slabs])
+            for e in range(m):
+                fill(start + e, [slab[e] for slab in slabs])
             staged = [slab.to(device, non_blocking=True) for slab in slabs]
         with metrics.span("lvae.train.dispatch"):
-            for i in range(m):
-                run_step(start + i, [x[i] for x in staged])
+            for e in range(m):
+                run_epoch(start + e, [x[e] for x in staged])
 
 
 def start_host_copy(t: torch.Tensor) -> Tuple[torch.Tensor, Optional[torch.cuda.Event]]:

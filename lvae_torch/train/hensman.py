@@ -5,17 +5,10 @@ loss, the GP operators (kernel K1 builds the per-subject B chain on the
 card), the minibatch KL bound, one Adam step on the trainables and one
 natural-gradient step on (m, H).
 
-The epoch program (the JAX package's ``make_epochs_fn``): ``run_epochs(n)``
-draws a chunk's permutations and noise on the host, copies them to the
-device once, runs every step of the chunk and reads the chunk's metrics
-once (``_dispatch_epochs``, then ``_materialize_metrics``); ``fit`` without
-a callback dispatches chunk k+1 before it reads chunk k. The step is one
-function on fixed buffers that updates the state in place. On the card it
-is captured once per batch shape ``[S, T_bucket]`` (and route switch) as a
-CUDA graph (``train/graph.CapturedStep``) and replayed for every batch; on
-the CPU, and on a mesh view, whose collectives cannot be captured, it runs
-eagerly. Assigning ``trainer.state`` drops the graphs, so that the next
-chunk captures again on the new state's tensors.
+The trainer runs the epoch program of ``train/loop.py`` (the JAX
+package's ``make_epochs_fn``): an epoch draws, per bucket, its permutation
+and then each step's noise; on the card the step is captured once per
+bucket (and route switch) as a CUDA graph and replayed for every batch.
 
 * Fixed-T and ragged cohorts share one path through padded blocks and
   validity masks; ghost subjects pad the final batch, contribute exactly
@@ -24,10 +17,6 @@ chunk captures again on the new state's tensors.
   its sample in bf16, as the JAX model draws it; the moments are upcast to
   the GP dtype before the GP algebra and the loss target with them, and
   under ``use_bf16_table`` the frame table itself is stored in bf16.
-* Randomness (the subject permutation of each epoch and bucket, and the
-  reparameterisation noise of each step) is drawn from a CPU
-  ``torch.Generator`` seeded from ``seed`` and moved to the device, so a run
-  on the card and one on the CPU consume the same numbers.
 * On a mesh (``parallel/mesh.ShardedHensmanTrainer`` sets ``view``) a rank
   takes its subjects of each batch (ghost rows pad the batch to the data
   axis) and its latents: it counts its share of each term, the gradients
@@ -50,12 +39,10 @@ from lvae_torch.ops import elbo as eb
 from lvae_torch.ops import kernels as kx
 from lvae_torch.ops.shard import LOCAL, Local
 from lvae_torch.train import state as st
-from lvae_torch.train.graph import (
-    StepGraphs, epochs_per_slab, finish_host_copy, record_phases, route_key, run_chunks,
-    start_host_copy,
-)
+from lvae_torch.train.graph import route_key, steps_eagerly
+from lvae_torch.train.loop import EpochProgram
 from lvae_torch.utils.device import resolve_device
-from lvae_torch.utils.metrics import phase, phase_at_grads, phase_end, span
+from lvae_torch.utils.metrics import phase, phase_at_grads, phase_end
 
 
 # The bf16 frame table: under a bf16 model over an f32 GP dtype the frame
@@ -237,7 +224,7 @@ def batch_loss(
     return net, (metrics, ng)
 
 
-class HensmanTrainer:
+class HensmanTrainer(EpochProgram):
     """Epochs of Hensman training on one device.
 
     ``model`` is a port VAE (``models/vae.make_vae``) carrying its initial
@@ -247,6 +234,9 @@ class HensmanTrainer:
     hyperparameters and (m, H) are initialised as the JAX package does, from
     ``seed``. ``device`` is ``"cuda"`` unless the caller asks for the CPU.
     """
+
+    LOG = ("Iter {epoch}/{epochs} - Loss: {m.net:.3f}  - GP loss: {m.kld:.3f}"
+           "  - NLL Loss: {m.nll:.3f}  - Recon Loss: {m.recon:.3f}")
 
     def __init__(
         self,
@@ -320,19 +310,7 @@ class HensmanTrainer:
         # the last chunk's steps: their metrics and whether each kept its
         # natural-gradient update (the guard's decision)
         self.last_steps: List[Tuple[StepMetrics, bool]] = []
-        self.view: Local = LOCAL  # a rank's shard on a mesh (parallel/mesh.py)
-
-    # ---------------------------------------------------------------- state
-    @property
-    def state(self) -> st.HensmanState:
-        return self._state
-
-    @state.setter
-    def state(self, value: st.HensmanState) -> None:
-        """A new state drops the captured steps: a graph reads and writes the
-        tensors it was captured on, so the next chunk captures again."""
-        self._state = value
-        self._graphs = StepGraphs()
+        self._out_shape = (self.steps_per_epoch, 5)
 
     # ------------------------------------------------------------- one step
     def _step(self, table: BlockTable, rows: torch.Tensor, eps: torch.Tensor) -> torch.Tensor:
@@ -363,14 +341,7 @@ class HensmanTrainer:
         phase("gp_backward")
         net.backward()
         phase("update")
-        params = list(state.trainables.parameters())
-        for p in params:
-            # a trainable the loss does not reach (raw_noise under
-            # constrain_scales) gets a zero gradient, as in optax: its Adam
-            # moments and step count advance with the others
-            if p.grad is None:
-                p.grad = torch.zeros_like(p)
-        view.sum_grads(params)
+        view.sum_grads(st.zero_missing_grads(state.trainables.parameters()))
         opt.step()
         kept = torch.ones((), dtype=net.dtype, device=net.device)
         if cfg.natural_gradient:
@@ -412,13 +383,13 @@ class HensmanTrainer:
     def _run_step(self, b: int, rows: torch.Tensor, eps: torch.Tensor,
                   out: torch.Tensor) -> None:
         """Step ``rows``/``eps`` of bucket ``b`` into the metrics row
-        ``out [5]``: on the card the captured step (captured at the first
-        batch of its shape and route switches, which runs as the warm-up),
-        on the CPU and on a mesh view the eager one."""
+        ``out [5]``: the step captured under the bucket and ``route_key()``
+        (at the first batch of the bucket, which runs as the warm-up), or
+        eagerly by ``steps_eagerly``'s rule."""
         table = self.tables[b]
         self._graphs.run((b, *route_key()),
                          lambda r, e: self._step(table, r, e), (rows, eps), out,
-                         eager=self.device.type != "cuda" or self.view is not LOCAL)
+                         eager=steps_eagerly(self.device, self.view))
         self._advance()
 
     # --------------------------------------------------------------- epochs
@@ -435,111 +406,43 @@ class HensmanTrainer:
         perm = torch.cat([perm, torch.arange(table.num_real, p_pad)])
         return perm.reshape(p_pad // self.subjects_per_batch, self.subjects_per_batch)
 
-    def _draws(self, n: int, orders=None) -> List[Tuple[torch.Tensor, torch.Tensor]]:
-        """A chunk's draws per bucket on the device: the batch rows
-        ``[n, n_batches, S]`` and the noise ``[n, n_batches, S·T, L]``. They
-        come from the state's generator in the order the steps would draw
-        them one by one: per epoch and bucket the permutation, then one
-        ``randn`` a step. ``orders[e][b]`` replaces a drawn permutation.
-        They are filled in a fresh pinned slab on the host and copied to the
-        card at once (the allocator keeps a pinned block until its copy is
-        done, so a slab in flight is never refilled)."""
-        gen, s, n_lat = self._state.rng, self.subjects_per_batch, self.cfg.latent_dim
-        pin = self.device.type == "cuda"
-        slabs = []
-        for table in self.tables:
-            nb, t = table.index.shape[0] // s, table.index.shape[1]
-            slabs.append((torch.empty((n, nb, s), dtype=torch.int64, pin_memory=pin),
-                          torch.empty((n, nb, s * t, n_lat), dtype=self.dtype, pin_memory=pin)))
-        for e in range(n):
-            for b, (table, (rows, eps)) in enumerate(zip(self.tables, slabs)):
-                rows[e] = (self._epoch_order(table) if orders is None
-                           else torch.as_tensor(orders[e][b]))
-                for i in range(rows.shape[1]):
-                    eps[e, i].normal_(generator=gen)  # torch.randn's draw
-        return [(rows.to(self.device, non_blocking=True), eps.to(self.device, non_blocking=True))
-                for rows, eps in slabs]
+    def _epoch_specs(self) -> List[Tuple[tuple, torch.dtype]]:
+        """An epoch's inputs, per bucket: the batch rows ``[n_batches, S]``
+        and the noise ``[n_batches, S·T, L]``."""
+        s, specs = self.subjects_per_batch, []
+        for t in self.tables:
+            nb = t.index.shape[0] // s
+            specs += [((nb, s), torch.int64), ((nb, s * t.index.shape[1], self.cfg.latent_dim),
+                                               self.dtype)]
+        return specs
 
-    def _dispatch_epochs(self, n: int, orders=None):
-        """Run an ``n``-epoch chunk without waiting for the device; returns
-        its per-step metrics ``[n, steps, 5]`` and, on the card, their host
-        copy in flight and the event that marks it done. The chunk's draws
-        go to the device in one copy, or in parts of whole epochs where
-        they exceed ``graph.SLAB_BYTES``."""
-        out = torch.empty((n, self.steps_per_epoch, 5), dtype=self.dtype, device=self.device)
-        item = self.tdata.labels.element_size()
-        epoch_bytes = sum(t.index.shape[0] * (t.index.shape[1] * self.cfg.latent_dim * item + 8)
-                          for t in self.tables)
-        part = epochs_per_slab(epoch_bytes)
-        for start in range(0, n, part):
-            m = min(part, n - start)
-            with span("lvae.train.draws"):
-                draws = self._draws(m, None if orders is None else orders[start:start + m])
-            with span("lvae.train.dispatch"):
-                for e in range(m):
-                    k = 0
-                    for b, (rows, eps) in enumerate(draws):
-                        for i in range(rows.shape[1]):
-                            self._run_step(b, rows[e, i], eps[e, i], out[start + e, k])
-                            k += 1
-        return start_host_copy(out)
+    def _draw(self, e: int, inputs: List[torch.Tensor], order: Optional[Sequence] = None) -> None:
+        """Epoch ``e``'s draws in the order the steps would take them one by
+        one: per bucket the permutation, then one ``randn`` a step.
+        ``order[b]`` replaces bucket ``b``'s permutation."""
+        for b, table in enumerate(self.tables):
+            rows, eps = inputs[2 * b:2 * b + 2]
+            rows.copy_(self._epoch_order(table) if order is None else torch.as_tensor(order[b]))
+            for x in eps:
+                x.normal_(generator=self._state.rng)  # torch.randn's draw
 
-    def _materialize_metrics(self, chunk, n: int) -> List[StepMetrics]:
-        """Wait for a dispatched chunk's metrics; returns each epoch's mean
-        over its steps as host floats (appended to ``history``); its steps'
-        metrics and guard decisions become ``last_steps``. With tracing on
-        the captured step's phase times are sampled after the wait."""
-        with span("lvae.train.read"):
-            host = finish_host_copy(chunk)
-            record_phases(self._graphs)
-            out = []
-            for e in range(n):
-                m = StepMetrics(*host[e, :, :4].mean(0).tolist())
-                self.history.append(m)
-                out.append(m)
-            self.last_steps = [(StepMetrics(*row[:4]), row[4] > 0)
-                               for row in host.reshape(-1, 5).tolist()]
-        return out
+    def _epoch(self, inputs: List[torch.Tensor], out: torch.Tensor) -> None:
+        k = 0
+        for b in range(len(self.tables)):
+            rows, eps = inputs[2 * b:2 * b + 2]
+            for i in range(rows.shape[0]):
+                self._run_step(b, rows[i], eps[i], out[k])
+                k += 1
 
-    def run_epochs(self, n: int) -> List[StepMetrics]:
-        """Run ``n`` epochs as one chunk; returns their metrics."""
-        return self._materialize_metrics(self._dispatch_epochs(n), n)
+    def _reduce(self, host: torch.Tensor, n: int) -> List[StepMetrics]:
+        """Each epoch's mean over its steps; its steps' metrics and guard
+        decisions become ``last_steps``."""
+        self.last_steps = [(StepMetrics(*row[:4]), row[4] > 0)
+                           for row in host.reshape(-1, 5).tolist()]
+        return [StepMetrics(*host[e, :, :4].mean(0).tolist()) for e in range(n)]
 
     def run_epoch(self, order: Optional[Sequence] = None) -> StepMetrics:
         """One epoch over every bucket; returns the epoch's mean metrics as
         host floats. ``order`` (one ``[n_batches, S]`` array of table rows per
         bucket) replaces the drawn permutations."""
-        chunk = self._dispatch_epochs(1, None if order is None else [order])
-        return self._materialize_metrics(chunk, 1)[0]
-
-    def _log_chunk(self, ms, done: int, epochs: int, log_every: int):
-        for i, m in enumerate(ms):
-            epoch = done + i + 1
-            if log_every and (epoch % log_every == 0):
-                print(
-                    "Iter %d/%d - Loss: %.3f  - GP loss: %.3f"
-                    "  - NLL Loss: %.3f  - Recon Loss: %.3f"
-                    % (epoch, epochs, m.net, m.kld, m.nll, m.recon),
-                    flush=True,
-                )
-
-    def fit(self, epochs: int, log_every: int = 1, callback=None, chunk: int = 25,
-            overlap: Optional[bool] = None):
-        """Train ``epochs`` epochs in ``chunk``-epoch chunks, calling
-        ``callback(trainer, done, last metrics)`` after every chunk. A
-        callback that returns ``"rollback"`` has restored an earlier state:
-        the chunk's epochs are then run again, so the run trains as many
-        epochs as it reports. Without a callback (and unless ``overlap`` is
-        False) chunk k+1 is dispatched before chunk k's metrics are read:
-        the same values, printed in the same order."""
-        lag = callback is None and overlap is not False
-
-        def read(done: int, n: int, chunk_):
-            ms = self._materialize_metrics(chunk_, n) if lag else chunk_
-            with span("lvae.train.callback"):
-                self._log_chunk(ms, done, epochs, log_every)
-                return None if callback is None else callback(self, done + n, ms[-1])
-
-        # without the lag each chunk runs through run_epochs and is read at once
-        run_chunks(epochs, chunk, self._dispatch_epochs if lag else self.run_epochs, read, lag)
-        return self.history
+        return self._run_one(lambda e, inputs: self._draw(e, inputs, order))

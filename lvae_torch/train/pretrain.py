@@ -6,33 +6,28 @@ shuffled batches of ``min(N, 256)`` frames (for an RNN encoder, whole
 subjects, rounded down to a multiple of T), the ragged tail dropped; the
 trained weights seed an L-VAE run.
 
-The epoch program is the Hensman trainer's (``train/hensman.py``; the JAX
-package's ``make_pretrain_epoch_fn``): a chunk's permutations and noise are
-drawn on the host and copied to the device once, every step updates the
-state in place, and the chunk's metrics are read once. Every batch has one
-shape, so on the card the step is captured once as a CUDA graph
-(``train/graph.CapturedStep``) and replayed; on the CPU it runs eagerly.
-Assigning ``state`` drops the graph.
-
-The epoch's permutation and each step's reparameterisation noise are drawn
-from a CPU ``torch.Generator`` seeded from ``seed`` and moved to the device
-(or injected), so the card and the CPU consume the same numbers. Dropout,
-where on, draws its masks from torch's own generator, as in the trainers.
+The trainer runs the epoch program of ``train/loop.py`` (the JAX package's
+``make_pretrain_epoch_fn``): an epoch draws its permutation, then each
+step's reparameterisation noise, from a CPU ``torch.Generator`` seeded from
+``seed`` (or takes them injected). Every batch has one shape, so on the
+card the step is captured once as a CUDA graph and replayed. Unlike the
+other trainers, ``fit`` reads each chunk before it dispatches the next
+(``OVERLAP``), as the JAX package's does. Dropout, where on, draws its
+masks from torch's own generator, as in the trainers.
 """
 
 from __future__ import annotations
 
-from typing import List, NamedTuple, Optional
+import functools
+from typing import List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 from torch import nn
 
 from lvae_torch.models import vae as mv
-from lvae_torch.train.graph import (
-    StepGraphs, finish_host_copy, route_key, run_chunks, run_staged, start_host_copy,
-)
-from lvae_torch.train.state import make_optimizer
+from lvae_torch.train.loop import EpochProgram
+from lvae_torch.train.state import make_optimizer, zero_missing_grads
 from lvae_torch.utils.device import resolve_device
 
 
@@ -71,11 +66,16 @@ def pretrain_loss(model: nn.Module, x, pixmask, eps, loss_function: str,
                               kld_i.sum().detach()])
 
 
-class VAEPretrainer:
+class VAEPretrainer(EpochProgram):
     """The pre-training loop. ``model`` is a port VAE carrying its initial
     weights; ``dataset`` any object with numpy ``data [N, ...]`` and
     ``mask [N, D]``. ``device`` is ``"cuda"`` unless the caller asks for the
     CPU."""
+
+    # "Average loss" is the raw epoch sum, as the reference prints it
+    LOG = ("====> Epoch: {epoch} - Average loss: {m.loss:.4f}  - KLD loss: {m.kld:.3f}"
+           "  - NLL loss: {m.nll:.3f}  - Recon loss: {m.recon:.3f}")
+    OVERLAP = False
 
     def __init__(
         self,
@@ -92,6 +92,7 @@ class VAEPretrainer:
     ):
         self.device = resolve_device(device)
         self.model = model.to(device=self.device, dtype=dtype)
+        self.dtype = dtype
         self.loss_function = loss_function
         self.dropout = dropout
         self.vy_fixed = vy_fixed
@@ -109,6 +110,7 @@ class VAEPretrainer:
                     f"RNN pre-training needs subject-major data with N divisible by "
                     f"T={self.seq_len}; got N={self.n}")
             self.batch_size = max(self.seq_len, self.batch_size // self.seq_len * self.seq_len)
+        self._out_shape = (self.n // self.batch_size, 4)
         params = list(self.model.parameters())
         for p in params:
             p.requires_grad_(True)
@@ -117,16 +119,6 @@ class VAEPretrainer:
             rng=torch.Generator().manual_seed(seed), step=0,
         )
         self.history: List[PretrainMetrics] = []
-
-    @property
-    def state(self) -> PretrainState:
-        return self._state
-
-    @state.setter
-    def state(self, value: PretrainState) -> None:
-        """A new state drops the captured step (it reads the old tensors)."""
-        self._state = value
-        self._graphs = StepGraphs()
 
     @property
     def params(self) -> nn.Module:
@@ -154,89 +146,40 @@ class VAEPretrainer:
         loss, metrics = pretrain_loss(self.model, self.data[rows], self.pixmask[rows], eps,
                                       self.loss_function, self.dropout, self.vy_fixed)
         loss.backward()
-        for p in self.model.parameters():  # a frozen raw_log_vy advances Adam as in optax
-            if p.grad is None:
-                p.grad = torch.zeros_like(p)
+        zero_missing_grads(self.model.parameters())  # a frozen raw_log_vy
         opt.step()
         return metrics
 
-    def _run_step(self, rows: torch.Tensor, eps: torch.Tensor, out: torch.Tensor) -> None:
-        # captured at the first batch of a shape and of the switches, which runs as the warm-up
-        self._graphs.run((tuple(rows.shape), *route_key()), self._step, (rows, eps), out,
-                         eager=self.device.type != "cuda")
-        self._state = self._state._replace(step=self._state.step + 1)
+    def _epoch_specs(self) -> List[Tuple[tuple, torch.dtype]]:
+        """An epoch's batches of frame rows ``[n_batches, B]`` and their
+        noise ``[n_batches, B, L]``."""
+        nb, b = self._out_shape[0], self.batch_size
+        return [((nb, b), torch.int64), ((nb, b, self.model.latent_dim), self.dtype)]
 
-    def _dispatch_epochs(self, n: int, order=None, eps=None):
-        """Run an ``n``-epoch chunk; returns its per-step metrics
-        ``[n, n_batches, 4]`` (on the card, their host copy in flight and the
-        event that marks it done). The draws follow the steps' own order:
-        per epoch the permutation, then one ``randn`` a step, staged on the
-        host and copied to the card at once (``graph.run_staged``). ``order``
-        ``[n, n_batches, B]`` and ``eps`` ``[n, n_batches, B, L]`` replace
-        them."""
-        n_batches, b, n_lat = self.n // self.batch_size, self.batch_size, self.model.latent_dim
-        out = torch.empty((n, n_batches, 4), dtype=self.data.dtype, device=self.device)
-        perm = None
-
-        def fill(i: int, inputs) -> None:
-            nonlocal perm
-            e, j = divmod(i, n_batches)
-            rows, noise = inputs
-            if j == 0:
-                perm = self.epoch_order() if order is None else torch.as_tensor(order[e])
-            rows.copy_(perm[j])
+    def _draw(self, e: int, inputs: List[torch.Tensor], order=None, eps=None) -> None:
+        """Epoch ``e``'s permutation, then one ``randn`` a step; ``order``
+        ``[n_batches, B]`` and ``eps`` ``[n_batches, B, L]`` replace them."""
+        rows, noise = inputs
+        rows.copy_(self.epoch_order() if order is None else torch.as_tensor(order))
+        for j, x in enumerate(noise):
             if eps is None:
-                noise.normal_(generator=self.state.rng)  # torch.randn's draw
+                x.normal_(generator=self.state.rng)  # torch.randn's draw
             else:
-                noise.copy_(torch.as_tensor(eps[e][j]))
+                x.copy_(torch.as_tensor(eps[j]))
 
-        run_staged(n * n_batches, [((b,), torch.int64), ((b, n_lat), self.data.dtype)], fill,
-                   lambda i, inputs: self._run_step(*inputs, out.view(-1, 4)[i]), self.device)
-        return start_host_copy(out)
+    def _epoch(self, inputs: List[torch.Tensor], out: torch.Tensor) -> None:
+        rows, noise = inputs
+        for j in range(rows.shape[0]):
+            self._run_step(rows[j], noise[j], out[j])
 
-    def _materialize_metrics(self, chunk, n: int) -> List[PretrainMetrics]:
-        """Wait for a chunk's metrics; each epoch's sums over its steps,
-        added in step order, as host floats (appended to ``history``)."""
-        host = finish_host_copy(chunk)
-        out = []
-        for e in range(n):
-            sums = host[e, 0]
-            for row in host[e, 1:]:
-                sums = sums + row
-            m = PretrainMetrics(*sums.tolist())
-            self.history.append(m)
-            out.append(m)
-        return out
+    def _reduce(self, host: torch.Tensor, n: int) -> List[PretrainMetrics]:
+        """Each epoch's sums over its steps, added in step order."""
+        return [PretrainMetrics(*functools.reduce(torch.add, host[e]).tolist())
+                for e in range(n)]
 
     def run_epoch(self, order: Optional[torch.Tensor] = None,
                   eps: Optional[torch.Tensor] = None) -> PretrainMetrics:
         """One epoch; returns its summed metrics as host floats. ``order``
         (``[n_batches, B]`` rows) and ``eps`` (``[n_batches, B, L]``)
         replace the drawn permutation and noise."""
-        chunk = self._dispatch_epochs(1, None if order is None else [order],
-                                      None if eps is None else [eps])
-        return self._materialize_metrics(chunk, 1)[0]
-
-    def run_epochs(self, n: int) -> List[PretrainMetrics]:
-        """``n`` epochs as one chunk; returns their metrics."""
-        return self._materialize_metrics(self._dispatch_epochs(n), n)
-
-    def fit(self, epochs: int, log_every: int = 1, callback=None, chunk: int = 25):
-        """Train ``epochs`` epochs, calling ``callback(trainer, done, last
-        metrics)`` after every ``chunk`` epochs."""
-        def read(done: int, n: int, ms: List[PretrainMetrics]) -> None:
-            for i, m in enumerate(ms):
-                epoch = done + i + 1
-                if log_every and epoch % log_every == 0:
-                    # "Average loss" is the raw epoch sum, as the reference prints it
-                    print(
-                        "====> Epoch: %d - Average loss: %.4f  - KLD loss: %.3f"
-                        "  - NLL loss: %.3f  - Recon loss: %.3f"
-                        % (epoch, m.loss, m.kld, m.nll, m.recon),
-                        flush=True,
-                    )
-            if callback is not None:
-                callback(self, done + n, ms[-1])
-
-        run_chunks(epochs, chunk, self.run_epochs, read, overlap=False)
-        return self.history
+        return self._run_one(lambda e, inputs: self._draw(e, inputs, order, eps))

@@ -19,20 +19,13 @@ parameters, one batched encoder replay of the cohort that splices those
 cotangents in, and the optimizer step. With a deterministic encoder it
 equals the full-batch gradient.
 
-The trainer runs the epoch program (the JAX package's ``epochs_fn``): a
-chunk's reparameterisation noise and GP-sample noise are drawn from a CPU
-``torch.Generator`` seeded from ``seed``, on the host, in the steps' own
-order, into one pinned slab copied to the device once (so a run on the card
-and one on the CPU consume the same numbers); every epoch of the chunk
-runs, and the chunk's metrics reach the host once, one chunk late unless
-``fit`` has a callback or ``overlap`` is False. The step is one function on
-fixed buffers that updates its tensors in place. On the card it is captured
-once as a CUDA graph (``train/graph.CapturedStep``) and replayed every
-epoch: the closed step with K3, its backward and the N×N factorisation
-(K5 under the fused optimizer), the sparse and GPPVAE steps with K1 and K2,
-the GPPVAE step whole, its replay included. Assigning
-``trainer.state`` drops the graph. Both loss functions take the noise as
-tensors.
+The trainer runs the epoch program of ``train/loop.py`` (the JAX
+package's ``epochs_fn``): an epoch draws the encoder's noise and, under
+GPapprox, the GP samples' noise, and on the card its one step is captured
+once as a CUDA graph and replayed every epoch: the closed step with K3,
+its backward and the N×N factorisation (K5 under the fused optimizer), the
+sparse and GPPVAE steps with K1 and K2, the GPPVAE step whole, its replay
+included. Both loss functions take the noise as tensors.
 
 On a mesh (``parallel/mesh.ShardedStandardTrainer`` sets ``view``) a rank
 encodes its subjects' frames and computes the GP bound of its latents: the
@@ -45,7 +38,7 @@ before the optimizer step; there, as on the CPU, every step runs eagerly
 
 from __future__ import annotations
 
-from typing import Callable, List, NamedTuple, Optional, Sequence, Tuple
+from typing import List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -55,12 +48,9 @@ from lvae_torch.ops import elbo as eb
 from lvae_torch.ops import kernels as kx
 from lvae_torch.ops.shard import LOCAL, Local
 from lvae_torch.train import state as st
-from lvae_torch.train.graph import (
-    StepGraphs, finish_host_copy, record_phases, route_key, run_chunks, run_staged,
-    start_host_copy,
-)
+from lvae_torch.train.loop import EpochProgram
 from lvae_torch.utils.device import resolve_device
-from lvae_torch.utils.metrics import phase, phase_at_grads, phase_end, span
+from lvae_torch.utils.metrics import phase, phase_at_grads, phase_end
 
 SPARSE_KL = ("GPapprox", "GPapprox_closed")
 
@@ -288,16 +278,7 @@ def gppvae_grads(
     return StandardMetrics(net=net, recon=recon_sum, nll=nll_sum, gp=gp_rep)
 
 
-def _zero_missing_grads(trainables: st.Trainables) -> None:
-    # a trainable the loss does not reach (raw_noise under constrain_scales
-    # or in the GPPVAE regime) gets a zero gradient, as in optax: its Adam
-    # moments and step count advance with the others
-    for p in trainables.parameters():
-        if p.grad is None:
-            p.grad = torch.zeros_like(p)
-
-
-class StandardTrainer:
+class StandardTrainer(EpochProgram):
     """Epochs of full-batch (or, with ``pseudo_minibatch``, five-phase
     GPPVAE) training on one device.
 
@@ -361,20 +342,7 @@ class StandardTrainer:
             rng=torch.Generator().manual_seed(seed),
             step=0,
         )
-        self.view: Local = LOCAL  # a rank's shard on a mesh (parallel/mesh.py)
         self.history: list = []
-
-    # ---------------------------------------------------------------- state
-    @property
-    def state(self) -> StandardState:
-        return self._state
-
-    @state.setter
-    def state(self, value: StandardState) -> None:
-        """A new state drops the captured step: a graph reads and writes the
-        tensors it was captured on, so the next chunk captures again."""
-        self._state = value
-        self._graphs = StepGraphs()
 
     # ------------------------------------------------------------- one step
     def _step(self, eps: torch.Tensor, gp_eps: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -402,8 +370,7 @@ class StandardTrainer:
             phase("gp_backward")
             net.backward()
             phase("update")
-        _zero_missing_grads(trainables)
-        view.sum_grads(list(trainables.parameters()))
+        view.sum_grads(st.zero_missing_grads(trainables.parameters()))
         opt.step()
         if cfg.constrain_scales and not self.pseudo_minibatch:
             with torch.no_grad():
@@ -412,19 +379,8 @@ class StandardTrainer:
         phase_end()
         return out
 
-    def _run_step(self, noise: Sequence[torch.Tensor], out: torch.Tensor) -> None:
-        """Step the noise ``noise`` (``eps``, and ``gp_eps`` under GPapprox)
-        into the metrics row ``out [4]``: on the card the captured step
-        (captured at the first step after a new state and at route or
-        backend switches; the capture's warm-up is this step), on the CPU
-        and on a mesh view (whose collectives cannot be captured) the eager
-        one."""
-        self._graphs.run(route_key(), self._step, noise, out,
-                         eager=self.device.type != "cuda" or self.view is not LOCAL)
-        self._state = self._state._replace(step=self._state.step + 1)
-
     # --------------------------------------------------------------- epochs
-    def _noise_specs(self) -> List[Tuple[tuple, torch.dtype]]:
+    def _epoch_specs(self) -> List[Tuple[tuple, torch.dtype]]:
         """An epoch's noise, in the order a step draws it: the encoder's
         ``[N, L]``, then under GPapprox the samples' ``[num_samples, P, T, L]``."""
         p, t = self.block_mask.shape
@@ -434,41 +390,8 @@ class StandardTrainer:
             specs.append(((self.cfg.num_samples, p, t, lat), self.dtype))
         return specs
 
-    def _dispatch(self, n: int, fill: Callable[[int, List[torch.Tensor]], None]):
-        """Run ``n`` epochs without waiting for the device: ``fill(i,
-        rows)`` writes epoch ``i``'s noise into its host rows
-        (:meth:`_noise_specs`), staged and copied to the device at once
-        (``graph.run_staged``). Returns the ``[n, 4]`` metrics' host copy
-        in flight."""
-        out = torch.empty((n, 4), dtype=self.dtype, device=self.device)
-        run_staged(n, self._noise_specs(), fill, lambda i, noise: self._run_step(noise, out[i]),
-                   self.device)
-        return start_host_copy(out)
-
-    def _dispatch_epochs(self, n: int):
-        """An ``n``-epoch chunk, its noise drawn from the state's generator
-        in the steps' order."""
-        gen = self._state.rng
-
-        def fill(i, rows):
-            for row in rows:
-                row.normal_(generator=gen)  # torch.randn's draw
-
-        return self._dispatch(n, fill)
-
-    def _materialize_metrics(self, chunk, n: int) -> List[StandardMetrics]:
-        """Wait for a dispatched chunk's metrics; returns them as host floats
-        (appended to ``history``). With tracing on the captured step's
-        phase times are sampled after the wait."""
-        with span("lvae.train.read"):
-            out = [StandardMetrics(*row) for row in finish_host_copy(chunk).tolist()]
-            record_phases(self._graphs)
-            self.history.extend(out)
-        return out
-
-    def run_epochs(self, n: int) -> List[StandardMetrics]:
-        """Run ``n`` epochs as one chunk; returns their metrics."""
-        return self._materialize_metrics(self._dispatch_epochs(n), n)
+    def _reduce(self, host: torch.Tensor, n: int) -> List[StandardMetrics]:
+        return [StandardMetrics(*row) for row in host.tolist()]
 
     def run_epoch(self, eps: Optional[torch.Tensor] = None,
                   gp_eps: Optional[torch.Tensor] = None) -> StandardMetrics:
@@ -477,43 +400,11 @@ class StandardTrainer:
         where one is not given, is drawn)."""
         gen = self._state.rng
 
-        def fill(i, rows):
-            for row, given in zip(rows, (eps, gp_eps)):
+        def fill(e, inputs):
+            for x, given in zip(inputs, (eps, gp_eps)):
                 if given is None:
-                    row.normal_(generator=gen)  # torch.randn's draw
+                    x.normal_(generator=gen)  # torch.randn's draw
                 else:
-                    row.copy_(torch.as_tensor(given))
+                    x.copy_(torch.as_tensor(given))
 
-        return self._materialize_metrics(self._dispatch(1, fill), 1)[0]
-
-    def _log_chunk(self, ms, done: int, epochs: int, log_every: int):
-        for i, m in enumerate(ms):
-            epoch = done + i + 1
-            if log_every and epoch % log_every == 0:
-                print(
-                    "Iter %d/%d - Loss: %.3f  - GP loss: %.3f  - NLL Loss: %.3f"
-                    "  - Recon Loss: %.3f"
-                    % (epoch, epochs, m.net, m.gp, m.nll, m.recon),
-                    flush=True,
-                )
-
-    def fit(self, epochs: int, log_every: int = 1, callback=None, chunk: int = 25,
-            overlap: Optional[bool] = None):
-        """Train ``epochs`` epochs in ``chunk``-epoch chunks, calling
-        ``callback(trainer, done, last metrics)`` after every chunk. A
-        callback that returns ``"rollback"`` has restored an earlier state:
-        the chunk's epochs are then run again, so the run trains as many
-        epochs as it reports. Without a callback (and unless ``overlap`` is
-        False) chunk k+1 is dispatched before chunk k's metrics are read:
-        the same values, printed in the same order."""
-        lag = callback is None and overlap is not False
-
-        def read(done: int, n: int, chunk_):
-            ms = self._materialize_metrics(chunk_, n) if lag else chunk_
-            with span("lvae.train.callback"):
-                self._log_chunk(ms, done, epochs, log_every)
-                return None if callback is None else callback(self, done + n, ms[-1])
-
-        # without the lag each chunk runs through run_epochs and is read at once
-        run_chunks(epochs, chunk, self._dispatch_epochs if lag else self.run_epochs, read, lag)
-        return self.history
+        return self._run_one(fill)

@@ -173,6 +173,18 @@ def _keep_capturable(optimizer: torch.optim.Optimizer, state_dict: dict) -> dict
     return {**state_dict, "param_groups": groups}
 
 
+def zero_missing_grads(params) -> List[torch.Tensor]:
+    """``params`` as a list, each that has no gradient given a zero one: a
+    tensor the loss does not reach (raw_noise under constrain_scales or in
+    the GPPVAE regime, a frozen raw_log_vy) then advances its Adam moments
+    and step count with the others, as in optax."""
+    params = list(params)
+    for p in params:
+        if p.grad is None:
+            p.grad = torch.zeros_like(p)
+    return params
+
+
 def tree_finite(tensors) -> torch.Tensor:
     """A device boolean: every tensor in ``tensors`` (an iterable, or
     :class:`Trainables`) is finite. No host synchronisation."""

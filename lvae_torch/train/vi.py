@@ -11,28 +11,21 @@ sequences without the encoder.
 
 Rows are kept in subject-major order (``blocks.index``), so the cohort's
 moments reshape to ``[P, T, L]`` blocks; phase 1 needs a fixed-T cohort.
-The reparameterisation noise of both phases is drawn from a CPU
-``torch.Generator`` (or injected), so a run on the card and one on the CPU
-consume the same numbers. On the card each phase-1 step runs kernel K1 on
-the cohort's B chain and K2 on K0zz; phase 2 builds its GP operators once.
+On the card each phase-1 step runs kernel K1 on the cohort's B chain and K2
+on K0zz; phase 2 builds its GP operators once.
 
-Both phases run as epoch programs (the JAX package's ``epochs_fn`` and
-``pred_steps``): a chunk's noise is drawn on the host in the steps' own
-order into one pinned slab, copied to the device once, every step of the
-chunk runs, and the chunk's metrics reach the host once, one chunk late
-unless ``overlap`` is False. A step is one function on fixed buffers that
-updates its tensors in place; on the card it is captured once as a CUDA
-graph (``train/graph.CapturedStep``) and replayed for every later step.
-Assigning ``trainer.state`` drops phase 1's graphs. On a mesh
+Both phases run the epoch program of ``train/loop.py`` (the JAX package's
+``epochs_fn`` and ``pred_steps``), one step an epoch, its noise drawn from a
+CPU ``torch.Generator`` (or injected); phase 2 as a program of its own
+(:class:`_Prediction`) with its own graph. On a mesh
 (``parallel/mesh.ShardedVITrainer`` sets ``view``) a phase-1 step decodes
 the rank's subjects and bounds the rank's latents, and the gradients are
-summed over the ranks before Adam; there, as on the CPU, every step runs
-eagerly (the view's collectives cannot be captured).
+summed over the ranks before Adam.
 """
 
 from __future__ import annotations
 
-from typing import Callable, List, NamedTuple, Optional
+from typing import Callable, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -43,11 +36,9 @@ from lvae_torch.evaluation.encode import encode_dataset
 from lvae_torch.models import vae as mv
 from lvae_torch.ops import elbo as eb
 from lvae_torch.ops import kernels as kx
-from lvae_torch.ops.shard import LOCAL, Local
 from lvae_torch.train import state as st
-from lvae_torch.train.graph import (
-    StepGraphs, finish_host_copy, route_key, run_chunks, run_staged, start_host_copy,
-)
+from lvae_torch.train.graph import StepGraphs
+from lvae_torch.train.loop import EpochProgram, Fill
 from lvae_torch.utils.device import resolve_device
 
 
@@ -86,7 +77,33 @@ def _noise(gp: st.GPParams, cfg: VIConfig) -> torch.Tensor:
     return kx.constrain(gp.raw_noise)
 
 
-class VITrainer:
+class _Prediction(EpochProgram):
+    """Phase 2's steps as an epoch program: ``step(e)``, one Adam step an
+    epoch on the unseen cohort's moments for the noise ``e [N_pred, L]``,
+    drawn by ``draw``; its metrics go to ``history``."""
+
+    _out_shape = (3,)
+    LOG = ("Iter {epoch}/{epochs} - Total Loss: {m[net]:.3f}  - GP Loss: {m[gp]:.3f}"
+           "  - Recon Loss: {m[recon]:.3f}")
+
+    def __init__(self, trainer: "VITrainer", step: Callable, shape: tuple, draw: Fill,
+                 history: List[dict]):
+        self.device, self.dtype, self.view = trainer.device, trainer.dtype, trainer.view
+        self._step, self._draw, self.history = step, draw, history
+        self._specs = [(tuple(shape), trainer.dtype)]
+        self._graphs = StepGraphs()
+
+    def _epoch_specs(self) -> List[Tuple[tuple, torch.dtype]]:
+        return self._specs
+
+    def _advance(self) -> None:
+        pass  # no step count
+
+    def _reduce(self, host: torch.Tensor, n: int) -> List[dict]:
+        return [dict(zip(("net", "recon", "gp"), row)) for row in host.tolist()]
+
+
+class VITrainer(EpochProgram):
     """The two-phase VI trainer on one device.
 
     ``model`` is a port VAE carrying its weights (pre-trained or fresh);
@@ -98,6 +115,9 @@ class VITrainer:
     package uses ``optax.adam`` here. ``device`` is ``"cuda"`` unless the
     caller asks for the CPU.
     """
+
+    LOG = ("Iter {epoch}/{epochs} - Loss: {m[net]:.3f}  - GP loss: {m[gp]:.3f}"
+           "  - NLL Loss: {m[nll]:.3f}  - Recon Loss: {m[recon]:.3f}")
 
     def __init__(
         self,
@@ -147,20 +167,6 @@ class VITrainer:
         )
         self.history: List[dict] = []
         self.pred_history: List[dict] = []
-        self.view: Local = LOCAL  # a rank's shard on a mesh (parallel/mesh.py)
-
-    # ---------------------------------------------------------------- state
-    @property
-    def state(self) -> VIState:
-        return self._state
-
-    @state.setter
-    def state(self, value: VIState) -> None:
-        """A new state drops the captured phase-1 steps: a graph reads and
-        writes the tensors it was captured on, so the next chunk captures
-        again."""
-        self._state = value
-        self._graphs = StepGraphs()
 
     # ------------------------------------------------------------- phase 1
     def loss(self, state: VIState, eps: torch.Tensor):
@@ -206,13 +212,8 @@ class VITrainer:
         opt.zero_grad(set_to_none=True)
         net, recon, nll, gp = self.loss(state, eps)
         net.backward()
-        params = [p for group in opt.param_groups for p in group["params"]]
-        for p in params:
-            # a tensor the loss does not reach (raw_noise under
-            # constrain_scales) gets a zero gradient, as in optax
-            if p.grad is None:
-                p.grad = torch.zeros_like(p)
-        self.view.sum_grads(params)
+        self.view.sum_grads(st.zero_missing_grads(
+            p for group in opt.param_groups for p in group["params"]))
         opt.step()
         return self.view.world_metrics(_Phase1(net, recon, nll, gp)).stacked()
 
@@ -224,60 +225,14 @@ class VITrainer:
             eps = torch.randn(self._state.mu.shape, generator=self._state.rng, dtype=self.dtype)
         return self._step(eps.to(self.device, self.dtype))
 
-    @property
-    def _eager(self) -> bool:
-        """Whether the steps run eagerly: on the CPU and on a mesh view (the
-        view's collectives cannot be captured); on the card they replay."""
-        return self.device.type != "cuda" or self.view is not LOCAL
+    def _advance(self) -> None:
+        pass  # the VI state counts no steps
 
-    def _run_step(self, eps: torch.Tensor, out: torch.Tensor) -> None:
-        """Step noise ``eps`` into the metrics row ``out [4]``: on the card
-        the captured step (captured at the first step after a new state and
-        at route switches; the capture's warm-up is this step), on the CPU
-        and on a mesh view the eager one."""
-        self._graphs.run((tuple(eps.shape), *route_key()), self._step, (eps,), out,
-                         eager=self._eager)
+    def _epoch_specs(self) -> List[Tuple[tuple, torch.dtype]]:
+        return [(tuple(self._state.mu.shape), self.dtype)]
 
-    def _dispatch(self, n: int, shape, fill: Callable[[int, torch.Tensor], None],
-                  run_step: Callable[[torch.Tensor, torch.Tensor], None], width: int):
-        """Run ``n`` steps without waiting for the device: the noise of step
-        ``i`` is ``fill(i, row)``'s, staged on the host and copied to the
-        device at once (``graph.run_staged``), and ``run_step(noise, out)``
-        writes each step's ``[width]`` metrics. Returns their host copy in
-        flight."""
-        out = torch.empty((n, width), dtype=self.dtype, device=self.device)
-        run_staged(n, [(tuple(shape), self.dtype)], lambda i, rows: fill(i, rows[0]),
-                   lambda i, noise: run_step(noise[0], out[i]), self.device)
-        return start_host_copy(out)
-
-    def _dispatch_epochs(self, n: int):
-        """An ``n``-epoch chunk of phase 1 (one step an epoch), its noise
-        drawn from the state's generator as ``train_step`` draws it."""
-        gen = self._state.rng
-        return self._dispatch(n, self._state.mu.shape,
-                              lambda i, row: row.normal_(generator=gen),  # torch.randn's draw
-                              self._run_step, 4)
-
-    def _materialize_log(self, chunk, n: int, done: int, epochs: int, log_every: int) -> None:
-        """Wait for a dispatched chunk's metrics; append them to ``history``
-        and print every ``log_every``-th epoch."""
-        for i, (net, recon, nll, gp) in enumerate(finish_host_copy(chunk).tolist()):
-            epoch = done + i + 1
-            self.history.append(dict(net=net, recon=recon, nll=nll, gp=gp))
-            if log_every and epoch % log_every == 0:
-                print("Iter %d/%d - Loss: %.3f  - GP loss: %.3f  - NLL Loss: %.3f"
-                      "  - Recon Loss: %.3f" % (epoch, epochs, net, gp, nll, recon), flush=True)
-
-    def fit(self, epochs: int, log_every: int = 100, chunk: int = 100,
-            overlap: Optional[bool] = None) -> List[dict]:
-        """``epochs`` steps of phase 1 (one step is an epoch: the whole
-        cohort) in ``chunk``-epoch chunks; unless ``overlap`` is False each
-        chunk's metrics are read after the next chunk is dispatched (the
-        same values, printed in the same order)."""
-        run_chunks(epochs, chunk, self._dispatch_epochs,
-                   lambda done, n, c: self._materialize_log(c, n, done, epochs, log_every),
-                   overlap is not False)
-        return self.history
+    def _reduce(self, host: torch.Tensor, n: int) -> List[dict]:
+        return [dict(zip(("net", "recon", "nll", "gp"), row)) for row in host.tolist()]
 
     # ------------------------------------------------------------- phase 2
     def _joint_labels(self, prediction_dataset) -> np.ndarray:
@@ -350,32 +305,16 @@ class VITrainer:
             return torch.stack([net, recon_loss, gp_loss]).detach()
 
         gen = torch.Generator().manual_seed(seed)
+        given = None if eps is None else iter(eps)
 
-        def fill(i, row):
-            if eps is None:
-                row.normal_(generator=gen)  # torch.randn's draw
+        def draw(e, inputs):
+            if given is None:
+                inputs[0].normal_(generator=gen)  # torch.randn's draw
             else:
-                row.copy_(torch.as_tensor(eps[i]))
+                inputs[0].copy_(torch.as_tensor(next(given)))
 
-        graphs = StepGraphs()  # the step, captured at its first call (its warm-up)
-        drawn = 0
-
-        def dispatch(n):
-            nonlocal drawn
-            start, drawn = drawn, drawn + n
-            return self._dispatch(
-                n, mu_pred.shape, lambda i, row: fill(start + i, row),
-                lambda e, out: graphs.run("step", step, (e,), out, eager=self._eager), 3)
-
-        def read(done, n, chunk_):
-            for i, (net, recon, gp_l) in enumerate(finish_host_copy(chunk_).tolist()):
-                epoch = done + i + 1
-                self.pred_history.append(dict(net=net, recon=recon, gp=gp_l))
-                if log_every and epoch % log_every == 0:
-                    print("Iter %d/%d - Total Loss: %.3f  - GP Loss: %.3f  - Recon Loss: %.3f"
-                          % (epoch, epochs, net, gp_l, recon), flush=True)
-
-        run_chunks(epochs, chunk, dispatch, read, overlap=True)
+        _Prediction(self, step, mu_pred.shape, draw, self.pred_history).fit(
+            epochs, log_every, chunk=chunk)
         return mu_pred.detach().cpu().numpy(), lv_pred.detach().cpu().numpy()
 
     def _id_cov(self) -> int:

@@ -1632,7 +1632,7 @@ def test_captured_closed_step_gradients_equal_the_eager_step(gen, monkeypatch):
         return torch.cat([torch.zeros_like(p).reshape(-1) if p.grad is None
                           else p.grad.reshape(-1) for p in params])
 
-    (shape, dtype), = trainer._noise_specs()
+    (shape, dtype), = trainer._epoch_specs()
     noises = [torch.randn(shape, dtype=dtype, generator=gen, device="cuda") for _ in range(2)]
     before = eb.ClosedKL.backward_calls
     captured = CapturedStep(grads, noises[:1])
@@ -1674,9 +1674,9 @@ def test_standard_replays_draw_fresh_dropout_masks(gen, monkeypatch):
     for p, differ in ((0.25, True), (0.0, False)):
         trainer = card_standard_trainer("GPapprox_closed", dropout=p)
         noise = [torch.randn(shape, dtype=dtype, generator=gen, device="cuda")
-                 for shape, dtype in trainer._noise_specs()]
+                 for shape, dtype in trainer._epoch_specs()]
         row = torch.empty(4, device="cuda")
-        trainer._run_step(noise, row)  # the capture, its warm-up this step
+        trainer._run_step(*noise, row)  # the capture, its warm-up this step
         opt = trainer.state.opt_state
         held = [*trainer.state.trainables.parameters(),
                 *(v for s in opt.state.values() for v in s.values() if torch.is_tensor(v))]
@@ -1686,7 +1686,7 @@ def test_standard_replays_draw_fresh_dropout_masks(gen, monkeypatch):
             with torch.no_grad():
                 for t, s in zip(held, saved):
                     t.copy_(s)
-            trainer._run_step(noise, row)
+            trainer._run_step(*noise, row)
             rows.append(row.clone())
         assert len(trainer._graphs) == 1
         assert (not torch.equal(rows[0], rows[1])) == differ, (p, rows)

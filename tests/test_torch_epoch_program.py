@@ -109,7 +109,8 @@ def test_two_epochs_match_jax_make_epochs_fn():
     rows, eps = jax_draws(jtr.state.rng, 2)
     ttr = port_trainer(ds)
     ttr.state = hensman_state_from_jax(jtr.state, ttr.model, dtype=torch.float64)
-    ttr._draws = lambda n, orders=None: [(torch.as_tensor(rows), torch.as_tensor(eps))]
+    ttr._draw = lambda e, inputs: [x.copy_(torch.as_tensor(a[e]))
+                                   for x, a in zip(inputs, (rows, eps))]
     want = jtr.run_epochs(2)
     got = ttr.run_epochs(2)
     for g, w in zip(got, want):
@@ -159,14 +160,16 @@ def test_slab_draws_equal_the_steps_own_draws():
     seed gives when each epoch draws its permutation and then each step its
     noise, one ``randn`` at a time."""
     trainer = port_trainer()
-    (rows, eps), = trainer._draws(3)
+    staged = []
+    tgraph.run_staged(3, trainer._epoch_specs(), trainer._draw,
+                      lambda e, inputs: staged.append(inputs), trainer.device)
     gen = torch.Generator().manual_seed(0)
-    for e in range(3):
+    for e, (rows, eps) in enumerate(staged):
         perm = torch.cat([torch.randperm(P, generator=gen), torch.arange(P, 6)])
-        assert torch.equal(rows[e], perm.reshape(3, S))
+        assert torch.equal(rows, perm.reshape(3, S))
         for i in range(3):
-            assert torch.equal(eps[e, i], torch.randn((S * T, L), generator=gen,
-                                                      dtype=torch.float64))
+            assert torch.equal(eps[i], torch.randn((S * T, L), generator=gen,
+                                                   dtype=torch.float64))
     assert torch.equal(trainer.state.rng.get_state(), gen.get_state())
 
 

@@ -68,21 +68,15 @@ def jax_noise(cfg, key, epochs: int, pseudo: bool):
 
 
 def inject(trainer, noise):
-    """Replace the drawn noise by ``noise[epoch]`` (one array a part of
-    ``_noise_specs``), consumed in order across chunks."""
-    used = [0]
+    """Replace the drawn noise by ``noise[epoch]`` (one array an input of
+    ``_epoch_specs``), consumed in order across chunks."""
+    epochs = iter(noise)
 
-    def dispatch(n):
-        start = used[0]
-        used[0] += n
+    def draw(e, inputs):
+        for x, a in zip(inputs, next(epochs)):
+            x.copy_(torch.as_tensor(a))
 
-        def fill(i, rows):
-            for row, x in zip(rows, noise[start + i]):
-                row.copy_(torch.as_tensor(x))
-
-        return trainer._dispatch(n, fill)
-
-    trainer._dispatch_epochs = dispatch
+    trainer._draw = draw
 
 
 @pytest.mark.parametrize("name", sorted(RUNS))
@@ -114,7 +108,7 @@ def run(how, monkeypatch, name="GPapprox"):
         gen.set_state(trainer.state.rng.get_state())
         for _ in range(EPOCHS):
             eps, gp_eps = (torch.randn(shape, generator=gen, dtype=dtype)
-                           for shape, dtype in trainer._noise_specs())
+                           for shape, dtype in trainer._epoch_specs())
             trainer.run_epoch(eps=eps, gp_eps=gp_eps)
     elif how == "slab_in_parts":  # each epoch's noise staged and copied on its own
         monkeypatch.setattr(tgraph, "SLAB_BYTES", 1)

@@ -56,16 +56,8 @@ def phase2_noise(seed, n_pred, steps, chunk):
 def inject(trainer, noise):
     """Replace phase 1's drawn noise by ``noise [epochs, N, L]``, consumed
     in order across chunks."""
-    used = [0]
-
-    def dispatch(n):
-        start = used[0]
-        used[0] += n
-        return trainer._dispatch(n, trainer.state.mu.shape,
-                                 lambda i, row: row.copy_(torch.as_tensor(noise[start + i])),
-                                 trainer._run_step, 4)
-
-    trainer._dispatch_epochs = dispatch
+    epochs = iter(noise)
+    trainer._draw = lambda e, inputs: inputs[0].copy_(torch.as_tensor(next(epochs)))
 
 
 @pytest.mark.parametrize("regime", ["mse_constrained", "nll_free_noise"])
